@@ -1,0 +1,13 @@
+"""Models of the PyTorch package.
+
+``transformer``: the causal transformer LM (inference), counterpart of
+``mxnet_tpu/models/transformer.py``.
+"""
+from .transformer import (TransformerLMConfig, TransformerLM,
+                          init_transformer_params, params_from_jax,
+                          transformer_forward, nll_from_logits,
+                          lm_nll)
+
+__all__ = ["TransformerLMConfig", "TransformerLM", "init_transformer_params",
+           "params_from_jax", "transformer_forward", "nll_from_logits",
+           "lm_nll"]
