@@ -9,19 +9,35 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and
 Phases, each fatal on failure:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile every CUDA kernel of the path from ``ops/csrc`` with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the parity-test shapes, ragged lengths, ``sm_scale=0.5``, D in
-   {16, 32, 64, 128} and the full-width layer shape (8, 12, 1024, 64) causal,
-   in fp32 (TF32 off), bf16 and fp16; timings of the kernel, the plain
-   version and ``F.scaled_dot_product_attention`` (a yardstick only: the
-   port never calls it) at the full-width shape.
+2. build: compile every CUDA kernel of the port from ``ops/csrc`` with
+   nvcc, one process per source, all at once.
+3. kernels: each kernel against its plain PyTorch version on the card.
+   Flash attention at the parity-test shapes, ragged lengths,
+   ``sm_scale=0.5``, D in {16, 32, 64, 128} and the full-width layer
+   shape (8, 12, 1024, 64) causal, in fp32 (TF32 off), bf16 and fp16;
+   scale at numel 0, 1, 7, 64 x 128 (the MLP's), 1000003 (also
+   misaligned by one element) and 8192 x 8192, alpha 0.5, 3.0, -1.25
+   and two that fp32 cannot hold exactly (0.1, 1/3), bit for bit.  Timings of each kernel, its plain version and one
+   PyTorch call as a yardstick (``F.scaled_dot_product_attention``,
+   ``torch.mul``; the port never calls either).
 4. LM inference at GPT-2 small widths (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 50257, max_len 1024; seeded random weights): 4 batches
    of 8 x 1024 tokens scored to logits and mean next-token NLL, in fp32 and
    bf16, with the kernel's launch count read around each run.
 5. parity: a small LM's logits and NLL on the card (through the kernel)
    against the same params on the CPU (through the plain version).
+6. registration: ``rtc.register("pl_scale", ...)`` over the scale kernel;
+   ``nd.pl_scale`` on a CUDA NDArray and ``sym.sum(sym.pl_scale(...))``
+   bound on ``gpu(0)``: forward, backward gives the alpha gradient, one
+   launch per forward.
+7. MLP training: the MNIST MLP of ``examples/train_mnist.py``
+   (784-128-64-10, MXNet's published widths) built with ``sym`` with
+   ``pl_scale`` after the first activation, bound with ``simple_bind``,
+   trained one epoch (64 steps of 64 synthetic digits) with
+   SGD-momentum, then scored on the 1024 test images in fp32 and, with
+   the trained weights cast, in bf16; the kernel's launches asserted.
+8. MLP parity: 10 steps on the card (through the kernel) against the same
+   init on the CPU (through the plain version), fp32, TF32 off.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
@@ -52,6 +68,17 @@ MAIN_SHAPE = (8, 12, 1024, 64)
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, d_ff=3072,
                   n_layers=12, max_len=1024)
 LM_BATCH, LM_SEQ, LM_REQUESTS = 8, 1024, 4
+SCALE_SHAPES = [(0,), (1,), (7,), (64, 128), (1000003,), (8192, 8192)]
+# the last two are not exact in fp32: the kernel gets alpha as a C float,
+# the plain version multiplies by a Python float, and both must round it
+# to fp32 once before the one multiply
+SCALE_ALPHAS = (0.5, 3.0, -1.25, 0.1, 1.0 / 3.0)
+SCALE_MAIN_SHAPE = (8192, 8192)
+MLP_BATCH, MLP_STEPS, MLP_EVAL_BATCHES, MLP_PARITY_STEPS = 64, 64, 16, 10
+MLP_LR, MLP_MOMENTUM, MLP_ALPHA = 0.1, 0.9, 0.5
+# Test accuracy of the JAX package after the same 64 steps on the CPU,
+# measured by tests/test_torch_mlp_train.py::test_jax_reference_accuracy.
+JAX_CPU_ACCURACY = 1.0
 
 
 def log(*args):
@@ -107,7 +134,7 @@ def phase_device():
 def phase_build():
     from mxnet_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    seconds = _build.build_all(["flash_attn_fwd"])
+    seconds = _build.build_all(["flash_attn_fwd", "scale"])
     log("build: %s in %.1f s wall" % (seconds, time.perf_counter() - t0))
     for stem in seconds:
         log("ptxas (%s):\n%s" % (stem, _build.build_info(stem)["log"].strip()))
@@ -260,13 +287,308 @@ def phase_parity():
         raise AssertionError("LM on the card disagrees with the CPU")
 
 
+def scale_bound_ms(numel, dtype):
+    """Least time for the scale: each element read once and written once
+    over HBM (one multiply each is far below the operation bound)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return 1e3 * 2 * numel * elem / HBM_BPS, "bytes"
+
+
+def phase_scale_kernel():
+    """The scale kernel against its plain version, bit for bit, at every
+    case; timings at SCALE_MAIN_SHAPE.  Returns {dtype: {"max_abs_err",
+    "ms", "plain_ms", "library_ms"}}."""
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.ops import scale as sc
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            worst, n_cases = 0.0, 0
+            for shape in SCALE_SHAPES:
+                base = torch.randn(shape, generator=gen, device="cuda")
+                xs = [base.to(dtype)]
+                if base.numel() == 1000003:  # 2 bytes or 4 off 16-byte
+                    xs.append(xs[0].view(-1)[1:])
+                for x in xs:
+                    for alpha in SCALE_ALPHAS:
+                        out = sc.scale(x, alpha)
+                        ref = sc.scale_reference(x, alpha)
+                        torch.cuda.synchronize()
+                        if out.dtype != dtype or out.shape != x.shape:
+                            raise AssertionError("scale output %s %s at %s"
+                                                 % (out.dtype,
+                                                    tuple(out.shape), shape))
+                        err = (out.float() - ref.float()).abs().max().item() \
+                            if x.numel() else 0.0
+                        worst = max(worst, err)
+                        if not torch.equal(out, ref):
+                            raise AssertionError(
+                                "scale kernel differs from its plain version"
+                                " at %s %s alpha=%s: max|err| %.3g"
+                                % (tuple(x.shape), DTYPE_NAME[dtype], alpha,
+                                   err))
+                        n_cases += 1
+            x = torch.randn(SCALE_MAIN_SHAPE, generator=gen,
+                            device="cuda").to(dtype)
+            timings = {
+                "ms": cuda_ms(lambda: sc.scale(x, MLP_ALPHA)),
+                "plain_ms": cuda_ms(lambda: sc.scale_reference(x, MLP_ALPHA)),
+                "library_ms": cuda_ms(lambda: torch.mul(x, MLP_ALPHA)),
+            }
+            results[dtype] = dict(max_abs_err=worst, **timings)
+            log("scale %s: %d cases bitwise equal; at %s: kernel %.4f ms, "
+                "plain %.4f ms, torch.mul %.4f ms, bound %.4f ms"
+                % (DTYPE_NAME[dtype], n_cases, SCALE_MAIN_SHAPE,
+                   timings["ms"], timings["plain_ms"], timings["library_ms"],
+                   scale_bound_ms(x.numel(), dtype)[0]))
+            del x
+        x = torch.randn((64, 128), generator=gen, device="cuda")
+        for bad in (lambda: sc.scale(x.t(), 2.0),
+                    lambda: sc.scale(x.double(), 2.0)):
+            try:
+                bad()
+            except MXNetError:
+                continue
+            raise AssertionError("scale accepted an input it does not take")
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- the MNIST MLP through the registered kernel ------------------------------
+def scale_grad(out_grads, inputs, outputs, attrs):
+    """pl_scale's semantic gradient (tests/test_pallas_register.py:40-41)."""
+    return (out_grads[0] * float(attrs.get("alpha", 2.0)),)
+
+
+def register_pl_scale():
+    """Register the scale kernel as the user kernel ``pl_scale``, as a user
+    of ``rtc`` would: the kernel, or its plain body where the registry
+    fills ``interpret=True`` (CPU and meta tensors)."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.ops.scale import scale, scale_reference
+
+    def pl_scale(x, alpha=2.0, interpret=False):
+        return scale_reference(x, alpha) if interpret else scale(x, alpha)
+    return rtc.register("pl_scale", pl_scale, grad=scale_grad, force=True)
+
+
+def build_mlp(S):
+    """``examples/train_mnist.py::build_mlp`` (784-128-64-10) with the
+    registered kernel after the first activation, in the namespace ``S``."""
+    net = S.Flatten(S.Variable("data"))
+    net = S.FullyConnected(net, num_hidden=128, name="fc1")
+    net = S.Activation(net, act_type="relu")
+    net = S.pl_scale(net, alpha=MLP_ALPHA)
+    net = S.FullyConnected(net, num_hidden=64, name="fc2")
+    net = S.Activation(net, act_type="relu")
+    net = S.FullyConnected(net, num_hidden=10, name="fc3")
+    return S.SoftmaxOutput(net, name="softmax")
+
+
+def param_names(exe):
+    return [n for n in exe.arg_names if n not in ("data", "softmax_label")]
+
+
+def bind_mlp(ctx, dtype=torch.float32):
+    from mxnet_tpu_torch import sym
+    return build_mlp(sym).simple_bind(
+        ctx, grad_req="write", type_dict={"data": dtype},
+        data=(MLP_BATCH, 784), softmax_label=(MLP_BATCH,))
+
+
+def init_mlp(exe, seed=0):
+    """Xavier (uniform, avg, magnitude 3) weights and zero biases, drawn
+    from the executor's device generator after ``random.seed(seed)``."""
+    import mxnet_tpu_torch as mt
+    mt.random.seed(seed)
+    init = mt.init.Xavier()
+    for n in param_names(exe):
+        init(mt.init.InitDesc(n), exe.arg_dict[n])
+
+
+def _sync(exe):
+    if exe.arg_dict["data"].context.device_type == "gpu":
+        torch.cuda.synchronize()
+
+
+def train_mlp(exe, x, y, steps):
+    """``steps`` SGD-momentum steps over consecutive batches of the NDArrays
+    x (N, 784) and y (N,): forward(is_train=True), backward(), one update
+    per parameter, the loop ``Module.fit`` runs, and nothing else inside
+    the clock.  Returns each step's softmax output (a tensor on the
+    executor's device, made anew by each forward; ``batch_losses`` turns
+    them into losses after the loop) and the seconds of each step (the
+    clock stops after a synchronize)."""
+    import mxnet_tpu_torch as mt
+    upd = mt.optimizer.Updater(mt.optimizer.SGD(
+        learning_rate=MLP_LR, momentum=MLP_MOMENTUM,
+        rescale_grad=1.0 / MLP_BATCH))
+    params = param_names(exe)
+    probs, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        sl = slice(i * MLP_BATCH, (i + 1) * MLP_BATCH)
+        exe.forward(is_train=True, data=x[sl], softmax_label=y[sl])
+        exe.backward()
+        for j, n in enumerate(params):
+            upd(j, exe.grad_dict[n], exe.arg_dict[n])
+        probs.append(exe.outputs[0]._data)
+        _sync(exe)
+        times.append(time.perf_counter() - t0)
+    return probs, times
+
+
+def batch_losses(probs, y):
+    """Mean negative log-likelihood of each step's batch, from the softmax
+    outputs of ``train_mlp`` and the labels y (N,): a (steps,) tensor."""
+    labels = y._data[:len(probs) * MLP_BATCH].long().view(len(probs), -1, 1)
+    picked = torch.stack(probs).float().gather(2, labels).squeeze(2)
+    return -torch.log(picked).mean(dim=1)
+
+
+def eval_mlp(exe, x, y):
+    """Accuracy over consecutive batches with forward(is_train=False)."""
+    correct = 0
+    n = x.shape[0] // MLP_BATCH
+    for i in range(n):
+        sl = slice(i * MLP_BATCH, (i + 1) * MLP_BATCH)
+        prob = exe.forward(is_train=False, data=x[sl])[0]._data
+        correct += (prob.argmax(dim=1) == y[sl]._data.long()).sum()
+    return float(correct) / (n * MLP_BATCH)
+
+
+def phase_registration():
+    """rtc on the card: eager and bound calls launch the kernel once per
+    forward, and the bound graph's backward gives the alpha gradient."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd, sym
+    from mxnet_tpu_torch.ops import scale as sc
+    register_pl_scale()
+    gpu = mt.gpu(0)
+    x = nd.array(torch.arange(6.0).reshape(2, 3).numpy(), ctx=gpu)
+    sc.reset_launch_count()
+    y = nd.pl_scale(x, alpha=3.0)
+    if sc.launch_count() != 1 or not torch.equal(
+            y._data, x._data * 3.0) or y.context != gpu:
+        raise AssertionError("nd.pl_scale on the card: launches %d, %s"
+                             % (sc.launch_count(), y.asnumpy()))
+    ex = sym.sum(sym.pl_scale(sym.Variable("d"), alpha=5.0)).simple_bind(
+        gpu, grad_req="write", d=(2, 3))
+    ex.arg_dict["d"][:] = 1.0
+    sc.reset_launch_count()
+    out = ex.forward(is_train=True)[0]
+    if sc.launch_count() != 1:
+        raise AssertionError("bound forward launched %d times"
+                             % sc.launch_count())
+    ex.backward()
+    ex.forward(is_train=False)
+    grad = ex.grad_dict["d"].asnumpy()
+    if sc.launch_count() != 2 or float(out.asnumpy()) != 30.0 \
+            or not (grad == 5.0).all():
+        raise AssertionError("bound pl_scale: launches %d, out %s, grad %s"
+                             % (sc.launch_count(), out.asnumpy(), grad))
+    log("registration: nd.pl_scale and sym.pl_scale on %s launch once per "
+        "forward; d/dx sum(5x) = %s" % (gpu, grad.ravel().tolist()))
+
+
+def _mnist_on(ctx):
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import nd
+    blob = mt.test_utils.get_mnist()
+    return [nd.array(blob[k].reshape(blob[k].shape[0], -1) if "data" in k
+                     else blob[k], ctx=ctx)
+            for k in ("train_data", "train_label", "test_data", "test_label")]
+
+
+def phase_mlp():
+    """One epoch of the MLP on the card through the scale kernel, then the
+    test images scored in fp32 and in bf16.  Returns the kernel's
+    launches in each dtype's run."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import scale as sc
+    register_pl_scale()
+    gpu = mt.gpu(0)
+    x, y, xt, yt = _mnist_on(gpu)
+    exe = bind_mlp(gpu)
+    init_mlp(exe)
+    sc.reset_launch_count()
+    probs, times = train_mlp(exe, x, y, MLP_STEPS)
+    acc = eval_mlp(exe, xt, yt)
+    launches_fp32 = sc.launch_count()
+    losses = batch_losses(probs, y).tolist()
+    ms = sorted(1e3 * t for t in times)[len(times) // 2]
+    log("MLP fp32 on %s: %d steps of %d, ms/step median %.3f, first 5 %s; "
+        "loss at steps 1, 32, 64: %.6f %.6f %.6f; test accuracy %.4f "
+        "(JAX on the CPU %.4f); scale launches %d"
+        % (gpu, MLP_STEPS, MLP_BATCH, ms,
+           ["%.3f" % (1e3 * t) for t in times[:5]], losses[0], losses[31],
+           losses[63], acc, JAX_CPU_ACCURACY, launches_fp32))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite MLP loss %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the MLP loss did not fall: %s" % losses)
+    if acc < JAX_CPU_ACCURACY - 0.02:
+        raise AssertionError("MLP test accuracy %.4f below %.4f - 0.02"
+                             % (acc, JAX_CPU_ACCURACY))
+    want = MLP_STEPS + MLP_EVAL_BATCHES
+    if launches_fp32 != want:
+        raise AssertionError("scale launched %d times, expected train "
+                             "forwards + eval batches = %d"
+                             % (launches_fp32, want))
+    bf16 = bind_mlp(gpu, torch.bfloat16)
+    bf16.copy_params_from({n: exe.arg_dict[n] for n in param_names(exe)})
+    sc.reset_launch_count()
+    acc_bf16 = eval_mlp(bf16, xt.astype(torch.bfloat16), yt)
+    launches_bf16 = sc.launch_count()
+    log("MLP bf16 scoring of the trained weights: test accuracy %.4f, "
+        "scale launches %d" % (acc_bf16, launches_bf16))
+    if launches_bf16 != MLP_EVAL_BATCHES or acc_bf16 < JAX_CPU_ACCURACY - 0.02:
+        raise AssertionError("bf16 MLP scoring: accuracy %.4f, launches %d"
+                             % (acc_bf16, launches_bf16))
+    return {torch.float32: launches_fp32, torch.bfloat16: launches_bf16}
+
+
+def phase_mlp_parity():
+    """10 MLP steps on the card (kernel) against the CPU (plain version)
+    from one init, fp32."""
+    import mxnet_tpu_torch as mt
+    register_pl_scale()
+    runs, init = [], None
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        exe = bind_mlp(ctx)
+        if init is None:
+            init_mlp(exe)
+            init = {n: exe.arg_dict[n].copy() for n in param_names(exe)}
+        else:
+            exe.copy_params_from(init)
+        x, y, _, _ = _mnist_on(ctx)
+        probs, _ = train_mlp(exe, x, y, MLP_PARITY_STEPS)
+        runs.append((exe, batch_losses(probs, y).cpu()))
+    (cpu_exe, cpu_loss), (gpu_exe, gpu_loss) = runs
+    loss_err = (gpu_loss - cpu_loss).abs().max().item()
+    w_err = max((gpu_exe.arg_dict[n]._data.cpu()
+                 - cpu_exe.arg_dict[n]._data).abs().max().item()
+                for n in param_names(cpu_exe))
+    log("MLP parity (fp32, %d steps): loss max|err| %.3g, weights max|err| "
+        "%.3g" % (MLP_PARITY_STEPS, loss_err, w_err))
+    # fp32 sums in cuBLAS's order against the CPU's, through 10 updates
+    if loss_err > 1e-5 or w_err > 1e-4:
+        raise AssertionError("MLP on the card disagrees with the CPU")
+
+
 def main():
     card = phase_device()
     phase_build()
     kern = phase_kernels()
+    scale_kern = phase_scale_kernel()
     launches = {dt: phase_lm(dt) for dt in (torch.float32, torch.bfloat16)}
     phase_parity()
+    phase_registration()
+    scale_launches = phase_mlp()
+    phase_mlp_parity()
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import scale as sc
     entries = []
     for dt in (torch.float32, torch.bfloat16):
         bound_ms, bound_by = attention_bound_ms(MAIN_SHAPE, dt, True)
@@ -284,6 +606,22 @@ def main():
             "library_ms": kern[dt]["library_ms"],
             "shape": list(MAIN_SHAPE),
             "causal": True,
+        })
+    for dt in (torch.float32, torch.bfloat16):
+        bound_ms, bound_by = scale_bound_ms(math.prod(SCALE_MAIN_SHAPE), dt)
+        entries.append({
+            "name": "scale[%s]" % DTYPE_NAME[dt],
+            "route": "cuda",
+            "source": sc.KERNEL_SOURCE,
+            "replaces": "tests/test_pallas_register.py:25",
+            "launches": scale_launches[dt],
+            "max_abs_err": scale_kern[dt]["max_abs_err"],
+            "ms": scale_kern[dt]["ms"],
+            "plain_ms": scale_kern[dt]["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": scale_kern[dt]["library_ms"],
+            "shape": list(SCALE_MAIN_SHAPE),
         })
     log(card)
     print(json.dumps({"kernels": entries}))

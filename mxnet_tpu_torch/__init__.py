@@ -6,13 +6,24 @@ JAX package becomes a kernel written by hand for Hopper (``sm_90a``),
 built from the sources under ``ops/csrc`` at first use.
 
 Ported so far: transformer-LM inference (``models.transformer``) through
-the flash-attention forward kernel (``ops.attention``).
+the flash-attention forward kernel (``ops.attention``); the MXNet
+substrate -- ``nd`` (NDArray, op registry, ``autograd``), ``sym``
+(Symbol) and bound executors, ``initializer``, ``optimizer`` -- and
+user-kernel registration (``rtc``) with the scale kernel
+(``ops.scale``).
 """
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import cpu, gpu, current_context
+from .context import Context, cpu, gpu, current_context
 from . import ops, models
+from . import autograd, random, ndarray, symbol, executor, rtc
+from . import initializer, optimizer, test_utils
+from . import ndarray as nd
+from . import symbol as sym
+from . import initializer as init
 
-__all__ = ["MXNetError", "cpu", "gpu", "current_context",
-           "ops", "models"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "ops", "models", "autograd", "random", "ndarray", "nd", "symbol",
+           "sym", "executor", "rtc", "initializer", "init", "optimizer",
+           "test_utils"]

@@ -1,0 +1,136 @@
+"""Weight initializers.
+
+Counterpart of ``mxnet_tpu/initializer.py:26-240`` (``InitDesc``, the
+``Initializer`` dispatch protocol, ``Uniform``, ``Normal``, ``Xavier``).
+The name decides the handler: ``*_weight`` takes the initializer's draw,
+``*_bias``/``*_beta`` zeros, ``*_gamma`` ones.
+Draws come from the array's device generator (``random.generator``),
+made on the array's device; the JAX package draws with numpy, so the two
+give different numbers from one seed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import random as _random
+
+__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier"]
+
+
+class InitDesc(str):
+    """Parameter name enriched with its symbol attrs."""
+
+    def __new__(cls, name, attrs=None):
+        self = super().__new__(cls, name)
+        self.attrs = attrs or {}
+        return self
+
+
+# (name suffix -> handler method) dispatch table, checked in order
+_SUFFIX_DISPATCH = (
+    (("weight",), "_init_weight"),
+    (("bias",), "_init_bias"),
+    (("gamma",), "_init_gamma"),
+    (("beta",), "_init_beta"),
+    (("moving_mean", "running_mean", "moving_inv_var", "moving_avg",
+      "min", "max"), "_init_zero"),
+    (("moving_var", "running_var"), "_init_one"),
+)
+
+
+def _uniform(arr, low, high):
+    t = arr._data
+    draw = torch.rand(t.shape, generator=_random.generator(arr.context),
+                      device=t.device, dtype=torch.float32)
+    arr._set_data(draw * (high - low) + low)
+
+
+def _normal(arr, sigma):
+    t = arr._data
+    draw = torch.randn(t.shape, generator=_random.generator(arr.context),
+                       device=t.device, dtype=torch.float32)
+    arr._set_data(draw * sigma)
+
+
+class Initializer:
+    """Base initializer: the name suffix picks the handler."""
+
+    def __call__(self, desc, arr):
+        if not isinstance(desc, InitDesc):
+            desc = InitDesc(desc)
+        lowered = desc.lower()
+        for suffixes, handler in _SUFFIX_DISPATCH:
+            if lowered.endswith(suffixes):
+                getattr(self, handler)(desc, arr)
+                return
+        self._init_default(desc, arr)
+
+    def _init_zero(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, _, arr):
+        arr[:] = 1.0
+
+    _init_bias = _init_zero
+    _init_beta = _init_zero
+    _init_gamma = _init_one
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError()
+
+    def _init_default(self, name, arr):
+        raise ValueError(
+            'Unknown initialization pattern for %s. Default initialization '
+            'is limited to "weight", "bias", "gamma", and "beta"' % name)
+
+
+class Uniform(Initializer):
+    """U(-scale, scale)."""
+
+    def __init__(self, scale=0.07):
+        self.scale = scale
+
+    def _init_weight(self, _, arr):
+        _uniform(arr, -self.scale, self.scale)
+
+
+class Normal(Initializer):
+    """N(0, sigma^2)."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        _normal(arr, self.sigma)
+
+
+class Xavier(Initializer):
+    """Glorot init: scale^2 = magnitude / factor(fan_in, fan_out)."""
+
+    _FACTORS = {"avg": lambda fi, fo: (fi + fo) / 2.0,
+                "in": lambda fi, fo: fi,
+                "out": lambda fi, fo: fo}
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        self.rnd_type, self.factor_type = rnd_type, factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        if len(shape) < 2:
+            raise ValueError("Xavier initializer cannot be applied to vector "
+                             "%s. It requires at least 2D." % name)
+        if self.factor_type not in self._FACTORS:
+            raise ValueError("Incorrect factor type")
+        spatial = math.prod(shape[2:]) if len(shape) > 2 else 1.0
+        fan_in, fan_out = shape[1] * spatial, shape[0] * spatial
+        sigma = math.sqrt(self.magnitude
+                          / self._FACTORS[self.factor_type](fan_in, fan_out))
+        if self.rnd_type == "uniform":
+            _uniform(arr, -sigma, sigma)
+        elif self.rnd_type == "gaussian":
+            _normal(arr, sigma)
+        else:
+            raise ValueError("Unknown random type")

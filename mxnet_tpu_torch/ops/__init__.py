@@ -1,9 +1,19 @@
 """Operators of the PyTorch package and their hand-written CUDA kernels.
 
-``attention``: the flash-attention forward (kernel ``csrc/flash_attn_fwd.cu``),
-counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.
+Registered ops (``registry.OP_REGISTRY``, behind ``nd.<op>`` and
+``sym.<op>``): ``elemwise``, ``reduce``, ``matrix``, ``nn`` and
+``optim_ops``, counterparts of the ``mxnet_tpu/ops`` modules of the same
+names.
+
+Kernels, each with its plain version and launch counter:
+``attention`` (``csrc/flash_attn_fwd.cu``, counterpart of
+``mxnet_tpu/ops/pallas_kernels.py::flash_attention``) and ``scale``
+(``csrc/scale.cu``, counterpart of the user kernel ``pl_scale`` that
+``rtc.register`` installs).
 """
-from . import attention
+from . import registry, elemwise, reduce, matrix, nn, optim_ops  # noqa: F401
+from . import attention, scale
 from .attention import flash_attention, flash_attention_reference
 
-__all__ = ["attention", "flash_attention", "flash_attention_reference"]
+__all__ = ["registry", "attention", "scale", "flash_attention",
+           "flash_attention_reference"]

@@ -1,0 +1,65 @@
+"""Shape ops: ``Reshape`` and ``Flatten``.
+
+Counterpart of ``mxnet_tpu/ops/matrix.py:24-76``, with MXNet's special
+``Reshape`` codes (0 copy, -1 infer, -2 copy the rest, -3 merge two,
+-4 split one) and ``reverse``.
+"""
+from __future__ import annotations
+
+import math
+
+from .registry import register
+
+
+def _reshape_target(src, shape):
+    out, src_i, infer_idx, i = [], 0, None, 0
+    while i < len(shape):
+        s = shape[i]
+        if s > 0:
+            out.append(s)
+            src_i += 1
+        elif s == 0:  # copy dim
+            out.append(src[src_i])
+            src_i += 1
+        elif s == -1:  # infer
+            infer_idx = len(out)
+            out.append(1)
+            src_i += 1
+        elif s == -2:  # copy all remaining
+            out.extend(src[src_i:])
+            src_i = len(src)
+        elif s == -3:  # merge two dims
+            out.append(src[src_i] * src[src_i + 1])
+            src_i += 2
+        elif s == -4:  # split dim into next two shape values
+            a, b = shape[i + 1], shape[i + 2]
+            d = src[src_i]
+            if a == -1:
+                a = d // b
+            if b == -1:
+                b = d // a
+            out.extend([a, b])
+            src_i += 1
+            i += 2
+        i += 1
+    if infer_idx is not None:
+        known = math.prod(d for j, d in enumerate(out) if j != infer_idx)
+        out[infer_idx] = math.prod(src) // max(known, 1)
+    return out
+
+
+@register("Reshape", aliases=["reshape"])
+def _reshape(x, shape=None, reverse=False, target_shape=None, **kw):
+    if shape is None and target_shape is not None:  # legacy attr
+        return x.reshape(tuple(target_shape))
+    src, shape = list(x.shape), tuple(shape)
+    if reverse:
+        out = _reshape_target(src[::-1], shape[::-1])[::-1]
+    else:
+        out = _reshape_target(src, shape)
+    return x.reshape(tuple(out))
+
+
+@register("Flatten", aliases=["flatten"])
+def _flatten(x, **kw):
+    return x.reshape((x.shape[0], -1))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
-from mxnet_tpu_torch import context
+from mxnet_tpu_torch import context, nd, sym
 from mxnet_tpu_torch.models import transformer as tt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -20,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "mxnet_tpu"}
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "torch_lm_breakdown.py")]
+             os.path.join(REPO, "tools", "torch_lm_breakdown.py"),
+             os.path.join(REPO, "tools", "torch_mlp_breakdown.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -28,7 +29,10 @@ def _port_files():
 
 def test_import_leaves_no_jax_in_a_clean_process():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.models, "
-            "mxnet_tpu_torch.ops._build; "
+            "mxnet_tpu_torch.ops._build, mxnet_tpu_torch.ndarray, "
+            "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.rtc, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.initializer; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (sorted(FORBIDDEN),))
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -82,7 +86,54 @@ def test_entry_point_without_device_raises_without_cuda(no_cuda, entry):
 
 @pytest.mark.parametrize("device", ["cpu", "cpu:0", torch.device("cpu")])
 def test_explicit_cpu_resolves(device):
-    assert context.as_device(device) == torch.device("cpu") == mt.cpu()
+    assert context.as_device(device) == torch.device("cpu") \
+        == mt.cpu().torch_device
+    assert context.as_context(device) == mt.cpu() == mt.Context("cpu", 0)
+
+
+def _raise_without_device(entry):
+    """Call one entry point of the substrate without naming a device."""
+    x = np.zeros((2, 3), np.float32)
+    if entry == "nd.array":
+        nd.array(x)
+    elif entry == "nd.zeros":
+        nd.zeros((2, 3))
+    elif entry == "simple_bind":
+        sym.FullyConnected(sym.Variable("data"), num_hidden=2).simple_bind(
+            None, data=(2, 3))
+    elif entry == "bind_gpu":
+        sym.Variable("d").bind(mt.Context("gpu", 0),
+                               {"d": nd.array(x, ctx=mt.cpu())})
+    elif entry == "rtc_op":
+        mt.rtc.register("pl_nodevice", lambda: torch.zeros(1))
+        try:
+            nd.pl_nodevice()
+        finally:
+            mt.rtc.unregister("pl_nodevice")
+    elif entry == "generator":
+        mt.random.generator()
+    elif entry == "scoped_gpu":
+        with mt.Context("gpu", 0):
+            nd.ones((1,))
+
+
+@pytest.mark.parametrize("entry", ["nd.array", "nd.zeros", "simple_bind",
+                                   "bind_gpu", "rtc_op", "generator",
+                                   "scoped_gpu"])
+def test_substrate_entry_point_without_device_raises(no_cuda, entry):
+    with pytest.raises(mt.MXNetError):
+        _raise_without_device(entry)
+
+
+def test_cpu_scope_sets_the_default_context(no_cuda):
+    with mt.cpu():
+        assert mt.current_context() == mt.cpu()
+        assert nd.array([1.0]).context == mt.cpu()
+        with mt.Context("cpu", 0):
+            assert mt.current_context() == mt.cpu()
+        assert mt.current_context() == mt.cpu()
+    with pytest.raises(mt.MXNetError):
+        mt.current_context()
 
 
 def test_unsupported_device_raises():
