@@ -117,9 +117,9 @@ def _rmsnorm(x, scale):
 
 
 def _causal_attn_local(q, k, v):
-    # einsum may return strided views; the kernel takes contiguous tensors
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True)
+    # the einsum views (strides (S*H*D, D, H*D, 1)) go to the kernel as
+    # they are: it reads them through their strides
+    return flash_attention(q, k, v, causal=True)
 
 
 def transformer_forward(params, tokens, cfg):

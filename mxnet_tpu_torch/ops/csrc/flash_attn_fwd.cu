@@ -7,8 +7,14 @@
 // with fp32 scores, running max, denominator and accumulator, masked scores
 // set to -1e30, causal masking by absolute position, key tiles wholly in the
 // future of a query tile skipped, and a final division by max(l, 1e-30).
-// Inputs and output are [B*H, S, D] contiguous, in fp32, bf16 or fp16; the
-// output has the input's type.
+// q, k and v are [B, H, S, D] with any strides whose last is 1 (each tensor
+// its own); the output is a new contiguous [B, H, S, D] in the input's type.
+//
+// Which inputs come here: every fp32 call, and bf16/fp16 at D in {16, 32}.
+// bf16/fp16 at D in {64, 128} go to the tensor-core design in
+// flash_attn_fwd_sm90.cu.  fp32 stays on this SIMT design on purpose: wgmma
+// takes fp32 only as TF32, which keeps about three decimal digits and would
+// miss the fp32 tolerance of 1e-4 that the card's checks hold.
 //
 // Design.  One thread block per (b*h, 64-row query tile); the TPU's
 // sequential k grid axis becomes a loop over 64-row K/V tiles inside the
@@ -21,25 +27,21 @@
 // past S load as zeros and their scores are masked, so no tensor is padded in
 // device memory.  Heavier (later) query tiles are scheduled first.
 //
-// What bounds it on the H100 (3.35 TB/s; 989 TFLOP/s bf16/fp16 on tensor
-// cores; 67 TFLOP/s fp32 outside them).  Causal, B=8, H=12, S=1024, D=64:
-//   bf16: q/k/v/o traffic 4 * 8*12*1024*64 * 2 B = 50.3 MB -> 15.0 us;
-//         4*D*S(S+1)/2*B*H = 12.9 GFLOP -> 13.0 us at 989 TFLOP/s:
-//         memory-bound at ~15 us.
-//   fp32: 100.7 MB -> 30.0 us; 12.9 GFLOP at the fp32 rate of 67 TFLOP/s
-//         -> 193 us: bound by operations at ~193 us.
-// What this simple design leaves on the table: every product runs as fp32
-// FMAs on the CUDA cores, so bf16/fp16 are held to the fp32 rate (>= 193 us,
-// ~13x the bf16 bound); the loop issues about one shared-memory load per two
-// FMAs, so it tops out below even that rate; global loads are 2-4 bytes a
-// thread and not overlapped with compute.  wgmma on bf16 tiles fed by TMA
-// through a multi-stage shared-memory ring is the way to the bound.
+// What bounds it on the H100 (3.35 TB/s; 67 TFLOP/s fp32 outside the tensor
+// cores).  fp32, causal, B=8, H=12, S=1024, D=64: q/k/v/o traffic
+// 4 * 8*12*1024*64 * 4 B = 100.7 MB -> 30.0 us; 4*D*S(S+1)/2*B*H = 12.9 GFLOP
+// at 67 TFLOP/s -> 193 us: bound by operations.  What this design leaves on
+// the table: the inner loops issue about one shared-memory load per two
+// FMAs, global loads are scalar and overlap only the end of the previous
+// tile's products, and the exponentials and shuffles of the softmax sit
+// between the two products.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -71,13 +73,28 @@ constexpr size_t smem_bytes() {
          (kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * kPStride);
 }
 
+// Element strides of one input: batch, head, sequence (the last is 1).
+struct Strides {
+  long long b, h, s;
+};
+
+// The second bound is the blocks an SM holds anyway, by shared memory (3 of
+// 70 KB at D = 64, 1 of 119 KB at D = 128): it lets ptxas use up to 85
+// registers a thread at D <= 64, where left to itself it stopped at 64 and
+// spilled (20 bytes at D = 64) once the row strides took registers.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      int seq_len, float scale, int causal) {
+                      const T* __restrict__ v, T* __restrict__ o, int heads,
+                      int seq_len, Strides qs_, Strides ks_, Strides vs_,
+                      float scale, int causal) {
   constexpr int kDS = D + 1;
   constexpr int kColsO = D / 16;
+  // Tile loads: thread tid copies column lc of the rows lr + kRowStep * i,
+  // the same count kLoads in every K/V tile, so the loads unroll.
+  constexpr int kRowStep = kThreads / D;
+  constexpr int kLoads = kBlockK / kRowStep;  // rows of a K/V tile per thread
+  static_assert(kThreads % D == 0, "a tile row must split evenly over threads");
   extern __shared__ float smem[];
   float* qs = smem;                    // [kBlockQ][kDS], already scaled
   float* ks = qs + kBlockQ * kDS;      // [kBlockK][kDS]
@@ -87,18 +104,17 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
+  const int lc = tid % D, lr = tid / D;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const size_t base = static_cast<size_t>(blockIdx.x) * seq_len * D;
-  q += base;
-  k += base;
-  v += base;
-  o += base;
+  const long long bi = blockIdx.x / heads, hi = blockIdx.x % heads;
+  q += bi * qs_.b + hi * qs_.h;
+  k += bi * ks_.b + hi * ks_.h;
+  v += bi * vs_.b + hi * vs_.h;
+  o += static_cast<size_t>(blockIdx.x) * seq_len * D;
 
-  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
+  for (int r = lr; r < kBlockQ; r += kRowStep) {
     const int row = q0 + r;
-    qs[r * kDS + c] =
-        row < seq_len ? to_f32(q[static_cast<size_t>(row) * D + c]) * scale : 0.f;
+    qs[r * kDS + lc] = row < seq_len ? to_f32(q[row * qs_.s + lc]) * scale : 0.f;
   }
 
   float acc[kRows][kColsO];
@@ -116,14 +132,22 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's reads of ks/vs are done (and qs is written)
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int row = k0 + r;
+    // every global load of the tile is issued before the barrier that waits
+    // for the previous tile's products, and before any shared store
+    float kr[kLoads], vr[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int row = k0 + lr + i * kRowStep;
       const bool ok = row < seq_len;
-      const size_t g = static_cast<size_t>(row) * D + c;
-      ks[r * kDS + c] = ok ? to_f32(k[g]) : 0.f;
-      vs[r * D + c] = ok ? to_f32(v[g]) : 0.f;  // zeros, so 0 * v stays 0 in the tail
+      kr[i] = ok ? to_f32(k[row * ks_.s + lc]) : 0.f;
+      // zeros, so 0 * v stays 0 in the tail
+      vr[i] = ok ? to_f32(v[row * vs_.s + lc]) : 0.f;
+    }
+    __syncthreads();  // the previous tile's reads of ks/vs are done (and qs is written)
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      ks[(lr + i * kRowStep) * kDS + lc] = kr[i];
+      vs[(lr + i * kRowStep) * D + lc] = vr[i];
     }
     __syncthreads();
 
@@ -206,7 +230,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
-                   int seq_len, float scale, int causal, cudaStream_t stream) {
+                   int heads, int seq_len, const Strides* st, float scale,
+                   int causal, cudaStream_t stream) {
   auto kernel = flash_attn_fwd_kernel<T, D>;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -215,36 +240,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (seq_len + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq_len, scale, causal);
+      static_cast<T*>(o), heads, seq_len, st[0], st[1], st[2], scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int bh,
-                       int seq_len, int d, float scale, int causal,
-                       cudaStream_t stream) {
+                       int heads, int seq_len, int d, const Strides* st,
+                       float scale, int causal, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, bh, seq_len, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bh, seq_len, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, seq_len, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, seq_len, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
+    case 16: return launch<T, 16>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
   }
+  // 16-bit inputs at D 64 and 128 go to flash_attn_fwd_sm90.cu
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 64: return launch<T, 64>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
+      case 128: return launch<T, 128>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16, 2 = fp16.  Returns a cudaError_t; 0 is success.
+// q, k, v [batch, heads, seq_len, d]; strides: 9 element strides, (batch,
+// head, sequence) of q, then k, then v.  dtype: 0 = fp32, 1 = bf16,
+// 2 = fp16.  Returns a cudaError_t; 0 is success.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              int bh, int seq_len, int d, int dtype, int causal,
+                              int batch, int heads, int seq_len, int d,
+                              const long long* strides, int dtype, int causal,
                               float scale, void* stream) {
-  if (bh <= 0 || seq_len <= 0 || (seq_len + kBlockQ - 1) / kBlockQ > 65535)
+  const int bh = batch * heads;
+  if (batch <= 0 || heads <= 0 || seq_len <= 0 ||
+      (seq_len + kBlockQ - 1) / kBlockQ > 65535)
     return cudaErrorInvalidValue;
+  const Strides st[3] = {{strides[0], strides[1], strides[2]},
+                         {strides[3], strides[4], strides[5]},
+                         {strides[6], strides[7], strides[8]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, o, bh, seq_len, d, scale, causal, s);
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, seq_len, d, scale, causal, s);
-    case 2: return dispatch_d<__half>(q, k, v, o, bh, seq_len, d, scale, causal, s);
+    case 0: return dispatch_d<float>(q, k, v, o, bh, heads, seq_len, d, st, scale, causal, s);
+    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, heads, seq_len, d, st, scale, causal, s);
+    case 2: return dispatch_d<__half>(q, k, v, o, bh, heads, seq_len, d, st, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
