@@ -44,8 +44,24 @@ Phases, each fatal on failure:
    the trained weights cast, in bf16; the kernel's launches asserted.
 8. MLP parity: 10 steps on the card (through the kernel) against the same
    init on the CPU (through the plain version), fp32, TF32 off.
+9. ResNet parity: ``resnet50_v1`` (1000 classes) through ``Module`` at
+   batch 2, 3 x 224 x 224, one Module on the card and one on the CPU
+   from the same parameters, two ``_fit_step``s each (SGD lr 0.1,
+   momentum 0.9, wd 1e-4); the softmax outputs of each step, and the
+   parameters and moving statistics after step 2, held to
+   ``RESNET_PARITY_TOL``, in fp64 and in fp32 (TF32 off).
+10. ResNet-50 training at ``bench.py``'s configuration
+   (``_module_train_rate``: the Gluon model lowered to a Symbol, ``Cast``
+   to fp32, ``SoftmaxOutput``, ``Module`` at batch 32, Xavier, SGD lr
+   0.1, momentum 0.9, wd 1e-4, one seeded batch) in fp32 (TF32 off) and
+   bf16: 5 warm-up and 30 timed ``_fit_step``s through
+   ``CachedTrainStep``, then 5 + 30 inference forwards; ms/step, img/s
+   and the share of the card's peak that 24.6 GFLOP per training image
+   (8.2 per inference image) gives.  No hand-written kernel runs on this
+   path: its convolutions and products are cuDNN's and cuBLAS's.
 
-It prints one ``{"kernels": [...]}`` line, then as its last line
+It prints the ResNet-50 numbers as one ``{"resnet50": {...}}`` line and
+one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
 of the repository beside it, it exits non-zero before printing either.
 """
@@ -670,6 +686,258 @@ def phase_mlp_parity():
         raise AssertionError("MLP on the card disagrees with the CPU")
 
 
+# -- ResNet-50 through Module (bench.py:107-152) ------------------------------
+RESNET_BATCH, RESNET_IMAGE, RESNET_WARMUP, RESNET_STEPS = 32, 224, 5, 30
+RESNET_LR, RESNET_MOMENTUM, RESNET_WD = 0.1, 0.9, 1e-4
+# bench.py's analytic FLOPs per image: forward 2 x 4.1 GMAC, training 3x
+RESNET_FWD_FLOPS, RESNET_TRAIN_FLOPS = 8.2e9, 24.6e9
+RESNET_PARITY_BATCH = 2
+# Card against CPU, two steps of ResNet-50 at batch 2 from one init.  One
+# SGD step at lr 0.1 on a batch of 2 moves some weights by 4.7 and makes
+# the second step's results depend on the first's rounding about 1e8
+# times over.  On the CPU, before any run on the card
+# (tools/torch_resnet_cpu_spread.py, largest |differences|: step-1
+# outputs, step-2 outputs, parameters and moving statistics after step 2,
+# relative to max(1, |v|)): the JAX package against this one in fp64
+# 1.5e-15, 1.5e-8, 1.3e-7 and 5.7e-8; in fp32 3.4e-7, 0.039, 0.42 and
+# 0.098; the JAX package's own fp32 against its fp64 5.9e-7, 0.20, 0.62
+# and 0.10.  So:
+# - fp64 holds the arithmetic: step 1's outputs (no update yet) 1e-10,
+#   everything after an update 1e-5, about 100 times the CPU's fp64
+#   spread, on the largest |difference|;
+# - fp32 holds step 1's outputs to 1e-4: the forward before any update,
+#   where TF32 or a dtype slip would show.  After an update an fp32 run
+#   lands wherever its own rounding, amplified, puts it: the script
+#   prints how far the card's and the CPU's fp32 runs each land from
+#   their fp64 runs and from each other, and holds none of it: two fp32
+#   runs as accurate as each other still land apart by whatever the
+#   amplified roundings give (PERF.md has the card's readings).
+RESNET_PARITY_TOL = {
+    torch.float64: dict(out1=1e-10, params1=1e-5, out2=1e-5, params2=1e-5,
+                        aux2=1e-5),
+    torch.float32: dict(out1=1e-4),
+}
+
+
+def tf32_flags():
+    """Turn TF32 off for an fp32 phase and say so."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return ("TF32 off (cuda.matmul.allow_tf32=%s, cudnn.allow_tf32=%s)"
+            % (torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32))
+
+
+def resnet_module(ctx, batch, dtype=torch.float32, image=RESNET_IMAGE,
+                  model="resnet50_v1", classes=1000, **model_kw):
+    """``bench.py::_module_train_rate``'s model, bound: the zoo model (cast
+    to ``dtype``) lowered to a Symbol, ``Cast`` to fp32 (fp64 stays fp64),
+    ``SoftmaxOutput(name="softmax")``, a ``Module`` on ``ctx`` bound at
+    ``batch`` x 3 x image x image; no parameters yet."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import sym
+    from mxnet_tpu_torch.io import DataDesc
+    with mt.name.NameManager():
+        net = mt.gluon.model_zoo.vision.get_model(model, classes=classes,
+                                                  **model_kw)
+    if dtype != torch.float32:
+        net.cast(str(dtype).replace("torch.", ""))
+    out_dtype = "float64" if dtype == torch.float64 else "float32"
+    out = sym.Cast(net(sym.Variable("data")), dtype=out_dtype)
+    out = sym.SoftmaxOutput(out, sym.Variable("softmax_label"),
+                            name="softmax")
+    mod = mt.mod.Module(out, context=ctx)
+    mod.bind(data_shapes=[DataDesc("data", (batch, 3, image, image),
+                                   dtype=dtype)],
+             label_shapes=[DataDesc("softmax_label", (batch,),
+                                    dtype=out_dtype)])
+    return mod
+
+
+def resnet_train_setup(mod, params=None):
+    """Xavier init after ``random.seed(0)`` (or ``params``, a
+    ``get_params()`` pair), then SGD lr 0.1, momentum 0.9, wd 1e-4."""
+    import mxnet_tpu_torch as mt
+    if params is None:
+        mt.random.seed(0)
+        mod.init_params(initializer=mt.initializer.Xavier())
+    else:
+        mod.set_params(*params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=(
+        ("learning_rate", RESNET_LR), ("momentum", RESNET_MOMENTUM),
+        ("wd", RESNET_WD)))
+
+
+def resnet_batch(ctx, batch, dtype, image=RESNET_IMAGE, classes=1000,
+                 label_dtype=torch.float32):
+    """One ``DataBatch`` from ``RandomState(0)``, as bench.py makes it."""
+    import numpy as np
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.io import DataBatch
+    rng = np.random.RandomState(0)
+    return DataBatch(
+        [nd.array(rng.rand(batch, 3, image, image).astype(np.float32),
+                  ctx=ctx, dtype=dtype)],
+        [nd.array(rng.randint(0, classes, (batch,)).astype(np.float32),
+                  ctx=ctx, dtype=label_dtype)])
+
+
+def _resnet_two_steps(ctx, dtype, params):
+    """Two ``_fit_step``s at batch 2; returns {"out1", "params1", "out2",
+    "params2", "aux2"}: each step's outputs and the parameters after it,
+    and the moving statistics after step 2, as fp64 CPU tensors."""
+    mod = resnet_module(ctx, RESNET_PARITY_BATCH, dtype)
+    resnet_train_setup(mod, params)
+    label_dt = torch.float64 if dtype == torch.float64 else torch.float32
+    db = resnet_batch(ctx, RESNET_PARITY_BATCH, dtype, label_dtype=label_dt)
+    res = {}
+    for step in (1, 2):
+        mod._fit_step(db)
+        arg, aux = mod.get_params()
+        res["out%d" % step] = mod.get_outputs()[0]._data.to("cpu",
+                                                            torch.float64)
+        res["params%d" % step] = {n: a._data.to(torch.float64)
+                                  for n, a in arg.items()}
+    res["aux2"] = {n: a._data.to(torch.float64) for n, a in aux.items()}
+    if mod._cached_step is None:
+        raise AssertionError("the parity steps did not take CachedTrainStep")
+    return res
+
+
+def _cast_params(params, dtype):
+    from mxnet_tpu_torch import nd
+    import mxnet_tpu_torch as mt
+    return [{n: nd.NDArray(a._data.to(dtype), mt.cpu()) for n, a in d.items()}
+            for d in params]
+
+
+def _resnet_diffs(a, b, l2=False):
+    """Distances between two runs of ``_resnet_two_steps``, the moving
+    statistics relative to max(1, |v|): each the largest |a - b|, or with
+    ``l2`` the root of its summed squares."""
+    def dist(pairs):
+        d = torch.cat([(u - v).flatten() for u, v in pairs])
+        return (d.norm() if l2 else d.abs().max()).item()
+    out = {}
+    for key, va in a.items():
+        vb = b[key]
+        if key == "aux2":
+            scale = {n: v.abs().clamp_min(1.0) for n, v in va.items()}
+            va = {n: v / scale[n] for n, v in va.items()}
+            vb = {n: v / scale[n] for n, v in vb.items()}
+        pairs = [(va[n], vb[n]) for n in va] if isinstance(va, dict) \
+            else [(va, vb)]
+        out[key] = dist(pairs)
+    return out
+
+
+def phase_resnet_parity():
+    """ResNet-50 through Module on the card against the CPU, two steps
+    from one init, fp64 then fp32 (TF32 off)."""
+    import mxnet_tpu_torch as mt
+    flags = tf32_flags()
+    init = mt.cpu()
+    mod = resnet_module(init, RESNET_PARITY_BATCH)
+    resnet_train_setup(mod)
+    params = mod.get_params()
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        p = _cast_params(params, dtype)
+        # (CPU, card)
+        runs[dtype] = [_resnet_two_steps(ctx, dtype, p)
+                       for ctx in (mt.cpu(), mt.gpu(0))]
+    diffs = {dt: _resnet_diffs(r[1], r[0]) for dt, r in runs.items()}
+    (cpu32, gpu32), (cpu64, gpu64) = runs[torch.float32], runs[torch.float64]
+    fp32 = {"card-cpu": diffs[torch.float32],
+            "card-card64": _resnet_diffs(gpu32, gpu64),
+            "cpu-cpu64": _resnet_diffs(cpu32, cpu64)}
+    fp32_l2 = {"card-cpu": _resnet_diffs(gpu32, cpu32, l2=True),
+               "card-card64": _resnet_diffs(gpu32, gpu64, l2=True),
+               "cpu-cpu64": _resnet_diffs(cpu32, cpu64, l2=True)}
+    tol64, tol32 = RESNET_PARITY_TOL[torch.float64], \
+        RESNET_PARITY_TOL[torch.float32]
+
+    def fmt(d):
+        return {k: "%.3g" % v for k, v in d.items()}
+    log("ResNet-50 parity, batch %d, 2 steps, card against CPU: fp64 largest "
+        "|diff| %s (limits %s); fp32, %s: card against CPU step-1 outputs "
+        "%.3g (limit %g)"
+        % (RESNET_PARITY_BATCH, fmt(diffs[torch.float64]), tol64, flags,
+           diffs[torch.float32]["out1"], tol32["out1"]))
+    for name in fp32:
+        log("  fp32 %-11s largest |diff| %s, root-sum-square %s"
+            % (name, fmt(fp32[name]), fmt(fp32_l2[name])))
+    bad = [k for k, v in diffs[torch.float64].items() if v > tol64[k]]
+    if diffs[torch.float32]["out1"] > tol32["out1"]:
+        bad.append("fp32 out1")
+    if bad:
+        raise AssertionError("ResNet-50 on the card disagrees with the CPU: "
+                             "%s" % bad)
+    return dict(fp64=diffs[torch.float64], fp32=fp32, fp32_l2=fp32_l2)
+
+def _timed(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def phase_resnet_train(dtype):
+    """bench.py's ResNet-50 training step at batch 32 on the card: ms/step,
+    img/s, inference img/s and the share of peak."""
+    import mxnet_tpu_torch as mt
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    gpu = mt.gpu(0)
+    mod = resnet_module(gpu, RESNET_BATCH, dtype)
+    resnet_train_setup(mod)
+    db = resnet_batch(gpu, RESNET_BATCH, dtype)
+    ex = mod._exec_group.execs[0]
+    stat = next(n for n in ex.aux_names if n.endswith("running_mean"))
+    before = ex.aux_dict[stat]._data.clone()
+    torch.cuda.reset_peak_memory_stats()
+    warm = _timed(lambda: mod._fit_step(db), RESNET_WARMUP)
+    if mod._cached_step is None:
+        raise AssertionError("ResNet-50 step fell off CachedTrainStep")
+    times = _timed(lambda: mod._fit_step(db), RESNET_STEPS)
+    prob = mod.get_outputs()[0]._data
+    label = db.label[0]._data.long()
+    loss = -torch.log(prob.float().gather(1, label[:, None])).mean().item()
+    moved = (ex.aux_dict[stat]._data != before).any().item()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd = _timed(lambda: mod.forward(db, is_train=False), RESNET_WARMUP)
+    fwd = _timed(lambda: mod.forward(db, is_train=False), RESNET_STEPS)
+    ms = sorted(times)[len(times) // 2]
+    fwd_ms = sorted(fwd)[len(fwd) // 2]
+    peak = PEAK_FLOPS[dtype]
+    res = dict(
+        dtype=DTYPE_NAME[dtype], flags=flags, batch=RESNET_BATCH,
+        step_ms_median=ms, step_ms_first5=warm, img_s=RESNET_BATCH / ms * 1e3,
+        infer_ms_median=fwd_ms, infer_img_s=RESNET_BATCH / fwd_ms * 1e3,
+        train_peak_share=RESNET_TRAIN_FLOPS * RESNET_BATCH / ms * 1e3 / peak,
+        infer_peak_share=RESNET_FWD_FLOPS * RESNET_BATCH / fwd_ms * 1e3
+        / peak, loss=loss, peak_mem_gb=peak_gb)
+    log("ResNet-50 %s (%s) on %s, batch %d through CachedTrainStep: %d "
+        "timed steps, ms/step median %.3f, first 5 (warm-up) %s, %.1f img/s, "
+        "%.2f%% of the %g TFLOP/s peak at 24.6 GFLOP/img; inference median "
+        "%.3f ms, %.1f img/s (%.2f%% of peak at 8.2 GFLOP/img); loss after "
+        "%d steps %.4f; %s moved: %s; peak memory %.1f GB"
+        % (DTYPE_NAME[dtype], flags, torch.cuda.get_device_name(0),
+           RESNET_BATCH, RESNET_STEPS, ms, ["%.1f" % t for t in warm],
+           res["img_s"], 100 * res["train_peak_share"], peak / 1e12, fwd_ms,
+           res["infer_img_s"], 100 * res["infer_peak_share"],
+           RESNET_WARMUP + RESNET_STEPS, loss, stat, moved, peak_gb))
+    if not math.isfinite(loss):
+        raise AssertionError("non-finite ResNet-50 loss (%s)" % dtype)
+    if not moved:
+        raise AssertionError("the BatchNorm moving statistics did not move")
+    del mod, ex, db, prob
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -682,6 +950,9 @@ def main():
     phase_registration()
     scale_launches = phase_mlp()
     phase_mlp_parity()
+    parity = phase_resnet_parity()
+    resnet = [phase_resnet_train(dt) for dt in (torch.float32,
+                                                torch.bfloat16)]
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import scale as sc
     entries = []
@@ -723,6 +994,8 @@ def main():
             "shape": list(SCALE_MAIN_SHAPE),
         })
     log(card)
+    print(json.dumps({"resnet50": {"card": card, "parity": parity,
+                                   "train": resnet}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

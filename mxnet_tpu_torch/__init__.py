@@ -10,7 +10,9 @@ the flash-attention forward kernel (``ops.attention``); the MXNet
 substrate -- ``nd`` (NDArray, op registry, ``autograd``), ``sym``
 (Symbol) and bound executors, ``initializer``, ``optimizer`` -- and
 user-kernel registration (``rtc``) with the scale kernel
-(``ops.scale``).
+(``ops.scale``); the ResNet training path -- ``gluon`` (blocks, layers,
+the ResNet model zoo), ``io`` (``NDArrayIter``), ``metric`` and
+``mod`` (``Module`` with its fused train step).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from .context import Context, cpu, gpu, current_context
 from . import ops, models
 from . import autograd, random, ndarray, symbol, executor, rtc
 from . import initializer, optimizer, test_utils
+from . import io, metric, gluon, module
+from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from . import initializer as init
@@ -26,4 +30,4 @@ from . import initializer as init
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "ops", "models", "autograd", "random", "ndarray", "nd", "symbol",
            "sym", "executor", "rtc", "initializer", "init", "optimizer",
-           "test_utils"]
+           "test_utils", "io", "metric", "gluon", "module", "mod"]

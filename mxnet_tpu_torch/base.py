@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "np_dtype"]
+__all__ = ["MXNetError", "torch_dtype", "np_dtype", "dtype_name"]
 
 
 class MXNetError(Exception):
@@ -45,3 +45,9 @@ def np_dtype(dtype):
     """``torch.dtype`` -> numpy dtype; bfloat16, which numpy lacks, stays
     ``torch.bfloat16``."""
     return _TORCH_TO_NP.get(dtype, dtype)
+
+
+def dtype_name(dtype):
+    """A dtype's canonical name (``"float32"``, ``"bfloat16"``), as symbol
+    attrs store it."""
+    return str(torch_dtype(dtype)).replace("torch.", "")

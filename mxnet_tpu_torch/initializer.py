@@ -1,22 +1,50 @@
 """Weight initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py:26-240`` (``InitDesc``, the
-``Initializer`` dispatch protocol, ``Uniform``, ``Normal``, ``Xavier``).
-The name decides the handler: ``*_weight`` takes the initializer's draw,
-``*_bias``/``*_beta`` zeros, ``*_gamma`` ones.
+``Initializer`` dispatch protocol, ``create`` and the registered names,
+``Zero``/``One``, ``Uniform``, ``Normal``, ``Xavier``).
+A variable's ``__init__`` attr (``"zeros"``, ``"ones"``, or an
+initializer's ``dumps()``) wins; else the name decides the handler:
+``*_weight`` takes the initializer's draw, ``*_bias``/``*_beta`` and
+``running_mean``/``moving_mean`` zeros, ``*_gamma`` and
+``running_var``/``moving_var`` ones.
 Draws come from the array's device generator (``random.generator``),
 made on the array's device; the JAX package draws with numpy, so the two
 give different numbers from one seed.
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
 
+from .base import MXNetError
 from . import random as _random
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier"]
+__all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
+           "Uniform", "Normal", "Xavier"]
+
+_REGISTRY = {}
+
+
+def register(klass, name=None):
+    _REGISTRY[(name or klass.__name__).lower()] = klass
+    return klass
+
+
+def create(name, **kwargs):
+    """An initializer from a registered name (``"zeros"``, ``"xavier"``),
+    its ``dumps()`` JSON ``[class, kwargs]``, or the instance itself."""
+    if isinstance(name, Initializer):
+        return name
+    if isinstance(name, str) and name.lstrip().startswith("["):
+        name, kwargs = json.loads(name)
+    key = str(name).lower()
+    if key not in _REGISTRY:
+        raise MXNetError("Cannot find initializer '%s'. Registered: %s"
+                         % (name, sorted(_REGISTRY)))
+    return _REGISTRY[key](**kwargs)
 
 
 class InitDesc(str):
@@ -55,11 +83,22 @@ def _normal(arr, sigma):
 
 
 class Initializer:
-    """Base initializer: the name suffix picks the handler."""
+    """Base initializer: a variable's ``__init__`` attr, else the name
+    suffix, picks the handler."""
+
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr):
         if not isinstance(desc, InitDesc):
             desc = InitDesc(desc)
+        attr_init = desc.attrs.get("__init__", "")
+        if attr_init:
+            create(attr_init)._init_weight(desc, arr)
+            return
         lowered = desc.lower()
         for suffixes, handler in _SUFFIX_DISPATCH:
             if lowered.endswith(suffixes):
@@ -86,26 +125,49 @@ class Initializer:
             'is limited to "weight", "bias", "gamma", and "beta"' % name)
 
 
+@register
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+    _init_default = _init_weight
+
+
+@register
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+    _init_default = _init_weight
+
+
+register(Zero, "zeros")
+register(One, "ones")
+
+
+@register
 class Uniform(Initializer):
     """U(-scale, scale)."""
 
     def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
         self.scale = scale
 
     def _init_weight(self, _, arr):
         _uniform(arr, -self.scale, self.scale)
 
 
+@register
 class Normal(Initializer):
     """N(0, sigma^2)."""
 
     def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
         self.sigma = sigma
 
     def _init_weight(self, _, arr):
         _normal(arr, self.sigma)
 
 
+@register
 class Xavier(Initializer):
     """Glorot init: scale^2 = magnitude / factor(fan_in, fan_out)."""
 
@@ -114,6 +176,8 @@ class Xavier(Initializer):
                 "out": lambda fi, fo: fo}
 
     def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
         self.rnd_type, self.factor_type = rnd_type, factor_type
         self.magnitude = float(magnitude)
 

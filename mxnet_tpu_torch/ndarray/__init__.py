@@ -13,7 +13,7 @@ import sys
 import types
 
 from .ndarray import (NDArray, array, zeros, ones, full, empty, invoke,
-                      params_from_jax)
+                      concatenate, params_from_jax)
 from ..ops.registry import OP_REGISTRY
 
 
@@ -67,4 +67,4 @@ for _name, _op in OP_REGISTRY.items():
 sys.modules[__name__ + "._internal"] = _internal
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
-           "params_from_jax"]
+           "concatenate", "params_from_jax"]

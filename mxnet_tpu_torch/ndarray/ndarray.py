@@ -23,7 +23,8 @@ from .. import autograd as ag
 from .. import random as _random
 from ..ops.registry import get_op
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
+           "concatenate"]
 
 
 class NDArray:
@@ -77,7 +78,10 @@ class NDArray:
 
     # -- host transfer -----------------------------------------------------
     def asnumpy(self):
-        return self._data.detach().cpu().numpy()
+        """A numpy copy; bfloat16, which numpy lacks, comes back as float32
+        (exactly)."""
+        t = self._data.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
@@ -340,6 +344,11 @@ def full(shape, val, ctx=None, dtype=None):
 
 def empty(shape, ctx=None, dtype=None):
     return zeros(shape, ctx, dtype)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """Join NDArrays along ``axis`` (the ``Concat`` op)."""
+    return invoke(get_op("Concat"), list(arrays), {"dim": axis})[0]
 
 
 def params_from_jax(np_params, executor):

@@ -1,8 +1,10 @@
-"""Elementwise operators: unary, binary, scalar and comparison.
+"""Elementwise operators: unary, binary, scalar and comparison, ``Cast``
+and ``add_n``.
 
 Counterpart of ``mxnet_tpu/ops/elemwise.py``, reduced to the ops the
 NDArray and Symbol operators dispatch to (``ndarray.py:360-427``,
-``symbol.py:194-232``) and ``relu``.  Names and aliases are MXNet's:
+``symbol.py:194-232``), ``relu``, ``Cast``:102 and
+``add_n``/``ElementWiseSum``:195.  Names and aliases are MXNet's:
 ``elemwise_add``/``_plus``/``broadcast_add``; scalar variants take the
 attr ``scalar``; reverse variants are ``_r*``.
 """
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..base import torch_dtype
 from .registry import register
 
 
@@ -21,6 +24,21 @@ def _max0(x):
 
 register("relu")(lambda x, **kw: _max0(x))
 register("negative")(lambda x, **kw: torch.neg(x))
+
+
+@register("Cast", aliases=["cast"])
+def _cast(x, dtype="float32", **kw):
+    return x.to(torch_dtype(dtype))
+
+
+@register("add_n", aliases=["ElementWiseSum", "elemwise_sum"])
+def _add_n(*args, num_args=None, **kw):
+    """Left to right, as the JAX package adds them."""
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
 
 # jnp.mod is the floor modulo (sign of the divisor): torch.remainder
 _BINARY = {

@@ -1,12 +1,14 @@
-"""Shape ops: ``Reshape`` and ``Flatten``.
+"""Shape ops: ``Reshape``, ``Flatten`` and ``Concat``.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:24-76``, with MXNet's special
-``Reshape`` codes (0 copy, -1 infer, -2 copy the rest, -3 merge two,
--4 split one) and ``reverse``.
+Counterpart of ``mxnet_tpu/ops/matrix.py:24-76`` and ``Concat``:101,
+with MXNet's special ``Reshape`` codes (0 copy, -1 infer, -2 copy the
+rest, -3 merge two, -4 split one) and ``reverse``.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from .registry import register
 
@@ -63,3 +65,8 @@ def _reshape(x, shape=None, reverse=False, target_shape=None, **kw):
 @register("Flatten", aliases=["flatten"])
 def _flatten(x, **kw):
     return x.reshape((x.shape[0], -1))
+
+
+@register("Concat", aliases=["concat"])
+def _concat(*args, dim=1, num_args=None, **kw):
+    return torch.cat(args, dim=dim)

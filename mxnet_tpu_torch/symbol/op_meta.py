@@ -1,7 +1,8 @@
 """Per-op metadata for symbolic composition.
 
 Counterpart of ``mxnet_tpu/symbol/op_meta.py:22-176``, for the ops this
-package registers.  Forward shapes come from running each op on ``meta``
+package registers (input and aux names ``:41-51``, parameter shapes
+``:112``, ``:133``).  Forward shapes come from running each op on ``meta``
 tensors; this module supplies what that cannot derive: (1) canonical
 input/aux names, so ``sym.FullyConnected(data=d, ...)`` creates
 ``fc1_weight``/``fc1_bias`` variables, and (2) data -> parameter shape
@@ -17,7 +18,9 @@ __all__ = ["op_input_names", "infer_param_shapes", "HINTS"]
 
 # name hints for auto-naming (reference: lowercase op name)
 HINTS = {
-    "FullyConnected": "fullyconnected", "Activation": "activation",
+    "FullyConnected": "fullyconnected", "Convolution": "convolution",
+    "BatchNorm": "batchnorm", "Pooling": "pooling",
+    "Activation": "activation",
     "SoftmaxOutput": "softmaxoutput", "Flatten": "flatten",
     "Reshape": "reshape", "elemwise_add": "_plus", "elemwise_sub": "_minus",
     "elemwise_mul": "_mul", "elemwise_div": "_div",
@@ -27,6 +30,13 @@ HINTS = {
 def op_input_names(op, attrs):
     """Return (input_names, aux_names); aux_names are the trailing inputs."""
     name = op.name
+    if name in ("Convolution", "Convolution_v1"):
+        return (["data", "weight"] if attrs.get("no_bias", False)
+                else ["data", "weight", "bias"]), []
+    if name in ("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm"):
+        return ["data", "gamma", "beta"], ["moving_mean", "moving_var"]
+    if name in ("add_n", "ElementWiseSum", "elemwise_sum", "Concat"):
+        return ["arg%d" % i for i in range(int(attrs.get("num_args") or 1))], []
     if name == "FullyConnected":
         return (["data", "weight"] if attrs.get("no_bias", False)
                 else ["data", "weight", "bias"]), []
@@ -53,7 +63,18 @@ def infer_param_shapes(node, in_structs):
         return torch.empty(shape, dtype=data.dtype, device="meta")
 
     out = [None] * len(in_structs)
-    if name == "FullyConnected":
+    if name in ("Convolution", "Convolution_v1"):
+        kernel = tuple(a.get("kernel", ()))
+        g = int(a.get("num_group", 1))
+        nf = int(a.get("num_filter", 1))
+        out[1] = meta((nf, dshape[1] // g) + kernel)
+        if len(in_structs) > 2:
+            out[2] = meta((nf,))
+    elif name in ("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm"):
+        c = dshape[int(a.get("axis", 1)) % len(dshape)]
+        for i in range(1, len(in_structs)):
+            out[i] = meta((c,))
+    elif name == "FullyConnected":
         nh = int(a.get("num_hidden", 1))
         in_dim = math.prod(dshape[1:]) if a.get("flatten", True) \
             else dshape[-1]

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..base import MXNetError, torch_dtype, np_dtype
+from ..base import MXNetError, torch_dtype, np_dtype, dtype_name
 from ..ops.registry import get_op, attr_to_string
 from .. import name as _name_mod
 from .op_meta import infer_param_shapes, HINTS
@@ -115,6 +115,14 @@ class Symbol:
 
     def __len__(self):
         return len(self._outputs)
+
+    def attr_dict(self):
+        """{node name: {attr: string}}, special attrs in their dunder form
+        (``__init__``, ``__lr_mult__``), as the initializer and the
+        optimizer look them up (``mxnet_tpu/symbol/symbol.py:177``)."""
+        return {node.name: {k: attr_to_string(v)
+                            for k, v in node.attrs.items()}
+                for node in _topo(self._outputs) if node.attrs}
 
     # -- selection ---------------------------------------------------------
     def __getitem__(self, index):
@@ -285,21 +293,22 @@ class Symbol:
     def infer_type(self, *args, **kwargs):
         """Shape-free dtype propagation: known dtypes flow forward through
         the ops, and unknown variable dtypes are back-filled from their
-        consumers (so weights inherit the data dtype)."""
+        consumers (so weights inherit the data dtype).  Types are numpy
+        dtypes, and ``torch.bfloat16``, which numpy lacks."""
         if args:
             kwargs = dict(zip(self.list_arguments(), args), **kwargs)
         nodes = _topo(self._outputs)
-        dt = {}  # id(node) -> np.dtype or None
+        dt = {}  # id(node) -> torch.dtype or None
         for n in nodes:
             if n.op is None:
                 d = kwargs.get(n.name, n.attrs.get("__dtype__"))
-                dt[id(n)] = np.dtype(d) if d is not None else None
+                dt[id(n)] = torch_dtype(d) if d is not None else None
         for _ in range(2):  # forward, back-fill, forward again
             for n in nodes:
                 if n.op is None:
                     continue
                 if n.attrs.get("dtype") is not None:
-                    dt[id(n)] = np_dtype(torch_dtype(n.attrs["dtype"]))
+                    dt[id(n)] = torch_dtype(n.attrs["dtype"])
                     continue
                 known = [dt.get(id(s)) for s, _ in n.inputs]
                 known = [k for k in known if k is not None]
@@ -312,7 +321,7 @@ class Symbol:
                         dt[id(s)] = dt[id(n)]
 
         def f(node):
-            return dt.get(id(node)) or np.dtype(np.float32)
+            return np_dtype(dt.get(id(node)) or torch.float32)
         return ([f(n) for n in self._arg_nodes()],
                 [f(n) for n, _ in self._outputs],
                 [f(n) for n in self._aux_nodes()])
@@ -329,15 +338,26 @@ class Symbol:
         return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs)
 
 
-def var(name, attr=None, shape=None, dtype=None, **kwargs):
-    """Create a variable symbol (reference ``mx.sym.var`` / ``Variable``)."""
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, **kwargs):
+    """Create a variable symbol (reference ``mx.sym.var`` / ``Variable``).
+    ``lr_mult``, ``wd_mult`` and ``init`` become the attrs ``__lr_mult__``,
+    ``__wd_mult__`` and ``__init__`` that the optimizer and the
+    initializer read."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attrs = dict(attr or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:
-        attrs["__dtype__"] = str(np.dtype(dtype))
+        attrs["__dtype__"] = dtype_name(dtype)
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = lr_mult
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = wd_mult
+    if init is not None:
+        attrs["__init__"] = init.dumps() if hasattr(init, "dumps") \
+            else str(init)
     attrs.update({k: attr_to_string(v) for k, v in kwargs.items()})
     return Symbol([(SymNode(None, name, attrs, []), 0)])
 
