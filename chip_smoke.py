@@ -19,12 +19,17 @@ Phases, each fatal on failure:
    makes (strides (S*H*D, D, H*D, 1)), through whichever kernel
    ``attention.design`` picks (tensor cores for bf16/fp16 at D 64 and
    128, SIMT otherwise);
+   the flash-attention backward kernel's dq, dk and dv against
+   ``chunked_attention_grads`` at the same cases, dtypes and layouts
+   (``do`` strided too where q, k, v are), held to ``BWD_ATOL`` and
+   ``BWD_ROW_RTOL``;
    scale at numel 0, 1, 7, 64 x 128 (the MLP's), 1000003 (also
    misaligned by one element) and 8192 x 8192, alpha 0.5, 3.0, -1.25
    and two that fp32 cannot hold exactly (0.1, 1/3), bit for bit.
    Timings of each kernel, its plain version and one PyTorch call as a
-   yardstick (``F.scaled_dot_product_attention``, ``torch.mul``; the
-   port never calls either).
+   yardstick (``F.scaled_dot_product_attention``, its backward through
+   ``torch.autograd.grad`` less its forward, ``torch.mul``; the port
+   never calls any of them), and each attention kernel's bound.
 4. LM inference at GPT-2 small widths (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 50257, max_len 1024; seeded random weights): 4 batches
    of 8 x 1024 tokens scored to logits and mean next-token NLL, in fp32,
@@ -59,9 +64,23 @@ Phases, each fatal on failure:
    and the share of the card's peak that 24.6 GFLOP per training image
    (8.2 per inference image) gives.  No hand-written kernel runs on this
    path: its convolutions and products are cuDNN's and cuBLAS's.
+11. LM training at GPT-2 small widths (phase 4's configuration, not cut)
+   on one seeded batch of 8 x 1024 tokens, in fp32 (TF32 off), bf16 and
+   fp16, through ``make_train_step`` (SGD, lr 0.1) and
+   ``make_train_step_zero1`` (momentum 0.9): 3 warm-up and 10 timed
+   steps each; ms/step, tokens/s and the share of the card's peak at the
+   FLOPs counted by ``lm_train_flops``; the loss must stay finite and
+   fall, and every step must launch the forward and the backward kernel
+   n_layers times each.
+12. LM training parity: a small LM (2 layers, d_model 128, 2 heads, so
+   D = 64; S = 200) trained 3 steps by each step builder on the card
+   (through both kernels) and on the CPU (through the plain versions)
+   from one init, in fp32 (TF32 off) and bf16; the loss, the params and
+   the momenta held to ``LM_TRAIN_PARITY_TOL`` after each step.
 
-It prints the ResNet-50 numbers as one ``{"resnet50": {...}}`` line and
-one ``{"kernels": [...]}`` line, then as its last line
+It prints the ResNet-50 numbers as one ``{"resnet50": {...}}`` line, the
+LM training numbers as one ``{"lm_train": {...}}`` line and one
+``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
 of the repository beside it, it exits non-zero before printing either.
 """
@@ -102,6 +121,14 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
               torch.float16: 989e12}
 MAIN_SHAPE = (8, 12, 1024, 64)
+FLASH_CASES = [  # (shape, causal, sm_scale)
+    ((2, 3, 64, 16), False, None), ((2, 3, 64, 16), True, None),
+    ((1, 2, 48, 16), True, None), ((1, 2, 48, 16), False, None),
+    ((1, 1, 16, 16), False, 0.5), ((2, 2, 77, 32), True, None),
+    ((2, 4, 200, 64), False, None), ((2, 4, 200, 64), True, 0.5),
+    ((1, 3, 130, 128), True, None), ((1, 3, 130, 128), False, None),
+    ((1, 1, 1, 64), True, None), (MAIN_SHAPE, True, None),
+]
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, d_ff=3072,
                   n_layers=12, max_len=1024)
 LM_BATCH, LM_SEQ, LM_REQUESTS = 8, 1024, 4
@@ -135,13 +162,22 @@ def attention_bound_ms(shape, dtype, causal):
                                        else "operations")
 
 
+# About 50 ms at the H100's clock: longer than the host takes to queue
+# the timed launches of any cuda_ms call here.
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn()`` over ``iters`` runs, by CUDA events."""
+    """Mean device time of ``fn()`` over ``iters`` runs, by CUDA events.
+    A sleep kernel holds the stream until the host has queued every timed
+    launch, so the events time the device's work back to back and a slow
+    host does not stretch a short kernel's reading."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -172,7 +208,7 @@ def phase_build():
     from mxnet_tpu_torch.ops import _build
     t0 = time.perf_counter()
     seconds = _build.build_all(["flash_attn_fwd", "flash_attn_fwd_sm90",
-                                "scale"])
+                                "flash_attn_bwd", "scale"])
     log("build: %s in %.1f s wall" % (seconds, time.perf_counter() - t0))
     for stem in seconds:
         log("ptxas (%s):\n%s" % (stem, _build.build_info(stem)["log"].strip()))
@@ -196,14 +232,7 @@ def phase_kernels():
     "ms", "strided_ms", "plain_ms", "library_ms", "design"}}."""
     from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.ops import attention as att
-    cases = [  # (shape, causal, sm_scale)
-        ((2, 3, 64, 16), False, None), ((2, 3, 64, 16), True, None),
-        ((1, 2, 48, 16), True, None), ((1, 2, 48, 16), False, None),
-        ((1, 1, 16, 16), False, 0.5), ((2, 2, 77, 32), True, None),
-        ((2, 4, 200, 64), False, None), ((2, 4, 200, 64), True, 0.5),
-        ((1, 3, 130, 128), True, None), ((1, 3, 130, 128), False, None),
-        ((1, 1, 1, 64), True, None), (MAIN_SHAPE, True, None),
-    ]
+    cases = FLASH_CASES
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     with torch.inference_mode():
@@ -287,6 +316,166 @@ def phase_kernels():
                 continue
             raise AssertionError("flash_attention accepted an input it "
                                  "does not take")
+    return results
+
+
+# Backward: the kernel's dq, dk, dv against chunked_attention_grads on the
+# card.  Both compute in fp32 from the same loaded values and round once to
+# the input type at the end; they differ in the order of their sums (over
+# at most 1024 queries or keys) and in where the scale is applied.
+# fp32: held at tests/test_pallas.py's gradient atol of 1e-4 (|grads| reach
+# about 16 here).  Row by row, each row's max|err| over its largest |ref|
+# is held at 2^-8: where one key takes nearly all of a query's
+# probability (sm_scale 0.5 spreads the scores 4 times wider), ds =
+# p (dp - sum(p dp)) cancels and dq's row is small against the terms it
+# sums, so the two summation orders part by up to 7.1e-4 of it (measured
+# on the H100 at (2, 4, 200, 64) causal, sm_scale 0.5, with max|err|
+# 8.3e-6; 3e-6 or less elsewhere); 2^-8 is five times that and still far
+# below the O(1) of a row that a kernel got wrong.
+# bf16/fp16: each side's fp32 value rounds once to the type; values that
+# differ by that fp32 noise round to the same value or to neighbours one
+# ulp apart, and one ulp is at most 2u of the row's largest |ref| (u =
+# 2^-8 and 2^-11): row-relative 2^-7 and 2^-10, plus the fp32 rows'
+# 2^-8.  Measured: bf16 7.75e-3, fp16 9.7e-4, both at MAIN_SHAPE.
+BWD_ATOL = {torch.float32: 1e-4}
+BWD_ROW_RTOL = {torch.float32: 2.0 ** -8,
+                torch.bfloat16: 2.0 ** -7 + 2.0 ** -8,
+                torch.float16: 2.0 ** -10 + 2.0 ** -8}
+
+
+def attention_bwd_bound_ms(shape, dtype, causal):
+    """Least time for the attention backward on the H100: q, k, v, do read
+    once and dq, dk, dv written once over HBM, or the five products of the
+    gradient, 10*D FLOPs per (query, key) pair that the mask keeps, at the
+    input type's peak, whichever is larger."""
+    b, h, s, d = shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    t_bytes = 7 * b * h * s * d * elem / HBM_BPS
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_ops = 10 * d * pairs * b * h / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _grad_errors(got, ref):
+    """Largest |err| and largest row-relative error over dq, dk, dv."""
+    worst = worst_rel = 0.0
+    for g, r in zip(got, ref):
+        diff = (g.float() - r.float()).abs()
+        worst = max(worst, diff.max().item())
+        worst_rel = max(worst_rel, (diff.amax(-1) / r.float().abs().amax(-1)
+                                    .clamp_min(1e-30)).max().item())
+    return worst, worst_rel
+
+
+def sdpa_backward_ms(q, k, v, do):
+    """SDPA's backward alone, as a yardstick: the time of its forward and
+    ``torch.autograd.grad`` together, less its forward's.  The port never
+    calls SDPA."""
+    F = torch.nn.functional
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def both():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    return cuda_ms(both) - cuda_ms(fwd)
+
+
+def phase_kernels_bwd():
+    """The backward kernel against its plain version at every flash case and
+    dtype, q/k/v contiguous and as einsum views (do then strided too);
+    timings at MAIN_SHAPE.  Returns {dtype: {"max_abs_err", "max_row_rel",
+    "ms", "strided_ms", "plain_ms", "library_ms"}}."""
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.ops import attention as att
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            worst = worst_rel = 0.0
+            for (shape, causal, scale), strided in itertools.product(
+                    FLASH_CASES, (False, True)):
+                q, k, v = _qkv(shape, dtype, gen, strided)
+                do = _qkv(shape, dtype, gen, strided)[0]
+                got = att.flash_attention_backward(q, k, v, do, causal, scale)
+                ref = att.chunked_attention_grads(q, k, v, do, causal, scale)
+                torch.cuda.synchronize()
+                for g in got:
+                    if g.dtype != dtype or g.shape != q.shape:
+                        raise AssertionError("backward output %s %s at %s"
+                                             % (g.dtype, tuple(g.shape),
+                                                shape))
+                    if not torch.isfinite(g).all():
+                        raise AssertionError("non-finite backward output at "
+                                             "%s %s" % (shape, dtype))
+                err, rel = _grad_errors(got, ref)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                log("  bwd %s %-18s %-10s causal=%-5s scale=%-4s max|err| "
+                    "%.3g, row-relative %.3g"
+                    % (DTYPE_NAME[dtype], shape,
+                       "strided" if strided else "contiguous", causal, scale,
+                       err, rel))
+                if err > BWD_ATOL.get(dtype, math.inf) \
+                        or rel > BWD_ROW_RTOL[dtype]:
+                    raise AssertionError(
+                        "backward kernel disagrees with plain version at %s "
+                        "%s causal=%s scale=%s strided=%s: max|err| %.3g "
+                        "(atol %g), row-relative %.3g (limit %g)"
+                        % (shape, dtype, causal, scale, strided, err,
+                           BWD_ATOL.get(dtype, math.inf), rel,
+                           BWD_ROW_RTOL[dtype]))
+            q, k, v = _qkv(MAIN_SHAPE, dtype, gen)
+            do = _qkv(MAIN_SHAPE, dtype, gen)[0]
+            qs, ks, vs = _qkv(MAIN_SHAPE, dtype, gen, strided=True)
+            fns = {
+                "ms": lambda: att.flash_attention_backward(q, k, v, do, True),
+                "strided_ms": lambda: att.flash_attention_backward(
+                    qs, ks, vs, do, True),
+                "plain_ms": lambda: att.chunked_attention_grads(
+                    q, k, v, do, True),
+            }
+            rounds = [{n: cuda_ms(fn, iters=10) for n, fn in fns.items()}
+                      for _ in range(3)]
+            with torch.enable_grad():
+                lib = sorted(sdpa_backward_ms(q, k, v, do)
+                             for _ in range(3))
+            timings = {n: sorted(r[n] for r in rounds)[1] for n in fns}
+            timings["library_ms"] = lib[1]
+            bound, bound_by = attention_bwd_bound_ms(MAIN_SHAPE, dtype, True)
+            results[dtype] = dict(max_abs_err=worst, max_row_rel=worst_rel,
+                                  **timings)
+            log("bwd %s at %s causal: kernel %.4f ms (strided %.4f ms), "
+                "plain %.4f ms, SDPA backward %.4f ms (readings %s), "
+                "kernel/SDPA %.2f, bound %.4f ms (%s) (medians of rounds "
+                "%s), worst max|err| %.3g (atol %s), worst row-relative "
+                "%.3g (limit %g) over %d cases"
+                % (DTYPE_NAME[dtype], MAIN_SHAPE, timings["ms"],
+                   timings["strided_ms"], timings["plain_ms"],
+                   timings["library_ms"], ["%.4f" % t for t in lib],
+                   timings["ms"] / timings["library_ms"], bound, bound_by,
+                   [{n: "%.4f" % t for n, t in r.items()} for r in rounds],
+                   worst, BWD_ATOL.get(dtype, "-"), worst_rel,
+                   BWD_ROW_RTOL[dtype], 2 * len(FLASH_CASES)))
+            del q, k, v, do, qs, ks, vs
+        # the wrapper refuses what the kernel does not take
+        q, k, v = _qkv((1, 2, 64, 64), torch.bfloat16, gen)
+        for bad in (lambda: att.flash_attention_backward(q.transpose(2, 3),
+                                                         k, v, q),
+                    lambda: att.flash_attention_backward(q, k, v, q[:, :1]),
+                    lambda: att.flash_attention_backward(
+                        q.double(), k.double(), v.double(), q.double()),
+                    lambda: att.flash_attention_backward(q, k, v, q.cpu())):
+            try:
+                bad()
+            except MXNetError:
+                continue
+            raise AssertionError("flash_attention_backward accepted an input "
+                                 "it does not take")
+    torch.cuda.empty_cache()
     return results
 
 
@@ -386,6 +575,229 @@ def phase_parity(dtype, seed):
     if err > tol["logits"] or abs(nll_out - nll_ref) > tol["nll"]:
         raise AssertionError("LM on the card disagrees with the CPU (%s, "
                              "seed %d)" % (DTYPE_NAME[dtype], seed))
+
+
+# -- LM training (make_train_step, make_train_step_zero1) --------------------
+LM_TRAIN_WARMUP, LM_TRAIN_STEPS, LM_TRAIN_LR, LM_TRAIN_MOMENTUM = 3, 10, 0.1, 0.9
+LM_TRAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# Small LM trained on the card (through both kernels) and on the CPU
+# (through the plain versions) from one init: D = 64, so bf16 takes the
+# wgmma+tma forward; S = 200 is ragged against the kernels' 64-row tiles.
+LM_TRAIN_PARITY = dict(vocab=256, d_model=128, n_heads=2, d_ff=512,
+                       n_layers=2, max_len=256)
+LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ, LM_TRAIN_PARITY_STEPS = 2, 200, 3
+LM_TRAIN_PARITY_SEED = 4
+
+
+def lm_train_parity_init(seed=LM_TRAIN_PARITY_SEED):
+    """The parity LM's fp32 params and its batch, on the CPU."""
+    from mxnet_tpu_torch.models import transformer as tr
+    cfg = tr.TransformerLMConfig(**LM_TRAIN_PARITY)
+    gen = torch.Generator().manual_seed(seed)
+    params = tr.init_transformer_params(gen, cfg, device="cpu")
+    seq = torch.randint(0, cfg.vocab, (LM_TRAIN_PARITY_BATCH,
+                                       LM_TRAIN_PARITY_SEQ + 1),
+                        generator=gen)
+    return params, seq[:, :-1], seq[:, 1:]
+
+
+def lm_train_run(device, dtype, builder, params, tokens, labels,
+                 steps=LM_TRAIN_PARITY_STEPS):
+    """``steps`` steps of the parity LM on ``device`` in ``dtype`` from
+    ``params`` (cast and copied) through ``builder`` ("plain":
+    ``make_train_step``, "zero1": ``make_train_step_zero1``); returns one
+    {"loss", "params", "momenta"} per step, fp64 CPU copies."""
+    from mxnet_tpu_torch.models import transformer as tr
+    cfg = tr.TransformerLMConfig(dtype=dtype, **LM_TRAIN_PARITY)
+    # copies: the steps update the params in place
+    ps = {n: t.to(device=device, dtype=dtype, copy=True)
+          for n, t in params.items()}
+    tokens, labels = tr.place_batch(tokens, labels, device)
+    if builder == "plain":
+        step = tr.make_train_step(cfg, lr=LM_TRAIN_LR, device=device)
+        momenta = {}
+    else:
+        step, momenta = tr.make_train_step_zero1(
+            cfg, ps, lr=LM_TRAIN_LR, momentum=LM_TRAIN_MOMENTUM)
+    out = []
+    for _ in range(steps):
+        if builder == "plain":
+            ps, loss = step(ps, tokens, labels)
+        else:
+            ps, momenta, loss = step(ps, momenta, tokens, labels)
+        out.append({"loss": loss.item(),
+                    "params": {n: t.to("cpu", torch.float64, copy=True)
+                               for n, t in ps.items()},
+                    "momenta": {n: t.to("cpu", torch.float64, copy=True)
+                                for n, t in momenta.items()}})
+    return out
+
+
+def lm_train_diffs(a, b):
+    """Per step: |loss difference|, and the largest |difference| of the
+    params and of the momenta, between two runs of ``lm_train_run``."""
+    def largest(x, y):
+        return max(((x[n] - y[n]).abs().max().item() for n in x),
+                   default=0.0)
+    return [{"loss": abs(sa["loss"] - sb["loss"]),
+             "params": largest(sa["params"], sb["params"]),
+             "momenta": largest(sa["momenta"], sb["momenta"])}
+            for sa, sb in zip(a, b)]
+
+
+# Card against CPU, the parity LM, 3 steps of each step builder.  On the
+# CPU, before any card run (tools/torch_lm_cpu_spread.py), the port's
+# runs lie from its fp64 run by at most: fp32 params 1.5e-7, momenta
+# 5.3e-8, loss 0 (the loss is fp32 in both); bf16 params 8.9e-3 (about an
+# ulp at |p| near 1), momenta 1.8e-3, loss 2.2e-2 (bf16 logits).  A card
+# run as accurate as the CPU's lies as far from fp64, so the two lie at
+# most twice that apart; the card also differs by its kernels' own
+# roundings (the fp32 forward is within 3e-6 of its plain version at
+# phase 3's shapes; the bf16 tensor-core forward rounds P to bf16 before
+# P@V).  Limits: fp32 params 1e-6, momenta 5e-7, loss 4e-6 (8 ulps of a
+# loss near 5.3); bf16 params 2^-5 (4 ulps at |p| in [1, 2)), momenta
+# 8e-3, loss 0.1, about 4 times the spread.
+LM_TRAIN_PARITY_TOL = {
+    torch.float32: dict(loss=4e-6, params=1e-6, momenta=5e-7),
+    torch.bfloat16: dict(loss=0.1, params=2.0 ** -5, momenta=8e-3),
+}
+
+
+def phase_lm_train_parity(dtype):
+    """The parity LM trained on the card (kernels) and on the CPU (plain
+    versions) from one init, 3 steps of each step builder; the loss, the
+    params and the momenta held after each step."""
+    from mxnet_tpu_torch.ops import attention as att
+    flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
+    params, tokens, labels = lm_train_parity_init()
+    tol = LM_TRAIN_PARITY_TOL[dtype]
+    n_layers = LM_TRAIN_PARITY["n_layers"]
+    worst = {}
+    for builder in ("plain", "zero1"):
+        cpu = lm_train_run("cpu", dtype, builder, params, tokens, labels)
+        att.reset_launch_count()
+        att.reset_backward_launch_count()
+        card = lm_train_run("cuda", dtype, builder, params, tokens, labels)
+        launches = (att.launch_count(), att.backward_launch_count())
+        want = n_layers * LM_TRAIN_PARITY_STEPS
+        diffs = lm_train_diffs(card, cpu)
+        for i, d in enumerate(diffs):
+            log("LM train parity (%s, %s, S=%d, step %d): loss card %.6f cpu "
+                "%.6f, |diff| %.3g (limit %g); params max|diff| %.3g (limit "
+                "%g); momenta max|diff| %.3g (limit %g)"
+                % (flags, builder, LM_TRAIN_PARITY_SEQ, i + 1,
+                   card[i]["loss"], cpu[i]["loss"], d["loss"], tol["loss"],
+                   d["params"], tol["params"], d["momenta"],
+                   tol["momenta"]))
+        if launches != (want, want):
+            raise AssertionError("LM train parity on the card launched %s "
+                                 "(forward, backward) kernels, not %d each"
+                                 % (launches, want))
+        bad = [(i + 1, k) for i, d in enumerate(diffs) for k in d
+               if d[k] > tol[k]]
+        if bad:
+            raise AssertionError("LM training on the card disagrees with the "
+                                 "CPU (%s, %s) at (step, quantity) %s"
+                                 % (DTYPE_NAME[dtype], builder, bad))
+        worst[builder] = {k: max(d[k] for d in diffs) for k in diffs[0]}
+    torch.cuda.empty_cache()
+    return worst
+
+
+def lm_train_flops(cfg, batch, seq):
+    """FLOPs of one training step, counted from the code: 6 x the params
+    that enter matrix products (q, k, v, o, w1, w2 per layer and the
+    output projection; the embeddings are gathers) x tokens, plus the
+    attention: the forward's two products (4*D per (query, key) pair the
+    causal mask keeps) and the backward's five (10*D), per head and layer.
+    Returns (total, matmul part, attention part)."""
+    d, f = cfg.d_model, cfg.d_ff
+    matmul_params = cfg.n_layers * (4 * d * d + 2 * d * f) + d * cfg.vocab
+    matmul = 6 * matmul_params * batch * seq
+    pairs = seq * (seq + 1) // 2
+    attn = 14 * (d // cfg.n_heads) * pairs * batch * cfg.n_heads \
+        * cfg.n_layers
+    return matmul + attn, matmul, attn
+
+
+def phase_lm_train(dtype):
+    """GPT-2-small-width LM training on the card through both step
+    builders: LM_TRAIN_WARMUP + LM_TRAIN_STEPS steps on one seeded batch of
+    8 x 1024; ms/step, tokens/s and share of peak; the loss must stay
+    finite and fall; n_layers forward and n_layers backward launches a
+    step.  Returns {builder: {...}} and the kernels' launches."""
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.ops import attention as att
+    flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
+    cfg = tr.TransformerLMConfig(dtype=dtype, **GPT2_SMALL)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seq = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ + 1),
+                        generator=gen, device="cuda")
+    tokens, labels = tr.place_batch(seq[:, :-1], seq[:, 1:])
+    flops, matmul_flops, attn_flops = lm_train_flops(cfg, LM_BATCH, LM_SEQ)
+    out, totals = {}, [0, 0]
+    for builder in ("plain", "zero1"):
+        params = tr.init_transformer_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        # the steps update params (and momenta) in place
+        if builder == "plain":
+            step, momenta = tr.make_train_step(cfg, lr=LM_TRAIN_LR), None
+
+            def run():
+                return step(params, tokens, labels)[-1]
+        else:
+            step, momenta = tr.make_train_step_zero1(
+                cfg, params, lr=LM_TRAIN_LR, momentum=LM_TRAIN_MOMENTUM)
+
+            def run():
+                return step(params, momenta, tokens, labels)[-1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(LM_TRAIN_WARMUP + LM_TRAIN_STEPS):
+            att.reset_launch_count()
+            att.reset_backward_launch_count()
+            t0 = time.perf_counter()
+            losses.append(run())
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            launches = (att.launch_count(), att.backward_launch_count())
+            if launches != (cfg.n_layers, cfg.n_layers):
+                raise AssertionError(
+                    "LM train step (%s, %s) launched %s (forward, backward) "
+                    "kernels, not %d each" % (DTYPE_NAME[dtype], builder,
+                                              launches, cfg.n_layers))
+            totals[0] += launches[0]
+            totals[1] += launches[1]
+        losses = [x.item() for x in losses]
+        ms = sorted(times[LM_TRAIN_WARMUP:])[LM_TRAIN_STEPS // 2]
+        res = dict(step_ms_median=ms, step_ms_first=times[:LM_TRAIN_WARMUP],
+                   tokens_s=LM_BATCH * LM_SEQ / ms * 1e3,
+                   peak_share=flops / (ms / 1e3) / PEAK_FLOPS[dtype],
+                   losses=losses,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[builder] = res
+        log("LM train %s (%s), %s step, %d layers, batch %dx%d: ms/step "
+            "median of %d %.3f, first %d %s, %.1f tokens/s, %.2f%% of the %g "
+            "TFLOP/s peak at %.4g TFLOP/step (matmul %.4g, attention fwd+bwd "
+            "%.4g); loss %s; peak memory %.1f GB; launches per step %d "
+            "forward, %d backward"
+            % (DTYPE_NAME[dtype], flags, builder, cfg.n_layers, LM_BATCH,
+               LM_SEQ, LM_TRAIN_STEPS, ms, LM_TRAIN_WARMUP,
+               ["%.1f" % t for t in times[:LM_TRAIN_WARMUP]],
+               res["tokens_s"], 100 * res["peak_share"],
+               PEAK_FLOPS[dtype] / 1e12, flops / 1e12, matmul_flops / 1e12,
+               attn_flops / 1e12, ["%.4f" % x for x in losses],
+               res["peak_mem_gb"], cfg.n_layers, cfg.n_layers))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError("non-finite LM train loss (%s, %s): %s"
+                                 % (DTYPE_NAME[dtype], builder, losses))
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the LM train loss did not fall (%s, %s): "
+                                 "%s" % (DTYPE_NAME[dtype], builder, losses))
+        del params, momenta, step, run
+        torch.cuda.empty_cache()
+    return out, tuple(totals)
 
 
 def scale_bound_ms(numel, dtype):
@@ -942,6 +1354,7 @@ def main():
     card = phase_device()
     phase_build()
     kern = phase_kernels()
+    kern_bwd = phase_kernels_bwd()
     scale_kern = phase_scale_kernel()
     launches = {dt: phase_lm(dt) for dt in DTYPE_NAME}
     for dt, seed in itertools.product((torch.float32, torch.bfloat16),
@@ -953,8 +1366,14 @@ def main():
     parity = phase_resnet_parity()
     resnet = [phase_resnet_train(dt) for dt in (torch.float32,
                                                 torch.bfloat16)]
+    lm_train, train_launches = {}, {}
+    for dt in LM_TRAIN_DTYPES:
+        lm_train[dt], train_launches[dt] = phase_lm_train(dt)
+    train_parity = {dt: phase_lm_train_parity(dt)
+                    for dt in LM_TRAIN_PARITY_TOL}
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import scale as sc
+    n_layers = GPT2_SMALL["n_layers"]
     entries = []
     for dt in DTYPE_NAME:
         bound_ms, bound_by = attention_bound_ms(MAIN_SHAPE, dt, True)
@@ -964,7 +1383,10 @@ def main():
             "design": kern[dt]["design"],
             "source": att.KERNEL_SOURCES[kern[dt]["design"]],
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:41",
-            "launches": launches[dt],
+            "launches": launches[dt] + train_launches[dt][0],
+            "inference_launches": launches[dt],
+            "train_launches": train_launches[dt][0],
+            "train_launches_per_step": n_layers,
             "max_abs_err": kern[dt]["max_abs_err"],
             "max_row_rel_err": kern[dt]["max_row_rel"],
             "ms": kern[dt]["ms"],
@@ -973,6 +1395,27 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": kern[dt]["library_ms"],
+            "shape": list(MAIN_SHAPE),
+            "causal": True,
+        })
+    for dt in DTYPE_NAME:
+        bound_ms, bound_by = attention_bwd_bound_ms(MAIN_SHAPE, dt, True)
+        entries.append({
+            "name": "flash_attn_bwd[%s]" % DTYPE_NAME[dt],
+            "route": "cuda",
+            "design": "simt, three passes (row statistics, dq, dk+dv)",
+            "source": att.BACKWARD_SOURCE,
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:198",
+            "launches": train_launches[dt][1],
+            "train_launches_per_step": n_layers,
+            "max_abs_err": kern_bwd[dt]["max_abs_err"],
+            "max_row_rel_err": kern_bwd[dt]["max_row_rel"],
+            "ms": kern_bwd[dt]["ms"],
+            "strided_ms": kern_bwd[dt]["strided_ms"],
+            "plain_ms": kern_bwd[dt]["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": kern_bwd[dt]["library_ms"],
             "shape": list(MAIN_SHAPE),
             "causal": True,
         })
@@ -996,6 +1439,10 @@ def main():
     log(card)
     print(json.dumps({"resnet50": {"card": card, "parity": parity,
                                    "train": resnet}}))
+    print(json.dumps({"lm_train": {
+        "card": card, "batch": LM_BATCH, "seq": LM_SEQ,
+        "train": {DTYPE_NAME[dt]: r for dt, r in lm_train.items()},
+        "parity": {DTYPE_NAME[dt]: r for dt, r in train_parity.items()}}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ A second package beside ``mxnet_tpu`` (the JAX reference).  It imports
 JAX package becomes a kernel written by hand for Hopper (``sm_90a``),
 built from the sources under ``ops/csrc`` at first use.
 
-Ported so far: transformer-LM inference (``models.transformer``) through
-the flash-attention forward kernel (``ops.attention``); the MXNet
+Ported so far: the transformer LM (``models.transformer``), inference and
+the train steps (plain SGD, and SGD with momentum through the one-rank
+ZeRO-1 update of ``parallel.zero``), through the flash-attention forward
+and backward kernels (``ops.attention``); the MXNet
 substrate -- ``nd`` (NDArray, op registry, ``autograd``), ``sym``
 (Symbol) and bound executors, ``initializer``, ``optimizer`` -- and
 user-kernel registration (``rtc``) with the scale kernel
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
-from . import ops, models
+from . import ops, parallel, models
 from . import autograd, random, ndarray, symbol, executor, rtc
 from . import initializer, optimizer, test_utils
 from . import io, metric, gluon, module
@@ -28,6 +30,6 @@ from . import symbol as sym
 from . import initializer as init
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "ops", "models", "autograd", "random", "ndarray", "nd", "symbol",
-           "sym", "executor", "rtc", "initializer", "init", "optimizer",
+           "ops", "parallel", "models", "autograd", "random", "ndarray",
+           "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
            "test_utils", "io", "metric", "gluon", "module", "mod"]

@@ -1,13 +1,15 @@
-"""Causal transformer LM, inference path, in PyTorch.
+"""Causal transformer LM in PyTorch: inference and the train steps.
 
 Counterpart of ``mxnet_tpu/models/transformer.py`` on one device: the same
 parameter names, shapes and layouts (``wq`` [d_model, n_heads, hd], ``wo``
 [n_heads, hd, d_model]), the same pre-norm blocks with RMSNorm and the
-tanh-approximated GELU, and the same mean next-token NLL.  Attention goes
-through :func:`mxnet_tpu_torch.ops.flash_attention`: the CUDA kernel for a
-tensor on the card, at every sequence length, and the plain version on
-the CPU.  The mesh (tensor/sequence-parallel) path and the train steps
-are not ported yet.
+tanh-approximated GELU, the same mean next-token NLL, and the same train
+steps: plain SGD (:func:`make_train_step`) and SGD with momentum through
+the ZeRO-1 update (:func:`make_train_step_zero1`, one rank).  Attention
+goes through :func:`mxnet_tpu_torch.ops.flash_attention`, forward and
+backward: the CUDA kernels for a tensor on the card, at every sequence
+length, and the plain versions on the CPU.  The mesh
+(data/tensor/sequence-parallel) path is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ from torch import nn
 from ..base import MXNetError
 from ..context import as_device
 from ..ops.attention import flash_attention
+from ..parallel import zero
 
 __all__ = ["TransformerLMConfig", "TransformerLM", "init_transformer_params",
            "params_from_jax", "transformer_forward", "nll_from_logits",
-           "lm_nll"]
+           "lm_nll", "make_train_step", "make_train_step_zero1",
+           "place_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +162,102 @@ def lm_nll(params, tokens, labels, cfg):
     """Mean next-token NLL in fp32 (the JAX package's ``_lm_loss_fn``
     value, without a gradient)."""
     return nll_from_logits(transformer_forward(params, tokens, cfg), labels)
+
+
+def _lm_loss_fn(cfg):
+    """Mean next-token NLL in fp32: the loss of both train steps."""
+
+    def loss_of(params, tokens, labels):
+        return nll_from_logits(transformer_forward(params, tokens, cfg),
+                               labels)
+
+    return loss_of
+
+
+def _loss_and_grads(loss_of, params, tokens, labels):
+    """The loss and the gradient of every parameter (in ``params``'
+    order), through torch autograd and so through the attention kernels'
+    backward."""
+    leaves = [p.detach().requires_grad_() for p in params.values()]
+    with torch.enable_grad():
+        loss = loss_of(dict(zip(params, leaves)), tokens, labels)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), list(grads)
+
+
+def _on_device(dev, params, tokens, labels):
+    for name, p in params.items():
+        if p.device != dev:
+            raise MXNetError("train step on %s: param %s lies on %s"
+                             % (dev, name, p.device))
+    return tokens.to(dev), labels.to(dev)
+
+
+def make_train_step(cfg, lr=0.1, device=None):
+    """The train step ``step(params, tokens, labels) -> (new_params,
+    loss)``: the gradients of the mean next-token NLL, then
+    ``p - lr * g`` for every parameter, as the JAX package's
+    ``make_train_step`` on one device.  ``device`` (default: the first
+    CUDA card) is where the params must lie; tokens and labels are moved
+    there.  The update is in place, so ``new_params`` is ``params``: the
+    JAX step donates them, so callers already treat the old dict as
+    consumed."""
+    dev = as_device(device)
+    loss_of = _lm_loss_fn(cfg)
+
+    def step(params, tokens, labels):
+        tokens, labels = _on_device(dev, params, tokens, labels)
+        loss, grads = _loss_and_grads(loss_of, params, tokens, labels)
+        ps = list(params.values())
+        with torch.no_grad():
+            # lr * g rounded to the param's dtype, then subtracted: the
+            # JAX package's order of operations
+            torch._foreach_sub_(ps, torch._foreach_mul(
+                [g.to(p.dtype) for p, g in zip(ps, grads)], lr))
+        return params, loss
+
+    return step
+
+
+def make_train_step_zero1(cfg, params, lr=0.1, momentum=0.9, group=None):
+    """SGD with momentum through the ZeRO-1 update (``parallel.zero``), as
+    the JAX package's ``make_train_step_zero1``: ``m = momentum * m + g``,
+    then ``p = p - lr * m``.  ``group`` is the data-parallel group (None:
+    one rank, where no update shards and the step is the replicated
+    update).  Returns ``(step, momenta)``, the momenta zeros like each
+    param, with ``step(params, momenta, tokens, labels) -> (new_params,
+    new_momenta, loss)`` on the device the params lie on, updating both
+    dicts in place."""
+    momenta = {n: torch.zeros_like(p) for n, p in params.items()}
+    dev = next(iter(params.values())).device
+    loss_of = _lm_loss_fn(cfg)
+
+    def momentum_sgd(ps, gs, ms, hyper):
+        # elementwise, in the JAX formula's order: momentum * m rounded,
+        # + g rounded; lr * m rounded, subtracted from p
+        torch._foreach_mul_(ms, momentum)
+        torch._foreach_add_(ms, [g.to(m.dtype) for g, m in zip(gs, ms)])
+        torch._foreach_sub_(ps, torch._foreach_mul(
+            [m.to(p.dtype) for p, m in zip(ps, ms)], lr))
+        return ps, ms
+
+    def step(params, momenta, tokens, labels):
+        tokens, labels = _on_device(dev, params, tokens, labels)
+        loss, grads = _loss_and_grads(loss_of, params, tokens, labels)
+        with torch.no_grad():
+            zero.sharded_update(momentum_sgd, list(params.values()), grads,
+                                [momenta[n] for n in params], {}, group)
+        return params, momenta, loss
+
+    return step, momenta
+
+
+def place_batch(tokens, labels, device=None):
+    """A [B, S] token batch and its labels (numpy arrays or tensors) as
+    int64 tensors on ``device`` (default: the first CUDA card)."""
+    dev = as_device(device)
+    return tuple(torch.as_tensor(x).to(device=dev, dtype=torch.long)
+                 for x in (tokens, labels))
 
 
 class TransformerLM(nn.Module):

@@ -21,6 +21,8 @@ FORBIDDEN = {"jax", "jaxlib", "mxnet_tpu"}
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "torch_lm_breakdown.py"),
+             os.path.join(REPO, "tools", "torch_lm_train_breakdown.py"),
+             os.path.join(REPO, "tools", "torch_lm_cpu_spread.py"),
              os.path.join(REPO, "tools", "torch_mlp_breakdown.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -32,7 +34,7 @@ def test_import_leaves_no_jax_in_a_clean_process():
             "mxnet_tpu_torch.ops._build, mxnet_tpu_torch.ndarray, "
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
             "mxnet_tpu_torch.rtc, mxnet_tpu_torch.optimizer, "
-            "mxnet_tpu_torch.initializer; "
+            "mxnet_tpu_torch.initializer, mxnet_tpu_torch.parallel.zero; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (sorted(FORBIDDEN),))
     env = dict(os.environ, PYTHONPATH=REPO)
