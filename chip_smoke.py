@@ -19,10 +19,12 @@ Phases, each fatal on failure:
    makes (strides (S*H*D, D, H*D, 1)), through whichever kernel
    ``attention.design`` picks (tensor cores for bf16/fp16 at D 64 and
    128, SIMT otherwise);
-   the flash-attention backward kernel's dq, dk and dv against
+   the flash-attention backward kernels' dq, dk and dv against
    ``chunked_attention_grads`` at the same cases, dtypes and layouts
    (``do`` strided too where q, k, v are), held to ``BWD_ATOL`` and
-   ``BWD_ROW_RTOL``;
+   ``BWD_ROW_RTOL``, through whichever kernel ``attention.design_backward``
+   picks (tensor cores for bf16/fp16 at D 64 and 128, each such call
+   repeated and held bit for bit, SIMT otherwise);
    scale at numel 0, 1, 7, 64 x 128 (the MLP's), 1000003 (also
    misaligned by one element) and 8192 x 8192, alpha 0.5, 3.0, -1.25
    and two that fp32 cannot hold exactly (0.1, 1/3), bit for bit.
@@ -208,7 +210,8 @@ def phase_build():
     from mxnet_tpu_torch.ops import _build
     t0 = time.perf_counter()
     seconds = _build.build_all(["flash_attn_fwd", "flash_attn_fwd_sm90",
-                                "flash_attn_bwd", "scale"])
+                                "flash_attn_bwd", "flash_attn_bwd_sm90",
+                                "scale"])
     log("build: %s in %.1f s wall" % (seconds, time.perf_counter() - t0))
     for stem in seconds:
         log("ptxas (%s):\n%s" % (stem, _build.build_info(stem)["log"].strip()))
@@ -336,11 +339,28 @@ def phase_kernels():
 # differ by that fp32 noise round to the same value or to neighbours one
 # ulp apart, and one ulp is at most 2u of the row's largest |ref| (u =
 # 2^-8 and 2^-11): row-relative 2^-7 and 2^-10, plus the fp32 rows'
-# 2^-8.  Measured: bf16 7.75e-3, fp16 9.7e-4, both at MAIN_SHAPE.
+# 2^-8.  Measured: bf16 7.75e-3, fp16 9.7e-4, both at MAIN_SHAPE (the SIMT
+# kernel).
+# bf16/fp16 at D 64 and 128 go through the tensor-core kernel, which also
+# rounds P and dS to the input type where they enter a product (p, dp,
+# delta and ds stay fp32).  A CPU model of those two roundings against
+# chunked_attention_grads (tools/torch_flash_bwd_cpu_model.py) reads at
+# most bf16 0.0094 and fp16 0.0029 at (2, 4, 200, 64) causal sm_scale 0.5
+# and (1, 3, 130, 128) causal over ten numpy seeds, under the same limits.
+# fp16 rows whose largest |ref| lies below fp16's smallest normal, 2^-14,
+# hold subnormal outputs with fewer than 11 bits, so a row's denominator is
+# floored at torch.finfo(dtype).tiny (2^-14 for fp16; 1.2e-38 for fp32 and
+# bf16, which changes nothing for them).
 BWD_ATOL = {torch.float32: 1e-4}
 BWD_ROW_RTOL = {torch.float32: 2.0 ** -8,
                 torch.bfloat16: 2.0 ** -7 + 2.0 ** -8,
                 torch.float16: 2.0 ** -10 + 2.0 ** -8}
+
+
+BWD_DESIGN_NOTE = {
+    "simt": "simt, three passes (row statistics, dq, dk+dv)",
+    "wgmma+tma": "wgmma+tma, two launches (row statistics + dq, dk + dv)",
+}
 
 
 def attention_bwd_bound_ms(shape, dtype, causal):
@@ -358,14 +378,17 @@ def attention_bwd_bound_ms(shape, dtype, causal):
 
 
 def _grad_errors(got, ref):
-    """Largest |err| and largest row-relative error over dq, dk, dv."""
-    worst = worst_rel = 0.0
+    """Largest |err| over dq, dk, dv, and the largest row-relative error of
+    each; a row's denominator is its largest |ref|, floored at the smallest
+    normal of the grads' dtype (see BWD_ROW_RTOL)."""
+    worst, rels = 0.0, []
     for g, r in zip(got, ref):
         diff = (g.float() - r.float()).abs()
         worst = max(worst, diff.max().item())
-        worst_rel = max(worst_rel, (diff.amax(-1) / r.float().abs().amax(-1)
-                                    .clamp_min(1e-30)).max().item())
-    return worst, worst_rel
+        floor = torch.finfo(r.dtype).tiny
+        rels.append((diff.amax(-1) / r.float().abs().amax(-1)
+                     .clamp_min(floor)).max().item())
+    return worst, rels
 
 
 def sdpa_backward_ms(q, k, v, do):
@@ -386,10 +409,12 @@ def sdpa_backward_ms(q, k, v, do):
 
 
 def phase_kernels_bwd():
-    """The backward kernel against its plain version at every flash case and
-    dtype, q/k/v contiguous and as einsum views (do then strided too);
-    timings at MAIN_SHAPE.  Returns {dtype: {"max_abs_err", "max_row_rel",
-    "ms", "strided_ms", "plain_ms", "library_ms"}}."""
+    """The backward kernel that ``design_backward`` picks against its plain
+    version at every flash case and dtype, q/k/v contiguous and as einsum
+    views (do then strided too), and the tensor-core kernel's two calls on
+    the same inputs bit for bit; timings at MAIN_SHAPE.  Returns {dtype:
+    {"max_abs_err", "max_row_rel", "ms", "strided_ms", "plain_ms",
+    "library_ms", "design"}}."""
     from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.ops import attention as att
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -403,6 +428,14 @@ def phase_kernels_bwd():
                 do = _qkv(shape, dtype, gen, strided)[0]
                 got = att.flash_attention_backward(q, k, v, do, causal, scale)
                 ref = att.chunked_attention_grads(q, k, v, do, causal, scale)
+                if att.design_backward(dtype, shape[-1]) == "wgmma+tma":
+                    again = att.flash_attention_backward(q, k, v, do, causal,
+                                                         scale)
+                    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                        raise AssertionError(
+                            "two backward calls on the same inputs differ at "
+                            "%s %s causal=%s scale=%s strided=%s"
+                            % (shape, dtype, causal, scale, strided))
                 torch.cuda.synchronize()
                 for g in got:
                     if g.dtype != dtype or g.shape != q.shape:
@@ -412,13 +445,14 @@ def phase_kernels_bwd():
                     if not torch.isfinite(g).all():
                         raise AssertionError("non-finite backward output at "
                                              "%s %s" % (shape, dtype))
-                err, rel = _grad_errors(got, ref)
+                err, rels = _grad_errors(got, ref)
+                rel = max(rels)
                 worst, worst_rel = max(worst, err), max(worst_rel, rel)
-                log("  bwd %s %-18s %-10s causal=%-5s scale=%-4s max|err| "
-                    "%.3g, row-relative %.3g"
+                log("  bwd %s %-18s %-10s causal=%-5s scale=%-4s %-9s max|err| "
+                    "%.3g, row-relative %.3g (dq %.3g, dk %.3g, dv %.3g)"
                     % (DTYPE_NAME[dtype], shape,
                        "strided" if strided else "contiguous", causal, scale,
-                       err, rel))
+                       att.design_backward(dtype, shape[-1]), err, rel, *rels))
                 if err > BWD_ATOL.get(dtype, math.inf) \
                         or rel > BWD_ROW_RTOL[dtype]:
                     raise AssertionError(
@@ -446,14 +480,15 @@ def phase_kernels_bwd():
             timings = {n: sorted(r[n] for r in rounds)[1] for n in fns}
             timings["library_ms"] = lib[1]
             bound, bound_by = attention_bwd_bound_ms(MAIN_SHAPE, dtype, True)
+            design = att.design_backward(dtype, MAIN_SHAPE[-1])
             results[dtype] = dict(max_abs_err=worst, max_row_rel=worst_rel,
-                                  **timings)
-            log("bwd %s at %s causal: kernel %.4f ms (strided %.4f ms), "
+                                  design=design, **timings)
+            log("bwd %s at %s causal (%s): kernel %.4f ms (strided %.4f ms), "
                 "plain %.4f ms, SDPA backward %.4f ms (readings %s), "
                 "kernel/SDPA %.2f, bound %.4f ms (%s) (medians of rounds "
                 "%s), worst max|err| %.3g (atol %s), worst row-relative "
                 "%.3g (limit %g) over %d cases"
-                % (DTYPE_NAME[dtype], MAIN_SHAPE, timings["ms"],
+                % (DTYPE_NAME[dtype], MAIN_SHAPE, design, timings["ms"],
                    timings["strided_ms"], timings["plain_ms"],
                    timings["library_ms"], ["%.4f" % t for t in lib],
                    timings["ms"] / timings["library_ms"], bound, bound_by,
@@ -461,7 +496,7 @@ def phase_kernels_bwd():
                    worst, BWD_ATOL.get(dtype, "-"), worst_rel,
                    BWD_ROW_RTOL[dtype], 2 * len(FLASH_CASES)))
             del q, k, v, do, qs, ks, vs
-        # the wrapper refuses what the kernel does not take
+        # the wrapper refuses what the kernels do not take
         q, k, v = _qkv((1, 2, 64, 64), torch.bfloat16, gen)
         for bad in (lambda: att.flash_attention_backward(q.transpose(2, 3),
                                                          k, v, q),
@@ -1403,8 +1438,8 @@ def main():
         entries.append({
             "name": "flash_attn_bwd[%s]" % DTYPE_NAME[dt],
             "route": "cuda",
-            "design": "simt, three passes (row statistics, dq, dk+dv)",
-            "source": att.BACKWARD_SOURCE,
+            "design": BWD_DESIGN_NOTE[kern_bwd[dt]["design"]],
+            "source": att.BACKWARD_SOURCES[kern_bwd[dt]["design"]],
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:198",
             "launches": train_launches[dt][1],
             "train_launches_per_step": n_layers,

@@ -8,16 +8,16 @@ initializer's ``dumps()``) wins; else the name decides the handler:
 ``*_weight`` takes the initializer's draw, ``*_bias``/``*_beta`` and
 ``running_mean``/``moving_mean`` zeros, ``*_gamma`` and
 ``running_var``/``moving_var`` ones.
-Draws come from the array's device generator (``random.generator``),
-made on the array's device; the JAX package draws with numpy, so the two
-give different numbers from one seed.
+Draws are made on the host by the numpy generator ``random.host_rng()``,
+with the JAX package's calls in its order (``uniform(-s, s, shape)``,
+``normal(0, sigma, shape)``), and written into the array once
+(``arr[:] = draw``, one copy to its device): after ``random.seed(n)`` in
+both packages a seeded initializer gives the JAX package's weights.
 """
 from __future__ import annotations
 
 import json
 import math
-
-import torch
 
 from .base import MXNetError
 from . import random as _random
@@ -66,20 +66,6 @@ _SUFFIX_DISPATCH = (
       "min", "max"), "_init_zero"),
     (("moving_var", "running_var"), "_init_one"),
 )
-
-
-def _uniform(arr, low, high):
-    t = arr._data
-    draw = torch.rand(t.shape, generator=_random.generator(arr.context),
-                      device=t.device, dtype=torch.float32)
-    arr._set_data(draw * (high - low) + low)
-
-
-def _normal(arr, sigma):
-    t = arr._data
-    draw = torch.randn(t.shape, generator=_random.generator(arr.context),
-                       device=t.device, dtype=torch.float32)
-    arr._set_data(draw * sigma)
 
 
 class Initializer:
@@ -152,7 +138,8 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, _, arr):
-        _uniform(arr, -self.scale, self.scale)
+        arr[:] = _random.host_rng().uniform(-self.scale, self.scale,
+                                            arr.shape)
 
 
 @register
@@ -164,7 +151,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, _, arr):
-        _normal(arr, self.sigma)
+        arr[:] = _random.host_rng().normal(0, self.sigma, arr.shape)
 
 
 @register
@@ -193,8 +180,8 @@ class Xavier(Initializer):
         sigma = math.sqrt(self.magnitude
                           / self._FACTORS[self.factor_type](fan_in, fan_out))
         if self.rnd_type == "uniform":
-            _uniform(arr, -sigma, sigma)
+            arr[:] = _random.host_rng().uniform(-sigma, sigma, arr.shape)
         elif self.rnd_type == "gaussian":
-            _normal(arr, sigma)
+            arr[:] = _random.host_rng().normal(0, sigma, arr.shape)
         else:
             raise ValueError("Unknown random type")

@@ -8,6 +8,16 @@ place and never binds a new one: an optimizer or executor that holds the
 NDArray sees the new values.  Work is asynchronous on the card as torch
 makes it; ``asnumpy`` is the sync point.
 
+Results are new arrays, never views: where ``invoke`` or an NDArray
+method would wrap a torch result that shares storage with an input (an
+index, a slice, ``reshape``, ``Reshape``, ``Flatten``, an ``astype`` to
+the same type), the result is cloned (``_owned``), so writing into it
+leaves its parent as it was.  Writes go only through ``__setitem__``,
+``out=`` and the in-place operators.  This is the JAX package's rule
+(its arrays are immutable); MXNet 0.12 itself returned views for
+first-axis slices and reshapes (SURVEY.md §2.1), and the port follows
+the JAX package it is held to.
+
 ``invoke`` runs a registered op on NDArrays (reference
 ``Imperative::Invoke``); inside ``autograd.record()`` it runs under
 torch's grad mode so that ``backward`` can differentiate it.
@@ -25,6 +35,19 @@ from ..ops.registry import get_op
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
            "concatenate"]
+
+
+def _owned(t, sources):
+    """``t``, cloned when it shares storage with one of the tensors
+    ``sources`` (a view or the tensor itself), so that an NDArray result
+    never aliases its inputs.  Shape inference's meta tensors have no
+    storage and pass as they are."""
+    if t.device.type == "meta":
+        return t
+    ptr = t.untyped_storage().data_ptr()
+    if any(x.untyped_storage().data_ptr() == ptr for x in sources):
+        return t.clone()
+    return t
 
 
 class NDArray:
@@ -118,15 +141,16 @@ class NDArray:
 
     # -- conversion / copy -------------------------------------------------
     def _derive(self, fn):
-        """``fn(tensor)`` as a new NDArray; recorded for autograd inside
+        """``fn(tensor)`` as a new NDArray that owns its storage (a copy
+        where ``fn`` gave a view); recorded for autograd inside
         ``record()``, cut from the graph outside it."""
         if ag.is_recording():
             with torch.enable_grad():
-                out = fn(self._data)
+                out = _owned(fn(self._data), [self._data])
             ag._note_inputs([self], [0])
         else:
             with torch.no_grad():
-                out = fn(self._data)
+                out = _owned(fn(self._data), [self._data])
         return NDArray(out, self._ctx)
 
     def astype(self, dtype):
@@ -287,22 +311,29 @@ def invoke(op, inputs, attrs, out=None):
     rng = _random.generator(ctx) if op.needs_rng else None
     train = ag.is_training()
     diff_idx = [i for i in range(len(inputs)) if i not in op.nondiff_inputs]
+    n_visible = op.n_visible_outputs(attrs)
     if ag.is_recording() and diff_idx:
         with torch.enable_grad():
             tin = [t if i in diff_idx else t.detach()
                    for i, t in enumerate(tin)]
             out_vals = op.traceable(attrs, train_mode=train, rng=rng)(*tin)
+            if out is None:
+                out_vals = [_owned(v, tin) if i < n_visible else v
+                            for i, v in enumerate(out_vals)]
         ag._note_inputs(inputs, diff_idx)
     else:
         with torch.no_grad():
             out_vals = op.apply(tin, attrs, train_mode=train, rng=rng)
+            if out is None:
+                out_vals = [_owned(v, tin) if i < n_visible else v
+                            for i, v in enumerate(out_vals)]
 
     # aux-state write-back (optimizer state slots, BatchNorm moving stats)
     for aux_in, out_idx in op.aux_updates.items():
         if aux_in < len(inputs):
             inputs[aux_in]._set_data(out_vals[out_idx])
 
-    visible = [NDArray(v, ctx) for v in out_vals[:op.n_visible_outputs(attrs)]]
+    visible = [NDArray(v, ctx) for v in out_vals[:n_visible]]
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outs, visible):

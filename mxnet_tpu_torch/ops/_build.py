@@ -2,10 +2,11 @@
 
 Each ``csrc/<stem>.cu`` compiles on its own into a shared library with a
 plain ``extern "C"`` launcher, for ``sm_90a``, and is loaded with
-``ctypes``.  The build runs at first use, into ``mxnet_tpu_torch/_build/``
-(listed in ``.gitignore``), under a name that carries a hash of the
-source and flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time.
+``ctypes``; headers (``csrc/*.cuh``) hold what several sources share.
+The build runs at first use, into ``mxnet_tpu_torch/_build/`` (listed in
+``.gitignore``), under a name that carries a hash of the source, the
+headers and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -49,9 +50,12 @@ def _nvcc():
 
 def _compile(stem):
     src = os.path.join(CSRC_DIR, stem + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, "lib%s-%s.so" % (stem, digest))
     if os.path.exists(out):

@@ -12,10 +12,15 @@ The forward (:func:`design` picks one):
 - ``csrc/flash_attn_fwd.cu`` ("simt"): fp32 at every D, and bf16/fp16 at
   D in {16, 32}, on the CUDA cores.
 
-The backward, ``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_backward`,
-SIMT, every dtype and D), recomputes the scores from the saved q, k and v
-as the JAX package's ``_chunked_attn_grads`` does; its plain version is
-:func:`chunked_attention_grads`.
+The backward (:func:`flash_attention_backward`; :func:`design_backward`
+picks one) recomputes the scores from the saved q, k and v as the JAX
+package's ``_chunked_attn_grads`` does; its plain version is
+:func:`chunked_attention_grads`:
+
+- ``csrc/flash_attn_bwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16 at D in
+  {64, 128}, on the tensor cores, in two launches;
+- ``csrc/flash_attn_bwd.cu`` ("simt"): fp32 at every D, and bf16/fp16 at
+  D in {16, 32}, three passes on the CUDA cores.
 
 The kernels read q, k and v through their strides (:func:`check_layout`
 says which layouts they take), so the model's einsum views need no copy.
@@ -37,13 +42,17 @@ __all__ = ["flash_attention", "flash_attention_reference", "FlashAttention",
            "flash_attention_backward", "chunked_attention_grads",
            "launch_count", "reset_launch_count", "backward_launch_count",
            "reset_backward_launch_count", "check_layout", "design",
-           "KERNEL_SOURCES", "BACKWARD_SOURCE", "HEAD_DIMS"]
+           "design_backward", "KERNEL_SOURCES", "BACKWARD_SOURCES",
+           "HEAD_DIMS"]
 
 KERNEL_SOURCES = {
     "simt": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd.cu",
     "wgmma+tma": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu",
 }
-BACKWARD_SOURCE = "mxnet_tpu_torch/ops/csrc/flash_attn_bwd.cu"
+BACKWARD_SOURCES = {
+    "simt": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+    "wgmma+tma": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu",
+}
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG = -1e30
@@ -80,6 +89,13 @@ def design(dtype, head_dim):
     if dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128):
         return "wgmma+tma"
     return "simt"
+
+
+def design_backward(dtype, head_dim):
+    """Which backward kernel takes q, k, v of ``dtype`` at head dim
+    ``head_dim``, by the same rule as :func:`design`: ``"wgmma+tma"``
+    (16-bit at D 64 or 128) or ``"simt"``."""
+    return design(dtype, head_dim)
 
 
 def _kernel(source, n_tensors):
@@ -189,16 +205,21 @@ def _forward_kernel(q, k, v, causal, sm_scale):
 
 
 def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
-    """The backward kernel (``csrc/flash_attn_bwd.cu``): dq, dk, dv of
-    attention(q, k, v) under the output gradient ``do``, each a new
+    """The backward kernel that :func:`design_backward` names: dq, dk, dv
+    of attention(q, k, v) under the output gradient ``do``, each a new
     contiguous [B, H, S, D] tensor in q's dtype.
 
     q, k and v are taken as :func:`flash_attention` takes them on the card
     (through their strides); ``do`` may have any layout and is copied to
-    contiguous when the kernel cannot read it as it is.  The kernel
-    recomputes the scores in fp32 from the loaded values, as
-    :func:`chunked_attention_grads` (its plain version) does, in three
-    passes: the row statistics, dq, then dk and dv.  CUDA tensors only.
+    contiguous when the kernel cannot read it as it is.  Both kernels
+    recompute the scores in fp32 from the loaded values, as
+    :func:`chunked_attention_grads` (their plain version) does, and keep
+    the row statistics (max, 1/sum and sum_j p_ij dp_ij) in fp32 scratch.
+    ``"wgmma+tma"`` (``csrc/flash_attn_bwd_sm90.cu``) runs two launches,
+    the statistics and dq, then dk and dv, with P and dS rounded to the
+    input type where they enter the tensor cores; ``"simt"``
+    (``csrc/flash_attn_bwd.cu``) runs three passes, the statistics, dq,
+    then dk and dv.  CUDA tensors only; a kernel that fails raises.
     """
     if not (q.device == k.device == v.device == do.device) \
             or q.device.type != "cuda":
@@ -220,7 +241,8 @@ def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
     # per (b*h, row): the softmax max, 1/sum and sum_j p_ij * dp_ij
     stats = torch.empty((3, b * h, s), dtype=torch.float32, device=q.device)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    fn = _kernel(BACKWARD_SOURCE, 8)
+    name = design_backward(q.dtype, d)
+    fn = _kernel(BACKWARD_SOURCES[name], 8)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -229,9 +251,9 @@ def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
                  _DTYPE_CODE[q.dtype], int(bool(causal)), float(scale),
                  stream)
     if err != 0:
-        raise MXNetError("flash_attention_backward: kernel failed with "
+        raise MXNetError("flash_attention_backward: %s kernel failed with "
                          "cudaError_t %d at shape %s %s"
-                         % (err, tuple(q.shape), q.dtype))
+                         % (name, err, tuple(q.shape), q.dtype))
     global _bwd_launches
     _bwd_launches += 1
     return dq, dk, dv

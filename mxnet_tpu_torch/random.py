@@ -4,10 +4,12 @@ the host generator ``host_rng``.
 Counterpart of ``mxnet_tpu/random.py`` (``seed``:26, ``host_rng``:35,
 ``next_key``:49).
 JAX threads counter-based keys; here every device has its own
-``torch.Generator``, and code that draws (initializers, ``needs_rng``
-ops) takes it explicitly from :func:`generator`, never from torch's
-global default generator.  The streams do not match JAX's: parity with
-the JAX package comes from inputs made with numpy, not from equal draws.
+``torch.Generator``, and the ops that draw on the device (``needs_rng``)
+take it explicitly from :func:`generator`, never from torch's global
+default generator; those streams do not match JAX's.  Host-side draws
+(the initializers, iterator shuffles) come from :func:`host_rng`, the
+numpy generator that the JAX package uses for them too, so after one
+``seed(n)`` both packages initialize and shuffle alike.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ def generator(ctx=None):
 
 
 def host_rng():
-    """The numpy generator of host-side draws (iterator shuffles): after
-    ``seed(n)`` a ``np.random.default_rng(n)``, before any seed numpy's
-    module state, as in the JAX package, so both shuffle alike."""
+    """The numpy generator of host-side draws (initializers, iterator
+    shuffles): after ``seed(n)`` a ``np.random.default_rng(n)``, before
+    any seed numpy's module state, as in the JAX package, so both draw
+    alike."""
     return _host_rng if _host_rng is not None else np.random

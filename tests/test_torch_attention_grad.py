@@ -7,10 +7,16 @@ inputs: that plain version against the JAX package's
 ``_chunked_attn_grads`` called directly, autograd through the port's
 ``flash_attention`` against ``jax.grad`` of the Pallas kernel in interpret
 mode (``tests/test_pallas.py``'s gradient case), and gradients through the
-model's strided einsum views back to the projection weights.  The kernel
-itself is held against ``chunked_attention_grads`` on the card by
-``chip_smoke.py``.
+model's strided einsum views back to the projection weights.  The kernels
+themselves (``flash_attn_bwd.cu``, and ``flash_attn_bwd_sm90.cu`` for
+bf16/fp16 at D 64 and 128) are held against ``chunked_attention_grads`` on
+the card by ``chip_smoke.py``; here a CPU model of the tensor-core kernel's
+roundings is held to the same limits, which pins the tolerance argument
+beside ``chip_smoke.BWD_ROW_RTOL``.
 """
+import importlib.util
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,21 @@ from mxnet_tpu.parallel.ring_attention import local_attention
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.models import transformer as tt
 from mxnet_tpu_torch.ops import attention as att
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(REPO, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _load("chip_smoke", "chip_smoke.py")
+cpu_model = _load("torch_flash_bwd_cpu_model",
+                  "tools/torch_flash_bwd_cpu_model.py")
 
 # fp32 on the CPU, the same recompute in both packages: sums in other orders
 ATOL = 1e-5
@@ -177,6 +198,18 @@ def test_backward_wrapper_refuses_cpu_tensors():
         att.flash_attention_backward(q, k, v, do, causal=True)
 
 
+@pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),
+                                            (torch.float16, 128),
+                                            (torch.float32, 64)])
+def test_backward_wrapper_refuses_cpu_tensors_of_each_design(dtype,
+                                                             head_dim):
+    """Each backward kernel (``design_backward``) takes CUDA tensors only."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs((1, 1, 16, head_dim), seed=6))
+    with pytest.raises(MXNetError, match="CUDA"):
+        att.flash_attention_backward(q, k, v, do, causal=True)
+
+
 def test_cuda_less_default_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tt.TransformerLMConfig()
@@ -184,3 +217,42 @@ def test_cuda_less_default_device_raises(monkeypatch):
         tt.make_train_step(cfg)
     with pytest.raises(MXNetError):
         tt.place_batch(np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32))
+
+
+@pytest.mark.parametrize("head_dim", att.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_design_backward_mirrors_design(dtype, head_dim):
+    """The tensor-core backward takes exactly what the tensor-core forward
+    takes (bf16/fp16 at D 64 and 128); both sources exist."""
+    want = "wgmma+tma" if dtype != torch.float32 and head_dim >= 64 \
+        else "simt"
+    assert att.design_backward(dtype, head_dim) == att.design(dtype,
+                                                              head_dim)
+    assert att.design_backward(dtype, head_dim) == want
+    src = att.BACKWARD_SOURCES[want]
+    assert os.path.exists(os.path.join(REPO, src)), src
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape,causal,sm_scale", [
+    ((2, 4, 200, 64), True, 0.5),    # sharp softmax: ds cancels
+    ((1, 3, 130, 128), True, None),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_rounding_model_within_bwd_limits(dtype, shape, causal,
+                                                      sm_scale, seed):
+    """Rounding P and dS to bf16/fp16 before their products (the model in
+    tools/torch_flash_bwd_cpu_model.py) keeps dq, dk and dv within
+    chip_smoke's BWD_ROW_RTOL of the plain backward, row by row, with
+    chip_smoke's own error measure (a row's denominator floored at the
+    dtype's smallest normal)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(dtype) for _ in range(4))
+    ref = att.chunked_attention_grads(q, k, v, do, causal, sm_scale)
+    got = cpu_model.tensor_core_rounding_model(q, k, v, do, causal,
+                                               sm_scale)
+    _, rels = cs._grad_errors(got, ref)
+    assert max(rels) <= cs.BWD_ROW_RTOL[dtype], rels
+    assert max(rels) > 0  # the roundings do show

@@ -219,3 +219,49 @@ def test_random_seed_makes_generators_repeat():
     assert torch.equal(a, b) and not torch.equal(a, c)
     with mt.cpu():
         assert mt.random.generator() is mt.random.generator(mt.cpu())
+
+
+# Results of indexing and of shape ops are copies in the JAX package (its
+# arrays are immutable), and the port follows it: a write into the result
+# leaves the parent unchanged.
+DERIVED = {
+    "first_axis_slice": lambda a, pkg: a[0:2],
+    "column": lambda a, pkg: a[:, 1],
+    "element_row": lambda a, pkg: a[1],
+    "reshape_method": lambda a, pkg: a.reshape((4, 3)),
+    "Reshape": lambda a, pkg: pkg.nd.Reshape(a, shape=(2, 6)),
+    "Flatten": lambda a, pkg: pkg.nd.Flatten(a),
+    "astype_same": lambda a, pkg: a.astype("float32"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(DERIVED))
+def test_derived_arrays_are_copies_as_in_jax(kind):
+    src = np.arange(12, dtype=np.float32).reshape(3, 4)
+    parents = []
+    for pkg in (mx, mt):
+        a = pkg.nd.array(src, ctx=pkg.cpu())
+        b = DERIVED[kind](a, pkg)
+        b[:] = 5
+        assert (b.asnumpy() == 5).all()
+        parents.append(a.asnumpy())
+    np.testing.assert_array_equal(parents[0], src)
+    np.testing.assert_array_equal(parents[1], parents[0])
+
+
+def test_gradients_through_slices_match_jax():
+    """A slice and a column taken under ``autograd.record()`` still carry
+    their gradients back to the parent, as in the JAX package."""
+    rng = np.random.RandomState(0)
+    x, w = _rand(rng, (3, 4)), _rand(rng, (2, 4))
+    grads = []
+    for pkg in (mx, mt):
+        a = pkg.nd.array(x, ctx=pkg.cpu())
+        a.attach_grad()
+        with pkg.autograd.record():
+            y = (a[0:2] * pkg.nd.array(w, ctx=pkg.cpu())).sum() \
+                + (a[:, 1] * a[:, 1]).sum()
+        y.backward()
+        grads.append(a.grad.asnumpy())
+    np.testing.assert_allclose(grads[1], grads[0], rtol=0, atol=ATOL)
+    assert np.abs(grads[1]).max() > 0

@@ -22,6 +22,7 @@ def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "torch_lm_breakdown.py"),
              os.path.join(REPO, "tools", "torch_lm_train_breakdown.py"),
+             os.path.join(REPO, "tools", "torch_flash_bwd_cpu_model.py"),
              os.path.join(REPO, "tools", "torch_lm_cpu_spread.py"),
              os.path.join(REPO, "tools", "torch_mlp_breakdown.py")]
     for root, _, names in os.walk(PKG):

@@ -1,7 +1,7 @@
 """User-kernel registration of the PyTorch package against the JAX package.
 
-The port of ``tests/test_pallas_register.py``, case for case (the
-``Module`` case waits for ``Module``): ``pl_scale`` is registered in both
+The port of ``tests/test_pallas_register.py``, case for case, the
+``Module`` training case included: ``pl_scale`` is registered in both
 packages, in JAX as the Pallas kernel (interpret mode on the CPU) and in
 the port over ``ops.scale`` (its plain version on the CPU).  The CUDA
 kernel itself is held against the plain version on the card by
@@ -115,6 +115,52 @@ def test_autograd_through_pure_torch_body(_cleanup):
             y = nd.pl_cube(x)
         y.backward(nd.array(np.ones(2)))
     np.testing.assert_allclose(x.grad.asnumpy(), 3 * x.asnumpy() ** 2)
+
+
+def _train_through_kernel(S, Module, NDArrayIter, Xavier, ctx):
+    """The reference's ``test_training_through_registered_kernel`` in one
+    package: fc_a -> pl_scale(0.5) -> fc_b -> SoftmaxOutput, 16 samples
+    from ``RandomState(0)`` in batches of 8, Xavier, SGD lr 0.5, 3 epochs;
+    returns ``fc_a_weight`` before and after."""
+    net = S.FullyConnected(S.Variable("data"), num_hidden=4, name="fc_a")
+    net = S.pl_scale(net, alpha=0.5)
+    net = S.FullyConnected(net, num_hidden=2, name="fc_b")
+    net = S.SoftmaxOutput(net, S.Variable("softmax_label"), name="softmax")
+    rng = np.random.RandomState(0)
+    X = rng.randn(16, 3).astype(np.float32)
+    Y = (X.sum(axis=1) > 0).astype(np.float32)
+    it = NDArrayIter(X, Y, batch_size=8, label_name="softmax_label")
+    mod = Module(net, context=ctx)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(initializer=Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.5),))
+    arg = mod._exec_group.execs[0].arg_dict
+    w0 = arg["fc_a_weight"].asnumpy().copy()
+    mod.fit(it, num_epoch=3)
+    return w0, arg["fc_a_weight"].asnumpy()
+
+
+def test_training_through_registered_kernel(_cleanup):
+    """Train a tiny Module whose graph routes through the user kernel, in
+    both packages from one seed: Xavier draws the same weights (both take
+    them from the host generator), so the trained ``fc_a_weight`` agrees
+    too, within fp32 summation order over 6 SGD steps."""
+    from mxnet_tpu.io import NDArrayIter as JIter
+    from mxnet_tpu.module import Module as JModule
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    _register_scale()
+    _register_jax_scale()
+    mx.random.seed(0)
+    jw0, jw1 = _train_through_kernel(jsym, JModule, JIter,
+                                     mx.initializer.Xavier, mx.cpu())
+    mt.random.seed(0)
+    w0, w1 = _train_through_kernel(sym, Module, NDArrayIter,
+                                   mt.initializer.Xavier, mt.cpu())
+    np.testing.assert_array_equal(w0, jw0)
+    assert np.abs(w1 - w0).max() > 0, "no learning through the kernel"
+    np.testing.assert_allclose(w1, jw1, rtol=0, atol=1e-5)
 
 
 def test_duplicate_name_rejected(_cleanup):

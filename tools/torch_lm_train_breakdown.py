@@ -4,7 +4,7 @@
 Runs the PyTorch port's transformer LM at GPT-2 small widths (12 layers,
 d_model 768, 12 heads, d_ff 3072, vocab 50257; seeded random weights)
 through ``make_train_step`` (SGD, lr 0.1) on one batch of 8 x 1024 tokens,
-in fp32 (TF32 off) and bf16: 3 warm-up steps, then 3 steps under
+in fp32 (TF32 off), bf16 and fp16: 3 warm-up steps, then 3 steps under
 ``torch.profiler``.  It prints the device time per step by group:
 
 - flash forward and flash backward: the hand-written kernels, by name;
@@ -141,7 +141,7 @@ def _group(kernel, phase):
 
 
 def breakdown(dtype):
-    flags = "TF32 off" if dtype == torch.float32 else "bf16"
+    flags = "TF32 off" if dtype == torch.float32 else str(dtype)[6:]
     cfg = tr.TransformerLMConfig(dtype=dtype, **GPT2_SMALL)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tr.init_transformer_params(gen, cfg)
@@ -229,7 +229,8 @@ def main():
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = [breakdown(dt) for dt in (torch.float32, torch.bfloat16)]
+    rows = [breakdown(dt) for dt in (torch.float32, torch.bfloat16,
+                                     torch.float16)]
     print(json.dumps({"card": card, "breakdown": rows}))
 
 
