@@ -17,21 +17,21 @@ Phases, each fatal on failure:
    shape (8, 12, 1024, 64) causal, in fp32 (TF32 off), bf16 and fp16,
    each case both contiguous and as the strided views the model's einsum
    makes (strides (S*H*D, D, H*D, 1)), through whichever kernel
-   ``attention.design`` picks (tensor cores for bf16/fp16 at D 64 and
-   128, SIMT otherwise);
+   ``attention.design`` picks (at D 64 and 128 the tensor cores: bf16/fp16
+   as they are, fp32 split into three bf16 parts; SIMT at D 16 and 32);
    the flash-attention backward kernels' dq, dk and dv against
    ``chunked_attention_grads`` at the same cases, dtypes and layouts
    (``do`` strided too where q, k, v are), held to ``BWD_ATOL`` and
    ``BWD_ROW_RTOL``, through whichever kernel ``attention.design_backward``
-   picks (tensor cores for bf16/fp16 at D 64 and 128, each such call
-   repeated and held bit for bit, SIMT otherwise);
+   picks by the same rule, each call repeated and held bit for bit;
    scale at numel 0, 1, 7, 64 x 128 (the MLP's), 1000003 (also
    misaligned by one element) and 8192 x 8192, alpha 0.5, 3.0, -1.25
    and two that fp32 cannot hold exactly (0.1, 1/3), bit for bit.
    Timings of each kernel, its plain version and one PyTorch call as a
    yardstick (``F.scaled_dot_product_attention``, its backward through
    ``torch.autograd.grad`` less its forward, ``torch.mul``; the port
-   never calls any of them), and each attention kernel's bound.
+   never calls any of them), and each attention kernel's bound; the SIMT
+   kernels, which no longer run at D 64, timed at ``SIMT_SHAPE`` (D 32).
 4. LM inference at GPT-2 small widths (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 50257, max_len 1024; seeded random weights): 4 batches
    of 8 x 1024 tokens scored to logits and mean next-token NLL, in fp32,
@@ -79,6 +79,10 @@ Phases, each fatal on failure:
    (through both kernels) and on the CPU (through the plain versions)
    from one init, in fp32 (TF32 off) and bf16; the loss, the params and
    the momenta held to ``LM_TRAIN_PARITY_TOL`` after each step.
+13. The D-32 path, where the SIMT kernels run: phase 12's LM with 4 heads
+   (D = 32) in fp32, scored (held to ``PARITY_TOL``) and trained 3 steps
+   by ``make_train_step`` (held to ``LM_TRAIN_PARITY_TOL``), card against
+   CPU, with the kernels' launches counted.
 
 It prints the ResNet-50 numbers as one ``{"resnet50": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line and one
@@ -151,17 +155,40 @@ def log(*args):
     print(*args, flush=True)
 
 
-def attention_bound_ms(shape, dtype, causal):
-    """Least time for the attention forward on the H100: q, k, v read once
-    and o written once over HBM, or 4*D FLOPs per (query, key) pair that the
-    mask keeps at the input type's peak, whichever is larger."""
+# The fp32 kernels at D 64 and 128 take each product as six bf16 products
+# (attention.design: "wgmma+bf16x3"), so fp32 attention has two floors: the
+# function's operations at the fp32 CUDA-core peak, and the split design's
+# six bf16 products per product at the bf16 tensor-core peak.
+SPLIT_PRODUCTS = 6
+
+
+def _attention_bounds(shape, dtype, causal, n_tensors, flops_per_pair):
+    """(bound ms, what bounds it, {floor name: ms}): the least time on the
+    H100 for ``n_tensors`` [B, H, S, D] tensors read or written once over
+    HBM and ``flops_per_pair`` * D FLOPs per (query, key) pair that the
+    mask keeps, each floor the larger of its bytes and operations times.
+    fp32 has the two floors above ("fp32", "bf16x3") and states the
+    lesser, so that no kernel reads over 100% of its bound; bf16 and fp16
+    have one, at the tensor cores' peak."""
     b, h, s, d = shape
     elem = torch.empty((), dtype=dtype).element_size()
-    t_bytes = 4 * b * h * s * d * elem / HBM_BPS
+    t_bytes = n_tensors * b * h * s * d * elem / HBM_BPS
     pairs = s * (s + 1) // 2 if causal else s * s
-    t_ops = 4 * d * pairs * b * h / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    ops = flops_per_pair * d * pairs * b * h
+    rates = {DTYPE_NAME[dtype]: PEAK_FLOPS[dtype]}
+    if dtype == torch.float32:
+        rates["bf16x3"] = PEAK_FLOPS[torch.bfloat16] / SPLIT_PRODUCTS
+    floors = {name: (1e3 * max(t_bytes, ops / rate),
+                     "bytes" if t_bytes >= ops / rate else "operations")
+              for name, rate in rates.items()}
+    ms, by = min(floors.values())
+    return ms, by, {name: f[0] for name, f in floors.items()}
+
+
+def attention_bound_ms(shape, dtype, causal):
+    """Bounds of the attention forward (``_attention_bounds``): q, k, v
+    read and o written once, 4*D FLOPs per kept (query, key) pair."""
+    return _attention_bounds(shape, dtype, causal, 4, 4)
 
 
 # About 50 ms at the H100's clock: longer than the host takes to queue
@@ -206,15 +233,46 @@ def phase_device():
     return card
 
 
+def kernel_stems():
+    """The stem of every CUDA source the port's wrappers launch."""
+    import os
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import scale as sc
+    sources = (list(att.KERNEL_SOURCES.values())
+               + list(att.BACKWARD_SOURCES.values()) + [sc.KERNEL_SOURCE])
+    return sorted({os.path.splitext(os.path.basename(src))[0]
+                   for src in sources})
+
+
+def ptxas_summary(log):
+    """One line per kernel of an ``nvcc -Xptxas -v`` report: the entry
+    (mangled, less its anonymous-namespace prefix), registers, spills."""
+    import re
+    lines, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d*", "",
+                           m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry is not None:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            lines.append("  %-60s %3s registers, %s bytes spilled"
+                         % (entry, m.group(1), spills))
+            entry = None
+    return "\n".join(lines)
+
+
 def phase_build():
     from mxnet_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    seconds = _build.build_all(["flash_attn_fwd", "flash_attn_fwd_sm90",
-                                "flash_attn_bwd", "flash_attn_bwd_sm90",
-                                "scale"])
+    seconds = _build.build_all(kernel_stems())
     log("build: %s in %.1f s wall" % (seconds, time.perf_counter() - t0))
     for stem in seconds:
-        log("ptxas (%s):\n%s" % (stem, _build.build_info(stem)["log"].strip()))
+        log("ptxas (%s):\n%s"
+            % (stem, ptxas_summary(_build.build_info(stem)["log"])))
 
 
 def _qkv(shape, dtype, gen, strided=False):
@@ -232,7 +290,8 @@ def _qkv(shape, dtype, gen, strided=False):
 def phase_kernels():
     """Kernel against plain version at every case, contiguous and strided;
     timings at MAIN_SHAPE.  Returns {dtype: {"max_abs_err", "max_row_rel",
-    "ms", "strided_ms", "plain_ms", "library_ms", "design"}}."""
+    "ms", "strided_ms", "plain_ms", "library_ms", "design", "by_design"}}:
+    the errors of the design MAIN_SHAPE takes, and every design's."""
     from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.ops import attention as att
     cases = FLASH_CASES
@@ -240,7 +299,7 @@ def phase_kernels():
     results = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            worst = worst_rel = 0.0
+            worst = {}  # design -> [max|err|, row-relative]
             for (shape, causal, scale), strided in itertools.product(
                     cases, (False, True)):
                 q, k, v = _qkv(shape, dtype, gen, strided)
@@ -258,7 +317,8 @@ def phase_kernels():
                 # each row's max|err| over that row's largest |ref|
                 rel = (diff.amax(-1) / ref.float().abs().amax(-1)
                        .clamp_min(1e-30)).max().item()
-                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                w = worst.setdefault(att.design(dtype, shape[-1]), [0.0, 0.0])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
                 log("  %s %-18s %-10s causal=%-5s scale=%-4s %-9s max|err| "
                     "%.3g, row-relative %.3g"
                     % (DTYPE_NAME[dtype], shape,
@@ -289,19 +349,19 @@ def phase_kernels():
                       for _ in range(3)]
             timings = {n: sorted(r[n] for r in rounds)[1] for n in fns}
             design = att.design(dtype, MAIN_SHAPE[-1])
-            results[dtype] = dict(max_abs_err=worst, max_row_rel=worst_rel,
-                                  design=design, **timings)
+            results[dtype] = dict(
+                max_abs_err=worst[design][0], max_row_rel=worst[design][1],
+                design=design, by_design=worst, **timings)
             log("%s at %s causal (%s): kernel %.4f ms (strided %.4f ms), "
                 "plain %.4f ms, SDPA %.4f ms, kernel/SDPA %.2f (medians of "
-                "rounds %s), worst max|err| %.3g (atol %g), worst "
-                "row-relative %.3g (limit %g) over %d cases"
+                "rounds %s), worst [max|err|, row-relative] by design %s "
+                "(atol %g, limit %g) over %d cases"
                 % (DTYPE_NAME[dtype], MAIN_SHAPE, design, timings["ms"],
                    timings["strided_ms"], timings["plain_ms"],
                    timings["library_ms"],
                    timings["ms"] / timings["library_ms"],
                    [{n: "%.4f" % t for n, t in r.items()} for r in rounds],
-                   worst, ATOL[dtype], worst_rel, ROW_RTOL[dtype],
-                   2 * len(cases)))
+                   worst, ATOL[dtype], ROW_RTOL[dtype], 2 * len(cases)))
         # the wrapper refuses what the kernels do not take
         q, k, v = _qkv((1, 2, 64, 64), torch.bfloat16, gen)
         offset = torch.empty(q.numel() + 1, dtype=q.dtype,
@@ -360,21 +420,16 @@ BWD_ROW_RTOL = {torch.float32: 2.0 ** -8,
 BWD_DESIGN_NOTE = {
     "simt": "simt, three passes (row statistics, dq, dk+dv)",
     "wgmma+tma": "wgmma+tma, two launches (row statistics + dq, dk + dv)",
+    "wgmma+bf16x3": "wgmma+bf16x3, fp32 as three bf16 parts, six products "
+                    "each, two launches (row statistics + dq, dk + dv)",
 }
 
 
 def attention_bwd_bound_ms(shape, dtype, causal):
-    """Least time for the attention backward on the H100: q, k, v, do read
-    once and dq, dk, dv written once over HBM, or the five products of the
-    gradient, 10*D FLOPs per (query, key) pair that the mask keeps, at the
-    input type's peak, whichever is larger."""
-    b, h, s, d = shape
-    elem = torch.empty((), dtype=dtype).element_size()
-    t_bytes = 7 * b * h * s * d * elem / HBM_BPS
-    pairs = s * (s + 1) // 2 if causal else s * s
-    t_ops = 10 * d * pairs * b * h / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Bounds of the attention backward (``_attention_bounds``): q, k, v,
+    do read and dq, dk, dv written once; the gradient's five products,
+    10*D FLOPs per kept (query, key) pair."""
+    return _attention_bounds(shape, dtype, causal, 7, 10)
 
 
 def _grad_errors(got, ref):
@@ -411,31 +466,30 @@ def sdpa_backward_ms(q, k, v, do):
 def phase_kernels_bwd():
     """The backward kernel that ``design_backward`` picks against its plain
     version at every flash case and dtype, q/k/v contiguous and as einsum
-    views (do then strided too), and the tensor-core kernel's two calls on
-    the same inputs bit for bit; timings at MAIN_SHAPE.  Returns {dtype:
+    views (do then strided too), and two calls on the same inputs bit for
+    bit; timings at MAIN_SHAPE.  Returns {dtype:
     {"max_abs_err", "max_row_rel", "ms", "strided_ms", "plain_ms",
-    "library_ms", "design"}}."""
+    "library_ms", "design", "by_design"}}, as ``phase_kernels`` does."""
     from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.ops import attention as att
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            worst = worst_rel = 0.0
+            worst = {}  # design -> [max|err|, row-relative]
             for (shape, causal, scale), strided in itertools.product(
                     FLASH_CASES, (False, True)):
                 q, k, v = _qkv(shape, dtype, gen, strided)
                 do = _qkv(shape, dtype, gen, strided)[0]
                 got = att.flash_attention_backward(q, k, v, do, causal, scale)
                 ref = att.chunked_attention_grads(q, k, v, do, causal, scale)
-                if att.design_backward(dtype, shape[-1]) == "wgmma+tma":
-                    again = att.flash_attention_backward(q, k, v, do, causal,
-                                                         scale)
-                    if not all(torch.equal(a, g) for a, g in zip(again, got)):
-                        raise AssertionError(
-                            "two backward calls on the same inputs differ at "
-                            "%s %s causal=%s scale=%s strided=%s"
-                            % (shape, dtype, causal, scale, strided))
+                again = att.flash_attention_backward(q, k, v, do, causal,
+                                                     scale)
+                if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                    raise AssertionError(
+                        "two backward calls on the same inputs differ at "
+                        "%s %s causal=%s scale=%s strided=%s"
+                        % (shape, dtype, causal, scale, strided))
                 torch.cuda.synchronize()
                 for g in got:
                     if g.dtype != dtype or g.shape != q.shape:
@@ -447,7 +501,9 @@ def phase_kernels_bwd():
                                              "%s %s" % (shape, dtype))
                 err, rels = _grad_errors(got, ref)
                 rel = max(rels)
-                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                w = worst.setdefault(att.design_backward(dtype, shape[-1]),
+                                     [0.0, 0.0])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
                 log("  bwd %s %-18s %-10s causal=%-5s scale=%-4s %-9s max|err| "
                     "%.3g, row-relative %.3g (dq %.3g, dk %.3g, dv %.3g)"
                     % (DTYPE_NAME[dtype], shape,
@@ -479,22 +535,24 @@ def phase_kernels_bwd():
                              for _ in range(3))
             timings = {n: sorted(r[n] for r in rounds)[1] for n in fns}
             timings["library_ms"] = lib[1]
-            bound, bound_by = attention_bwd_bound_ms(MAIN_SHAPE, dtype, True)
+            bound, bound_by, _ = attention_bwd_bound_ms(MAIN_SHAPE, dtype,
+                                                        True)
             design = att.design_backward(dtype, MAIN_SHAPE[-1])
-            results[dtype] = dict(max_abs_err=worst, max_row_rel=worst_rel,
-                                  design=design, **timings)
+            results[dtype] = dict(
+                max_abs_err=worst[design][0], max_row_rel=worst[design][1],
+                design=design, by_design=worst, **timings)
             log("bwd %s at %s causal (%s): kernel %.4f ms (strided %.4f ms), "
                 "plain %.4f ms, SDPA backward %.4f ms (readings %s), "
                 "kernel/SDPA %.2f, bound %.4f ms (%s) (medians of rounds "
-                "%s), worst max|err| %.3g (atol %s), worst row-relative "
-                "%.3g (limit %g) over %d cases"
+                "%s), worst [max|err|, row-relative] by design %s (atol %s, "
+                "limit %g) over %d cases"
                 % (DTYPE_NAME[dtype], MAIN_SHAPE, design, timings["ms"],
                    timings["strided_ms"], timings["plain_ms"],
                    timings["library_ms"], ["%.4f" % t for t in lib],
                    timings["ms"] / timings["library_ms"], bound, bound_by,
                    [{n: "%.4f" % t for n, t in r.items()} for r in rounds],
-                   worst, BWD_ATOL.get(dtype, "-"), worst_rel,
-                   BWD_ROW_RTOL[dtype], 2 * len(FLASH_CASES)))
+                   worst, BWD_ATOL.get(dtype, "-"), BWD_ROW_RTOL[dtype],
+                   2 * len(FLASH_CASES)))
             del q, k, v, do, qs, ks, vs
         # the wrapper refuses what the kernels do not take
         q, k, v = _qkv((1, 2, 64, 64), torch.bfloat16, gen)
@@ -553,11 +611,11 @@ def phase_lm(dtype):
                              "n_layers x forwards = %d" % (launches, want))
     ms = 1e3 * sorted(times)[len(times) // 2]
     log("LM %s (%.1f M params, %d layers): %d batches of %dx%d, ms/batch %s"
-        " median %.3f, tokens/s %.1f, NLL %s, kernel launches %d"
+        " median %.3f, tokens/s %.1f, NLL %s, %s kernel launches %d"
         % (DTYPE_NAME[dtype], n_params / 1e6, cfg.n_layers, LM_REQUESTS,
            LM_BATCH, LM_SEQ, ["%.3f" % (1e3 * t) for t in times], ms,
            LM_BATCH * LM_SEQ / (ms / 1e3), ["%.4f" % x for x in nlls],
-           launches))
+           att.design(dtype, cfg.d_model // cfg.n_heads), launches))
     del model, seqs, logits
     torch.cuda.empty_cache()
     return launches
@@ -624,10 +682,10 @@ LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ, LM_TRAIN_PARITY_STEPS = 2, 200, 3
 LM_TRAIN_PARITY_SEED = 4
 
 
-def lm_train_parity_init(seed=LM_TRAIN_PARITY_SEED):
+def lm_train_parity_init(seed=LM_TRAIN_PARITY_SEED, config=LM_TRAIN_PARITY):
     """The parity LM's fp32 params and its batch, on the CPU."""
     from mxnet_tpu_torch.models import transformer as tr
-    cfg = tr.TransformerLMConfig(**LM_TRAIN_PARITY)
+    cfg = tr.TransformerLMConfig(**config)
     gen = torch.Generator().manual_seed(seed)
     params = tr.init_transformer_params(gen, cfg, device="cpu")
     seq = torch.randint(0, cfg.vocab, (LM_TRAIN_PARITY_BATCH,
@@ -637,13 +695,13 @@ def lm_train_parity_init(seed=LM_TRAIN_PARITY_SEED):
 
 
 def lm_train_run(device, dtype, builder, params, tokens, labels,
-                 steps=LM_TRAIN_PARITY_STEPS):
-    """``steps`` steps of the parity LM on ``device`` in ``dtype`` from
-    ``params`` (cast and copied) through ``builder`` ("plain":
-    ``make_train_step``, "zero1": ``make_train_step_zero1``); returns one
-    {"loss", "params", "momenta"} per step, fp64 CPU copies."""
+                 steps=LM_TRAIN_PARITY_STEPS, config=LM_TRAIN_PARITY):
+    """``steps`` steps of the parity LM (or ``config``) on ``device`` in
+    ``dtype`` from ``params`` (cast and copied) through ``builder``
+    ("plain": ``make_train_step``, "zero1": ``make_train_step_zero1``);
+    returns one {"loss", "params", "momenta"} per step, fp64 CPU copies."""
     from mxnet_tpu_torch.models import transformer as tr
-    cfg = tr.TransformerLMConfig(dtype=dtype, **LM_TRAIN_PARITY)
+    cfg = tr.TransformerLMConfig(dtype=dtype, **config)
     # copies: the steps update the params in place
     ps = {n: t.to(device=device, dtype=dtype, copy=True)
           for n, t in params.items()}
@@ -701,13 +759,14 @@ LM_TRAIN_PARITY_TOL = {
 def phase_lm_train_parity(dtype):
     """The parity LM trained on the card (kernels) and on the CPU (plain
     versions) from one init, 3 steps of each step builder; the loss, the
-    params and the momenta held after each step."""
+    params and the momenta held after each step.  Returns the worst
+    differences by builder and the card's (forward, backward) launches."""
     from mxnet_tpu_torch.ops import attention as att
     flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
     params, tokens, labels = lm_train_parity_init()
     tol = LM_TRAIN_PARITY_TOL[dtype]
     n_layers = LM_TRAIN_PARITY["n_layers"]
-    worst = {}
+    worst, totals = {}, [0, 0]
     for builder in ("plain", "zero1"):
         cpu = lm_train_run("cpu", dtype, builder, params, tokens, labels)
         att.reset_launch_count()
@@ -735,8 +794,120 @@ def phase_lm_train_parity(dtype):
                                  "CPU (%s, %s) at (step, quantity) %s"
                                  % (DTYPE_NAME[dtype], builder, bad))
         worst[builder] = {k: max(d[k] for d in diffs) for k in diffs[0]}
+        totals = [t + n for t, n in zip(totals, launches)]
     torch.cuda.empty_cache()
-    return worst
+    return worst, tuple(totals)
+
+
+# The D-32 path (phase 13): the parity LM with 4 heads, so D = 32 and every
+# dtype's attention takes the SIMT kernels, which no model at D 64 reaches.
+LM_D32 = dict(LM_TRAIN_PARITY, n_heads=4)
+
+
+def phase_lm_d32():
+    """The D-32 LM in fp32 (TF32 off) on the card (SIMT kernels) against
+    the CPU (plain versions): scored once (``PARITY_TOL``), then 3 steps of
+    ``make_train_step`` (``LM_TRAIN_PARITY_TOL``).  Returns the card's
+    (forward, backward) kernel launches."""
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.ops import attention as att
+    flags = tf32_flags()
+    dtype = torch.float32
+    cfg = tr.TransformerLMConfig(dtype=dtype, **LM_D32)
+    head_dim = cfg.d_model // cfg.n_heads
+    if att.design(dtype, head_dim) != "simt":
+        raise AssertionError("D %d does not take the SIMT kernels" % head_dim)
+    params, tokens, labels = lm_train_parity_init(config=LM_D32)
+    att.reset_launch_count()
+    with torch.inference_mode():
+        ref = tr.transformer_forward(params, tokens, cfg)
+        out = tr.transformer_forward({n: t.to("cuda") for n, t in
+                                      params.items()}, tokens.cuda(),
+                                     cfg).cpu()
+        nll_diff = abs(tr.nll_from_logits(out, labels).item()
+                       - tr.nll_from_logits(ref, labels).item())
+    scored = att.launch_count()
+    err = (out - ref).abs().max().item()
+    cpu = lm_train_run("cpu", dtype, "plain", params, tokens, labels,
+                       config=LM_D32)
+    att.reset_launch_count()
+    att.reset_backward_launch_count()
+    card = lm_train_run("cuda", dtype, "plain", params, tokens, labels,
+                        config=LM_D32)
+    launches = (scored + att.launch_count(), att.backward_launch_count())
+    worst = {k: max(d[k] for d in lm_train_diffs(card, cpu))
+             for k in ("loss", "params", "momenta")}
+    tol, train_tol = PARITY_TOL[dtype], LM_TRAIN_PARITY_TOL[dtype]
+    log("LM D=32 (%s, simt kernels, S=%d): logits max|err| %.3g (limit %g), "
+        "NLL |diff| %.3g (limit %g); %d train steps, worst loss |diff| %.3g "
+        "(limit %g), params %.3g (limit %g); launches %d forward, %d "
+        "backward" % (flags, LM_TRAIN_PARITY_SEQ, err, tol["logits"],
+                      nll_diff, tol["nll"], LM_TRAIN_PARITY_STEPS,
+                      worst["loss"], train_tol["loss"], worst["params"],
+                      train_tol["params"], *launches))
+    n_layers = cfg.n_layers
+    want = (n_layers * (1 + LM_TRAIN_PARITY_STEPS),
+            n_layers * LM_TRAIN_PARITY_STEPS)
+    if launches != want:
+        raise AssertionError("the D-32 LM launched %s (forward, backward) "
+                             "kernels, not %s" % (launches, want))
+    bad = [k for k in worst if worst[k] > train_tol[k]]
+    if err > tol["logits"] or nll_diff > tol["nll"] or bad:
+        raise AssertionError("the D-32 LM on the card disagrees with the CPU:"
+                             " logits %.3g, NLL %.3g, training %s"
+                             % (err, nll_diff, bad))
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The SIMT kernels' timing shape: MAIN_SHAPE at D 32, where they still run.
+SIMT_SHAPE = (8, 12, 1024, 32)
+
+
+def phase_simt_timing():
+    """The SIMT forward and backward (fp32) at SIMT_SHAPE causal: kernel,
+    strided, plain and library times, medians of three rounds (their
+    accuracy is held in phase 3).  Returns {"fwd": {...}, "bwd": {...}}."""
+    from mxnet_tpu_torch.ops import attention as att
+    F = torch.nn.functional
+    dtype = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _qkv(SIMT_SHAPE, dtype, gen)
+    do = _qkv(SIMT_SHAPE, dtype, gen)[0]
+    qs, ks, vs = _qkv(SIMT_SHAPE, dtype, gen, strided=True)
+    fns = {
+        "fwd": {"ms": lambda: att.flash_attention(q, k, v, True),
+                "strided_ms": lambda: att.flash_attention(qs, ks, vs, True),
+                "plain_ms": lambda: att.flash_attention_reference(
+                    q, k, v, True),
+                "library_ms": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)},
+        "bwd": {"ms": lambda: att.flash_attention_backward(q, k, v, do,
+                                                           True),
+                "strided_ms": lambda: att.flash_attention_backward(
+                    qs, ks, vs, do, True),
+                "plain_ms": lambda: att.chunked_attention_grads(
+                    q, k, v, do, True)},
+    }
+    if att.design(dtype, SIMT_SHAPE[-1]) != "simt":
+        raise AssertionError("SIMT_SHAPE does not take the SIMT kernels")
+    out = {}
+    with torch.no_grad():
+        for kind, group in fns.items():
+            rounds = [{n: cuda_ms(fn, iters=10) for n, fn in group.items()}
+                      for _ in range(3)]
+            out[kind] = {n: sorted(r[n] for r in rounds)[1] for n in group}
+    with torch.enable_grad():
+        out["bwd"]["library_ms"] = sorted(
+            sdpa_backward_ms(q, k, v, do) for _ in range(3))[1]
+    for kind, t in out.items():
+        log("simt %s fp32 at %s causal: kernel %.4f ms (strided %.4f ms), "
+            "plain %.4f ms, SDPA%s %.4f ms"
+            % (kind, SIMT_SHAPE, t["ms"], t["strided_ms"], t["plain_ms"],
+               " backward" if kind == "bwd" else "", t["library_ms"]))
+    del q, k, v, do, qs, ks, vs
+    torch.cuda.empty_cache()
+    return out
 
 
 def lm_train_flops(cfg, batch, seq):
@@ -816,14 +987,15 @@ def phase_lm_train(dtype):
             "median of %d %.3f, first %d %s, %.1f tokens/s, %.2f%% of the %g "
             "TFLOP/s peak at %.4g TFLOP/step (matmul %.4g, attention fwd+bwd "
             "%.4g); loss %s; peak memory %.1f GB; launches per step %d "
-            "forward, %d backward"
+            "forward, %d backward (%s)"
             % (DTYPE_NAME[dtype], flags, builder, cfg.n_layers, LM_BATCH,
                LM_SEQ, LM_TRAIN_STEPS, ms, LM_TRAIN_WARMUP,
                ["%.1f" % t for t in times[:LM_TRAIN_WARMUP]],
                res["tokens_s"], 100 * res["peak_share"],
                PEAK_FLOPS[dtype] / 1e12, flops / 1e12, matmul_flops / 1e12,
                attn_flops / 1e12, ["%.4f" % x for x in losses],
-               res["peak_mem_gb"], cfg.n_layers, cfg.n_layers))
+               res["peak_mem_gb"], cfg.n_layers, cfg.n_layers,
+               att.design(dtype, cfg.d_model // cfg.n_heads)))
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError("non-finite LM train loss (%s, %s): %s"
                                  % (DTYPE_NAME[dtype], builder, losses))
@@ -1390,6 +1562,7 @@ def main():
     phase_build()
     kern = phase_kernels()
     kern_bwd = phase_kernels_bwd()
+    simt = phase_simt_timing()
     scale_kern = phase_scale_kernel()
     launches = {dt: phase_lm(dt) for dt in DTYPE_NAME}
     for dt, seed in itertools.product((torch.float32, torch.bfloat16),
@@ -1404,14 +1577,16 @@ def main():
     lm_train, train_launches = {}, {}
     for dt in LM_TRAIN_DTYPES:
         lm_train[dt], train_launches[dt] = phase_lm_train(dt)
-    train_parity = {dt: phase_lm_train_parity(dt)
-                    for dt in LM_TRAIN_PARITY_TOL}
+    train_parity, parity_launches = {}, {}
+    for dt in LM_TRAIN_PARITY_TOL:
+        train_parity[dt], parity_launches[dt] = phase_lm_train_parity(dt)
+    d32_launches = phase_lm_d32()
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import scale as sc
     n_layers = GPT2_SMALL["n_layers"]
     entries = []
     for dt in DTYPE_NAME:
-        bound_ms, bound_by = attention_bound_ms(MAIN_SHAPE, dt, True)
+        bound_ms, bound_by, bounds = attention_bound_ms(MAIN_SHAPE, dt, True)
         entries.append({
             "name": "flash_attn_fwd[%s]" % DTYPE_NAME[dt],
             "route": "cuda",
@@ -1422,6 +1597,7 @@ def main():
             "inference_launches": launches[dt],
             "train_launches": train_launches[dt][0],
             "train_launches_per_step": n_layers,
+            "train_parity_launches": parity_launches.get(dt, (0, 0))[0],
             "max_abs_err": kern[dt]["max_abs_err"],
             "max_row_rel_err": kern[dt]["max_row_rel"],
             "ms": kern[dt]["ms"],
@@ -1429,12 +1605,14 @@ def main():
             "plain_ms": kern[dt]["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "bounds_ms": bounds,
             "library_ms": kern[dt]["library_ms"],
             "shape": list(MAIN_SHAPE),
             "causal": True,
         })
     for dt in DTYPE_NAME:
-        bound_ms, bound_by = attention_bwd_bound_ms(MAIN_SHAPE, dt, True)
+        bound_ms, bound_by, bounds = attention_bwd_bound_ms(MAIN_SHAPE, dt,
+                                                            True)
         entries.append({
             "name": "flash_attn_bwd[%s]" % DTYPE_NAME[dt],
             "route": "cuda",
@@ -1443,6 +1621,7 @@ def main():
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:198",
             "launches": train_launches[dt][1],
             "train_launches_per_step": n_layers,
+            "train_parity_launches": parity_launches.get(dt, (0, 0))[1],
             "max_abs_err": kern_bwd[dt]["max_abs_err"],
             "max_row_rel_err": kern_bwd[dt]["max_row_rel"],
             "ms": kern_bwd[dt]["ms"],
@@ -1450,8 +1629,35 @@ def main():
             "plain_ms": kern_bwd[dt]["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "bounds_ms": bounds,
             "library_ms": kern_bwd[dt]["library_ms"],
             "shape": list(MAIN_SHAPE),
+            "causal": True,
+        })
+    for kind, bound_fn, launched, replaces in (
+            ("fwd", attention_bound_ms, d32_launches[0],
+             "mxnet_tpu/ops/pallas_kernels.py:41"),
+            ("bwd", attention_bwd_bound_ms, d32_launches[1],
+             "mxnet_tpu/ops/pallas_kernels.py:198")):
+        bound_ms, bound_by, bounds = bound_fn(SIMT_SHAPE, torch.float32, True)
+        sources = att.KERNEL_SOURCES if kind == "fwd" else att.BACKWARD_SOURCES
+        entries.append({
+            "name": "flash_attn_%s_simt[fp32]" % kind,
+            "route": "cuda",
+            "design": "simt" if kind == "fwd" else BWD_DESIGN_NOTE["simt"],
+            "source": sources["simt"],
+            "replaces": replaces,
+            "launches": launched,
+            "max_abs_err": (kern if kind == "fwd" else kern_bwd)[
+                torch.float32]["by_design"]["simt"][0],
+            "ms": simt[kind]["ms"],
+            "strided_ms": simt[kind]["strided_ms"],
+            "plain_ms": simt[kind]["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bounds_ms": bounds,
+            "library_ms": simt[kind]["library_ms"],
+            "shape": list(SIMT_SHAPE),
             "causal": True,
         })
     for dt in (torch.float32, torch.bfloat16):

@@ -3,24 +3,29 @@ their plain versions.
 
 Counterpart of ``mxnet_tpu/ops/pallas_kernels.py::flash_attention``, a
 ``jax.custom_vjp``; here :class:`FlashAttention`, a
-``torch.autograd.Function``.  Three CUDA C++ kernels for ``sm_90a``
-compute it, each built by ``_build.load_library`` at its first launch.
-The forward (:func:`design` picks one):
+``torch.autograd.Function``.  CUDA C++ kernels for ``sm_90a`` compute it,
+each built by ``_build.load_library`` at its first launch.  The forward
+(:func:`design` picks one):
 
 - ``csrc/flash_attn_fwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16 at D in
   {64, 128}, on the tensor cores, fed by TMA;
-- ``csrc/flash_attn_fwd.cu`` ("simt"): fp32 at every D, and bf16/fp16 at
-  D in {16, 32}, on the CUDA cores.
+- ``csrc/flash_attn_fwd_f32_sm90.cu`` ("wgmma+bf16x3"): fp32 at D in
+  {64, 128}, on the tensor cores, each fp32 operand split into three bf16
+  parts and each product taken as six bf16 products;
+- ``csrc/flash_attn_fwd.cu`` ("simt"): every dtype at D in {16, 32}, on
+  the CUDA cores.
 
 The backward (:func:`flash_attention_backward`; :func:`design_backward`
-picks one) recomputes the scores from the saved q, k and v as the JAX
-package's ``_chunked_attn_grads`` does; its plain version is
+picks one, by the same rule) recomputes the scores from the saved q, k and
+v as the JAX package's ``_chunked_attn_grads`` does; its plain version is
 :func:`chunked_attention_grads`:
 
 - ``csrc/flash_attn_bwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16 at D in
   {64, 128}, on the tensor cores, in two launches;
-- ``csrc/flash_attn_bwd.cu`` ("simt"): fp32 at every D, and bf16/fp16 at
-  D in {16, 32}, three passes on the CUDA cores.
+- ``csrc/flash_attn_bwd_f32_sm90.cu`` ("wgmma+bf16x3"): fp32 at D in
+  {64, 128}, on the tensor cores through the same split, in two launches;
+- ``csrc/flash_attn_bwd.cu`` ("simt"): every dtype at D in {16, 32}, three
+  passes on the CUDA cores.
 
 The kernels read q, k and v through their strides (:func:`check_layout`
 says which layouts they take), so the model's einsum views need no copy.
@@ -48,10 +53,12 @@ __all__ = ["flash_attention", "flash_attention_reference", "FlashAttention",
 KERNEL_SOURCES = {
     "simt": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd.cu",
     "wgmma+tma": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu",
+    "wgmma+bf16x3": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd_f32_sm90.cu",
 }
 BACKWARD_SOURCES = {
     "simt": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd.cu",
     "wgmma+tma": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu",
+    "wgmma+bf16x3": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd_f32_sm90.cu",
 }
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -84,17 +91,24 @@ def reset_backward_launch_count():
 
 def design(dtype, head_dim):
     """Which kernel takes q, k, v of ``dtype`` at head dim ``head_dim``:
-    ``"wgmma+tma"`` (16-bit at D 64 or 128) or ``"simt"``.  fp32 stays on
-    the SIMT kernel: the tensor cores take fp32 only as TF32."""
-    if dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128):
-        return "wgmma+tma"
+    at D 64 or 128 the tensor cores, ``"wgmma+tma"`` for bf16/fp16 and
+    ``"wgmma+bf16x3"`` for fp32 (three bf16 parts per value, six bf16
+    products per product: fp32's accuracy, never a single TF32 or bf16
+    product, whatever ``torch.backends.cuda.matmul.allow_tf32`` says);
+    ``"simt"`` at D 16 and 32."""
+    if head_dim in (64, 128):
+        if dtype in (torch.bfloat16, torch.float16):
+            return "wgmma+tma"
+        if dtype == torch.float32:
+            return "wgmma+bf16x3"
     return "simt"
 
 
 def design_backward(dtype, head_dim):
     """Which backward kernel takes q, k, v of ``dtype`` at head dim
     ``head_dim``, by the same rule as :func:`design`: ``"wgmma+tma"``
-    (16-bit at D 64 or 128) or ``"simt"``."""
+    (bf16/fp16 at D 64 or 128), ``"wgmma+bf16x3"`` (fp32 at D 64 or 128)
+    or ``"simt"``."""
     return design(dtype, head_dim)
 
 
@@ -211,15 +225,18 @@ def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
 
     q, k and v are taken as :func:`flash_attention` takes them on the card
     (through their strides); ``do`` may have any layout and is copied to
-    contiguous when the kernel cannot read it as it is.  Both kernels
-    recompute the scores in fp32 from the loaded values, as
-    :func:`chunked_attention_grads` (their plain version) does, and keep
+    contiguous when the kernel cannot read it as it is.  Every kernel
+    recomputes the scores in fp32 from the loaded values, as
+    :func:`chunked_attention_grads` (their plain version) does, and keeps
     the row statistics (max, 1/sum and sum_j p_ij dp_ij) in fp32 scratch.
     ``"wgmma+tma"`` (``csrc/flash_attn_bwd_sm90.cu``) runs two launches,
     the statistics and dq, then dk and dv, with P and dS rounded to the
-    input type where they enter the tensor cores; ``"simt"``
+    input type where they enter the tensor cores; ``"wgmma+bf16x3"``
+    (``csrc/flash_attn_bwd_f32_sm90.cu``) the same two launches in fp32,
+    every operand split into three bf16 parts; ``"simt"``
     (``csrc/flash_attn_bwd.cu``) runs three passes, the statistics, dq,
-    then dk and dv.  CUDA tensors only; a kernel that fails raises.
+    then dk and dv.  Two calls on the same inputs give the same bits.
+    CUDA tensors only; a kernel that fails raises.
     """
     if not (q.device == k.device == v.device == do.device) \
             or q.device.type != "cuda":

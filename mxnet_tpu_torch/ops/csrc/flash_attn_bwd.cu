@@ -15,6 +15,11 @@
 // contiguous [B, H, S, D] tensors.  q, k, v and do are read through their
 // own strides (the last is 1).
 //
+// Which inputs come here: every dtype at D in {16, 32}.  At D in {64, 128}
+// the tensor cores take them: bf16/fp16 in flash_attn_bwd_sm90.cu, fp32 in
+// flash_attn_bwd_f32_sm90.cu (three bf16 parts per value); both take the
+// same arguments as this kernel.
+//
 // Design: three passes, deterministic, no atomics, no [S, S] tensor in
 // device memory.  Blocks of 256 threads form a 16 x 16 grid over a 64 x 64
 // tile of (row, column) pairs; thread (ty, tx) owns rows ty + 16 i and
@@ -39,16 +44,14 @@
 // scheduled first.
 //
 // What bounds it on the H100 (3.35 TB/s; 67 TFLOP/s fp32 outside the
-// tensor cores).  Causal, B=8, H=12, S=1024, D=64: the five products of
-// the gradient need 10*D*S(S+1)/2*B*H = 32.2 GFLOP, 0.48 ms at 67 TFLOP/s
-// (fp32; in bf16 0.033 ms at 989 TFLOP/s on the tensor cores), against
-// 7 * 8*12*1024*64 * 4 B = 176 MB of q, k, v, do, dq, dk, dv traffic,
-// 0.053 ms: bound by operations.  This design does nine products, not
-// five (two in pass 1, three in pass 2, four in pass 3), all on the CUDA
-// cores in fp32, about one shared-memory load per two FMAs, with the tile
-// loads not overlapped with the products: it is the simple, correct first
-// version.  The tensor-core redesign (wgmma, one fused pass over the key
-// tiles) is later work.
+// tensor cores).  Causal, B=8, H=12, S=1024, D=32: the five products of
+// the gradient need 10*D*S(S+1)/2*B*H = 16.1 GFLOP, 0.240 ms at 67 TFLOP/s,
+// against 7 * 8*12*1024*32 * 4 B = 88 MB of q, k, v, do, dq, dk, dv
+// traffic, 0.026 ms: bound by operations.  This design does nine products,
+// not five (two in pass 1, three in pass 2, four in pass 3), all on the
+// CUDA cores in fp32, about one shared-memory load per two FMAs, with the
+// tile loads not overlapped with the products: it is the simple, correct
+// first version.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -174,7 +177,7 @@ __device__ __forceinline__ bool live(int qp, int kp, int seq_len, int causal) {
 // Pass 1: per query row, m = max_j s_ij, 1/l with l = sum_j e^(s_ij - m),
 // and delta = sum_j p_ij dp_ij.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_attn_bwd_stats(Args a) {
   constexpr int kDS = D + 1;
   extern __shared__ float smem[];
@@ -250,7 +253,7 @@ flash_attn_bwd_stats(Args a) {
 
 // Pass 2: dq = scale * sum_j ds_ij k_j for 64 query rows.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attn_bwd_dq(Args a) {
   constexpr int kDS = D + 1;
   constexpr int kColsO = D / 16;
@@ -332,7 +335,7 @@ flash_attn_bwd_dq(Args a) {
 // Pass 3: dv = sum_i p_ij do_i and dk = scale * sum_i ds_ij q_i for 64 keys.
 // Here the keys are the tile's rows (ty) and the queries its columns (tx).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attn_bwd_dkdv(Args a) {
   constexpr int kDS = D + 1;
   constexpr int kColsO = D / 16;
@@ -460,9 +463,8 @@ cudaError_t dispatch_d(const Args& a, int d, cudaStream_t stream) {
   switch (d) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
   }
+  // D 64 and 128 go to the tensor-core kernels
   return cudaErrorInvalidValue;
 }
 

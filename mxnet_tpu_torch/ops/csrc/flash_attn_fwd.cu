@@ -10,11 +10,10 @@
 // q, k and v are [B, H, S, D] with any strides whose last is 1 (each tensor
 // its own); the output is a new contiguous [B, H, S, D] in the input's type.
 //
-// Which inputs come here: every fp32 call, and bf16/fp16 at D in {16, 32}.
-// bf16/fp16 at D in {64, 128} go to the tensor-core design in
-// flash_attn_fwd_sm90.cu.  fp32 stays on this SIMT design on purpose: wgmma
-// takes fp32 only as TF32, which keeps about three decimal digits and would
-// miss the fp32 tolerance of 1e-4 that the card's checks hold.
+// Which inputs come here: every dtype at D in {16, 32}.  At D in {64, 128}
+// the tensor cores take them: bf16/fp16 in flash_attn_fwd_sm90.cu, fp32 in
+// flash_attn_fwd_f32_sm90.cu (three bf16 parts per value, six bf16 products
+// per product, which keeps fp32's accuracy where a TF32 product would not).
 //
 // Design.  One thread block per (b*h, 64-row query tile); the TPU's
 // sequential k grid axis becomes a loop over 64-row K/V tiles inside the
@@ -28,9 +27,9 @@
 // device memory.  Heavier (later) query tiles are scheduled first.
 //
 // What bounds it on the H100 (3.35 TB/s; 67 TFLOP/s fp32 outside the tensor
-// cores).  fp32, causal, B=8, H=12, S=1024, D=64: q/k/v/o traffic
-// 4 * 8*12*1024*64 * 4 B = 100.7 MB -> 30.0 us; 4*D*S(S+1)/2*B*H = 12.9 GFLOP
-// at 67 TFLOP/s -> 193 us: bound by operations.  What this design leaves on
+// cores).  fp32, causal, B=8, H=12, S=1024, D=32: q/k/v/o traffic
+// 4 * 8*12*1024*32 * 4 B = 50.3 MB -> 15.0 us; 4*D*S(S+1)/2*B*H = 6.4 GFLOP
+// at 67 TFLOP/s -> 96 us: bound by operations.  What this design leaves on
 // the table: the inner loops issue about one shared-memory load per two
 // FMAs, global loads are scalar and overlap only the end of the previous
 // tile's products, and the exponentials and shuffles of the softmax sit
@@ -41,7 +40,6 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <type_traits>
 
 namespace {
 
@@ -78,12 +76,12 @@ struct Strides {
   long long b, h, s;
 };
 
-// The second bound is the blocks an SM holds anyway, by shared memory (3 of
-// 70 KB at D = 64, 1 of 119 KB at D = 128): it lets ptxas use up to 85
-// registers a thread at D <= 64, where left to itself it stopped at 64 and
-// spilled (20 bytes at D = 64) once the row strides took registers.
+// The second bound, 3 blocks an SM, lets ptxas use up to 85 registers a
+// thread, where left to itself it stopped at 64 and spilled (20 bytes at
+// D = 64, when this kernel still took D 64) once the row strides took
+// registers.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, int heads,
                       int seq_len, Strides qs_, Strides ks_, Strides vs_,
@@ -248,16 +246,10 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int bh,
                        int heads, int seq_len, int d, const Strides* st,
                        float scale, int causal, cudaStream_t stream) {
+  // D 64 and 128 go to the tensor-core kernels
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
     case 32: return launch<T, 32>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
-  }
-  // 16-bit inputs at D 64 and 128 go to flash_attn_fwd_sm90.cu
-  if constexpr (std::is_same<T, float>::value) {
-    switch (d) {
-      case 64: return launch<T, 64>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
-      case 128: return launch<T, 128>(q, k, v, o, bh, heads, seq_len, st, scale, causal, stream);
-    }
   }
   return cudaErrorInvalidValue;
 }

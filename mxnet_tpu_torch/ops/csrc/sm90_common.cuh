@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash-attention
-// kernels, flash_attn_fwd_sm90.cu and flash_attn_bwd_sm90.cu: bf16x2/f16x2
-// packing, mbarriers with a trapping wait, 4-D TMA loads, shared-memory
-// matrix descriptors for the 128B swizzle, the wgmma instructions the two
-// kernels issue, and the tensor maps over [B, H, S, D] inputs read through
-// their strides.  _build.py hashes this header into every kernel's build.
+// kernels, flash_attn_{fwd,bwd}_sm90.cu (bf16/fp16) and
+// flash_attn_{fwd,bwd}_f32_sm90.cu (fp32): bf16x2/f16x2 packing, mbarriers
+// with a trapping wait, 4-D TMA loads, shared-memory matrix descriptors for
+// the 128B swizzle, the wgmma instructions the kernels issue, the tensor
+// maps over [B, H, S, D] inputs read through their strides, and the split
+// of fp32 values into three bf16 parts with the loader that stores them in
+// the swizzled layout.  _build.py hashes this header into every kernel's
+// build.
 #pragma once
 
 #include <cuda.h>
@@ -184,6 +187,107 @@ SM90_WGMMA_SS(64, 128, SM90_R64, SM90_D64, 64, 65, 66, F16, "f16")
 SM90_WGMMA_RS(Bf16, "bf16")
 SM90_WGMMA_RS(F16, "f16")
 #undef SM90_WGMMA_RS
+
+// -- fp32 as three bf16 parts ---------------------------------------------------
+// The fp32 kernels (flash_attn_*_f32_sm90.cu) write each fp32 operand as
+// x = x0 + x1 + x2, each part a bf16: x0 = bf16(x), x1 = bf16(x - x0),
+// x2 = bf16(x - x0 - x1), every rounding to nearest even.  Both differences
+// are exact in fp32, and x2 needs at most 8 bits, so the split is exact for
+// 0 and for every x with 2^-110 <= |x| < 2^128 - 2^119 (below, x2 would
+// need bits finer than bf16's smallest subnormal; above, x0 rounds to
+// infinity).  A product a b is then sum_{i+j<=2} a_i b_j: six bf16 products,
+// each exact in fp32, leaving out a_1 b_2 + a_2 b_1 + a_2 b_2, below
+// 2^-23 |a b|.  The six in the order they are issued into one fp32
+// accumulator, smallest first: (2,0) (1,1) (0,2) (1,0) (0,1) (0,0).
+__host__ __device__ constexpr int split_a(int o) { return o < 3 ? 2 - o : (o < 5 ? 4 - o : 0); }
+__host__ __device__ constexpr int split_b(int o) { return o < 3 ? o : (o < 5 ? o - 3 : 0); }
+constexpr int kSplitProducts = 6;
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// The three parts of the pair (lo, hi), each packed as bf16x2 with lo in
+// the low half (pack2's order, the A-fragment and shared-tile order).
+__device__ __forceinline__ void split3(float lo, float hi, uint32_t& w0, uint32_t& w1,
+                                       uint32_t& w2) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(lo, hi);
+  const float2 af = __bfloat1622float2(a);
+  const float rlo = __fsub_rn(lo, af.x), rhi = __fsub_rn(hi, af.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(rlo, rhi);
+  const float2 bf = __bfloat1622float2(b);
+  w0 = bf16x2_bits(a);
+  w1 = bf16x2_bits(b);
+  w2 = bf16x2_bits(__floats2bfloat162_rn(__fsub_rn(rlo, bf.x), __fsub_rn(rhi, bf.y)));
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t (&w)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]) : "memory");
+}
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads); issued before the arrival that publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of the 16-byte unit u (bf16 columns 8u .. 8u + 7) of row r in
+// a tile of `rows` rows kept as D/64 chunks of rows x 128 bytes, in the 128B
+// swizzle that TMA writes (unit index XOR row % 8): the layout desc_k_major
+// and desc_mn_major read.
+__host__ __device__ constexpr uint32_t swizzled(int r, int u, int rows) {
+  return (u / 8) * rows * 128 + r * 128 + (((u % 8) ^ (r % 8)) << 4);
+}
+
+// Rows [r0, r0 + ROWS) of one (b, h) slice of an fp32 [B, H, S, D] tensor
+// (`src` at its row 0, rows `row_stride` elements apart, the last stride
+// 1), each value times `mul`, zeros past S, split into three bf16 tiles
+// at dst + p * ROWS * D * 2 (p = 0, 1, 2) in the swizzled layout.  NT
+// threads share the work, this one is `tid`; each loads 8 columns (two
+// 16-byte loads) per group, up to four groups in flight, then splits and
+// stores them, and fences for the async proxy at the end.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void load_split(const float* __restrict__ src, long long row_stride,
+                                           int r0, int seq_len, float mul, uint32_t dst,
+                                           int tid) {
+  constexpr int kUnits = D / 8;
+  constexpr int kGroups = ROWS * kUnits / NT;  // per thread
+  constexpr int kBatch = kGroups < 4 ? kGroups : 4;
+  static_assert((ROWS * kUnits) % NT == 0 && kGroups % kBatch == 0, "uneven tile split");
+  constexpr uint32_t kPart = ROWS * D * 2;
+#pragma unroll
+  for (int b0 = 0; b0 < kGroups; b0 += kBatch) {
+    float4 x[kBatch][2];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int g = tid + (b0 + i) * NT;
+      const int r = g / kUnits, u = g % kUnits;
+      if (r0 + r < seq_len) {
+        const float4* at = reinterpret_cast<const float4*>(
+            src + static_cast<long long>(r0 + r) * row_stride + u * 8);
+        x[i][0] = __ldg(at);
+        x[i][1] = __ldg(at + 1);
+      } else {
+        x[i][0] = x[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int g = tid + (b0 + i) * NT;
+      const int r = g / kUnits, u = g % kUnits;
+      const float v[8] = {x[i][0].x, x[i][0].y, x[i][0].z, x[i][0].w,
+                          x[i][1].x, x[i][1].y, x[i][1].z, x[i][1].w};
+      uint32_t w[3][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split3(__fmul_rn(v[2 * j], mul), __fmul_rn(v[2 * j + 1], mul), w[0][j], w[1][j],
+               w[2][j]);
+      const uint32_t off = dst + swizzled(r, u, ROWS);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) st_shared_v4(off + p * kPart, w[p]);
+    }
+  }
+  fence_proxy_async();
+}
 
 // -- tensor maps ----------------------------------------------------------------
 using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;

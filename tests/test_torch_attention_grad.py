@@ -8,11 +8,13 @@ inputs: that plain version against the JAX package's
 ``flash_attention`` against ``jax.grad`` of the Pallas kernel in interpret
 mode (``tests/test_pallas.py``'s gradient case), and gradients through the
 model's strided einsum views back to the projection weights.  The kernels
-themselves (``flash_attn_bwd.cu``, and ``flash_attn_bwd_sm90.cu`` for
-bf16/fp16 at D 64 and 128) are held against ``chunked_attention_grads`` on
-the card by ``chip_smoke.py``; here a CPU model of the tensor-core kernel's
+themselves (``flash_attn_bwd.cu`` at D 16 and 32; at D 64 and 128
+``flash_attn_bwd_sm90.cu`` for bf16/fp16 and ``flash_attn_bwd_f32_sm90.cu``
+for fp32) are held against ``chunked_attention_grads`` on the card by
+``chip_smoke.py``; here a CPU model of the 16-bit tensor-core kernel's
 roundings is held to the same limits, which pins the tolerance argument
-beside ``chip_smoke.BWD_ROW_RTOL``.
+beside ``chip_smoke.BWD_ROW_RTOL`` (the fp32 kernel's split:
+``tests/test_torch_attention_split.py``).
 """
 import importlib.util
 import os
@@ -200,7 +202,9 @@ def test_backward_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),
                                             (torch.float16, 128),
-                                            (torch.float32, 64)])
+                                            (torch.float32, 64),
+                                            (torch.float32, 128),
+                                            (torch.float32, 32)])
 def test_backward_wrapper_refuses_cpu_tensors_of_each_design(dtype,
                                                              head_dim):
     """Each backward kernel (``design_backward``) takes CUDA tensors only."""
@@ -223,10 +227,13 @@ def test_cuda_less_default_device_raises(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_design_backward_mirrors_design(dtype, head_dim):
-    """The tensor-core backward takes exactly what the tensor-core forward
-    takes (bf16/fp16 at D 64 and 128); both sources exist."""
-    want = "wgmma+tma" if dtype != torch.float32 and head_dim >= 64 \
-        else "simt"
+    """Each backward kernel takes exactly what its forward takes: at D 64
+    and 128 the tensor cores (bf16/fp16 as they are, fp32 split three
+    ways), at D 16 and 32 the SIMT kernels; every source exists."""
+    if head_dim < 64:
+        want = "simt"
+    else:
+        want = "wgmma+bf16x3" if dtype == torch.float32 else "wgmma+tma"
     assert att.design_backward(dtype, head_dim) == att.design(dtype,
                                                               head_dim)
     assert att.design_backward(dtype, head_dim) == want

@@ -8,6 +8,8 @@ and against ``local_attention``, and the model handing its einsum views to
 ``flash_attention`` as they are.  The kernels themselves are checked on
 strided views on the card by ``chip_smoke.py``.
 """
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -86,10 +88,24 @@ def test_check_layout_skips_size_one_dims():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma+tma"), (torch.float16, 128, "wgmma+tma"),
     (torch.bfloat16, 32, "simt"), (torch.float16, 16, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "wgmma+bf16x3"), (torch.float32, 128, "wgmma+bf16x3"),
+    (torch.float32, 32, "simt"), (torch.float32, 16, "simt")])
 def test_design_routes_by_dtype_and_head_dim(dtype, d, want):
     assert att.design(dtype, d) == want
     assert att.KERNEL_SOURCES[want].endswith(".cu")
+
+
+@pytest.mark.parametrize("sources", ["KERNEL_SOURCES", "BACKWARD_SOURCES"])
+def test_kernel_sources_define_their_launchers(sources):
+    """Each design's source exists and defines the C launcher the wrapper
+    looks up by the file's stem, with the argument list of its kind."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for src in getattr(att, sources).values():
+        stem = os.path.splitext(os.path.basename(src))[0]
+        with open(os.path.join(repo, src)) as f:
+            text = " ".join(f.read().split())
+        assert 'extern "C" int %s(const void* q, const void* k, ' \
+            'const void* v, ' % stem in text, src
 
 
 STRIDED_CASES = [  # (b, s, h, d, causal, sm_scale, jax block size)
