@@ -13,12 +13,13 @@ Phases, each fatal on failure:
    nvcc, one process per source, all at once.
 3. kernels: each kernel against its plain PyTorch version on the card.
    Flash attention at the parity-test shapes, ragged lengths,
-   ``sm_scale=0.5``, D in {16, 32, 64, 128} and the full-width layer
-   shape (8, 12, 1024, 64) causal, in fp32 (TF32 off), bf16 and fp16,
-   each case both contiguous and as the strided views the model's einsum
-   makes (strides (S*H*D, D, H*D, 1)), through whichever kernel
-   ``attention.design`` picks (at D 64 and 128 the tensor cores: bf16/fp16
-   as they are, fp32 split into three bf16 parts; SIMT at D 16 and 32);
+   ``sm_scale=0.5``, D in {16, 32, 64, 128}, the full-width layer shape
+   (8, 12, 1024, 64) causal and the D-32 LM's (8, 8, 2048, 32), in fp32
+   (TF32 off), bf16 and fp16, each case both contiguous and as the
+   strided views the model's einsum makes (strides (S*H*D, D, H*D, 1)),
+   through whichever kernel ``attention.design`` picks (the tensor cores
+   at every D: bf16/fp16 as they are, fp32 split into three bf16 parts),
+   and at D 48, which runs padded to 64;
    the flash-attention backward kernels' dq, dk and dv against
    ``chunked_attention_grads`` at the same cases, dtypes and layouts
    (``do`` strided too where q, k, v are), held to ``BWD_ATOL`` and
@@ -30,8 +31,8 @@ Phases, each fatal on failure:
    Timings of each kernel, its plain version and one PyTorch call as a
    yardstick (``F.scaled_dot_product_attention``, its backward through
    ``torch.autograd.grad`` less its forward, ``torch.mul``; the port
-   never calls any of them), and each attention kernel's bound; the SIMT
-   kernels, which no longer run at D 64, timed at ``SIMT_SHAPE`` (D 32).
+   never calls any of them), and each attention kernel's bound; the
+   attention kernels at ``MAIN_SHAPE`` (D 64) and at ``D32_SHAPE``.
 4. LM inference at GPT-2 small widths (12 layers, d_model 768, 12 heads,
    d_ff 3072, vocab 50257, max_len 1024; seeded random weights): 4 batches
    of 8 x 1024 tokens scored to logits and mean next-token NLL, in fp32,
@@ -79,14 +80,22 @@ Phases, each fatal on failure:
    (through both kernels) and on the CPU (through the plain versions)
    from one init, in fp32 (TF32 off) and bf16; the loss, the params and
    the momenta held to ``LM_TRAIN_PARITY_TOL`` after each step.
-13. The D-32 path, where the SIMT kernels run: phase 12's LM with 4 heads
-   (D = 32) in fp32, scored (held to ``PARITY_TOL``) and trained 3 steps
-   by ``make_train_step`` (held to ``LM_TRAIN_PARITY_TOL``), card against
+13. D-32 parity: phase 12's LM with 4 heads (D = 32) in fp32 and bf16,
+   scored (held to ``PARITY_TOL``) and trained 3 steps by
+   ``make_train_step`` (held to ``LM_TRAIN_PARITY_TOL``), card against
    CPU, with the kernels' launches counted.
+14. The D-32 LM at Pythia-31M's published widths (``PYTHIA_31M``: 6
+   layers, d_model 256, 8 heads, so D = 32; d_ff 1024, vocab 50304,
+   max_len 2048; seeded random weights) on one seeded batch of 8 x 2048
+   tokens, in fp32 (TF32 off), bf16 and fp16: 4 batches scored (ms/batch,
+   tokens/s), then 3 warm-up and 10 timed ``make_train_step`` steps
+   (ms/step, tokens/s, share of peak at ``lm_train_flops``); the loss
+   must fall and every step launch each kernel n_layers times.
 
 It prints the ResNet-50 numbers as one ``{"resnet50": {...}}`` line, the
-LM training numbers as one ``{"lm_train": {...}}`` line and one
-``{"kernels": [...]}`` line, then as its last line
+LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
+one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
+as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest
 of the repository beside it, it exits non-zero before printing either.
 """
@@ -135,6 +144,18 @@ FLASH_CASES = [  # (shape, causal, sm_scale)
     ((1, 3, 130, 128), True, None), ((1, 3, 130, 128), False, None),
     ((1, 1, 1, 64), True, None), (MAIN_SHAPE, True, None),
 ]
+# The D-32 LM's layer shape (phase 14: B 8, 8 heads, S 2048).
+D32_SHAPE = (8, 8, 2048, 32)
+# D 32 and 16, where the tiles are rows of 64 and 32 bytes in their own
+# swizzles: the sharp case, ragged S, long S and D32_SHAPE.  Their inputs
+# come from a generator of their own (``_narrow_gen``), so the cases above
+# keep the inputs they had before these were added.
+NARROW_CASES = [
+    ((2, 4, 200, 32), True, 0.5), ((1, 3, 130, 16), True, None),
+    ((1, 3, 130, 16), False, None), ((2, 4, 1024, 32), True, None),
+    ((2, 4, 1024, 16), True, None), (D32_SHAPE, True, None),
+]
+FLASH_CASES += NARROW_CASES
 GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, d_ff=3072,
                   n_layers=12, max_len=1024)
 LM_BATCH, LM_SEQ, LM_REQUESTS = 8, 1024, 4
@@ -155,32 +176,40 @@ def log(*args):
     print(*args, flush=True)
 
 
-# The fp32 kernels at D 64 and 128 take each product as six bf16 products
-# (attention.design: "wgmma+bf16x3"), so fp32 attention has two floors: the
-# function's operations at the fp32 CUDA-core peak, and the split design's
-# six bf16 products per product at the bf16 tensor-core peak.
+# The fp32 kernels take each product as six bf16 products (attention.design:
+# "wgmma+bf16x3"), so fp32 attention has two floors: the function's
+# operations at the fp32 CUDA-core peak, and the split design's six bf16
+# products per product at the bf16 tensor-core peak.
 SPLIT_PRODUCTS = 6
+# H100 SXM exponentials per second on the special-function units, as the
+# FlashAttention-3 paper gives it (Shah et al. 2024): 3.9 T/s.
+SFU_EXPS = 3.9e12
 
 
 def _attention_bounds(shape, dtype, causal, n_tensors, flops_per_pair):
     """(bound ms, what bounds it, {floor name: ms}): the least time on the
     H100 for ``n_tensors`` [B, H, S, D] tensors read or written once over
-    HBM and ``flops_per_pair`` * D FLOPs per (query, key) pair that the
-    mask keeps, each floor the larger of its bytes and operations times.
-    fp32 has the two floors above ("fp32", "bf16x3") and states the
-    lesser, so that no kernel reads over 100% of its bound; bf16 and fp16
-    have one, at the tensor cores' peak."""
+    HBM, ``flops_per_pair`` * D FLOPs and one exponential per (query, key)
+    pair that the mask keeps; each floor is the largest of its bytes,
+    operations and exponentials times, and names it ("bytes",
+    "operations", "exps").  fp32 has the two floors above ("fp32",
+    "bf16x3") and states the lesser, so that no kernel reads over 100% of
+    its bound; bf16 and fp16 have one, at the tensor cores' peak."""
     b, h, s, d = shape
     elem = torch.empty((), dtype=dtype).element_size()
     t_bytes = n_tensors * b * h * s * d * elem / HBM_BPS
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = flops_per_pair * d * pairs * b * h
+    pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
+    ops = flops_per_pair * d * pairs
+    t_exps = pairs / SFU_EXPS
     rates = {DTYPE_NAME[dtype]: PEAK_FLOPS[dtype]}
     if dtype == torch.float32:
         rates["bf16x3"] = PEAK_FLOPS[torch.bfloat16] / SPLIT_PRODUCTS
-    floors = {name: (1e3 * max(t_bytes, ops / rate),
-                     "bytes" if t_bytes >= ops / rate else "operations")
-              for name, rate in rates.items()}
+    floors = {}
+    for name, rate in rates.items():
+        times = {"bytes": t_bytes, "operations": ops / rate,
+                 "exps": t_exps}
+        by = max(times, key=times.get)
+        floors[name] = (1e3 * times[by], by)
     ms, by = min(floors.values())
     return ms, by, {name: f[0] for name, f in floors.items()}
 
@@ -287,22 +316,76 @@ def _qkv(shape, dtype, gen, strided=False):
             for _ in range(3)]
 
 
+def _narrow_gen(seed):
+    """The generator of ``NARROW_CASES``' inputs."""
+    return torch.Generator(device="cuda").manual_seed(100 + seed)
+
+
+def check_padded_head_dim(att, shape):
+    """A head dim between the kernels' widths (``shape[-1]``, not in
+    ``HEAD_DIMS``): forward and backward, each dtype, contiguous and
+    strided, against the plain versions at ``ATOL``/``ROW_RTOL`` and
+    ``BWD_ATOL``/``BWD_ROW_RTOL``, each backward repeated bit for bit;
+    one forward and one backward launch per call."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d = shape[-1]
+    if d in att.HEAD_DIMS:
+        raise AssertionError("D %d is a kernel width" % d)
+    for dtype, strided in itertools.product(DTYPE_NAME, (False, True)):
+        q, k, v = _qkv(shape, dtype, gen, strided)
+        do = _qkv(shape, dtype, gen, strided)[0]
+        att.reset_launch_count()
+        att.reset_backward_launch_count()
+        out = att.flash_attention(q, k, v, True)
+        got = att.flash_attention_backward(q, k, v, do, True)
+        launches = (att.launch_count(), att.backward_launch_count())
+        again = att.flash_attention_backward(q, k, v, do, True)
+        ref = att.flash_attention_reference(q, k, v, True)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        rel = (diff.amax(-1) / ref.float().abs().amax(-1)
+               .clamp_min(1e-30)).max().item()
+        berr, brels = _grad_errors(got, att.chunked_attention_grads(
+            q, k, v, do, True))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log("  D %d padded to %d, %s %s: forward max|err| %.3g, row-relative "
+            "%.3g; backward max|err| %.3g, row-relative %.3g, repeat equal "
+            "%s; launches %s"
+            % (d, att.kernel_width(d), DTYPE_NAME[dtype],
+               "strided" if strided else "contiguous", err, rel, berr,
+               max(brels), same, launches))
+        shapes_ok = out.shape == q.shape and all(g.shape == q.shape
+                                                 for g in got)
+        if not (shapes_ok and same and launches == (1, 1)
+                and err <= ATOL[dtype] and rel <= ROW_RTOL[dtype]
+                and berr <= BWD_ATOL.get(dtype, math.inf)
+                and max(brels) <= BWD_ROW_RTOL[dtype]):
+            raise AssertionError("flash attention at D %d (padded) disagrees"
+                                 " with its plain versions (%s, strided=%s)"
+                                 % (d, DTYPE_NAME[dtype], strided))
+
+
 def phase_kernels():
     """Kernel against plain version at every case, contiguous and strided;
     timings at MAIN_SHAPE.  Returns {dtype: {"max_abs_err", "max_row_rel",
-    "ms", "strided_ms", "plain_ms", "library_ms", "design", "by_design"}}:
-    the errors of the design MAIN_SHAPE takes, and every design's."""
+    "ms", "strided_ms", "plain_ms", "library_ms", "design", "by_design",
+    "by_dim"}}: the errors of the design MAIN_SHAPE takes, every design's
+    and every head dim's."""
     from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.ops import attention as att
     cases = FLASH_CASES
     gen = torch.Generator(device="cuda").manual_seed(0)
+    narrow = _narrow_gen(0)
     results = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             worst = {}  # design -> [max|err|, row-relative]
-            for (shape, causal, scale), strided in itertools.product(
-                    cases, (False, True)):
-                q, k, v = _qkv(shape, dtype, gen, strided)
+            by_dim = {}  # head dim -> [max|err|, row-relative]
+            for case, strided in itertools.product(cases, (False, True)):
+                shape, causal, scale = case
+                q, k, v = _qkv(shape, dtype,
+                               narrow if case in NARROW_CASES else gen,
+                               strided)
                 out = att.flash_attention(q, k, v, causal, scale)
                 ref = att.flash_attention_reference(q, k, v, causal, scale)
                 torch.cuda.synchronize()
@@ -317,8 +400,10 @@ def phase_kernels():
                 # each row's max|err| over that row's largest |ref|
                 rel = (diff.amax(-1) / ref.float().abs().amax(-1)
                        .clamp_min(1e-30)).max().item()
-                w = worst.setdefault(att.design(dtype, shape[-1]), [0.0, 0.0])
-                w[0], w[1] = max(w[0], err), max(w[1], rel)
+                for w in (worst.setdefault(att.design(dtype, shape[-1]),
+                                           [0.0, 0.0]),
+                          by_dim.setdefault(shape[-1], [0.0, 0.0])):
+                    w[0], w[1] = max(w[0], err), max(w[1], rel)
                 log("  %s %-18s %-10s causal=%-5s scale=%-4s %-9s max|err| "
                     "%.3g, row-relative %.3g"
                     % (DTYPE_NAME[dtype], shape,
@@ -351,7 +436,7 @@ def phase_kernels():
             design = att.design(dtype, MAIN_SHAPE[-1])
             results[dtype] = dict(
                 max_abs_err=worst[design][0], max_row_rel=worst[design][1],
-                design=design, by_design=worst, **timings)
+                design=design, by_design=worst, by_dim=by_dim, **timings)
             log("%s at %s causal (%s): kernel %.4f ms (strided %.4f ms), "
                 "plain %.4f ms, SDPA %.4f ms, kernel/SDPA %.2f (medians of "
                 "rounds %s), worst [max|err|, row-relative] by design %s "
@@ -362,15 +447,16 @@ def phase_kernels():
                    timings["ms"] / timings["library_ms"],
                    [{n: "%.4f" % t for n, t in r.items()} for r in rounds],
                    worst, ATOL[dtype], ROW_RTOL[dtype], 2 * len(cases)))
-        # the wrapper refuses what the kernels do not take
+        # a head dim between the kernels' widths runs padded (D 48 at 64)
         q, k, v = _qkv((1, 2, 64, 64), torch.bfloat16, gen)
+        check_padded_head_dim(att, (2, 3, 100, 48))
+        # the wrapper refuses what the kernels do not take
         offset = torch.empty(q.numel() + 1, dtype=q.dtype,
                              device="cuda")[1:].view(q.shape)
+        wide = _qkv((1, 2, 64, 160), torch.bfloat16, gen)
         for bad in (lambda: att.flash_attention(q.transpose(2, 3), k, v),
                     lambda: att.flash_attention(offset, k, v),
-                    lambda: att.flash_attention(q[..., :48].contiguous(),
-                                                k[..., :48].contiguous(),
-                                                v[..., :48].contiguous()),
+                    lambda: att.flash_attention(*wide),
                     lambda: att.flash_attention(q.double(), k.double(),
                                                 v.double())):
             try:
@@ -400,8 +486,8 @@ def phase_kernels():
 # ulp apart, and one ulp is at most 2u of the row's largest |ref| (u =
 # 2^-8 and 2^-11): row-relative 2^-7 and 2^-10, plus the fp32 rows'
 # 2^-8.  Measured: bf16 7.75e-3, fp16 9.7e-4, both at MAIN_SHAPE (the SIMT
-# kernel).
-# bf16/fp16 at D 64 and 128 go through the tensor-core kernel, which also
+# kernel that preceded the tensor-core ones).
+# bf16/fp16 go through the tensor-core kernel, which also
 # rounds P and dS to the input type where they enter a product (p, dp,
 # delta and ds stay fp32).  A CPU model of those two roundings against
 # chunked_attention_grads (tools/torch_flash_bwd_cpu_model.py) reads at
@@ -418,7 +504,6 @@ BWD_ROW_RTOL = {torch.float32: 2.0 ** -8,
 
 
 BWD_DESIGN_NOTE = {
-    "simt": "simt, three passes (row statistics, dq, dk+dv)",
     "wgmma+tma": "wgmma+tma, two launches (row statistics + dq, dk + dv)",
     "wgmma+bf16x3": "wgmma+bf16x3, fp32 as three bf16 parts, six products "
                     "each, two launches (row statistics + dq, dk + dv)",
@@ -469,18 +554,23 @@ def phase_kernels_bwd():
     views (do then strided too), and two calls on the same inputs bit for
     bit; timings at MAIN_SHAPE.  Returns {dtype:
     {"max_abs_err", "max_row_rel", "ms", "strided_ms", "plain_ms",
-    "library_ms", "design", "by_design"}}, as ``phase_kernels`` does."""
+    "library_ms", "design", "by_design", "by_dim"}}, as ``phase_kernels``
+    does."""
     from mxnet_tpu_torch import MXNetError
     from mxnet_tpu_torch.ops import attention as att
     gen = torch.Generator(device="cuda").manual_seed(1)
+    narrow = _narrow_gen(1)
     results = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             worst = {}  # design -> [max|err|, row-relative]
-            for (shape, causal, scale), strided in itertools.product(
-                    FLASH_CASES, (False, True)):
-                q, k, v = _qkv(shape, dtype, gen, strided)
-                do = _qkv(shape, dtype, gen, strided)[0]
+            by_dim = {}  # head dim -> [max|err|, row-relative]
+            for case, strided in itertools.product(FLASH_CASES,
+                                                   (False, True)):
+                shape, causal, scale = case
+                g = narrow if case in NARROW_CASES else gen
+                q, k, v = _qkv(shape, dtype, g, strided)
+                do = _qkv(shape, dtype, g, strided)[0]
                 got = att.flash_attention_backward(q, k, v, do, causal, scale)
                 ref = att.chunked_attention_grads(q, k, v, do, causal, scale)
                 again = att.flash_attention_backward(q, k, v, do, causal,
@@ -501,9 +591,10 @@ def phase_kernels_bwd():
                                              "%s %s" % (shape, dtype))
                 err, rels = _grad_errors(got, ref)
                 rel = max(rels)
-                w = worst.setdefault(att.design_backward(dtype, shape[-1]),
-                                     [0.0, 0.0])
-                w[0], w[1] = max(w[0], err), max(w[1], rel)
+                for w in (worst.setdefault(
+                        att.design_backward(dtype, shape[-1]), [0.0, 0.0]),
+                          by_dim.setdefault(shape[-1], [0.0, 0.0])):
+                    w[0], w[1] = max(w[0], err), max(w[1], rel)
                 log("  bwd %s %-18s %-10s causal=%-5s scale=%-4s %-9s max|err| "
                     "%.3g, row-relative %.3g (dq %.3g, dk %.3g, dv %.3g)"
                     % (DTYPE_NAME[dtype], shape,
@@ -540,7 +631,7 @@ def phase_kernels_bwd():
             design = att.design_backward(dtype, MAIN_SHAPE[-1])
             results[dtype] = dict(
                 max_abs_err=worst[design][0], max_row_rel=worst[design][1],
-                design=design, by_design=worst, **timings)
+                design=design, by_design=worst, by_dim=by_dim, **timings)
             log("bwd %s at %s causal (%s): kernel %.4f ms (strided %.4f ms), "
                 "plain %.4f ms, SDPA backward %.4f ms (readings %s), "
                 "kernel/SDPA %.2f, bound %.4f ms (%s) (medians of rounds "
@@ -561,6 +652,9 @@ def phase_kernels_bwd():
                     lambda: att.flash_attention_backward(q, k, v, q[:, :1]),
                     lambda: att.flash_attention_backward(
                         q.double(), k.double(), v.double(), q.double()),
+                    lambda: att.flash_attention_backward(
+                        *_qkv((1, 2, 64, 160), torch.bfloat16, gen, False),
+                        _qkv((1, 2, 64, 160), torch.bfloat16, gen)[0]),
                     lambda: att.flash_attention_backward(q, k, v, q.cpu())):
             try:
                 bad()
@@ -799,25 +893,27 @@ def phase_lm_train_parity(dtype):
     return worst, tuple(totals)
 
 
-# The D-32 path (phase 13): the parity LM with 4 heads, so D = 32 and every
-# dtype's attention takes the SIMT kernels, which no model at D 64 reaches.
+# The D-32 parity LM (phase 13): the parity LM with 4 heads, so D = 32, the
+# width of the Pythia-31M LM of phase 14.
 LM_D32 = dict(LM_TRAIN_PARITY, n_heads=4)
 
 
-def phase_lm_d32():
-    """The D-32 LM in fp32 (TF32 off) on the card (SIMT kernels) against
-    the CPU (plain versions): scored once (``PARITY_TOL``), then 3 steps of
-    ``make_train_step`` (``LM_TRAIN_PARITY_TOL``).  Returns the card's
-    (forward, backward) kernel launches."""
+def phase_lm_d32_parity(dtype):
+    """The D-32 parity LM on the card (kernels) against the CPU (plain
+    versions) in ``dtype`` (fp32 with TF32 off, or bf16): scored once
+    (``PARITY_TOL``), then 3 steps of ``make_train_step``
+    (``LM_TRAIN_PARITY_TOL``).  Returns the card's (forward, backward)
+    kernel launches."""
     from mxnet_tpu_torch.models import transformer as tr
     from mxnet_tpu_torch.ops import attention as att
-    flags = tf32_flags()
-    dtype = torch.float32
+    flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
     cfg = tr.TransformerLMConfig(dtype=dtype, **LM_D32)
     head_dim = cfg.d_model // cfg.n_heads
-    if att.design(dtype, head_dim) != "simt":
-        raise AssertionError("D %d does not take the SIMT kernels" % head_dim)
+    design = att.design(dtype, head_dim)
+    if head_dim != 32 or design not in ("wgmma+tma", "wgmma+bf16x3"):
+        raise AssertionError("D %d takes %s" % (head_dim, design))
     params, tokens, labels = lm_train_parity_init(config=LM_D32)
+    params = {n: t.to(dtype) for n, t in params.items()}
     att.reset_launch_count()
     with torch.inference_mode():
         ref = tr.transformer_forward(params, tokens, cfg)
@@ -827,7 +923,7 @@ def phase_lm_d32():
         nll_diff = abs(tr.nll_from_logits(out, labels).item()
                        - tr.nll_from_logits(ref, labels).item())
     scored = att.launch_count()
-    err = (out - ref).abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
     cpu = lm_train_run("cpu", dtype, "plain", params, tokens, labels,
                        config=LM_D32)
     att.reset_launch_count()
@@ -838,10 +934,10 @@ def phase_lm_d32():
     worst = {k: max(d[k] for d in lm_train_diffs(card, cpu))
              for k in ("loss", "params", "momenta")}
     tol, train_tol = PARITY_TOL[dtype], LM_TRAIN_PARITY_TOL[dtype]
-    log("LM D=32 (%s, simt kernels, S=%d): logits max|err| %.3g (limit %g), "
-        "NLL |diff| %.3g (limit %g); %d train steps, worst loss |diff| %.3g "
-        "(limit %g), params %.3g (limit %g); launches %d forward, %d "
-        "backward" % (flags, LM_TRAIN_PARITY_SEQ, err, tol["logits"],
+    log("LM D=32 parity (%s, %s kernels, S=%d): logits max|err| %.3g (limit "
+        "%g), NLL |diff| %.3g (limit %g); %d train steps, worst loss |diff| "
+        "%.3g (limit %g), params %.3g (limit %g); launches %d forward, %d "
+        "backward" % (flags, design, LM_TRAIN_PARITY_SEQ, err, tol["logits"],
                       nll_diff, tol["nll"], LM_TRAIN_PARITY_STEPS,
                       worst["loss"], train_tol["loss"], worst["params"],
                       train_tol["params"], *launches))
@@ -853,60 +949,61 @@ def phase_lm_d32():
                              "kernels, not %s" % (launches, want))
     bad = [k for k in worst if worst[k] > train_tol[k]]
     if err > tol["logits"] or nll_diff > tol["nll"] or bad:
-        raise AssertionError("the D-32 LM on the card disagrees with the CPU:"
-                             " logits %.3g, NLL %.3g, training %s"
-                             % (err, nll_diff, bad))
+        raise AssertionError("the D-32 LM on the card disagrees with the CPU"
+                             " (%s): logits %.3g, NLL %.3g, training %s"
+                             % (DTYPE_NAME[dtype], err, nll_diff, bad))
     torch.cuda.empty_cache()
     return launches
 
 
-# The SIMT kernels' timing shape: MAIN_SHAPE at D 32, where they still run.
-SIMT_SHAPE = (8, 12, 1024, 32)
-
-
-def phase_simt_timing():
-    """The SIMT forward and backward (fp32) at SIMT_SHAPE causal: kernel,
-    strided, plain and library times, medians of three rounds (their
-    accuracy is held in phase 3).  Returns {"fwd": {...}, "bwd": {...}}."""
+def phase_d32_timing():
+    """The attention kernels at D32_SHAPE causal in each dtype: forward and
+    backward kernel, strided, plain and library times, medians of three
+    rounds (their accuracy is held in phase 3).  Returns {dtype: {"fwd":
+    {...}, "bwd": {...}}}."""
     from mxnet_tpu_torch.ops import attention as att
     F = torch.nn.functional
-    dtype = torch.float32
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = _qkv(SIMT_SHAPE, dtype, gen)
-    do = _qkv(SIMT_SHAPE, dtype, gen)[0]
-    qs, ks, vs = _qkv(SIMT_SHAPE, dtype, gen, strided=True)
-    fns = {
-        "fwd": {"ms": lambda: att.flash_attention(q, k, v, True),
-                "strided_ms": lambda: att.flash_attention(qs, ks, vs, True),
-                "plain_ms": lambda: att.flash_attention_reference(
-                    q, k, v, True),
-                "library_ms": lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)},
-        "bwd": {"ms": lambda: att.flash_attention_backward(q, k, v, do,
-                                                           True),
-                "strided_ms": lambda: att.flash_attention_backward(
-                    qs, ks, vs, do, True),
-                "plain_ms": lambda: att.chunked_attention_grads(
-                    q, k, v, do, True)},
-    }
-    if att.design(dtype, SIMT_SHAPE[-1]) != "simt":
-        raise AssertionError("SIMT_SHAPE does not take the SIMT kernels")
     out = {}
-    with torch.no_grad():
-        for kind, group in fns.items():
-            rounds = [{n: cuda_ms(fn, iters=10) for n, fn in group.items()}
-                      for _ in range(3)]
-            out[kind] = {n: sorted(r[n] for r in rounds)[1] for n in group}
-    with torch.enable_grad():
-        out["bwd"]["library_ms"] = sorted(
-            sdpa_backward_ms(q, k, v, do) for _ in range(3))[1]
-    for kind, t in out.items():
-        log("simt %s fp32 at %s causal: kernel %.4f ms (strided %.4f ms), "
-            "plain %.4f ms, SDPA%s %.4f ms"
-            % (kind, SIMT_SHAPE, t["ms"], t["strided_ms"], t["plain_ms"],
-               " backward" if kind == "bwd" else "", t["library_ms"]))
-    del q, k, v, do, qs, ks, vs
-    torch.cuda.empty_cache()
+    for dtype in DTYPE_NAME:
+        q, k, v = _qkv(D32_SHAPE, dtype, gen)
+        do = _qkv(D32_SHAPE, dtype, gen)[0]
+        qs, ks, vs = _qkv(D32_SHAPE, dtype, gen, strided=True)
+        fns = {
+            "fwd": {"ms": lambda: att.flash_attention(q, k, v, True),
+                    "strided_ms": lambda: att.flash_attention(qs, ks, vs,
+                                                              True),
+                    "plain_ms": lambda: att.flash_attention_reference(
+                        q, k, v, True),
+                    "library_ms": lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True)},
+            "bwd": {"ms": lambda: att.flash_attention_backward(q, k, v, do,
+                                                               True),
+                    "strided_ms": lambda: att.flash_attention_backward(
+                        qs, ks, vs, do, True),
+                    "plain_ms": lambda: att.chunked_attention_grads(
+                        q, k, v, do, True)},
+        }
+        res = {}
+        with torch.no_grad():
+            for kind, group in fns.items():
+                rounds = [{n: cuda_ms(fn, iters=10)
+                           for n, fn in group.items()} for _ in range(3)]
+                res[kind] = {n: sorted(r[n] for r in rounds)[1]
+                             for n in group}
+        with torch.enable_grad():
+            res["bwd"]["library_ms"] = sorted(
+                sdpa_backward_ms(q, k, v, do) for _ in range(3))[1]
+        for kind, t in res.items():
+            log("%s %s at %s causal (%s): kernel %.4f ms (strided %.4f ms), "
+                "plain %.4f ms, SDPA%s %.4f ms"
+                % (kind, DTYPE_NAME[dtype], D32_SHAPE,
+                   att.design(dtype, D32_SHAPE[-1]), t["ms"],
+                   t["strided_ms"], t["plain_ms"],
+                   " backward" if kind == "bwd" else "", t["library_ms"]))
+        out[dtype] = res
+        del q, k, v, do, qs, ks, vs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1005,6 +1102,114 @@ def phase_lm_train(dtype):
         del params, momenta, step, run
         torch.cuda.empty_cache()
     return out, tuple(totals)
+
+
+# The D-32 LM (phase 14): EleutherAI's Pythia-31M published widths (hidden
+# 256, 8 heads, so D = 32; intermediate 1024, 6 layers, vocab 50304, 2048
+# positions) in this repo's architecture, seeded random weights, not cut.
+PYTHIA_31M = dict(vocab=50304, d_model=256, n_heads=8, d_ff=1024,
+                  n_layers=6, max_len=2048)
+PYTHIA_BATCH, PYTHIA_SEQ = 8, 2048
+
+
+def phase_lm_pythia(dtype):
+    """The D-32 LM at Pythia-31M's widths on one seeded batch of 8 x 2048
+    tokens: LM_REQUESTS batches scored (ms/batch, tokens/s; n_layers
+    forward launches each), then LM_TRAIN_WARMUP + LM_TRAIN_STEPS steps of
+    ``make_train_step`` (lr LM_TRAIN_LR; ms/step, tokens/s, share of
+    peak; n_layers forward and backward launches a step; the loss must
+    stay finite and fall).  Returns its numbers and the (forward,
+    backward) launches of the scored and trained runs."""
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.ops import attention as att
+    flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
+    cfg = tr.TransformerLMConfig(dtype=dtype, **PYTHIA_31M)
+    design = att.design(dtype, cfg.d_model // cfg.n_heads)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tr.init_transformer_params(gen, cfg)
+    n_params = sum(t.numel() for t in params.values())
+    seq = torch.randint(0, cfg.vocab, (PYTHIA_BATCH, PYTHIA_SEQ + 1),
+                        generator=gen, device="cuda")
+    tokens, labels = tr.place_batch(seq[:, :-1], seq[:, 1:])
+    tokens_per_batch = PYTHIA_BATCH * PYTHIA_SEQ
+    with torch.inference_mode():
+        # warm-up: cuBLAS handles, workspaces, the allocator's logits blocks
+        tr.nll_from_logits(tr.transformer_forward(params, tokens, cfg),
+                           labels)
+        torch.cuda.synchronize()
+        att.reset_launch_count()
+        times, nlls = [], []
+        for _ in range(LM_REQUESTS):
+            t0 = time.perf_counter()
+            logits = tr.transformer_forward(params, tokens, cfg)
+            nll = tr.nll_from_logits(logits, labels)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            nlls.append(nll.item())
+        scored = att.launch_count()
+    if logits.shape != (PYTHIA_BATCH, PYTHIA_SEQ, cfg.vocab) \
+            or not all(math.isfinite(x) for x in nlls):
+        raise AssertionError("D-32 LM scoring (%s): logits %s, NLL %s"
+                             % (DTYPE_NAME[dtype], tuple(logits.shape), nlls))
+    if scored != cfg.n_layers * LM_REQUESTS:
+        raise AssertionError("D-32 LM scoring launched %d forward kernels, "
+                             "not %d" % (scored, cfg.n_layers * LM_REQUESTS))
+    del logits
+    score_ms = sorted(times)[len(times) // 2]
+    flops, matmul_flops, attn_flops = lm_train_flops(cfg, PYTHIA_BATCH,
+                                                     PYTHIA_SEQ)
+    step = tr.make_train_step(cfg, lr=LM_TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_times, losses, totals = [], [], [0, 0]
+    for _ in range(LM_TRAIN_WARMUP + LM_TRAIN_STEPS):
+        att.reset_launch_count()
+        att.reset_backward_launch_count()
+        t0 = time.perf_counter()
+        losses.append(step(params, tokens, labels)[-1])
+        torch.cuda.synchronize()
+        step_times.append(1e3 * (time.perf_counter() - t0))
+        launches = (att.launch_count(), att.backward_launch_count())
+        if launches != (cfg.n_layers, cfg.n_layers):
+            raise AssertionError("D-32 LM step (%s) launched %s (forward, "
+                                 "backward) kernels, not %d each"
+                                 % (DTYPE_NAME[dtype], launches,
+                                    cfg.n_layers))
+        totals = [t + n for t, n in zip(totals, launches)]
+    losses = [x.item() for x in losses]
+    ms = sorted(step_times[LM_TRAIN_WARMUP:])[LM_TRAIN_STEPS // 2]
+    res = dict(dtype=DTYPE_NAME[dtype], flags=flags, design=design,
+               params_m=n_params / 1e6, score_ms_median=score_ms,
+               score_ms=times, score_tokens_s=tokens_per_batch / score_ms
+               * 1e3, nll=nlls, step_ms_median=ms,
+               step_ms_first=step_times[:LM_TRAIN_WARMUP],
+               tokens_s=tokens_per_batch / ms * 1e3,
+               peak_share=flops / (ms / 1e3) / PEAK_FLOPS[dtype],
+               losses=losses,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("LM D=32 %s (%s, %s kernels; Pythia-31M widths, %.1f M params, %d "
+        "layers, batch %dx%d): scored ms/batch %s median %.3f, %.1f "
+        "tokens/s, NLL %s; train ms/step median of %d %.3f, first %d %s, "
+        "%.1f tokens/s, %.2f%% of the %g TFLOP/s peak at %.4g TFLOP/step "
+        "(matmul %.4g, attention fwd+bwd %.4g); loss %s; peak memory %.1f "
+        "GB; launches scored %d, per step %d forward, %d backward"
+        % (DTYPE_NAME[dtype], flags, design, n_params / 1e6, cfg.n_layers,
+           PYTHIA_BATCH, PYTHIA_SEQ, ["%.3f" % t for t in times], score_ms,
+           res["score_tokens_s"], ["%.4f" % x for x in nlls], LM_TRAIN_STEPS,
+           ms, LM_TRAIN_WARMUP, ["%.1f" % t for t in step_times[:3]],
+           res["tokens_s"], 100 * res["peak_share"], PEAK_FLOPS[dtype] / 1e12,
+           flops / 1e12, matmul_flops / 1e12, attn_flops / 1e12,
+           ["%.4f" % x for x in losses], res["peak_mem_gb"], scored,
+           cfg.n_layers, cfg.n_layers))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite D-32 LM loss (%s): %s"
+                             % (DTYPE_NAME[dtype], losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the D-32 LM loss did not fall (%s): %s"
+                             % (DTYPE_NAME[dtype], losses))
+    del params, step, tokens, labels, seq
+    torch.cuda.empty_cache()
+    return res, (scored + totals[0], totals[1])
 
 
 def scale_bound_ms(numel, dtype):
@@ -1562,7 +1767,7 @@ def main():
     phase_build()
     kern = phase_kernels()
     kern_bwd = phase_kernels_bwd()
-    simt = phase_simt_timing()
+    d32_timing = phase_d32_timing()
     scale_kern = phase_scale_kernel()
     launches = {dt: phase_lm(dt) for dt in DTYPE_NAME}
     for dt, seed in itertools.product((torch.float32, torch.bfloat16),
@@ -1580,7 +1785,11 @@ def main():
     train_parity, parity_launches = {}, {}
     for dt in LM_TRAIN_PARITY_TOL:
         train_parity[dt], parity_launches[dt] = phase_lm_train_parity(dt)
-    d32_launches = phase_lm_d32()
+    d32_parity = {dt: phase_lm_d32_parity(dt)
+                  for dt in (torch.float32, torch.bfloat16)}
+    pythia, pythia_launches = {}, {}
+    for dt in DTYPE_NAME:
+        pythia[dt], pythia_launches[dt] = phase_lm_pythia(dt)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import scale as sc
     n_layers = GPT2_SMALL["n_layers"]
@@ -1634,30 +1843,38 @@ def main():
             "shape": list(MAIN_SHAPE),
             "causal": True,
         })
-    for kind, bound_fn, launched, replaces in (
-            ("fwd", attention_bound_ms, d32_launches[0],
-             "mxnet_tpu/ops/pallas_kernels.py:41"),
-            ("bwd", attention_bwd_bound_ms, d32_launches[1],
-             "mxnet_tpu/ops/pallas_kernels.py:198")):
-        bound_ms, bound_by, bounds = bound_fn(SIMT_SHAPE, torch.float32, True)
-        sources = att.KERNEL_SOURCES if kind == "fwd" else att.BACKWARD_SOURCES
+    # D 32: the D-32 LM's launches (phase 14, and phase 13 in fp32/bf16)
+    for (kind, bound_fn, replaces, sources), dt in itertools.product((
+            ("fwd", attention_bound_ms, "mxnet_tpu/ops/pallas_kernels.py:41",
+             att.KERNEL_SOURCES),
+            ("bwd", attention_bwd_bound_ms,
+             "mxnet_tpu/ops/pallas_kernels.py:198", att.BACKWARD_SOURCES)),
+            DTYPE_NAME):
+        i = 0 if kind == "fwd" else 1
+        bound_ms, bound_by, bounds = bound_fn(D32_SHAPE, dt, True)
+        design = att.design(dt, D32_SHAPE[-1])
+        t = d32_timing[dt][kind]
         entries.append({
-            "name": "flash_attn_%s_simt[fp32]" % kind,
+            "name": "flash_attn_%s_d32[%s]" % (kind, DTYPE_NAME[dt]),
             "route": "cuda",
-            "design": "simt" if kind == "fwd" else BWD_DESIGN_NOTE["simt"],
-            "source": sources["simt"],
+            "design": design if kind == "fwd" else BWD_DESIGN_NOTE[design],
+            "source": sources[design],
             "replaces": replaces,
-            "launches": launched,
-            "max_abs_err": (kern if kind == "fwd" else kern_bwd)[
-                torch.float32]["by_design"]["simt"][0],
-            "ms": simt[kind]["ms"],
-            "strided_ms": simt[kind]["strided_ms"],
-            "plain_ms": simt[kind]["plain_ms"],
+            "replaced_design": "simt (flash_attn_%s.cu)" % kind,
+            "launches": pythia_launches[dt][i]
+            + d32_parity.get(dt, (0, 0))[i],
+            "lm_launches": pythia_launches[dt][i],
+            "parity_launches": d32_parity.get(dt, (0, 0))[i],
+            "max_abs_err": (kern if kind == "fwd" else kern_bwd)[dt][
+                "by_dim"][D32_SHAPE[-1]][0],
+            "ms": t["ms"],
+            "strided_ms": t["strided_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "bounds_ms": bounds,
-            "library_ms": simt[kind]["library_ms"],
-            "shape": list(SIMT_SHAPE),
+            "library_ms": t["library_ms"],
+            "shape": list(D32_SHAPE),
             "causal": True,
         })
     for dt in (torch.float32, torch.bfloat16):
@@ -1684,6 +1901,10 @@ def main():
         "card": card, "batch": LM_BATCH, "seq": LM_SEQ,
         "train": {DTYPE_NAME[dt]: r for dt, r in lm_train.items()},
         "parity": {DTYPE_NAME[dt]: r for dt, r in train_parity.items()}}}))
+    print(json.dumps({"lm_d32": {
+        "card": card, "config": PYTHIA_31M, "batch": PYTHIA_BATCH,
+        "seq": PYTHIA_SEQ,
+        "runs": {DTYPE_NAME[dt]: r for dt, r in pythia.items()}}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ Registered ops (``registry.OP_REGISTRY``, behind ``nd.<op>`` and
 names.
 
 Kernels, each with its plain version and launch counter:
-``attention`` (the forward in ``csrc/flash_attn_fwd_sm90.cu`` on the
-tensor cores and ``csrc/flash_attn_fwd.cu`` on the CUDA cores, the
-backward in ``csrc/flash_attn_bwd.cu``, counterparts of
+``attention`` (on the tensor cores: the forward in
+``csrc/flash_attn_fwd_sm90.cu`` and ``csrc/flash_attn_fwd_f32_sm90.cu``,
+the backward in ``csrc/flash_attn_bwd_sm90.cu`` and
+``csrc/flash_attn_bwd_f32_sm90.cu``, counterparts of
 ``mxnet_tpu/ops/pallas_kernels.py::flash_attention`` and its
 ``custom_vjp``) and ``scale``
 (``csrc/scale.cu``, counterpart of the user kernel ``pl_scale`` that

@@ -7,25 +7,26 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py::flash_attention``, a
 each built by ``_build.load_library`` at its first launch.  The forward
 (:func:`design` picks one):
 
-- ``csrc/flash_attn_fwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16 at D in
-  {64, 128}, on the tensor cores, fed by TMA;
-- ``csrc/flash_attn_fwd_f32_sm90.cu`` ("wgmma+bf16x3"): fp32 at D in
-  {64, 128}, on the tensor cores, each fp32 operand split into three bf16
-  parts and each product taken as six bf16 products;
-- ``csrc/flash_attn_fwd.cu`` ("simt"): every dtype at D in {16, 32}, on
-  the CUDA cores.
+- ``csrc/flash_attn_fwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16, on the
+  tensor cores, fed by TMA;
+- ``csrc/flash_attn_fwd_f32_sm90.cu`` ("wgmma+bf16x3"): fp32, on the
+  tensor cores, each fp32 operand split into three bf16 parts and each
+  product taken as six bf16 products.
+
+Both take D in ``HEAD_DIMS`` (16, 32, 64, 128).  Any other D up to 128
+runs at the next of those widths: the wrapper zero-pads q, k and v along
+D (a copy), keeps the scale of the true D and slices the result back
+(:func:`at_kernel_width`); D above 128 is refused.
 
 The backward (:func:`flash_attention_backward`; :func:`design_backward`
 picks one, by the same rule) recomputes the scores from the saved q, k and
 v as the JAX package's ``_chunked_attn_grads`` does; its plain version is
 :func:`chunked_attention_grads`:
 
-- ``csrc/flash_attn_bwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16 at D in
-  {64, 128}, on the tensor cores, in two launches;
-- ``csrc/flash_attn_bwd_f32_sm90.cu`` ("wgmma+bf16x3"): fp32 at D in
-  {64, 128}, on the tensor cores through the same split, in two launches;
-- ``csrc/flash_attn_bwd.cu`` ("simt"): every dtype at D in {16, 32}, three
-  passes on the CUDA cores.
+- ``csrc/flash_attn_bwd_sm90.cu`` ("wgmma+tma"): bf16 and fp16, on the
+  tensor cores, in two launches;
+- ``csrc/flash_attn_bwd_f32_sm90.cu`` ("wgmma+bf16x3"): fp32, on the
+  tensor cores through the same split, in two launches.
 
 The kernels read q, k and v through their strides (:func:`check_layout`
 says which layouts they take), so the model's einsum views need no copy.
@@ -48,15 +49,13 @@ __all__ = ["flash_attention", "flash_attention_reference", "FlashAttention",
            "launch_count", "reset_launch_count", "backward_launch_count",
            "reset_backward_launch_count", "check_layout", "design",
            "design_backward", "KERNEL_SOURCES", "BACKWARD_SOURCES",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "kernel_width", "at_kernel_width"]
 
 KERNEL_SOURCES = {
-    "simt": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd.cu",
     "wgmma+tma": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu",
     "wgmma+bf16x3": "mxnet_tpu_torch/ops/csrc/flash_attn_fwd_f32_sm90.cu",
 }
 BACKWARD_SOURCES = {
-    "simt": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd.cu",
     "wgmma+tma": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd_sm90.cu",
     "wgmma+bf16x3": "mxnet_tpu_torch/ops/csrc/flash_attn_bwd_f32_sm90.cu",
 }
@@ -90,26 +89,58 @@ def reset_backward_launch_count():
 
 
 def design(dtype, head_dim):
-    """Which kernel takes q, k, v of ``dtype`` at head dim ``head_dim``:
-    at D 64 or 128 the tensor cores, ``"wgmma+tma"`` for bf16/fp16 and
-    ``"wgmma+bf16x3"`` for fp32 (three bf16 parts per value, six bf16
-    products per product: fp32's accuracy, never a single TF32 or bf16
-    product, whatever ``torch.backends.cuda.matmul.allow_tf32`` says);
-    ``"simt"`` at D 16 and 32."""
-    if head_dim in (64, 128):
-        if dtype in (torch.bfloat16, torch.float16):
-            return "wgmma+tma"
-        if dtype == torch.float32:
-            return "wgmma+bf16x3"
-    return "simt"
+    """Which kernel takes q, k, v of ``dtype`` at head dim ``head_dim``
+    (any D up to 128; :func:`kernel_width` says at which width it runs):
+    the tensor cores, ``"wgmma+tma"`` for bf16/fp16 and ``"wgmma+bf16x3"``
+    for fp32 (three bf16 parts per value, six bf16 products per product:
+    fp32's accuracy, never a single TF32 or bf16 product, whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says).  None for another
+    dtype or a D the kernels do not take."""
+    if not 0 < head_dim <= HEAD_DIMS[-1]:
+        return None
+    if dtype in (torch.bfloat16, torch.float16):
+        return "wgmma+tma"
+    if dtype == torch.float32:
+        return "wgmma+bf16x3"
+    return None
 
 
 def design_backward(dtype, head_dim):
     """Which backward kernel takes q, k, v of ``dtype`` at head dim
     ``head_dim``, by the same rule as :func:`design`: ``"wgmma+tma"``
-    (bf16/fp16 at D 64 or 128), ``"wgmma+bf16x3"`` (fp32 at D 64 or 128)
-    or ``"simt"``."""
+    (bf16/fp16) or ``"wgmma+bf16x3"`` (fp32)."""
     return design(dtype, head_dim)
+
+
+def kernel_width(head_dim):
+    """The width the kernels run head dim ``head_dim`` at: the least of
+    ``HEAD_DIMS`` not below it.  Raises :class:`MXNetError` above 128."""
+    for width in HEAD_DIMS:
+        if head_dim <= width:
+            return width
+    raise MXNetError("flash_attention: head dim %d above %d, the widest the "
+                     "kernels take" % (head_dim, HEAD_DIMS[-1]))
+
+
+def at_kernel_width(fn, tensors, sm_scale):
+    """``fn(*tensors, scale)`` run at :func:`kernel_width` of their head
+    dim D (the last dimension): where that width W is above D, each tensor
+    is zero-padded along D to W (a new contiguous copy), ``fn`` gets the
+    padded tensors, and each tensor ``fn`` returns (one, or a tuple) is
+    sliced back to D.  ``scale`` is ``sm_scale``, or 1/sqrt(D) of the true
+    D.  Zero columns add nothing to q k^T, and zero columns of v give zero
+    columns of the output, so the result is attention at D.  At D in
+    ``HEAD_DIMS`` the tensors pass through as they are, uncopied."""
+    d = tensors[0].shape[-1]
+    width = kernel_width(d)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if width == d:
+        return fn(*tensors, scale)
+    out = fn(*(torch.nn.functional.pad(t, (0, width - d)) for t in tensors),
+             scale)
+    if isinstance(out, tuple):
+        return tuple(o[..., :d] for o in out)
+    return out[..., :d]
 
 
 def _kernel(source, n_tensors):
@@ -173,9 +204,9 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
 
 
 def _check_inputs(q, k, v, what):
-    """What the CUDA kernels take: one [B, H, S, D] shape and one dtype
-    (fp32, bf16, fp16) on one CUDA device, D in ``HEAD_DIMS``, layouts
-    :func:`check_layout` passes."""
+    """What the CUDA wrappers take: one [B, H, S, D] shape and one dtype
+    (fp32, bf16, fp16) on one CUDA device, D at most 128.  (The layout is
+    checked at the kernel's width, :func:`check_layout`.)"""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise MXNetError("%s: q, k, v must share one [B, H, S, D] shape, got "
                          "%s %s %s" % (what, tuple(q.shape), tuple(k.shape),
@@ -183,10 +214,9 @@ def _check_inputs(q, k, v, what):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise MXNetError("%s: dtypes %s %s %s; the kernel takes one of fp32, "
                          "bf16, fp16" % (what, q.dtype, k.dtype, v.dtype))
-    if q.shape[-1] not in HEAD_DIMS:
-        raise MXNetError("%s: head dim %d not in %s"
-                         % (what, q.shape[-1], HEAD_DIMS))
-    check_layout(q, k, v)
+    if not 0 < q.shape[-1] <= HEAD_DIMS[-1]:
+        raise MXNetError("%s: head dim %d; the kernels take 1 to %d"
+                         % (what, q.shape[-1], HEAD_DIMS[-1]))
 
 
 def _strides(*tensors):
@@ -195,13 +225,20 @@ def _strides(*tensors):
 
 
 def _forward_kernel(q, k, v, causal, sm_scale):
-    """Launch the forward kernel that :func:`design` names."""
+    """Launch the forward kernel that :func:`design` names, at
+    :func:`kernel_width`."""
     _check_inputs(q, k, v, "flash_attention")
+    return at_kernel_width(
+        lambda q, k, v, scale: _launch_forward(q, k, v, causal, scale),
+        (q, k, v), sm_scale)
+
+
+def _launch_forward(q, k, v, causal, scale):
+    check_layout(q, k, v)
     b, h, s, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if b * h * s == 0:
         return out
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     name = design(q.dtype, d)
     fn = _kernel(KERNEL_SOURCES[name], 4)
     with torch.cuda.device(q.device):
@@ -233,10 +270,11 @@ def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
     the statistics and dq, then dk and dv, with P and dS rounded to the
     input type where they enter the tensor cores; ``"wgmma+bf16x3"``
     (``csrc/flash_attn_bwd_f32_sm90.cu``) the same two launches in fp32,
-    every operand split into three bf16 parts; ``"simt"``
-    (``csrc/flash_attn_bwd.cu``) runs three passes, the statistics, dq,
-    then dk and dv.  Two calls on the same inputs give the same bits.
-    CUDA tensors only; a kernel that fails raises.
+    every operand split into three bf16 parts.  A head dim outside
+    ``HEAD_DIMS`` runs at :func:`kernel_width` (q, k, v and ``do``
+    zero-padded, copies; dq, dk, dv sliced back).  Two calls on the same
+    inputs give the same bits.  CUDA tensors only; a kernel that fails
+    raises.
     """
     if not (q.device == k.device == v.device == do.device) \
             or q.device.type != "cuda":
@@ -250,6 +288,14 @@ def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
     do = do.to(q.dtype)
     if _layout_fault(do) is not None:
         do = do.clone(memory_format=torch.contiguous_format)
+    return at_kernel_width(
+        lambda q, k, v, do, scale: _launch_backward(q, k, v, do, causal,
+                                                    scale),
+        (q, k, v, do), sm_scale)
+
+
+def _launch_backward(q, k, v, do, causal, scale):
+    check_layout(q, k, v)
     b, h, s, d = q.shape
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -257,7 +303,6 @@ def flash_attention_backward(q, k, v, do, causal=False, sm_scale=None):
         return dq, dk, dv
     # per (b*h, row): the softmax max, 1/sum and sum_j p_ij * dp_ij
     stats = torch.empty((3, b * h, s), dtype=torch.float32, device=q.device)
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     name = design_backward(q.dtype, d)
     fn = _kernel(BACKWARD_SOURCES[name], 8)
     with torch.cuda.device(q.device):
@@ -363,10 +408,12 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     masking is by absolute position.  On CUDA the forward launches the
     hand-written kernel that :func:`design` names and the backward
     :func:`flash_attention_backward`; q, k, v must then share one shape
-    and one dtype (fp32, bf16 or fp16), with D in ``HEAD_DIMS``, in any
-    layout that :func:`check_layout` takes; the output is a new contiguous
-    tensor.  On the CPU the forward runs :func:`flash_attention_reference`
-    and the backward :func:`chunked_attention_grads`.
+    and one dtype (fp32, bf16 or fp16), with D at most 128; at D in
+    ``HEAD_DIMS`` they are read in any layout that :func:`check_layout`
+    takes, and any other D is padded to :func:`kernel_width` (a copy).
+    The output is a new tensor (at a padded D, a view of one).  On the CPU
+    the forward runs :func:`flash_attention_reference` and the backward
+    :func:`chunked_attention_grads`.
     """
     if not (q.device == k.device == v.device):
         raise MXNetError("flash_attention: q, k, v on different devices "

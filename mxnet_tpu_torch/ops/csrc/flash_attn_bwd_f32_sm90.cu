@@ -4,8 +4,9 @@
 // Replaces the gradient of the Pallas TPU kernel in
 // mxnet_tpu/ops/pallas_kernels.py: the custom_vjp backward _bwd:198, which
 // calls the jnp recompute _chunked_attn_grads:132 (flash_attention:178), for
-// fp32 inputs at head dims 64 and 128, in place of the SIMT kernel in
-// flash_attn_bwd.cu (which keeps D 16 and 32).  It computes the same
+// fp32 inputs at head dims 16, 32, 64 and 128, in place of the SIMT kernel
+// flash_attn_bwd.cu (three passes of fp32 FMAs), which it replaced at D 64
+// and 128 first and then at D 16 and 32.  It computes the same
 // function per (batch, head), in fp32 from q, k, v and the output gradient do:
 //   s  = q k^T * scale, masked to -1e30 (keys past S; causal: key > query)
 //   p  = softmax(s) over the keys
@@ -19,8 +20,8 @@
 // first into one fp32 accumulator (the terms left out are below 2^-23 of
 // the product).  q, do, k and v are split by the producer as they are
 // loaded; p and ds, the A operands from registers, one 16-key slice into
-// three A fragments each.  Everything else is the SIMT kernel's arithmetic,
-// which the fp32 check holds in sharp-softmax rows: q is scaled before its
+// three A fragments each.  Everything else is the arithmetic that the fp32
+// check holds in sharp-softmax rows: q is scaled before its
 // products (dk then needs no scale), the scores stay in natural units,
 // e = expf(s - m) with the row's own max m and sum l found online in the
 // first sweep (the dominant key's e is exactly 1, so its p dp is exact; no
@@ -30,7 +31,9 @@
 // Design: the two launches on one stream of flash_attn_bwd_sm90.cu,
 // deterministic, no atomics, each with a producer warpgroup that loads fp32
 // rows through each tensor's own strides, splits them and stores the three
-// bf16 tiles in the 128B swizzle TMA would write, into a two-stage mbarrier
+// bf16 tiles in the swizzle TMA would write (sm90_common.cuh: 128B in
+// 64-column chunks at D >= 64, 64B at D = 32, 32B at D = 16), into a
+// two-stage mbarrier
 // ring ("full": one arrival per producer thread after a proxy fence;
 // "empty": one per consumer warp), and one consumer warpgroup issuing wgmma.
 //   A. "statistics + dq": one block per (b*h, 64 query rows).  Q (scaled) and
@@ -64,6 +67,17 @@
 // 6 x 64 x D x 2 for K and V, 2 stages x 6 x 32 x D x 2 for Q and dO: 96 /
 // 192 KB.
 //
+// At D 16 and 32 (causal, B=8, H=12, S=1024, D=32) the nine products take
+// 174 GFLOP of bf16 products, 0.176 ms at peak, and the exponentials, three
+// per kept pair (two sweeps of A and B's one), 0.039 ms at the SFUs' 3.9
+// T/s; the function's floor is the six split products of its five, 0.098
+// ms.  The tiles keep D = 64's shapes (64-key tiles in A, 32-query tiles in
+// B, one consumer warpgroup), so no sweep is added; the registers a narrow
+// D frees buy a second block on each SM in both launches (launch bounds:
+// 128 registers a thread), whose warps hide the first's latency.
+// Measured (PERF.md): 0.489 ms at D = 32, 0.612 with one block a SM;
+// SDPA's backward 1.05.
+//
 // What bounds it on the H100 (3.35 TB/s; 989 TFLOP/s bf16 dense, 67 TFLOP/s
 // fp32 outside the tensor cores).  Causal, B=8, H=12, S=1024, D=64: the
 // gradient's five products take 10*D FLOPs per kept (query, key) pair,
@@ -88,7 +102,7 @@ constexpr int kRows = 64;         // launch A's query rows, launch B's keys, per
 constexpr int kBQ = 32;           // launch B's queries per Q/dO tile
 // Launch A's keys per K/V tile.
 template <int D>
-__host__ __device__ constexpr int tile_k() { return D == 64 ? 64 : 32; }
+__host__ __device__ constexpr int tile_k() { return D <= 64 ? 64 : 32; }
 
 template <int D>
 __host__ __device__ constexpr size_t dq_smem() {
@@ -138,14 +152,16 @@ __device__ __forceinline__ void two_split_products(float (&a)[NREG], float (&b)[
   for (int o = 0; o < kSplitProducts; ++o)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(a, desc_k_major(a1 + split_a(o) * a_part, kk, a_chunk),
-               desc_k_major(b1 + split_b(o) * b_part, kk, b_chunk), o + kk > 0, Bf16());
+      wgmma_ss(a, desc_k_major(a1 + split_a(o) * a_part, kk, a_chunk, row_bytes(D)),
+               desc_k_major(b1 + split_b(o) * b_part, kk, b_chunk, row_bytes(D)), o + kk > 0,
+               Bf16());
 #pragma unroll
   for (int o = 0; o < kSplitProducts; ++o)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(b, desc_k_major(a2 + split_a(o) * a_part, kk, a_chunk),
-               desc_k_major(b2 + split_b(o) * b_part, kk, b_chunk), o + kk > 0, Bf16());
+      wgmma_ss(b, desc_k_major(a2 + split_a(o) * a_part, kk, a_chunk, row_bytes(D)),
+               desc_k_major(b2 + split_b(o) * b_part, kk, b_chunk, row_bytes(D)), o + kk > 0,
+               Bf16());
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(a);
@@ -154,52 +170,56 @@ __device__ __forceinline__ void two_split_products(float (&a)[NREG], float (&b)[
 
 // acc = A B over NK keys for the 64 columns of chunk c, in a fresh (zeroed)
 // accumulator: A the three-part fragments a[3][NK/16][4] from registers, B
-// a three-part MN-major tile (parts `part` bytes apart, chunks of `chunk`
-// bytes); six split products, issued but not committed.  A tile's sum is
+// a three-part MN-major tile of head dim D (parts `part` bytes apart,
+// chunks of `chunk` bytes); six split products, issued but not committed.  A tile's sum is
 // taken apart from the running one and added to it in fp32 (add_sum): the
 // tensor cores' accumulation into a large running sum, hundreds of times
 // over a long sequence, drifted 1.5e-5 row-relative on the H100.
-template <int NK>
-__device__ __forceinline__ void split_rs_chunk(float (&acc)[32],
+template <int NK, int D, int NREG>
+__device__ __forceinline__ void split_rs_chunk(float (&acc)[NREG],
                                                const uint32_t (&a)[3][NK / 16][4],
                                                uint32_t b, int c, uint32_t chunk,
                                                uint32_t part) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NREG; ++i) acc[i] = 0.f;
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
   for (int o = 0; o < kSplitProducts; ++o)
 #pragma unroll
     for (int kk = 0; kk < NK / 16; ++kk)
-      wgmma_rs(acc, a[split_a(o)][kk], desc_mn_major(b + split_b(o) * part, kk, c, chunk),
-               Bf16());
+      wgmma_rs(acc, a[split_a(o)][kk],
+               desc_mn_major(b + split_b(o) * part, kk, c, chunk, row_bytes(D)), Bf16());
 }
 
 // sum += tile, after the tile's products are waited for.
-__device__ __forceinline__ void add_sum(float (&sum)[32], float (&tile)[32]) {
+template <int NREG>
+__device__ __forceinline__ void add_sum(float (&sum)[NREG], float (&tile)[NREG]) {
   fence_regs(tile);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sum[i] += tile[i];
+  for (int i = 0; i < NREG; ++i) sum[i] += tile[i];
 }
 
-// Stores a 64-row fp32 accumulator (D/64 x 32 registers a thread, the m64n64
-// layout) times `mul` into rows row0 and row0 + 8 of a contiguous [B*H, S, D]
-// tensor; rows past S are not stored.
+// Stores a 64-row fp32 accumulator (D / N chunks of N / 2 registers a
+// thread, the m64nN layout, N = chunk_cols(D)) times `mul` into rows row0
+// and row0 + 8 of a contiguous [B*H, S, D] tensor; rows past S are not
+// stored.
 template <int D>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / kChunk][32],
-                                           int bh, int row0, int t, int seq_len, float mul) {
+__device__ __forceinline__ void store_rows(
+    float* out, const float (&acc)[D / chunk_cols(D)][chunk_cols(D) / 2], int bh, int row0,
+    int t, int seq_len, float mul) {
+  constexpr int kCols = chunk_cols(D);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= seq_len) continue;
     float* orow = out + (static_cast<size_t>(bh) * seq_len + row) * D;
 #pragma unroll
-    for (int c = 0; c < D / kChunk; ++c)
+    for (int c = 0; c < D / kCols; ++c)
 #pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j) {
+      for (int j = 0; j < kCols / 8; ++j) {
         const int i = 4 * j + 2 * r;
-        *reinterpret_cast<float2*>(orow + c * kChunk + 8 * j + 2 * t) =
+        *reinterpret_cast<float2*>(orow + c * kCols + 8 * j + 2 * t) =
             make_float2(acc[c][i] * mul, acc[c][i + 1] * mul);
       }
   }
@@ -207,13 +227,14 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / kC
 
 // -- A: statistics and dq ---------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
 flash_attn_bwd_f32_dq_kernel(const Params p) {
   constexpr int kTile = tile_k<D>();
-  constexpr int kChunks = D / kChunk;
-  constexpr uint32_t kQChunk = kRows * 128;
+  constexpr int kCols = chunk_cols(D);
+  constexpr int kChunks = D / kCols;
+  constexpr uint32_t kQChunk = kRows * row_bytes(D);
   constexpr uint32_t kQPart = kChunks * kQChunk;   // one part of Q or dO
-  constexpr uint32_t kKChunk = kTile * 128;
+  constexpr uint32_t kKChunk = kTile * row_bytes(D);
   constexpr uint32_t kKPart = kChunks * kKChunk;   // one part of a K or V tile
   constexpr uint32_t kStage = 6 * kKPart;          // K's three parts, then V's
 
@@ -348,11 +369,11 @@ flash_attn_bwd_f32_dq_kernel(const Params p) {
   }
 
   // sweep 2: dq
-  float dq_acc[kChunks][32];
+  float dq_acc[kChunks][kCols / 2];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq_acc[c][i] = 0.f;
+    for (int i = 0; i < kCols / 2; ++i) dq_acc[c][i] = 0.f;
   for (int it = n_k; it < 2 * n_k; ++it) {
     const int kt = it - n_k;
     const int st = it % kStages;
@@ -374,10 +395,10 @@ flash_attn_bwd_f32_dq_kernel(const Params p) {
         split3(p0 * (dp_acc[i] - delta[r]), p1 * (dp_acc[i + 1] - delta[r]), dsa[0][kk][j],
                dsa[1][kk][j], dsa[2][kk][j]);
       }
-    float dq_tile[kChunks][32];
+    float dq_tile[kChunks][kCols / 2];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c)
-      split_rs_chunk<kTile>(dq_tile[c], dsa, k_st, c, kKChunk, kKPart);
+      split_rs_chunk<kTile, D>(dq_tile[c], dsa, k_st, c, kKChunk, kKPart);
     wgmma_commit();
     wgmma_wait_all();
     __syncwarp();
@@ -390,12 +411,13 @@ flash_attn_bwd_f32_dq_kernel(const Params p) {
 
 // -- B: dk and dv ----------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
 flash_attn_bwd_f32_dkdv_kernel(const Params p) {
-  constexpr int kChunks = D / kChunk;
-  constexpr uint32_t kKChunk = kRows * 128;
+  constexpr int kCols = chunk_cols(D);
+  constexpr int kChunks = D / kCols;
+  constexpr uint32_t kKChunk = kRows * row_bytes(D);
   constexpr uint32_t kKPart = kChunks * kKChunk;   // one part of K or V
-  constexpr uint32_t kQChunk = kBQ * 128;
+  constexpr uint32_t kQChunk = kBQ * row_bytes(D);
   constexpr uint32_t kQPart = kChunks * kQChunk;   // one part of a Q or dO tile
   constexpr uint32_t kStage = 6 * kQPart;          // Q's three parts, then dO's
 
@@ -462,11 +484,11 @@ flash_attn_bwd_f32_dkdv_kernel(const Params p) {
   // tile's queries.
   const int t = lane % 4;
   const int krow0 = k0 + 16 * warp + lane / 4;
-  float dk_acc[kChunks][32], dv_acc[kChunks][32];
+  float dk_acc[kChunks][kCols / 2], dv_acc[kChunks][kCols / 2];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+    for (int i = 0; i < kCols / 2; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
   float s_acc[kBQ / 2], dp_acc[kBQ / 2];
 
   mbar_wait(bar_kv, 0);
@@ -503,12 +525,12 @@ flash_attn_bwd_f32_dkdv_kernel(const Params p) {
         split3(p0 * (dp_acc[i] - dl.x), p1 * (dp_acc[i + 1] - dl.y), df[0][kk][j],
                df[1][kk][j], df[2][kk][j]);
       }
-    // the tile's P^T dO and dS^T Qs: at D = 64 both in one commit group; at
+    // the tile's P^T dO and dS^T Qs: at D <= 64 both in one commit group; at
     // D = 128 one 64-column chunk of one at a time, for registers
     if constexpr (kChunks == 1) {
-      float dv_tile[32], dk_tile[32];
-      split_rs_chunk<kBQ>(dv_tile, pf, do_st, 0, kQChunk, kQPart);
-      split_rs_chunk<kBQ>(dk_tile, df, q_st, 0, kQChunk, kQPart);
+      float dv_tile[kCols / 2], dk_tile[kCols / 2];
+      split_rs_chunk<kBQ, D>(dv_tile, pf, do_st, 0, kQChunk, kQPart);
+      split_rs_chunk<kBQ, D>(dk_tile, df, q_st, 0, kQChunk, kQPart);
       wgmma_commit();
       wgmma_wait_all();
       add_sum(dv_acc[0], dv_tile);
@@ -516,12 +538,12 @@ flash_attn_bwd_f32_dkdv_kernel(const Params p) {
     } else {
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        float tile[32];
-        split_rs_chunk<kBQ>(tile, pf, do_st, c, kQChunk, kQPart);
+        float tile[kCols / 2];
+        split_rs_chunk<kBQ, D>(tile, pf, do_st, c, kQChunk, kQPart);
         wgmma_commit();
         wgmma_wait_all();
         add_sum(dv_acc[c], tile);
-        split_rs_chunk<kBQ>(tile, df, q_st, c, kQChunk, kQPart);
+        split_rs_chunk<kBQ, D>(tile, df, q_st, c, kQChunk, kQPart);
         wgmma_commit();
         wgmma_wait_all();
         add_sum(dk_acc[c], tile);
@@ -555,7 +577,7 @@ cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, dout [batch, heads, seq_len, d], fp32, d in {64, 128}, read
+// q, k, v, dout [batch, heads, seq_len, d], fp32, d in {16, 32, 64, 128}, read
 // through their strides: 12 element strides, (batch, head, sequence) of q,
 // k, v, then dout, each times 4 bytes a multiple of 16, the last stride 1
 // and every pointer 16-byte aligned.  dq, dk, dv: new contiguous fp32
@@ -568,7 +590,7 @@ extern "C" int flash_attn_bwd_f32_sm90(const void* q, const void* k, const void*
                                        const long long* strides, int dtype, int causal,
                                        float scale, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 || dtype != 0 ||
-      (seq_len + kRows - 1) / kRows > 65535 || (d != 64 && d != 128))
+      (seq_len + kRows - 1) / kRows > 65535 || (d != 16 && d != 32 && d != 64 && d != 128))
     return cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const float*>(q);
@@ -586,5 +608,10 @@ extern "C" int flash_attn_bwd_f32_sm90(const void* q, const void* k, const void*
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(p, batch * heads, s) : launch<128>(p, batch * heads, s);
+  switch (d) {
+    case 16: return launch<16>(p, batch * heads, s);
+    case 32: return launch<32>(p, batch * heads, s);
+    case 64: return launch<64>(p, batch * heads, s);
+    default: return launch<128>(p, batch * heads, s);
+  }
 }

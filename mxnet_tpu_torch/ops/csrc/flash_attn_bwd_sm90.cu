@@ -3,8 +3,9 @@
 // Replaces the gradient of the Pallas TPU kernel in
 // mxnet_tpu/ops/pallas_kernels.py: the custom_vjp backward _bwd:198, which
 // calls the jnp recompute _chunked_attn_grads:132 (flash_attention:178), for
-// 16-bit inputs at head dims 64 and 128.  It computes the same function per
-// (batch, head), in fp32 from the loaded q, k, v and output gradient do:
+// 16-bit inputs at head dims 16, 32, 64 and 128.  It computes the same
+// function per (batch, head), in fp32 from the loaded q, k, v and output
+// gradient do:
 //   s  = q k^T * scale, masked to -1e30 (keys past S; causal: key > query)
 //   p  = softmax(s) over the keys
 //   dv = p^T do          dp = do v^T          delta_i = sum_j p_ij dp_ij
@@ -13,8 +14,9 @@
 // The products run on the tensor cores, so p and ds are rounded to the
 // input type where they enter one (as A operands from registers); s, dp,
 // p, delta, ds and the three sums stay fp32, and dq, dk, dv are rounded
-// once, when stored.  fp32, and D in {16, 32}, go to the SIMT kernel in
-// flash_attn_bwd.cu, which takes the same arguments.
+// once, when stored.  fp32 goes to flash_attn_bwd_f32_sm90.cu, which takes
+// the same arguments.  At D 16 and 32 this file replaces the SIMT kernel
+// (flash_attn_bwd.cu, three passes of fp32 FMAs in every dtype).
 //
 // Numerics.  ds = p (dp - delta) cancels in rows where one key takes
 // nearly all the probability, and there dq's row is small against the
@@ -26,8 +28,7 @@
 // 2^(x - max) is exactly 1, so its p dp is exact.  Measured on the H100, a
 // p taken from a saved log-sum-exp instead, 2^(x - lse), left such a row
 // 0.048 of its maximum from the plain version (bf16, (2, 4, 200, 64)
-// causal, sm_scale 0.5), four times the check's limit; the online
-// statistics match the SIMT kernel's arithmetic.  x = s scale log2e is
+// causal, sm_scale 0.5), four times the check's limit.  x = s scale log2e is
 // rounded once by __fmul_rn, never fused, so both sweeps see its bits.
 //
 // Design: two launches on one stream, deterministic, no atomics, no memset.
@@ -35,7 +36,7 @@
 // (4-D, through each tensor's own strides) into a two-stage ring of
 // mbarriers, and consumer warpgroups of 64 rows issuing wgmma.
 //   A. "statistics + dq": one block per (b*h, tile of 64 * kWG query rows),
-//      kWG consumer warpgroups (2 at D = 64, 1 at D = 128).  Q and dO come
+//      kWG consumer warpgroups (2 at D <= 64, 1 at D = 128).  Q and dO come
 //      in once; the K and V tiles (64 keys) twice, in two sweeps.
 //        sweep 1: S = Q K^T and dP = dO V^T; per row the running max m of
 //                 x, l = sum 2^(x - m) and t = sum 2^(x - m) dp, rescaled
@@ -57,11 +58,28 @@
 // Every operand form is one the forward uses: A and B K-major from shared
 // memory (Q, dO, K, V as [rows, D] tiles), A from registers in the
 // accumulator's layout (pack2), and B MN-major with the transpose bit.
+// Tiles are kept in the swizzle of their row width (sm90_common.cuh): 128B
+// in 64-column chunks at D >= 64, 64B at D = 32, 32B at D = 16; the
+// products into dq, dk and dv run N = min(D, 64) columns at a time.
 // Only the diagonal (causal) and ragged tiles are masked.  Each output
 // element is written by one thread after sums in a fixed order, so two
 // calls on the same inputs give the same bits, as the JAX scan does.
 // Atomic adds into dq from launch B would save 2 of the 9 products (7
 // against 9), but the result would change from run to run.
+//
+// At D 16 and 32 the products are cheap and the exponentials set the floor:
+// the function takes one ex2 per kept (query, key) pair, 50.4 M at B=8,
+// H=12, S=1024 causal, 12.9 us at the SFUs' 3.9 T/s, against the bytes'
+// 13.1 us and the products' 16.3 us at D = 32.  This design takes three per
+// pair (launch A's two sweeps and launch B), so its floor there is the
+// exponentials' 39 us.  The tiles keep D = 64's shapes (launch A two
+// warpgroups over 64-key tiles, launch B 64-query tiles), so each sweep
+// recomputes p once per pair and no sweep is added; the registers a narrow
+// D frees buy occupancy instead, to hide the softmax's latency: launch A
+// is bounded to two blocks a SM, launch B to three (at D = 32 ptxas then
+// gives A 96 registers with 200 bytes spilled, B 128 with 68).  Measured
+// (PERF.md): 0.158 ms in bf16 at D = 32 (0.170 without those bounds),
+// SDPA's backward 0.137.
 //
 // Registers (ptxas -v, sm_90a, CUDA 12.8): launch A 144 at D = 64 (two
 // warpgroups, 288 threads, under their cap of 168: S, dP and dQ, 3 x 32
@@ -88,14 +106,15 @@ using namespace sm90;
 constexpr int kStages = 2;
 constexpr int kTile = 64;   // keys per K/V tile (A) and per block (B)
 
-// Launch A's consumer warpgroups (64 query rows each) per block.
+// Launch A's consumer warpgroups (64 query rows each) per block.  At D <=
+// 32 the launch bounds below ask for two blocks a SM (A) and three (B).
 template <int D>
-__host__ __device__ constexpr int dq_warpgroups() { return D == 64 ? 2 : 1; }
+__host__ __device__ constexpr int dq_warpgroups() { return D <= 64 ? 2 : 1; }
 template <int D>
 __host__ __device__ constexpr int dq_threads() { return 32 * (4 * dq_warpgroups<D>() + 1); }
 // Launch B's queries per Q/dO tile.
 template <int D>
-__host__ __device__ constexpr int dkdv_block_q() { return D == 64 ? 64 : 32; }
+__host__ __device__ constexpr int dkdv_block_q() { return D <= 64 ? 64 : 32; }
 constexpr int kDkdvThreads = 32 * 5;
 
 // Bytes of shared memory: one 1024-aligned region of tiles, then the
@@ -129,42 +148,45 @@ __device__ __forceinline__ void two_products(float (&a)[NREG], float (&b)[NREG],
                                              uint32_t a1, uint32_t b1, uint32_t a2,
                                              uint32_t b2, uint32_t a_chunk,
                                              uint32_t b_chunk) {
+  constexpr uint32_t kRB = row_bytes(D);
   fence_regs(a);
   fence_regs(b);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(a, desc_k_major(a1, kk, a_chunk), desc_k_major(b1, kk, b_chunk), kk > 0,
-             Tg());
+    wgmma_ss(a, desc_k_major(a1, kk, a_chunk, kRB), desc_k_major(b1, kk, b_chunk, kRB),
+             kk > 0, Tg());
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(b, desc_k_major(a2, kk, a_chunk), desc_k_major(b2, kk, b_chunk), kk > 0,
-             Tg());
+    wgmma_ss(b, desc_k_major(a2, kk, a_chunk, kRB), desc_k_major(b2, kk, b_chunk, kRB),
+             kk > 0, Tg());
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(a);
   fence_regs(b);
 }
 
-// Stores a 64-row fp32 accumulator (kChunks x 32 registers a thread, the
-// m64n64 layout) times `mul`, rounded to T, into rows row0 and row0 + 8 of a
-// contiguous [B*H, S, D] tensor; rows past S are not stored.
+// Stores a 64-row fp32 accumulator (D / N chunks of N / 2 registers a
+// thread, the m64nN layout, N = chunk_cols(D)) times `mul`, rounded to T,
+// into rows row0 and row0 + 8 of a contiguous [B*H, S, D] tensor; rows past
+// S are not stored.
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / kChunk][32],
-                                           int bh, int row0, int t, int seq_len,
-                                           float mul) {
+__device__ __forceinline__ void store_rows(
+    T* out, const float (&acc)[D / chunk_cols(D)][chunk_cols(D) / 2], int bh, int row0,
+    int t, int seq_len, float mul) {
   using Tg = typename Tag<T>::type;
+  constexpr int kCols = chunk_cols(D);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= seq_len) continue;
     T* orow = out + (static_cast<size_t>(bh) * seq_len + row) * D;
 #pragma unroll
-    for (int c = 0; c < D / kChunk; ++c)
+    for (int c = 0; c < D / kCols; ++c)
 #pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j) {
+      for (int j = 0; j < kCols / 8; ++j) {
         const int i = 4 * j + 2 * r;
-        *reinterpret_cast<uint32_t*>(orow + c * kChunk + 8 * j + 2 * t) =
+        *reinterpret_cast<uint32_t*>(orow + c * kCols + 8 * j + 2 * t) =
             pack2(acc[c][i] * mul, acc[c][i + 1] * mul, Tg());
       }
   }
@@ -172,7 +194,7 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / kChunk
 
 // -- A: statistics and dq ---------------------------------------------------------
 template <typename T, int D>
-__global__ void __launch_bounds__(dq_threads<D>(), 1)
+__global__ void __launch_bounds__(dq_threads<D>(), D <= 32 ? 2 : 1)
 flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -180,10 +202,12 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   using Tg = typename Tag<T>::type;
   constexpr int kWG = dq_warpgroups<D>();
   constexpr int kRows = 64 * kWG;
-  constexpr int kChunks = D / kChunk;
-  constexpr uint32_t kQChunkBytes = kRows * 128;
+  constexpr int kCols = chunk_cols(D);
+  constexpr uint32_t kRB = row_bytes(D);
+  constexpr int kChunks = D / kCols;
+  constexpr uint32_t kQChunkBytes = kRows * kRB;
   constexpr uint32_t kQBytes = kChunks * kQChunkBytes;     // Q, or dO
-  constexpr uint32_t kKChunkBytes = kTile * 128;
+  constexpr uint32_t kKChunkBytes = kTile * kRB;
   constexpr uint32_t kTileBytes = kChunks * kKChunkBytes;  // one K or V tile
 
   extern __shared__ uint8_t smem_raw[];
@@ -220,9 +244,9 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(bar_q, 2 * kQBytes);
       for (int c = 0; c < kChunks; ++c)
         for (int w = 0; w < kWG; ++w) {
-          const uint32_t off = c * kQChunkBytes + w * 64 * 128;
-          tma_load(sq + off, &tq, bar_q, c * kChunk, q0 + 64 * w, hi, bi);
-          tma_load(sdo + off, &tdo, bar_q, c * kChunk, q0 + 64 * w, hi, bi);
+          const uint32_t off = c * kQChunkBytes + w * 64 * kRB;
+          tma_load(sq + off, &tq, bar_q, c * kCols, q0 + 64 * w, hi, bi);
+          tma_load(sdo + off, &tdo, bar_q, c * kCols, q0 + 64 * w, hi, bi);
         }
       // the K/V tiles twice: sweep 1, then sweep 2
       for (int it = 0; it < 2 * n_k; ++it) {
@@ -233,8 +257,8 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(full, 2 * kTileBytes);
         for (int c = 0; c < kChunks; ++c) {
           const uint32_t off = st * kTileBytes + c * kKChunkBytes;
-          tma_load(sk + off, &tk, full, c * kChunk, kt * kTile, hi, bi);
-          tma_load(sv + off, &tv, full, c * kChunk, kt * kTile, hi, bi);
+          tma_load(sk + off, &tk, full, c * kCols, kt * kTile, hi, bi);
+          tma_load(sv + off, &tv, full, c * kCols, kt * kTile, hi, bi);
         }
       }
     }
@@ -247,7 +271,7 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp / 4;
   const int t = lane % 4;
   const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
-  const uint32_t q_wg = sq + wg * 64 * 128, do_wg = sdo + wg * 64 * 128;
+  const uint32_t q_wg = sq + wg * 64 * kRB, do_wg = sdo + wg * 64 * kRB;
   // the key tiles this warpgroup's own 64 rows see
   const int n_k_wg = p.causal ? min(n_k, (q0 + 64 * wg + 63) / kTile + 1) : n_k;
 
@@ -329,11 +353,11 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // sweep 2: dq
-  float dq_acc[kChunks][32];
+  float dq_acc[kChunks][kCols / 2];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq_acc[c][i] = 0.f;
+    for (int i = 0; i < kCols / 2; ++i) dq_acc[c][i] = 0.f;
   for (int it = n_k; it < 2 * n_k; ++it) {
     const int kt = it - n_k;
     const int st = it % kStages;
@@ -371,7 +395,7 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < kChunks; ++c)
-        wgmma_rs(dq_acc[c], ds[kk], desc_mn_major(k_st, kk, c, kKChunkBytes), Tg());
+        wgmma_rs(dq_acc[c], ds[kk], desc_mn_major(k_st, kk, c, kKChunkBytes, kRB), Tg());
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -384,17 +408,19 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- B: dk and dv ----------------------------------------------------------------
 template <typename T, int D>
-__global__ void __launch_bounds__(kDkdvThreads, 1)
+__global__ void __launch_bounds__(kDkdvThreads, D <= 32 ? 3 : 1)
 flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo, const Params p) {
   using Tg = typename Tag<T>::type;
   constexpr int kBQ = dkdv_block_q<D>();
-  constexpr int kChunks = D / kChunk;
-  constexpr uint32_t kKChunkBytes = kTile * 128;
+  constexpr int kCols = chunk_cols(D);
+  constexpr uint32_t kRB = row_bytes(D);
+  constexpr int kChunks = D / kCols;
+  constexpr uint32_t kKChunkBytes = kTile * kRB;
   constexpr uint32_t kKBytes = kChunks * kKChunkBytes;     // K, or V
-  constexpr uint32_t kQChunkBytes = kBQ * 128;
+  constexpr uint32_t kQChunkBytes = kBQ * kRB;
   constexpr uint32_t kQTileBytes = kChunks * kQChunkBytes;  // one Q or dO tile
 
   extern __shared__ uint8_t smem_raw[];
@@ -434,8 +460,8 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_expect_tx(bar_kv, 2 * kKBytes);
       for (int c = 0; c < kChunks; ++c) {
-        tma_load(sk + c * kKChunkBytes, &tk, bar_kv, c * kChunk, k0, hi, bi);
-        tma_load(sv + c * kKChunkBytes, &tv, bar_kv, c * kChunk, k0, hi, bi);
+        tma_load(sk + c * kKChunkBytes, &tk, bar_kv, c * kCols, k0, hi, bi);
+        tma_load(sv + c * kKChunkBytes, &tv, bar_kv, c * kCols, k0, hi, bi);
       }
     }
     for (int it = 0; it < n_it; ++it) {
@@ -454,8 +480,8 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(full, 2 * kQTileBytes);
         for (int c = 0; c < kChunks; ++c) {
           const uint32_t off = st * kQTileBytes + c * kQChunkBytes;
-          tma_load(sq + off, &tq, full, c * kChunk, q0, hi, bi);
-          tma_load(sdo + off, &tdo, full, c * kChunk, q0, hi, bi);
+          tma_load(sq + off, &tq, full, c * kCols, q0, hi, bi);
+          tma_load(sdo + off, &tdo, full, c * kCols, q0, hi, bi);
         }
       } else {
         mbar_arrive(full);
@@ -468,11 +494,11 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   // tile's queries.
   const int t = lane % 4;
   const int krow0 = k0 + 16 * warp + lane / 4;
-  float dk_acc[kChunks][32], dv_acc[kChunks][32];
+  float dk_acc[kChunks][kCols / 2], dv_acc[kChunks][kCols / 2];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+    for (int i = 0; i < kCols / 2; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
   float s_acc[kBQ / 2], dp_acc[kBQ / 2];
 
   mbar_wait(bar_kv, 0);
@@ -518,8 +544,8 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < kBQ / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        wgmma_rs(dv_acc[c], pf[kk], desc_mn_major(do_st, kk, c, kQChunkBytes), Tg());
-        wgmma_rs(dk_acc[c], df[kk], desc_mn_major(q_st, kk, c, kQChunkBytes), Tg());
+        wgmma_rs(dv_acc[c], pf[kk], desc_mn_major(do_st, kk, c, kQChunkBytes, kRB), Tg());
+        wgmma_rs(dk_acc[c], df[kk], desc_mn_major(q_st, kk, c, kQChunkBytes, kRB), Tg());
       }
     wgmma_commit();
     wgmma_wait_all();
@@ -562,6 +588,8 @@ template <typename T>
 cudaError_t dispatch_d(const CUtensorMap* maps, const Params& p, int bh, int d,
                        cudaStream_t s) {
   switch (d) {
+    case 16: return launch<T, 16>(maps, p, bh, s);
+    case 32: return launch<T, 32>(maps, p, bh, s);
     case 64: return launch<T, 64>(maps, p, bh, s);
     case 128: return launch<T, 128>(maps, p, bh, s);
     default: return cudaErrorInvalidValue;
@@ -570,7 +598,7 @@ cudaError_t dispatch_d(const CUtensorMap* maps, const Params& p, int bh, int d,
 
 }  // namespace
 
-// q, k, v, dout [batch, heads, seq_len, d] with d in {64, 128}, read through
+// q, k, v, dout [batch, heads, seq_len, d] with d in {16, 32, 64, 128}, read through
 // their strides: 12 element strides, (batch, head, sequence) of q, k, v, then
 // dout, each times 2 bytes a multiple of 16, the last stride 1 and every
 // pointer 16-byte aligned.  dq, dk, dv: new contiguous [batch, heads,
@@ -583,11 +611,11 @@ extern "C" int flash_attn_bwd_sm90(const void* q, const void* k, const void* v,
                                    const long long* strides, int dtype, int causal,
                                    float scale, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 || (seq_len + kTile - 1) / kTile > 65535 ||
-      (d != 64 && d != 128))
+      (d != 16 && d != 32 && d != 64 && d != 128))
     return cudaErrorInvalidValue;
   CUtensorMapDataType type;
   if (!map_type(dtype, &type)) return cudaErrorInvalidValue;
-  const int rows_b = d == 64 ? dkdv_block_q<64>() : dkdv_block_q<128>();
+  const int rows_b = d == 128 ? dkdv_block_q<128>() : dkdv_block_q<64>();
   const void* ptrs[6] = {q, k, v, dout, q, dout};
   const int which[6] = {0, 1, 2, 3, 0, 3};  // whose strides
   CUtensorMap maps[6];

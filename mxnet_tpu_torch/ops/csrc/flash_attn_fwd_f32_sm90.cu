@@ -3,8 +3,10 @@
 //
 // Replaces the Pallas TPU kernel mxnet_tpu/ops/pallas_kernels.py
 // (_attn_kernel:41, launched by _flash_fwd_impl:95, public flash_attention:178)
-// for fp32 inputs at head dims 64 and 128, in place of the SIMT kernel in
-// flash_attn_fwd.cu (which keeps D 16 and 32).  It computes the same function:
+// for fp32 inputs at head dims 16, 32, 64 and 128, in place of the SIMT
+// kernel flash_attn_fwd.cu (fp32 FMAs on the CUDA cores), which it replaced
+// at D 64 and 128 first and then at D 16 and 32.  It computes the same
+// function:
 //   o = softmax(mask(q @ k^T * sm_scale)) @ v   per (batch, head),
 // masked scores set to -1e30, causal masking by absolute position, key tiles
 // wholly in the future of a query tile never visited, and a final division
@@ -27,14 +29,16 @@
 // is 2^-16 = 1.53e-5); the fresh sums measured 2.7e-6 on the same inputs.
 //
 // Design.  One block per (b*h, tile of 64 * W query rows): W consumer
-// warpgroups of 64 rows (W = 2 at D = 64; 1 at D = 128, where O and a
+// warpgroups of 64 rows (W = 2 at D <= 64; 1 at D = 128, where O and a
 // tile's sum take 128 registers a thread, more than the 168 a thread of
 // 384 may hold) and one producer warpgroup.  The TPU's sequential k grid
-// axis is a loop over K/V tiles of 64 keys (32 at D = 128).
+// axis is a loop over K/V tiles of 64 keys (32 at D = 128).  Tiles are kept
+// in the swizzle of their row width (sm90_common.cuh): 128B in 64-column
+// chunks at D >= 64, 64B at D = 32, 32B at D = 16.
 //   - Operands: TMA cannot split, so the producer warpgroup loads fp32 rows
 //     through each tensor's own strides (16-byte loads, coalesced along D;
 //     zeros past S), splits them and stores the three bf16 tiles in the
-//     128B swizzle that TMA would write, so the descriptors of the 16-bit
+//     swizzle that TMA would write, so the descriptors of the 16-bit
 //     kernels read them unchanged.  First the query tile (once), then each
 //     K and V tile into a ring of two stages; each stage has a "full"
 //     mbarrier (one arrival per producer thread, after a proxy fence) and
@@ -42,7 +46,7 @@
 //     loaded and split while this one's products run.
 //   - Products: S = Q K^T as m64n64k16 (m64n32k16 at D = 128), Q and K from
 //     shared memory, K-major, six products per 16 columns of D; P V as
-//     m64n64k16 per 64 columns of D, P from registers (the fp32
+//     m64nNk16 per N = min(D, 64) columns of D, P from registers (the fp32
 //     probabilities of each 16 keys split into three A fragments) and V
 //     from shared memory, MN-major.
 //   - Softmax in registers, in log2 units (x = s scale log2e, ex2.approx),
@@ -64,6 +68,15 @@
 // producer's splitting is ordinary loads and stores (about 8 instructions
 // per value), no ping-pong between the consumer warpgroups, no
 // setmaxnreg, one block per SM, no persistent grid.
+//
+// At D 16 and 32 the six split products per product are cheap (causal,
+// B=8, H=12, S=1024, D=32: 38.7 GFLOP, 0.039 ms at 989 TFLOP/s) and the
+// exponentials come level: one ex2 per kept pair, 50.4 M at the SFUs' 3.9
+// T/s, 0.0129 ms, beside the producer's splitting of every loaded value.
+// The tiles keep D = 64's shapes (two consumer warpgroups, so one's softmax
+// overlaps the other's products, 64-key tiles); each pair's p is computed
+// once.  Measured (PERF.md): 0.125 ms at D = 32, 31% of the split
+// products' floor; SDPA 0.426.
 #include "sm90_common.cuh"
 
 namespace {
@@ -71,19 +84,19 @@ namespace {
 using namespace sm90;
 
 constexpr int kStages = 2;
-// Consumer warpgroups of 64 query rows: two at D = 64; one at D = 128, where
+// Consumer warpgroups of 64 query rows: two at D <= 64; one at D = 128, where
 // the output sum and its per-tile sum take 128 registers a thread, more than
 // the 168 a thread of 384 may hold.
 template <int D>
-__host__ __device__ constexpr int warpgroups() { return D == 64 ? 2 : 1; }
+__host__ __device__ constexpr int warpgroups() { return D <= 64 ? 2 : 1; }
 template <int D>
 __host__ __device__ constexpr int block_q() { return 64 * warpgroups<D>(); }
 template <int D>
 __host__ __device__ constexpr int threads() { return 128 * warpgroups<D>() + 128; }
-// Keys per K/V tile: 64 at D = 64, 32 at D = 128 (the three parts of K and
+// Keys per K/V tile: 64 at D <= 64, 32 at D = 128 (the three parts of K and
 // V over two stages have to fit beside Q's).
 template <int D>
-__host__ __device__ constexpr int block_k() { return D == 64 ? 64 : 32; }
+__host__ __device__ constexpr int block_k() { return D <= 64 ? 64 : 32; }
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
   return 1024 + 3 * size_t(block_q<D>()) * D * 2 +
@@ -106,10 +119,12 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
   constexpr int kBlockQ = block_q<D>();
   constexpr int kConsumerThreads = 128 * warpgroups<D>();
   constexpr int kBlockK = block_k<D>();
-  constexpr int kChunks = D / kChunk;
-  constexpr uint32_t kQChunk = kBlockQ * 128;   // rows of 64 columns
+  constexpr int kCols = chunk_cols(D);        // columns per swizzled row
+  constexpr uint32_t kRB = row_bytes(D);
+  constexpr int kChunks = D / kCols;
+  constexpr uint32_t kQChunk = kBlockQ * kRB;
   constexpr uint32_t kQPart = kChunks * kQChunk;
-  constexpr uint32_t kKChunk = kBlockK * 128;
+  constexpr uint32_t kKChunk = kBlockK * kRB;
   constexpr uint32_t kKPart = kChunks * kKChunk;  // one part of a K or V tile
   constexpr uint32_t kStage = 6 * kKPart;         // K's three parts, then V's
 
@@ -165,16 +180,16 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
   const int wg = warp / 4;
   const int t = lane % 4;
   const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
-  const uint32_t q_wg = sq + wg * 64 * 128;
+  const uint32_t q_wg = sq + wg * 64 * kRB;
 
   float s_acc[kBlockK / 2];
-  float o_acc[kChunks][kChunk / 2];
+  float o_acc[kChunks][kCols / 2];
 #pragma unroll
   for (int i = 0; i < kBlockK / 2; ++i) s_acc[i] = 0.f;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int i = 0; i < kChunk / 2; ++i) o_acc[c][i] = 0.f;
+    for (int i = 0; i < kCols / 2; ++i) o_acc[c][i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
   // the tiles this warpgroup's own 64 rows see
@@ -201,8 +216,9 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
     for (int o = 0; o < kSplitProducts; ++o)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(s_acc, desc_k_major(q_wg + split_a(o) * kQPart, kk, kQChunk),
-                 desc_k_major(k_st + split_b(o) * kKPart, kk, kKChunk), o + kk > 0, Bf16());
+        wgmma_ss(s_acc, desc_k_major(q_wg + split_a(o) * kQPart, kk, kQChunk, kRB),
+                 desc_k_major(k_st + split_b(o) * kKPart, kk, kKChunk, kRB), o + kk > 0,
+                 Bf16());
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s_acc);
@@ -245,13 +261,13 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
         split3(p0, p1, pa[0][kk][j], pa[1][kk][j], pa[2][kk][j]);
       }
 
-    // P V of this tile: six split products, 16 keys per instruction, 64
+    // P V of this tile: six split products, 16 keys per instruction, kCols
     // columns of D each, into a fresh sum that is then added to O in fp32
-    float pv[kChunks][kChunk / 2];
+    float pv[kChunks][kCols / 2];
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
-      for (int i = 0; i < kChunk / 2; ++i) pv[c][i] = 0.f;
+      for (int i = 0; i < kCols / 2; ++i) pv[c][i] = 0.f;
       fence_regs(pv[c]);
     }
     wgmma_fence();
@@ -262,7 +278,7 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
 #pragma unroll
         for (int c = 0; c < kChunks; ++c)
           wgmma_rs(pv[c], pa[split_a(o)][kk],
-                   desc_mn_major(v_st + split_b(o) * kKPart, kk, c, kKChunk), Bf16());
+                   desc_mn_major(v_st + split_b(o) * kKPart, kk, c, kKChunk, kRB), Bf16());
     wgmma_commit();
     wgmma_wait_all();
     __syncwarp();
@@ -271,7 +287,7 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
     for (int c = 0; c < kChunks; ++c) {
       fence_regs(pv[c]);
 #pragma unroll
-      for (int i = 0; i < kChunk / 2; ++i)
+      for (int i = 0; i < kCols / 2; ++i)
         o_acc[c][i] = fmaf(o_acc[c][i], corr[(i / 2) % 2], pv[c][i]);
     }
   }
@@ -288,9 +304,9 @@ flash_attn_fwd_f32_sm90_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-      for (int j = 0; j < kChunk / 8; ++j) {
+      for (int j = 0; j < kCols / 8; ++j) {
         const int i = 4 * j + 2 * r;
-        *reinterpret_cast<float2*>(orow + c * kChunk + 8 * j + 2 * t) =
+        *reinterpret_cast<float2*>(orow + c * kCols + 8 * j + 2 * t) =
             make_float2(o_acc[c][i] / denom, o_acc[c][i + 1] / denom);
       }
   }
@@ -310,7 +326,7 @@ cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v [batch, heads, seq_len, d], fp32, d in {64, 128}; strides: 9
+// q, k, v [batch, heads, seq_len, d], fp32, d in {16, 32, 64, 128}; strides: 9
 // element strides, (batch, head, sequence) of q, then k, then v, each times
 // 4 bytes a multiple of 16, the last stride 1 and every pointer 16-byte
 // aligned.  o is a contiguous fp32 [batch, heads, seq_len, d].  dtype must
@@ -321,7 +337,7 @@ extern "C" int flash_attn_fwd_f32_sm90(const void* q, const void* k, const void*
                                        const long long* strides, int dtype, int causal,
                                        float scale, void* stream) {
   if (batch <= 0 || heads <= 0 || seq_len <= 0 || dtype != 0 ||
-      (seq_len + 63) / 64 > 65535 || (d != 64 && d != 128))
+      (seq_len + 63) / 64 > 65535 || (d != 16 && d != 32 && d != 64 && d != 128))
     return cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const float*>(q);
@@ -338,5 +354,10 @@ extern "C" int flash_attn_fwd_f32_sm90(const void* q, const void* k, const void*
   p.causal = causal;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(p, batch * heads, s) : launch<128>(p, batch * heads, s);
+  switch (d) {
+    case 16: return launch<16>(p, batch * heads, s);
+    case 32: return launch<32>(p, batch * heads, s);
+    case 64: return launch<64>(p, batch * heads, s);
+    default: return launch<128>(p, batch * heads, s);
+  }
 }

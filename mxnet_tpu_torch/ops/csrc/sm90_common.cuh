@@ -2,11 +2,22 @@
 // kernels, flash_attn_{fwd,bwd}_sm90.cu (bf16/fp16) and
 // flash_attn_{fwd,bwd}_f32_sm90.cu (fp32): bf16x2/f16x2 packing, mbarriers
 // with a trapping wait, 4-D TMA loads, shared-memory matrix descriptors for
-// the 128B swizzle, the wgmma instructions the kernels issue, the tensor
-// maps over [B, H, S, D] inputs read through their strides, and the split
-// of fp32 values into three bf16 parts with the loader that stores them in
-// the swizzled layout.  _build.py hashes this header into every kernel's
-// build.
+// the 128B, 64B and 32B swizzles, the wgmma instructions the kernels issue,
+// the tensor maps over [B, H, S, D] inputs read through their strides, and
+// the split of fp32 values into three bf16 parts with the loader that
+// stores them in the swizzled layout.  _build.py hashes this header into
+// every kernel's build.
+//
+// Tiles in shared memory.  A tile of `rows` rows of D 16-bit values is kept
+// as D / chunk_cols(D) chunks of rows x row_bytes(D) bytes: chunks of 64
+// columns (128-byte rows) at D >= 64, one chunk of the whole row (64 bytes
+// at D = 32, 32 bytes at D = 16) below.  Each chunk is in the swizzle of
+// its row width, the layout TMA writes with SWIZZLE_128B / _64B / _32B:
+// the 16-byte unit u of row r sits at unit u ^ ((r * row_bytes / 128) %
+// (row_bytes / 16)), i.e. u ^ (r % 8), u ^ ((r / 2) % 4), u ^ ((r / 4) % 2)
+// (CUTLASS's Swizzle<3,4,3>, <2,4,3>, <1,4,3> on byte addresses).  The
+// swizzle repeats every 8 rows (1024, 512 or 256 bytes); every tile starts
+// on a 1024-byte boundary.
 #pragma once
 
 #include <cuda.h>
@@ -18,7 +29,9 @@
 
 namespace sm90 {
 
-constexpr int kChunk = 64;                // columns per 128-byte swizzle row
+// Columns per swizzled row and bytes per row of a tile of head dim D.
+__host__ __device__ constexpr int chunk_cols(int d) { return d < 64 ? d : 64; }
+__host__ __device__ constexpr uint32_t row_bytes(int d) { return 2 * chunk_cols(d); }
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -80,25 +93,32 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // -- wgmma ----------------------------------------------------------------------
-// Shared-memory matrix descriptor, 128B swizzle: start address, leading and
-// stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (all in 16-byte units) and the layout type of the swizzle of rows
+// of `rb` bytes: 1 = 128B, 2 = 64B, 3 = 32B (bits 62-63).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t rb) {
+  const uint64_t layout = rb == 128 ? 1 : (rb == 64 ? 2 : 3);
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
-// A K-major operand (rows of 64 columns, 128 bytes, in 128B-swizzled chunks
-// of `chunk_bytes`): the 16 columns kk of D starting at `tile`.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk,
-                                                 uint32_t chunk_bytes) {
-  return smem_desc(tile + (kk / 4) * chunk_bytes + (kk % 4) * 32, 16, 1024);
+// A K-major operand (rows of `rb` bytes in chunks of `chunk_bytes`): the 16
+// columns kk of D (32 bytes) starting at `tile`.  Groups of 8 rows lie
+// 8 rb bytes apart (the stride offset); a swizzled K-major operand has no
+// leading offset.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk, uint32_t chunk_bytes,
+                                                 uint32_t rb) {
+  const int per_row = rb / 32;
+  return smem_desc(tile + (kk / per_row) * chunk_bytes + (kk % per_row) * 32, 16, 8 * rb, rb);
 }
 // An MN-major B operand (rows are the reduction axis): 16 rows from row
-// 16 kk, the 64 columns of chunk c.
+// 16 kk, the chunk_cols columns of chunk c.  The leading offset steps from
+// one chunk to the next along N (never taken when N is one chunk), the
+// stride offset from 8 rows to the next 8.
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk, int c,
-                                                  uint32_t chunk_bytes) {
-  return smem_desc(tile + c * chunk_bytes + kk * 16 * 128, chunk_bytes, 1024);
+                                                  uint32_t chunk_bytes, uint32_t rb) {
+  return smem_desc(tile + c * chunk_bytes + kk * 16 * rb, chunk_bytes, 8 * rb, rb);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -125,18 +145,20 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Accumulator operand lists of 16, 32 and 64 fp32 registers.
-#define SM90_R16 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+// Accumulator operand lists of 8, 16, 32 and 64 fp32 registers.
+#define SM90_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define SM90_R16 SM90_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define SM90_R32 SM90_R16 ", " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define SM90_R64 SM90_R32 ", " \
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define SM90_D16(d)                                                             \
+#define SM90_D8(d)                                                              \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),       \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      "+f"(d[6]), "+f"(d[7])
+#define SM90_D16(d)                                                             \
+  SM90_D8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),    \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define SM90_D32(d)                                                             \
   SM90_D16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
@@ -171,21 +193,27 @@ SM90_WGMMA_SS(64, 128, SM90_R64, SM90_D64, 64, 65, 66, Bf16, "bf16")
 SM90_WGMMA_SS(64, 128, SM90_R64, SM90_D64, 64, 65, 66, F16, "f16")
 #undef SM90_WGMMA_SS
 
-// wgmma_rs: D (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64), B from
-// shared memory, MN-major (the transpose bit).  The A fragment is an fp32
-// accumulator's 8 registers 8 kk .. 8 kk + 7 packed pairwise (pack2): the
-// accumulator layout of columns 16 kk .. 16 kk + 15 is the A layout.
-#define SM90_WGMMA_RS(TAG, TY)                                                  \
-  __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], \
+// wgmma_rs: D (64 x N, fp32) += A (64 x 16, registers) B (16 x N), N = 2 *
+// (number of registers), B from shared memory, MN-major (the transpose
+// bit).  The A fragment is an fp32 accumulator's 8 registers 8 kk .. 8 kk + 7
+// packed pairwise (pack2): the accumulator layout of columns 16 kk .. 16 kk +
+// 15 is the A layout.
+#define SM90_WGMMA_RS(NREG, N, RLIST, DLIST, A0, A1, A2, A3, DB, PRED, TAG, TY) \
+  __device__ __forceinline__ void wgmma_rs(float (&d)[NREG], const uint32_t (&a)[4], \
                                            uint64_t db, TAG) {                  \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                   \
-                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY        \
-                 " {" SM90_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-                 : SM90_D32(d)                                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #PRED ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY     \
+                 " {" RLIST "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB  \
+                 ", p, 1, 1, 1;\n}\n"                                            \
+                 : DLIST(d)                                                     \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)); \
   }
-SM90_WGMMA_RS(Bf16, "bf16")
-SM90_WGMMA_RS(F16, "f16")
+SM90_WGMMA_RS(8, 16, SM90_R8, SM90_D8, 8, 9, 10, 11, 12, 13, Bf16, "bf16")
+SM90_WGMMA_RS(8, 16, SM90_R8, SM90_D8, 8, 9, 10, 11, 12, 13, F16, "f16")
+SM90_WGMMA_RS(16, 32, SM90_R16, SM90_D16, 16, 17, 18, 19, 20, 21, Bf16, "bf16")
+SM90_WGMMA_RS(16, 32, SM90_R16, SM90_D16, 16, 17, 18, 19, 20, 21, F16, "f16")
+SM90_WGMMA_RS(32, 64, SM90_R32, SM90_D32, 32, 33, 34, 35, 36, 37, Bf16, "bf16")
+SM90_WGMMA_RS(32, 64, SM90_R32, SM90_D32, 32, 33, 34, 35, 36, 37, F16, "f16")
 #undef SM90_WGMMA_RS
 
 // -- fp32 as three bf16 parts ---------------------------------------------------
@@ -231,11 +259,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // Byte offset of the 16-byte unit u (bf16 columns 8u .. 8u + 7) of row r in
-// a tile of `rows` rows kept as D/64 chunks of rows x 128 bytes, in the 128B
-// swizzle that TMA writes (unit index XOR row % 8): the layout desc_k_major
-// and desc_mn_major read.
+// a tile of `rows` rows of head dim D, in the swizzled chunks described at
+// the top of this file: the layout TMA writes and desc_k_major and
+// desc_mn_major read.
+template <int D>
 __host__ __device__ constexpr uint32_t swizzled(int r, int u, int rows) {
-  return (u / 8) * rows * 128 + r * 128 + (((u % 8) ^ (r % 8)) << 4);
+  constexpr int kRB = row_bytes(D), kUnits = kRB / 16;
+  return (u / kUnits) * rows * kRB + r * kRB +
+         (((u % kUnits) ^ ((r * kRB / 128) % kUnits)) << 4);
 }
 
 // Rows [r0, r0 + ROWS) of one (b, h) slice of an fp32 [B, H, S, D] tensor
@@ -244,16 +275,23 @@ __host__ __device__ constexpr uint32_t swizzled(int r, int u, int rows) {
 // at dst + p * ROWS * D * 2 (p = 0, 1, 2) in the swizzled layout.  NT
 // threads share the work, this one is `tid`; each loads 8 columns (two
 // 16-byte loads) per group, up to four groups in flight, then splits and
-// stores them, and fences for the async proxy at the end.
+// stores them, and fences for the async proxy at the end.  Where a tile
+// has fewer groups than NT (D = 16 on 32 rows), the last threads idle.
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_split(const float* __restrict__ src, long long row_stride,
                                            int r0, int seq_len, float mul, uint32_t dst,
                                            int tid) {
   constexpr int kUnits = D / 8;
-  constexpr int kGroups = ROWS * kUnits / NT;  // per thread
+  constexpr int kTotal = ROWS * kUnits;
+  constexpr int kGroups = (kTotal + NT - 1) / NT;  // per thread
   constexpr int kBatch = kGroups < 4 ? kGroups : 4;
-  static_assert((ROWS * kUnits) % NT == 0 && kGroups % kBatch == 0, "uneven tile split");
+  static_assert((kTotal % NT == 0 || kGroups == 1) && kGroups % kBatch == 0,
+                "uneven tile split");
   constexpr uint32_t kPart = ROWS * D * 2;
+  if (kTotal % NT != 0 && tid >= kTotal) {
+    fence_proxy_async();
+    return;
+  }
 #pragma unroll
   for (int b0 = 0; b0 < kGroups; b0 += kBatch) {
     float4 x[kBatch][2];
@@ -281,7 +319,7 @@ __device__ __forceinline__ void load_split(const float* __restrict__ src, long l
       for (int j = 0; j < 4; ++j)
         split3(__fmul_rn(v[2 * j], mul), __fmul_rn(v[2 * j + 1], mul), w[0][j], w[1][j],
                w[2][j]);
-      const uint32_t off = dst + swizzled(r, u, ROWS);
+      const uint32_t off = dst + swizzled<D>(r, u, ROWS);
 #pragma unroll
       for (int p = 0; p < 3; ++p) st_shared_v4(off + p * kPart, w[p]);
     }
@@ -312,9 +350,10 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map (d, s, h, b) over one input, from its own sizes and element
-// strides st = (b, h, s), boxes of 64 columns x `rows` rows, 128B swizzle,
-// zeros outside the tensor.
+// A 4-D map (d, s, h, b) over one 16-bit input, from its own sizes and
+// element strides st = (b, h, s), boxes of chunk_cols(d) columns x `rows`
+// rows in the swizzle of their row width (128B at d >= 64, 64B at d = 32,
+// 32B at d = 16), zeros outside the tensor.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
                             int batch, int heads, int seq_len, int d,
                             const long long* st, int rows) {
@@ -333,12 +372,16 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataTy
                                   : static_cast<cuuint64_t>(st[2 - i]) * 2;
     natural = strides[i] * dims[i + 1];
   }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kChunk),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk_cols(d)),
                              static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const uint32_t rb = row_bytes(d);
+  const CUtensorMapSwizzle swizzle = rb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
-                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

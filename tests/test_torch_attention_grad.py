@@ -2,16 +2,14 @@
 
 On the CPU the port's ``flash_attention`` is a ``torch.autograd.Function``
 whose backward runs ``chunked_attention_grads``, the plain version of the
-backward kernel (``ops/csrc/flash_attn_bwd.cu``).  Here, on the same numpy
-inputs: that plain version against the JAX package's
+backward kernels.  Here, on the same numpy inputs: that plain version against the JAX package's
 ``_chunked_attn_grads`` called directly, autograd through the port's
 ``flash_attention`` against ``jax.grad`` of the Pallas kernel in interpret
 mode (``tests/test_pallas.py``'s gradient case), and gradients through the
 model's strided einsum views back to the projection weights.  The kernels
-themselves (``flash_attn_bwd.cu`` at D 16 and 32; at D 64 and 128
-``flash_attn_bwd_sm90.cu`` for bf16/fp16 and ``flash_attn_bwd_f32_sm90.cu``
-for fp32) are held against ``chunked_attention_grads`` on the card by
-``chip_smoke.py``; here a CPU model of the 16-bit tensor-core kernel's
+themselves (``flash_attn_bwd_sm90.cu`` for bf16/fp16 and
+``flash_attn_bwd_f32_sm90.cu`` for fp32) are held against
+``chunked_attention_grads`` on the card by ``chip_smoke.py``; here a CPU model of the 16-bit tensor-core kernel's
 roundings is held to the same limits, which pins the tolerance argument
 beside ``chip_smoke.BWD_ROW_RTOL`` (the fp32 kernel's split:
 ``tests/test_torch_attention_split.py``).
@@ -227,13 +225,10 @@ def test_cuda_less_default_device_raises(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_design_backward_mirrors_design(dtype, head_dim):
-    """Each backward kernel takes exactly what its forward takes: at D 64
-    and 128 the tensor cores (bf16/fp16 as they are, fp32 split three
-    ways), at D 16 and 32 the SIMT kernels; every source exists."""
-    if head_dim < 64:
-        want = "simt"
-    else:
-        want = "wgmma+bf16x3" if dtype == torch.float32 else "wgmma+tma"
+    """Each backward kernel takes exactly what its forward takes: the
+    tensor cores at every head dim (bf16/fp16 as they are, fp32 split
+    three ways); every source exists."""
+    want = "wgmma+bf16x3" if dtype == torch.float32 else "wgmma+tma"
     assert att.design_backward(dtype, head_dim) == att.design(dtype,
                                                               head_dim)
     assert att.design_backward(dtype, head_dim) == want
@@ -245,6 +240,8 @@ def test_design_backward_mirrors_design(dtype, head_dim):
 @pytest.mark.parametrize("shape,causal,sm_scale", [
     ((2, 4, 200, 64), True, 0.5),    # sharp softmax: ds cancels
     ((1, 3, 130, 128), True, None),
+    ((2, 4, 200, 32), True, 0.5),    # the sharp case at D 32 and 16
+    ((2, 4, 200, 16), True, 0.5),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_rounding_model_within_bwd_limits(dtype, shape, causal,

@@ -87,9 +87,9 @@ def test_check_layout_skips_size_one_dims():
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma+tma"), (torch.float16, 128, "wgmma+tma"),
-    (torch.bfloat16, 32, "simt"), (torch.float16, 16, "simt"),
+    (torch.bfloat16, 32, "wgmma+tma"), (torch.float16, 16, "wgmma+tma"),
     (torch.float32, 64, "wgmma+bf16x3"), (torch.float32, 128, "wgmma+bf16x3"),
-    (torch.float32, 32, "simt"), (torch.float32, 16, "simt")])
+    (torch.float32, 32, "wgmma+bf16x3"), (torch.float32, 16, "wgmma+bf16x3")])
 def test_design_routes_by_dtype_and_head_dim(dtype, d, want):
     assert att.design(dtype, d) == want
     assert att.KERNEL_SOURCES[want].endswith(".cu")

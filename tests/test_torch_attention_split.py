@@ -131,6 +131,8 @@ def test_split_forward_model_matches_jax(shape, causal, sm_scale, block):
 @pytest.mark.parametrize("shape,causal,sm_scale", [
     ((2, 4, 200, 64), True, 0.5),    # sharp softmax: ds cancels
     ((1, 3, 130, 128), True, None),
+    ((2, 4, 200, 32), True, 0.5),    # the sharp case at D 32 and 16
+    ((2, 4, 200, 16), True, 0.5),
 ])
 def test_split_grads_model_within_bwd_limits(shape, causal, sm_scale, seed):
     """The plain backward's formula with every product split as the fp32

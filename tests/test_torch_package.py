@@ -23,7 +23,9 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_lm_breakdown.py"),
              os.path.join(REPO, "tools", "torch_lm_train_breakdown.py"),
              os.path.join(REPO, "tools", "torch_flash_bwd_cpu_model.py"),
-             os.path.join(REPO, "tools", "torch_flash_f32_check.py"),
+             os.path.join(REPO, "tools", "torch_flash_check.py"),
+             os.path.join(REPO, "tools", "torch_flash_small_d_timing.py"),
+             os.path.join(REPO, "tools", "torch_flash_sharp_rows.py"),
              os.path.join(REPO, "tools", "torch_lm_cpu_spread.py"),
              os.path.join(REPO, "tools", "torch_mlp_breakdown.py")]
     for root, _, names in os.walk(PKG):

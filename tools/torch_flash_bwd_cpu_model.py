@@ -14,8 +14,7 @@ has to absorb:
 2. ``statistics``: where p comes from.  In fp32, with no rounding to the
    16-bit types, p taken as 2^(x - lse) from a row log-sum-exp ("lse")
    against p = 2^(x - max) / sum ("max", the online statistics the
-   kernel and the SIMT kernel use, where the dominant key's 2^0 is
-   exactly 1).  Printed: dq's worst row-relative error per seed for each
+   kernels use, where the dominant key's 2^0 is exactly 1).  Printed: dq's worst row-relative error per seed for each
    form, at (2, 4, 200, 64) causal, sm_scale 0.5.
 3. ``split``: the fp32 kernels (``flash_attn_fwd_f32_sm90.cu``,
    ``flash_attn_bwd_f32_sm90.cu``) take every product on the tensor cores

@@ -2,10 +2,12 @@
 """Where the time of one LM training step goes on a CUDA card.
 
 Runs the PyTorch port's transformer LM at GPT-2 small widths (12 layers,
-d_model 768, 12 heads, d_ff 3072, vocab 50257; seeded random weights)
-through ``make_train_step`` (SGD, lr 0.1) on one batch of 8 x 1024 tokens,
-in fp32 (TF32 off), bf16 and fp16: 3 warm-up steps, then 3 steps under
-``torch.profiler``.  It prints the device time per step by group:
+d_model 768, 12 heads, d_ff 3072, vocab 50257; seeded random weights) on
+one batch of 8 x 1024 tokens, or with ``--config pythia-31m`` at
+Pythia-31M's widths (6 layers, d_model 256, 8 heads so D = 32, d_ff
+1024, vocab 50304) on 8 x 2048 tokens, through ``make_train_step`` (SGD,
+lr 0.1) in fp32 (TF32 off), bf16 and fp16 (or ``--dtypes``): 3 warm-up
+steps, then 3 steps under ``torch.profiler``.  It prints the device time per step by group:
 
 - flash forward and flash backward: the hand-written kernels, by name;
 - products: cuBLAS's GEMM kernels, forward and backward;
@@ -22,12 +24,14 @@ time and the top kernels by name.  Then, with the profiler off, it times
 3 runs of 5 steps and prints each run's median ms/step.  Run from the
 repository root on the card:
 
-    python3 tools/torch_lm_train_breakdown.py
+    python3 tools/torch_lm_train_breakdown.py [--config pythia-31m]
+                                              [--dtypes fp32,bf16]
 
 The last line is one JSON object with the numbers.
 """
 from __future__ import annotations
 
+import argparse
 import bisect
 import contextlib
 import json
@@ -44,9 +48,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mxnet_tpu_torch.models import transformer as tr  # noqa: E402
 
-GPT2_SMALL = dict(vocab=50257, d_model=768, n_heads=12, d_ff=3072,
-                  n_layers=12, max_len=1024)
-BATCH, SEQ, LR = 8, 1024, 0.1
+# name -> (widths, batch, sequence length)
+CONFIGS = {
+    "gpt2-small": (dict(vocab=50257, d_model=768, n_heads=12, d_ff=3072,
+                        n_layers=12, max_len=1024), 8, 1024),
+    "pythia-31m": (dict(vocab=50304, d_model=256, n_heads=8, d_ff=1024,
+                        n_layers=6, max_len=2048), 8, 2048),
+}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "fp16": torch.float16}
+LR = 0.1
 WARMUP, STEPS, RUNS, RUN_STEPS = 3, 3, 3, 5
 UPDATE_OPS = ("_foreach_sub_", "_foreach_mul", "_foreach_mul_",
               "_foreach_add_")
@@ -140,12 +151,13 @@ def _group(kernel, phase):
     return "rest"
 
 
-def breakdown(dtype):
+def breakdown(dtype, config):
+    widths, batch, seq_len = CONFIGS[config]
     flags = "TF32 off" if dtype == torch.float32 else str(dtype)[6:]
-    cfg = tr.TransformerLMConfig(dtype=dtype, **GPT2_SMALL)
+    cfg = tr.TransformerLMConfig(dtype=dtype, **widths)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tr.init_transformer_params(gen, cfg)
-    seq = torch.randint(0, cfg.vocab, (BATCH, SEQ + 1), generator=gen,
+    seq = torch.randint(0, cfg.vocab, (batch, seq_len + 1), generator=gen,
                         device="cuda")
     tokens, labels = tr.place_batch(seq[:, :-1], seq[:, 1:])
     step = tr.make_train_step(cfg, lr=LR)
@@ -191,9 +203,9 @@ def breakdown(dtype):
     if device_ms == 0:
         raise SystemExit("torch.profiler recorded no device time")
     launches /= STEPS
-    print("\nLM train %s (%s), batch %dx%d: wall %.3f ms/step (profiler on), "
-          "device %.3f ms, busy %.1f%%, %.1f device ops per step"
-          % (str(dtype)[6:], flags, BATCH, SEQ, wall_ms, device_ms,
+    print("\nLM train %s %s (%s), batch %dx%d: wall %.3f ms/step (profiler "
+          "on), device %.3f ms, busy %.1f%%, %.1f device ops per step"
+          % (config, str(dtype)[6:], flags, batch, seq_len, wall_ms, device_ms,
              100 * device_ms / wall_ms, launches))
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("  %-34s %9.3f ms  %5.1f%%" % (name, ms, 100 * ms / device_ms))
@@ -213,8 +225,9 @@ def breakdown(dtype):
           % (RUNS, RUN_STEPS, ["%.3f" % m for m in medians]))
     del params, step
     torch.cuda.empty_cache()
-    return {"dtype": str(dtype)[6:], "flags": flags, "batch": BATCH,
-            "seq": SEQ, "steps": STEPS, "step_ms_medians": medians,
+    return {"config": config, "dtype": str(dtype)[6:], "flags": flags,
+            "batch": batch,
+            "seq": seq_len, "steps": STEPS, "step_ms_medians": medians,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
             "device_ops_per_step": launches, "groups_ms": groups,
@@ -222,6 +235,10 @@ def breakdown(dtype):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="gpt2-small")
+    ap.add_argument("--dtypes", default="fp32,bf16,fp16")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_lm_train_breakdown: needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -229,8 +246,8 @@ def main():
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = [breakdown(dt) for dt in (torch.float32, torch.bfloat16,
-                                     torch.float16)]
+    rows = [breakdown(DTYPES[n], args.config)
+            for n in args.dtypes.split(",")]
     print(json.dumps({"card": card, "breakdown": rows}))
 
 
