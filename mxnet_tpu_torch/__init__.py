@@ -10,11 +10,14 @@ the train steps (plain SGD, and SGD with momentum through the one-rank
 ZeRO-1 update of ``parallel.zero``), through the flash-attention forward
 and backward kernels (``ops.attention``); the MXNet
 substrate -- ``nd`` (NDArray, op registry, ``autograd``), ``sym``
-(Symbol) and bound executors, ``initializer``, ``optimizer`` -- and
-user-kernel registration (``rtc``) with the scale kernel
-(``ops.scale``); the ResNet training path -- ``gluon`` (blocks, layers,
-the ResNet model zoo), ``io`` (``NDArrayIter``), ``metric`` and
-``mod`` (``Module`` with its fused train step).
+(Symbol) and bound executors, ``initializer``, ``optimizer`` (the
+twelve update rules, each with a fused multi-tensor update) and
+``lr_scheduler`` -- and user-kernel registration (``rtc``) with the
+scale kernel (``ops.scale``); the ResNet training path -- ``gluon``
+(blocks with ``hybridize()`` as a cached graph, layers, losses,
+``Trainer`` with its fused step, the ResNet model zoo), ``io``
+(``NDArrayIter``), ``metric`` and ``mod`` (``Module`` with its fused
+train step).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
 from . import ops, parallel, models
 from . import autograd, random, ndarray, symbol, executor, rtc
-from . import initializer, optimizer, test_utils
+from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
 from . import module as mod
 from . import ndarray as nd
@@ -32,4 +35,5 @@ from . import initializer as init
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "ops", "parallel", "models", "autograd", "random", "ndarray",
            "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
+           "lr_scheduler",
            "test_utils", "io", "metric", "gluon", "module", "mod"]

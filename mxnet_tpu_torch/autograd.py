@@ -117,12 +117,17 @@ def _note_inputs(inputs, diff_idx):
 
 
 def _write_grad(v, g):
+    """Write ``g`` into ``v``'s gradient buffer by its ``grad_req`` and mark
+    it fresh for ``Trainer.step``'s stale-gradient check (reference
+    ``mxnet_tpu/autograd.py:158``); a variable that got no gradient keeps
+    its buffer and its staleness."""
     if g is None or v._grad is None or v._grad_req == "null":
         return
     if v._grad_req == "add":
         v._grad._data.add_(g)
     else:
         v._grad._data.copy_(g)
+    v._fresh_grad = True
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):

@@ -1,30 +1,59 @@
-"""Gluon ``Block`` and ``HybridBlock``.
+"""Gluon ``Block``, ``HybridBlock`` and ``SymbolBlock``.
 
 Counterpart of ``mxnet_tpu/gluon/block.py`` (name scopes ``:42-82``,
 ``Block`` ``:111``, ``HybridBlock`` ``:210``, its ``infer_shape``
-``:250`` and ``forward`` ``:280``).  A HybridBlock's ``hybrid_forward``
-runs on NDArrays through ``nd`` (the imperative path) or on Symbols
-through ``sym`` (``net(sym.var("data"))`` lowers the network to a
-graph, as ``Module`` takes it).  Deferred parameter shapes are filled in
-by symbolic shape inference on the first input.
+``:250`` and ``forward`` ``:280``, ``_CachedOp`` ``:303-441``,
+``SymbolBlock`` ``:476-518``).  A HybridBlock's ``hybrid_forward`` runs
+on NDArrays through ``nd`` (the imperative path) or on Symbols through
+``sym`` (``net(sym.var("data"))`` lowers the network to a graph, as
+``Module`` takes it).  Deferred parameter shapes are filled in by
+symbolic shape inference on the first input.
 
-``hybridize()`` keeps its flag and the imperative path: the JAX
-package's cached op (one compiled program per block, ``:327``) has no
-counterpart here yet.
+``hybridize()`` makes the block run through a ``_CachedOp``: on the first
+call for a given signature (the inputs' shapes, dtypes and devices, and
+the training mode) it traces ``hybrid_forward`` with ``F = sym`` into one
+Symbol, and every call after that replays the cached graph through
+``executor._run_graph`` (the path ``module.CachedTrainStep`` takes), with
+the Parameters' tensors as the leaves of torch's autograd: under
+``autograd.record()`` a ``backward`` reaches their gradient buffers, and
+a training call writes the BatchNorm moving statistics back.
+``hybridize()``, ``cast()`` and ``register_child()`` drop the cache, as
+in the JAX package, whose cached op is one ``jax.jit`` program a block;
+:func:`trace_count` counts the traces.  A ``SymbolBlock`` runs a given
+Symbol the same way.
 """
 from __future__ import annotations
 
 import threading
 
+import torch
+
 from .. import ndarray as nd
 from ..ndarray import NDArray
+from ..ndarray.ndarray import _owned
 from .. import symbol as _sym
 from ..symbol import Symbol
 from .. import autograd
 from .. import name as _name
+from .. import random as _random
+from ..executor import _run_graph
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "trace_count",
+           "reset_trace_count"]
+
+_traces = 0
+
+
+def trace_count():
+    """Graphs traced by hybridized blocks since the last
+    :func:`reset_trace_count`: one per block and signature."""
+    return _traces
+
+
+def reset_trace_count():
+    global _traces
+    _traces = 0
 
 
 class _BlockScope:
@@ -172,6 +201,7 @@ class HybridBlock(Block):
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix, params)
         self._active = False
+        self._cached_op = None
         self._reg_params = {}
 
     def __setattr__(self, name, value):
@@ -188,29 +218,51 @@ class HybridBlock(Block):
                 "Children of HybridBlock must also be HybridBlock, but %s "
                 "has type %s." % (block, type(block)))
         super().register_child(block)
+        self._cached_op = None
 
     def hybridize(self, active=True):
         self._active = active
+        self._cached_op = None
         super().hybridize(active)
 
-    def infer_shape(self, *args):
-        """Fill in deferred parameter shapes by symbolic shape inference on
-        the shapes of ``args``."""
-        params = {p.name: p for p in self.collect_params().values()}
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
+
+    def _trace(self, *args):
+        """``hybrid_forward`` on Symbols ``data0``, ``data1``, ... standing
+        for ``args`` (nested lists allowed): (the flat output Symbol, the
+        output nesting)."""
         flat_args, in_fmt = _flatten(list(args))
         flat_vars = [_sym.var("data%d" % i) for i in range(len(flat_args))]
         arg_tree, _ = _regroup(list(flat_vars), in_fmt)
         pkw = {name: p.var() for name, p in self._reg_params.items()}
+        out = self.hybrid_forward(_sym, *arg_tree, **pkw)
+        flat_out, out_fmt = _flatten(out)
+        return (flat_out[0] if len(flat_out) == 1
+                else _sym.Group(flat_out)), out_fmt
+
+    def infer_shape(self, *args):
+        """Fill in deferred parameter shapes by symbolic shape inference on
+        the shapes of ``args``."""
         with autograd.pause():
-            out = self.hybrid_forward(_sym, *arg_tree, **pkw)
-        flat_out, _ = _flatten(out)
-        out = flat_out[0] if len(flat_out) == 1 else _sym.Group(flat_out)
-        arg_shapes, _, aux_shapes = out.infer_shape_partial(
-            **{"data%d" % i: a.shape for i, a in enumerate(flat_args)})
-        for name, shape in list(zip(out.list_arguments(), arg_shapes)) + \
-                list(zip(out.list_auxiliary_states(), aux_shapes)):
-            if name in params and shape is not None:
-                params[name]._set_shape_if_deferred(shape)
+            out, _ = self._trace(*args)
+        flat_args, _ = _flatten(list(args))
+        self._set_inferred_shapes(out, {"data%d" % i: a
+                                        for i, a in enumerate(flat_args)})
+
+    def _set_inferred_shapes(self, out, inputs):
+        """Shape inference of ``out`` from ``inputs`` ({variable name:
+        NDArray}, their shapes and dtypes) into the deferred shapes."""
+        params = {p.name: p for p in self.collect_params().values()}
+        args, _, auxs = out._infer(
+            shape_kwargs={n: a.shape for n, a in inputs.items()},
+            dtype_kwargs={n: a._data.dtype for n, a in inputs.items()},
+            partial=True)
+        for name, st in list(zip(out.list_arguments(), args)) + \
+                list(zip(out.list_auxiliary_states(), auxs)):
+            if name in params and st is not None:
+                params[name]._set_shape_if_deferred(tuple(st.shape))
 
     def _finish_deferred(self, *args):
         self.infer_shape(*args)
@@ -220,9 +272,13 @@ class HybridBlock(Block):
     def forward(self, x, *args):
         if isinstance(x, NDArray):
             try:
+                if self._active:
+                    return self._call_cached_op(x, *args)
                 params = {k: p.data() for k, p in self._reg_params.items()}
             except DeferredInitializationError:
                 self._finish_deferred(x, *args)
+                if self._active:
+                    return self._call_cached_op(x, *args)
                 params = {k: p.data() for k, p in self._reg_params.items()}
             return self.hybrid_forward(nd, x, *args, **params)
         if not isinstance(x, Symbol):
@@ -230,6 +286,149 @@ class HybridBlock(Block):
                              "got %s" % type(x))
         pkw = {k: p.var() for k, p in self._reg_params.items()}
         return self.hybrid_forward(_sym, x, *args, **pkw)
+
+    def _call_cached_op(self, *args):
+        if self._cached_op is None:
+            for p in self.collect_params().values():
+                p._check_and_get()  # raises while an init is deferred
+            self._cached_op = _CachedOp(self)
+        return self._cached_op(*args)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+class _CachedOp:
+    """The replay of a hybridized block: one traced Symbol per signature
+    (input shapes, dtypes and devices, training mode), run by
+    ``executor._run_graph`` on the inputs' and the Parameters' tensors.
+
+    Under ``autograd.record()`` the graph runs with torch's grad mode on:
+    the Parameters' tensors are the leaves their ``attach_grad`` made, so
+    ``backward`` writes into their gradient buffers, and inputs that came
+    out of recorded ops stay connected to them.  The moving statistics
+    that a training call computes (aux outputs) are written back into
+    their Parameters, as the JAX package's ``_CachedOp`` does."""
+
+    def __init__(self, block):
+        self._block = block
+        self._params = {p.name: p for p in block.collect_params().values()}
+        self._graphs = {}  # signature -> (Symbol, output nesting)
+
+    def _graph(self, flat_in, in_fmt, train):
+        key = (repr(in_fmt), train, tuple(
+            (tuple(x._data.shape), x._data.dtype, x._data.device)
+            for x in flat_in))
+        graph = self._graphs.get(key)
+        if graph is None:
+            global _traces
+            args, _ = _regroup(list(flat_in), in_fmt)
+            with autograd.pause(train_mode=train):
+                graph = self._graphs[key] = self._block._trace(*args)
+            _traces += 1
+        return graph
+
+    def __call__(self, *args):
+        flat_in, in_fmt = _flatten(list(args))
+        train = autograd.is_training()
+        symbol, out_fmt = self._graph(flat_in, in_fmt, train)
+        arg_vals = {"data%d" % i: x._data for i, x in enumerate(flat_in)}
+        names = [n for n in symbol.list_arguments() if n in self._params]
+        used = [self._params[n].data() for n in names]
+        arg_vals.update(zip(names, (a._data for a in used)))
+        aux_vals = {n: self._params[n].data()._data
+                    for n in symbol.list_auxiliary_states()}
+        ctx = flat_in[0].context
+        gen = _random.generator(ctx)
+        if autograd.is_recording():
+            with torch.enable_grad():
+                outs, new_aux = _run_graph(symbol, arg_vals, aux_vals,
+                                           train, gen)
+            nds = used + flat_in
+            autograd._note_inputs(nds, range(len(nds)))
+        else:
+            with torch.no_grad():
+                outs, new_aux = _run_graph(symbol, arg_vals, aux_vals,
+                                           train, gen)
+                outs = [_owned(o, [a._data for a in used + flat_in])
+                        for o in outs]
+        for name, value in new_aux.items():
+            if value is not aux_vals[name]:
+                self._params[name].data()._set_data(value)
+        out, _ = _regroup([NDArray(o, ctx) for o in outs], out_fmt)
+        return out
+
+
+class SymbolBlock(HybridBlock):
+    """A block that runs a given Symbol (reference ``:476-518``): its
+    arguments other than ``inputs`` become Parameters (shared with
+    ``params`` where it names them), its aux states Parameters without
+    gradients.  Its forward on NDArrays is the cached-graph replay of a
+    hybridized block, differentiable through the Parameters; on Symbols
+    it composes the graph."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)) and len(outputs) == 1:
+            outputs = outputs[0]
+        out = _sym.Group(outputs) if isinstance(outputs, (list, tuple)) \
+            else outputs
+        input_names = set(i.name for i in inputs)
+        for name in out.list_arguments():
+            if name not in input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in out.list_auxiliary_states():
+            self.params.get(name, grad_req="null", allow_deferred_init=True)
+        self._out = out
+        self._input_names = [i.name for i in inputs]
+        self._n_out = len(out.list_outputs())
+        self._active = True
+
+    def hybridize(self, active=True):
+        """A SymbolBlock always runs its graph; only the cache drops."""
+        self._cached_op = None
+
+    def _trace(self, *args):
+        """The given Symbol, its inputs renamed ``data0``, ``data1``, ..."""
+        flat_args, _ = _flatten(list(args))
+        if len(flat_args) != len(self._input_names):
+            raise ValueError("SymbolBlock takes %d inputs (%s), got %d"
+                             % (len(self._input_names), self._input_names,
+                                len(flat_args)))
+        rename = {n: _sym.var("data%d" % i)
+                  for i, n in enumerate(self._input_names)}
+        out = self._compose(rename)
+        return out, (0 if self._n_out == 1 else list(range(self._n_out)))
+
+    def _compose(self, inputs):
+        """The Symbol with its input variables replaced by ``inputs``
+        ({name: Symbol})."""
+        from ..symbol.symbol import SymNode, _topo
+        new = {}
+        for node in _topo(self._out._outputs):
+            if node.op is None:
+                if node.name in inputs:
+                    new[id(node)] = inputs[node.name]._outputs[0][0]
+                else:
+                    new[id(node)] = node
+                continue
+            new[id(node)] = SymNode(node.op, node.name, node.attrs,
+                                    [(new[id(n)], i) for n, i in node.inputs])
+        return Symbol([(new[id(n)], i) for n, i in self._out._outputs])
+
+    def infer_shape(self, *args):
+        flat_args, _ = _flatten(list(args))
+        self._set_inferred_shapes(self._out,
+                                  dict(zip(self._input_names, flat_args)))
+
+    def forward(self, x, *args):
+        if isinstance(x, Symbol):
+            return self._compose(dict(zip(self._input_names, (x,) + args)))
+        return super().forward(x, *args)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -3,10 +3,12 @@
 Counterpart of ``mxnet_tpu/gluon/parameter.py:38-399``: deferred
 initialization (a shape dim of 0 is filled in from the first input),
 ``grad_req``, ``initialize``, ``data``/``grad``, ``cast`` and ``var``,
-and the prefixed registry ``ParameterDict``.  As in the JAX package a
-Parameter owns one NDArray on one context.  ``cast`` gives the NDArray
-a new tensor of the new dtype (an in-place copy would keep the old
-one).  Saving and loading parameter files waits for ``nd.save``/``load``.
+the stale-gradient flag ``_fresh_grad`` that backward sets and
+``Trainer.step`` clears, and the prefixed registry ``ParameterDict``.
+As in the JAX package a Parameter owns one NDArray on one context.
+``cast`` gives the NDArray a new tensor of the new dtype (an in-place
+copy would keep the old one).  Saving and loading parameter files waits
+for ``nd.save``/``load``.
 """
 from __future__ import annotations
 
@@ -134,6 +136,18 @@ class Parameter:
                     % (shape, self.shape, self.name))
             new.append(old if old > 0 else got)
         self.shape = tuple(new)
+
+    # -- stale-gradient tracking (mxnet_tpu/gluon/parameter.py:148-159) ---
+    @property
+    def _fresh_grad(self):
+        """True when backward wrote this parameter's gradient since the
+        last ``Trainer.step``."""
+        return bool(self._data is not None and self._data._fresh_grad)
+
+    @_fresh_grad.setter
+    def _fresh_grad(self, value):
+        if self._data is not None:
+            self._data._fresh_grad = bool(value)
 
     # -- accessors ---------------------------------------------------------
     def _check_and_get(self, what="data"):

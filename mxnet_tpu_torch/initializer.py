@@ -2,7 +2,7 @@
 
 Counterpart of ``mxnet_tpu/initializer.py:26-240`` (``InitDesc``, the
 ``Initializer`` dispatch protocol, ``create`` and the registered names,
-``Zero``/``One``, ``Uniform``, ``Normal``, ``Xavier``).
+``Zero``/``One``, ``Constant``, ``Uniform``, ``Normal``, ``Xavier``).
 A variable's ``__init__`` attr (``"zeros"``, ``"ones"``, or an
 initializer's ``dumps()``) wins; else the name decides the handler:
 ``*_weight`` takes the initializer's draw, ``*_bias``/``*_beta`` and
@@ -23,7 +23,7 @@ from .base import MXNetError
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Xavier"]
 
 _REGISTRY = {}
 
@@ -127,6 +127,19 @@ class One(Initializer):
 
 register(Zero, "zeros")
 register(One, "ones")
+
+
+@register
+class Constant(Initializer):
+    """Every element ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
+    _init_default = _init_weight
 
 
 @register

@@ -23,7 +23,7 @@ import torch
 from ..ndarray import NDArray
 from .. import random as _random
 from ..executor import _run_graph
-from ..optimizer import Optimizer
+from ..optimizer import _state_raw
 
 __all__ = ["CachedTrainStep", "fused_step_enabled"]
 
@@ -41,7 +41,7 @@ class CachedTrainStep:
         self._exec = executor
         self._updater = updater
         self._opt = updater.optimizer
-        if type(self._opt).fused_update is Optimizer.fused_update:
+        if not self._opt.supports_fused():
             raise ValueError("%s has no fused update"
                              % type(self._opt).__name__)
         # the executor's grad-bearing arguments, in the module's order, so
@@ -70,12 +70,13 @@ class CachedTrainStep:
                 ex.arg_dict[k]._set_data(v._data)
         self._ensure_states()
         opt = self._opt
-        lrs, wds = [], []
+        lrs, wds, counts = [], [], []
         for name in self._pnames:
             idx = self._pidx[name]
             opt._update_count(idx)
             lrs.append(opt._get_lr(idx))
             wds.append(opt._get_wd(idx))
+            counts.append(opt._index_update_count[idx])
 
         arg_vals = {n: a._data for n, a in ex.arg_dict.items()}
         weights = [arg_vals[n] for n in self._pnames]
@@ -93,11 +94,9 @@ class CachedTrainStep:
             # a parameter that reaches no output has a zero gradient
             grads = [torch.zeros_like(w) if g is None else g
                      for w, g in zip(weights, grads)]
-            states = [self._updater.states[self._pidx[n]] for n in
-                      self._pnames]
             opt.fused_update(weights, grads,
-                             [s._data if s is not None else None
-                              for s in states], lrs, wds)
+                             [_state_raw(self._updater.states[self._pidx[n]])
+                              for n in self._pnames], lrs, wds, counts)
             moved = [(aux_vals[n], v) for n, v in new_aux.items()
                      if v is not aux_vals[n]]
             if moved:

@@ -52,8 +52,8 @@ def _owned(t, sources):
 
 class NDArray:
     """A mutable n-dimensional array on a device context."""
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_marked", "name",
-                 "__weakref__")
+    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_marked",
+                 "_fresh_grad", "name", "__weakref__")
     # numpy scalar priority, so  np_scalar * NDArray  dispatches to us
     __array_priority__ = 1000.0
 
@@ -63,6 +63,7 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._marked = False
+        self._fresh_grad = False  # gradient written by backward since a step
         self.name = None
 
     # -- core properties ---------------------------------------------------

@@ -1,12 +1,14 @@
-"""Elementwise operators: unary, binary, scalar and comparison, ``Cast``
-and ``add_n``.
+"""Elementwise operators: unary, binary, scalar and comparison, ``Cast``,
+``add_n``, ``softmax``/``log_softmax`` and ``where``.
 
 Counterpart of ``mxnet_tpu/ops/elemwise.py``, reduced to the ops the
 NDArray and Symbol operators dispatch to (``ndarray.py:360-427``,
-``symbol.py:194-232``), ``relu``, ``Cast``:102 and
-``add_n``/``ElementWiseSum``:195.  Names and aliases are MXNet's:
-``elemwise_add``/``_plus``/``broadcast_add``; scalar variants take the
-attr ``scalar``; reverse variants are ``_r*``.
+``symbol.py:194-232``), the unary math the Gluon losses use (``_UNARY``
+:27: ``abs``, ``exp``, ``log``, ``sigmoid``, ``square``), ``relu``,
+``softmax``:83 and ``log_softmax``:90 along ``axis``, ``Cast``:102,
+``add_n``/``ElementWiseSum``:195 and ``where``:213.  Names and aliases
+are MXNet's: ``elemwise_add``/``_plus``/``broadcast_add``; scalar
+variants take the attr ``scalar``; reverse variants are ``_r*``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,38 @@ def _max0(x):
 
 register("relu")(lambda x, **kw: _max0(x))
 register("negative")(lambda x, **kw: torch.neg(x))
+
+_UNARY = {"abs": torch.abs, "exp": torch.exp, "log": torch.log,
+          "sigmoid": torch.sigmoid, "square": torch.square}
+
+
+def _mk_unary(fn):
+    return lambda x, **kw: fn(x)
+
+
+for _n, _fn in _UNARY.items():
+    register(_n)(_mk_unary(_fn))
+
+
+def _tempered(x, temperature):
+    if temperature is not None and temperature != 1.0:
+        return x / temperature
+    return x
+
+
+@register("softmax")
+def _softmax(x, axis=-1, temperature=None, **kw):
+    return torch.softmax(_tempered(x, temperature), dim=axis)
+
+
+@register("log_softmax")
+def _log_softmax(x, axis=-1, temperature=None, **kw):
+    return torch.log_softmax(_tempered(x, temperature), dim=axis)
+
+
+@register("where", nondiff_inputs=(0,))
+def _where(cond, x, y, **kw):
+    return torch.where(cond.to(torch.bool), x, y)
 
 
 @register("Cast", aliases=["cast"])

@@ -1,6 +1,8 @@
-"""Shape ops: ``Reshape``, ``Flatten`` and ``Concat``.
+"""Shape and indexing ops: ``Reshape``, ``Flatten``, ``SwapAxis``,
+``reshape_like``, ``Concat``, ``slice_axis`` and ``pick``.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:24-76`` and ``Concat``:101,
+Counterpart of ``mxnet_tpu/ops/matrix.py:24-76``, ``SwapAxis``:91,
+``reshape_like``:96, ``Concat``:101, ``slice_axis``:144 and ``pick``:276,
 with MXNet's special ``Reshape`` codes (0 copy, -1 infer, -2 copy the
 rest, -3 merge two, -4 split one) and ``reverse``.
 """
@@ -70,3 +72,30 @@ def _flatten(x, **kw):
 @register("Concat", aliases=["concat"])
 def _concat(*args, dim=1, num_args=None, **kw):
     return torch.cat(args, dim=dim)
+
+
+@register("SwapAxis", aliases=["swapaxes"])
+def _swapaxes(x, dim1=0, dim2=0, **kw):
+    return torch.swapaxes(x, dim1, dim2)
+
+
+@register("reshape_like", nondiff_inputs=(1,))
+def _reshape_like(x, like, **kw):
+    return x.reshape(like.shape)
+
+
+@register("slice_axis")
+def _slice_axis(x, axis=0, begin=0, end=None, **kw):
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(begin, end)
+    return x[tuple(idx)]
+
+
+@register("pick", nondiff_inputs=(1,))
+def _pick(x, index, axis=-1, keepdims=False, mode="clip", **kw):
+    """``x``'s entries at ``index`` along ``axis``; an index outside the
+    axis is clipped into it (MXNet's ``mode="clip"``)."""
+    ax = axis % x.ndim
+    idx = index.to(torch.int64).clamp(0, x.shape[ax] - 1).unsqueeze(ax)
+    out = torch.gather(x, ax, idx)
+    return out if keepdims else out.squeeze(ax)

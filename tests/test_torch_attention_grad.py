@@ -29,6 +29,8 @@ from mxnet_tpu.parallel.ring_attention import local_attention
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.models import transformer as tt
 from mxnet_tpu_torch.ops import attention as att
+from mxnet_tpu_torch.test_utils import (SHARP_ROW_C, attention_grads_fp64,
+                                        row_errors, sharp_row_check)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -260,3 +262,85 @@ def test_tensor_core_rounding_model_within_bwd_limits(dtype, shape, causal,
     _, rels = cs._grad_errors(got, ref)
     assert max(rels) <= cs.BWD_ROW_RTOL[dtype], rels
     assert max(rels) > 0  # the roundings do show
+
+
+SHARP_CASES = [  # chip_smoke's sm_scale-0.5 backward cases, D 16 and 128
+    ((1, 1, 16, 16), False), ((2, 4, 200, 64), True),
+    ((2, 4, 200, 32), True), ((2, 4, 200, 16), True),
+    ((2, 4, 200, 128), True),
+]
+
+
+@pytest.fixture
+def two_threads():
+    """Two torch threads for the 20-seed sweeps: the suite runs several
+    workers on one machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _sharp_inputs(shape, dtype, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype)
+            for _ in range(4)]
+
+
+def _stand_in(kind, q, k, v, do, causal):
+    """A kernel's stand-in on the CPU: the plain version in q-chunks of 64
+    (other summation orders of dk and dv), or the CPU model of the kernel
+    that the card runs for this dtype (16-bit P and dS for bf16/fp16, the
+    three-way bf16 split for fp32)."""
+    if kind == "plain":
+        return att.chunked_attention_grads(q, k, v, do, causal,
+                                           cs.SHARP_SCALE, chunk=64)
+    if q.dtype == torch.float32:
+        return cpu_model.split_attention_grads(q, k, v, do, causal,
+                                               cs.SHARP_SCALE)
+    return cpu_model.tensor_core_rounding_model(q, k, v, do, causal,
+                                                cs.SHARP_SCALE)
+
+
+@pytest.mark.parametrize("kind", ["plain", "model"])
+@pytest.mark.parametrize("shape,causal", SHARP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_sharp_row_check_passes_stand_ins_at_20_seeds(two_threads, dtype,
+                                                      shape, causal, kind):
+    """chip_smoke's check of the sharp cases (sharp_row_check: each row
+    against fp64, the error taken against the size of the terms the row
+    sums, at SHARP_ROW_C times the plain version's own error plus
+    BWD_ROW_RTOL) passes a stand-in for the kernel at 20 seeds."""
+    for seed in range(20):
+        q, k, v, do = _sharp_inputs(shape, dtype, seed)
+        got = _stand_in(kind, q, k, v, do, causal)
+        plain = att.chunked_attention_grads(q, k, v, do, causal,
+                                            cs.SHARP_SCALE)
+        exact, terms = attention_grads_fp64(q, k, v, do, causal,
+                                            cs.SHARP_SCALE)
+        check = sharp_row_check(got, plain, exact, terms,
+                                cs.BWD_ROW_RTOL[dtype])
+        assert check["ok"], (seed, check)
+
+
+@pytest.mark.parametrize("shape,causal", SHARP_CASES[:2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharp_row_check_fails_a_planted_error(dtype, shape, causal):
+    """An error of 4 times a row's limit (in units of the row's largest
+    term size), planted in dq's row where the plain version lies farthest
+    from fp64, fails the check."""
+    q, k, v, do = _sharp_inputs(shape, dtype, 0)
+    plain = att.chunked_attention_grads(q, k, v, do, causal, cs.SHARP_SCALE)
+    exact, terms = attention_grads_fp64(q, k, v, do, causal, cs.SHARP_SCALE)
+    rtol = cs.BWD_ROW_RTOL[dtype]
+    assert sharp_row_check(plain, plain, exact, terms, rtol)["ok"]
+    floor = torch.finfo(dtype).tiny
+    rows = row_errors(plain, exact, terms, floor)[0]
+    idx = np.unravel_index(int(rows.argmax()), tuple(rows.shape))
+    limit = SHARP_ROW_C * rows[idx].item() + rtol
+    scale = terms[0][idx].max().clamp_min(floor).item()
+    bad = [g.clone() for g in plain]
+    bad[0][idx + (0,)] += 4 * limit * scale
+    check = sharp_row_check(bad, plain, exact, terms, rtol)
+    assert not check["ok"] and check["worst"] > 2.5, check

@@ -9,10 +9,22 @@ rule).  Batches and metric values must be equal.
 import numpy as np
 import pytest
 
+import jax
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import MXNetError
+
+
+@pytest.fixture(scope="module", autouse=True)
+def x64():
+    """The JAX package turns x64 on at import, and its iterator keeps int64
+    labels only under it; another test in this worker may have turned it
+    off."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
 
 
 def _epoch(it):

@@ -295,7 +295,9 @@ def test_default_context_and_refusals():
     with pytest.raises(MXNetError, match="kvstore"):
         mod.init_optimizer(kvstore="dist_sync")
     with pytest.raises(MXNetError):
-        mod.init_optimizer(optimizer="adam")
+        mod.init_optimizer(optimizer="no_such_optimizer")
+    mod.init_optimizer(optimizer="adam")  # ported since the Gluon slice
+    assert isinstance(mod._optimizer, mt.optimizer.Adam)
 
 
 def test_init_params_fills_bf16_as_the_jax_package():

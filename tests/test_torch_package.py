@@ -27,7 +27,8 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_flash_small_d_timing.py"),
              os.path.join(REPO, "tools", "torch_flash_sharp_rows.py"),
              os.path.join(REPO, "tools", "torch_lm_cpu_spread.py"),
-             os.path.join(REPO, "tools", "torch_mlp_breakdown.py")]
+             os.path.join(REPO, "tools", "torch_mlp_breakdown.py"),
+             os.path.join(REPO, "tools", "torch_resnet_breakdown.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -38,7 +39,11 @@ def test_import_leaves_no_jax_in_a_clean_process():
             "mxnet_tpu_torch.ops._build, mxnet_tpu_torch.ndarray, "
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
             "mxnet_tpu_torch.rtc, mxnet_tpu_torch.optimizer, "
-            "mxnet_tpu_torch.initializer, mxnet_tpu_torch.parallel.zero; "
+            "mxnet_tpu_torch.initializer, mxnet_tpu_torch.parallel.zero, "
+            "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.test_utils, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss, "
+            "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.block, "
+            "mxnet_tpu_torch.gluon.fused_trainer; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (sorted(FORBIDDEN),))
     env = dict(os.environ, PYTHONPATH=REPO)
