@@ -55,34 +55,48 @@ Phases, each fatal on failure:
    the trained weights cast, in bf16; the kernel's launches asserted.
 8. MLP parity: 10 steps on the card (through the kernel) against the same
    init on the CPU (through the plain version), fp32, TF32 off.
+Every training step of the port replays captured CUDA graphs on the
+card (``mxnet_tpu_torch.capture``): Module's step one graph, the LM steps
+one, a Gluon step three (forward, backward, update).  ``capture.eager()``
+runs them eagerly, the oracle of phase 17 and the "eager" figures of
+phases 10, 11, 14 and 16.  A captured step warms up ``WARMUP_RUNS`` times
+before it captures, and those runs launch the kernels too
+(``expected_launches``).
+
 9. ResNet parity: ``resnet50_v1`` (1000 classes) through ``Module`` at
-   batch 2, 3 x 224 x 224, one Module on the card and one on the CPU
-   from the same parameters, two ``_fit_step``s each (SGD lr 0.1,
-   momentum 0.9, wd 1e-4); the softmax outputs of each step, and the
-   parameters and moving statistics after step 2, held to
-   ``RESNET_PARITY_TOL``, in fp64 and in fp32 (TF32 off).
+   batch 2, 3 x 224 x 224, one Module on the card (captured: one capture,
+   one replay a step, asserted) and one on the CPU from the same
+   parameters, two ``_fit_step``s each (SGD lr 0.1, momentum 0.9, wd
+   1e-4); the softmax outputs of each step, and the parameters and
+   moving statistics after step 2, held to ``RESNET_PARITY_TOL``, in fp64
+   and in fp32 (TF32 off).
 10. ResNet-50 training at ``bench.py``'s configuration
    (``_module_train_rate``: the Gluon model lowered to a Symbol, ``Cast``
    to fp32, ``SoftmaxOutput``, ``Module`` at batch 32, Xavier, SGD lr
    0.1, momentum 0.9, wd 1e-4, one seeded batch) in fp32 (TF32 off) and
-   bf16: 5 warm-up and 30 timed ``_fit_step``s through
-   ``CachedTrainStep``, then 5 + 30 inference forwards; ms/step, img/s
-   and the share of the card's peak that 24.6 GFLOP per training image
-   (8.2 per inference image) gives.  No hand-written kernel runs on this
-   path: its convolutions and products are cuDNN's and cuBLAS's.
+   bf16, captured and eager in turn: 5 warm-up and 30 timed
+   ``_fit_step``s through ``CachedTrainStep`` each (the timed steps: 1
+   replay and 1 program call a step captured, none eagerly, no capture),
+   then 5 + 30 inference forwards; ms/step, img/s, peak memory and the
+   share of the card's peak that 24.6 GFLOP per training image (8.2 per
+   inference image) gives.  No hand-written kernel runs on this path:
+   its convolutions and products are cuDNN's and cuBLAS's.
 11. LM training at GPT-2 small widths (phase 4's configuration, not cut)
    on one seeded batch of 8 x 1024 tokens, in fp32 (TF32 off), bf16 and
    fp16, through ``make_train_step`` (SGD, lr 0.1) and
-   ``make_train_step_zero1`` (momentum 0.9): 3 warm-up and 10 timed
-   steps each; ms/step, tokens/s and the share of the card's peak at the
-   FLOPs counted by ``lm_train_flops``; the loss must stay finite and
-   fall, and every step must launch the forward and the backward kernel
-   n_layers times each.
+   ``make_train_step_zero1`` (momentum 0.9), captured and eager in turn:
+   5 warm-up and 10 timed steps each (timed: 1 replay a step captured,
+   no capture); ms/step, tokens/s, peak memory and the share of the
+   card's peak at the FLOPs counted by ``lm_train_flops``; the loss must
+   stay finite and fall, and every step must launch the forward and the
+   backward kernel n_layers times each (plus n_layers for each warm-up
+   run of a capture).
 12. LM training parity: a small LM (2 layers, d_model 128, 2 heads, so
    D = 64; S = 200) trained 3 steps by each step builder on the card
-   (through both kernels) and on the CPU (through the plain versions)
-   from one init, in fp32 (TF32 off) and bf16; the loss, the params and
-   the momenta held to ``LM_TRAIN_PARITY_TOL`` after each step.
+   (captured, through both kernels) and on the CPU (through the plain
+   versions) from one init, in fp32 (TF32 off) and bf16; the loss, the
+   params and the momenta held to ``LM_TRAIN_PARITY_TOL`` after each
+   step.
 13. D-32 parity: phase 12's LM with 4 heads (D = 32) in fp32 and bf16,
    scored (held to ``PARITY_TOL``) and trained 3 steps by
    ``make_train_step`` (held to ``LM_TRAIN_PARITY_TOL``), card against
@@ -91,14 +105,16 @@ Phases, each fatal on failure:
    layers, d_model 256, 8 heads, so D = 32; d_ff 1024, vocab 50304,
    max_len 2048; seeded random weights) on one seeded batch of 8 x 2048
    tokens, in fp32 (TF32 off), bf16 and fp16: 4 batches scored (ms/batch,
-   tokens/s), then 3 warm-up and 10 timed ``make_train_step`` steps
-   (ms/step, tokens/s, share of peak at ``lm_train_flops``); the loss
-   must fall and every step launch each kernel n_layers times.
+   tokens/s), then 5 warm-up and 10 timed ``make_train_step`` steps,
+   captured and eager in turn (ms/step, tokens/s, peak memory, share of
+   peak at ``lm_train_flops``); the loss must fall and every step launch
+   each kernel n_layers times (as phase 11 counts them).
 15. Gluon ResNet-50 parity (run after phase 10): ``resnet50_v1`` from the
    zoo, ``hybridize()``, ``SoftmaxCrossEntropyLoss`` and
    ``gluon.Trainer("sgd")`` at phase 10's hyper-parameters, 2 steps at
    batch 2 from phase 9's init, on the card and on the CPU, in fp64 (held
-   to ``RESNET_PARITY_TOL``) and fp32 (TF32 off; step-1 outputs 1e-4);
+   to ``RESNET_PARITY_TOL``) and fp32 (TF32 off; step-1 outputs 1e-4),
+   the card's steps three replays each after three captures (asserted);
    the fp64 card run's first step also against one Module step from the
    same init and batch (``GLUON_MODULE_TOL``); and, for each of the
    twelve optimizers with a fused update, 3 Trainer steps of a
@@ -107,14 +123,34 @@ Phases, each fatal on failure:
 16. Gluon ResNet-50 training at batch 32, 224 x 224, in fp32 (TF32 off)
    and bf16 (the net cast, the logits cast to fp32 before the loss): 5
    warm-up and 30 timed steps (forward and loss under
-   ``autograd.record()``, ``loss.backward()``, ``Trainer.step``);
-   ms/step, img/s and share of peak beside phase 10's Module figures; the
-   loss must be finite, a moving statistic must move, the timed steps
-   must trace no graph and make one fused update each.  No hand-written
-   kernel runs on this path either.
+   ``autograd.record()``, ``loss.backward()``, ``Trainer.step``),
+   captured and eager in turn; ms/step, img/s, peak memory and share of
+   peak beside phase 10's Module figures; the loss must be finite, a
+   moving statistic must move, the timed steps must trace no graph, make
+   one fused update each and replay three graphs a step (captured) or
+   none (eager), with no capture.  No hand-written kernel runs on this
+   path either.
+17. Captured against eager (``capture.eager()``) on the card: the fused
+   ``Trainer`` update of each of the twelve rules over Parameters of
+   ResNet-50's shapes, 6 steps of a ``FactorScheduler`` that halves the
+   lr each step, in fp32 and bf16, bit for bit, one capture and then
+   none; a hybridized Dense called twice in each recording, and one
+   unrolled three times on its own output, 3 Trainer steps, to
+   ``SHARED_REL`` (a program for each call before the backward); both
+   LM step builders, 3 steps of the parity LM in fp32 and bf16, to
+   ``LM_TRAIN_PARITY_TOL`` (and whether bit for bit); ResNet-50 at batch
+   2 in fp64 through ``Module``, captured against eager beside eager
+   against eager, to ``RESNET_PARITY_TOL``.
+18. ResNet-50 through ``Module`` at batch 32 with Nadam (whose update
+   reads the momentum schedule the host derives from t each step) and
+   with RMSProp, the lr lowered each step, fp32 (TF32 off)
+   and bf16, captured and eager in turn: 5 warm-up and 10 timed steps
+   each; ms/step and peak memory; the captured steps replay one program
+   a step and capture none.
 
-It prints the ResNet-50 numbers (Module and Gluon) as one
-``{"resnet50": {...}}`` line, the
+It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
+and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
+line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -123,6 +159,8 @@ of the repository beside it, it exits non-zero before printing either.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import json
 import math
@@ -196,6 +234,46 @@ JAX_CPU_ACCURACY = 1.0
 
 def log(*args):
     print(*args, flush=True)
+
+
+# -- captured steps (mxnet_tpu_torch.capture) ---------------------------------
+# On the card every training step of the port replays captured CUDA graphs;
+# ``capture.eager()`` is the eager oracle.  The counters of a step:
+STEP_COUNTERS = ("graph_captures", "graph_replays", "program_calls")
+STEP_MODES = ("captured", "eager")
+
+
+def counter_snapshot():
+    from mxnet_tpu_torch import profiler
+    return profiler.counters()
+
+
+def counter_delta(before):
+    """What the step counters moved since ``before``."""
+    from mxnet_tpu_torch import profiler
+    now = profiler.counters()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in STEP_COUNTERS}
+
+
+def step_mode(mode):
+    """The context a step runs in: captured (the default) or eager."""
+    from mxnet_tpu_torch import capture
+    return capture.eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def free_card():
+    """Drop what nothing holds any more (a captured program and its memory
+    pool can sit in a reference cycle), then return the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def expected_launches(n_layers, steps, captures):
+    """A hand kernel's launches in ``steps`` LM train steps that captured
+    ``captures`` programs: n_layers a step, replayed or eager, and
+    n_layers in each warm-up run before a capture."""
+    from mxnet_tpu_torch import capture
+    return n_layers * (steps + capture.WARMUP_RUNS * captures)
 
 
 # The fp32 kernels take each product as six bf16 products (attention.design:
@@ -815,7 +893,7 @@ def phase_parity(dtype, seed):
 
 
 # -- LM training (make_train_step, make_train_step_zero1) --------------------
-LM_TRAIN_WARMUP, LM_TRAIN_STEPS, LM_TRAIN_LR, LM_TRAIN_MOMENTUM = 3, 10, 0.1, 0.9
+LM_TRAIN_WARMUP, LM_TRAIN_STEPS, LM_TRAIN_LR, LM_TRAIN_MOMENTUM = 5, 10, 0.1, 0.9
 LM_TRAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # Small LM trained on the card (through both kernels) and on the CPU
 # (through the plain versions) from one init: D = 64, so bf16 takes the
@@ -915,9 +993,16 @@ def phase_lm_train_parity(dtype):
         cpu = lm_train_run("cpu", dtype, builder, params, tokens, labels)
         att.reset_launch_count()
         att.reset_backward_launch_count()
+        before = counter_snapshot()
         card = lm_train_run("cuda", dtype, builder, params, tokens, labels)
+        steps = counter_delta(before)
         launches = (att.launch_count(), att.backward_launch_count())
-        want = n_layers * LM_TRAIN_PARITY_STEPS
+        if steps["graph_captures"] != 1 \
+                or steps["graph_replays"] != LM_TRAIN_PARITY_STEPS:
+            raise AssertionError("LM train parity on the card did not "
+                                 "replay one captured step a step: %s"
+                                 % steps)
+        want = expected_launches(n_layers, LM_TRAIN_PARITY_STEPS, 1)
         diffs = lm_train_diffs(card, cpu)
         for i, d in enumerate(diffs):
             log("LM train parity (%s, %s, S=%d, step %d): loss card %.6f cpu "
@@ -978,8 +1063,10 @@ def phase_lm_d32_parity(dtype):
                        config=LM_D32)
     att.reset_launch_count()
     att.reset_backward_launch_count()
+    before = counter_snapshot()
     card = lm_train_run("cuda", dtype, "plain", params, tokens, labels,
                         config=LM_D32)
+    captures = counter_delta(before)["graph_captures"]
     launches = (scored + att.launch_count(), att.backward_launch_count())
     worst = {k: max(d[k] for d in lm_train_diffs(card, cpu))
              for k in ("loss", "params", "momenta")}
@@ -992,11 +1079,12 @@ def phase_lm_d32_parity(dtype):
                       worst["loss"], train_tol["loss"], worst["params"],
                       train_tol["params"], *launches))
     n_layers = cfg.n_layers
-    want = (n_layers * (1 + LM_TRAIN_PARITY_STEPS),
-            n_layers * LM_TRAIN_PARITY_STEPS)
-    if launches != want:
+    trained = expected_launches(n_layers, LM_TRAIN_PARITY_STEPS, captures)
+    want = (n_layers + trained, trained)
+    if launches != want or captures != 1:
         raise AssertionError("the D-32 LM launched %s (forward, backward) "
-                             "kernels, not %s" % (launches, want))
+                             "kernels (want %s) in steps that captured %d "
+                             "programs (want 1)" % (launches, want, captures))
     bad = [k for k in worst if worst[k] > train_tol[k]]
     if err > tol["logits"] or nll_diff > tol["nll"] or bad:
         raise AssertionError("the D-32 LM on the card disagrees with the CPU"
@@ -1073,12 +1161,61 @@ def lm_train_flops(cfg, batch, seq):
     return matmul + attn, matmul, attn
 
 
+def lm_train_timed(step, cfg, what):
+    """LM_TRAIN_WARMUP + LM_TRAIN_STEPS calls of ``step`` (returns the
+    loss), each timed and holding each kernel to n_layers launches (and
+    n_layers more for each warm-up run of a capture in that call).
+    Returns (times, losses, timed steps' counters, (forward, backward)
+    launches)."""
+    from mxnet_tpu_torch.ops import attention as att
+    times, losses, totals = [], [], [0, 0]
+    for i in range(LM_TRAIN_WARMUP + LM_TRAIN_STEPS):
+        if i == LM_TRAIN_WARMUP:
+            timed = counter_snapshot()
+        att.reset_launch_count()
+        att.reset_backward_launch_count()
+        before = counter_snapshot()
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        captures = counter_delta(before)["graph_captures"]
+        launches = (att.launch_count(), att.backward_launch_count())
+        want = expected_launches(cfg.n_layers, 1, captures)
+        if launches != (want, want):
+            raise AssertionError("%s step %d launched %s (forward, "
+                                 "backward) kernels, not %d each (%d "
+                                 "captures)" % (what, i, launches, want,
+                                                captures))
+        totals = [t + n for t, n in zip(totals, launches)]
+    return times, [x.item() for x in losses], counter_delta(timed), \
+        tuple(totals)
+
+
+def lm_step_checks(what, mode, losses, counts):
+    """The loss finite and falling; the timed steps one replay each
+    (captured) or none (eager), and no capture."""
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss (%s, %s): %s"
+                             % (what, mode, losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall (%s, %s): %s"
+                             % (what, mode, losses))
+    replays = LM_TRAIN_STEPS if mode == "captured" else 0
+    if counts["graph_captures"] != 0 or counts["graph_replays"] != replays:
+        raise AssertionError("%s (%s) timed steps' counters %s, want 0 "
+                             "captures and %d replays"
+                             % (what, mode, counts, replays))
+
+
 def phase_lm_train(dtype):
     """GPT-2-small-width LM training on the card through both step
-    builders: LM_TRAIN_WARMUP + LM_TRAIN_STEPS steps on one seeded batch of
-    8 x 1024; ms/step, tokens/s and share of peak; the loss must stay
+    builders, each captured (one replay a step) and eager in turn:
+    LM_TRAIN_WARMUP + LM_TRAIN_STEPS steps on one seeded batch of 8 x 1024;
+    ms/step, tokens/s, share of peak and peak memory; the loss must stay
     finite and fall; n_layers forward and n_layers backward launches a
-    step.  Returns {builder: {...}} and the kernels' launches."""
+    step.  Returns {builder: {...captured..., "eager": {...}}} and the
+    kernels' launches."""
     from mxnet_tpu_torch.models import transformer as tr
     from mxnet_tpu_torch.ops import attention as att
     flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
@@ -1089,7 +1226,7 @@ def phase_lm_train(dtype):
     tokens, labels = tr.place_batch(seq[:, :-1], seq[:, 1:])
     flops, matmul_flops, attn_flops = lm_train_flops(cfg, LM_BATCH, LM_SEQ)
     out, totals = {}, [0, 0]
-    for builder in ("plain", "zero1"):
+    for builder, mode in itertools.product(("plain", "zero1"), STEP_MODES):
         params = tr.init_transformer_params(
             torch.Generator(device="cuda").manual_seed(0), cfg)
         # the steps update params (and momenta) in place
@@ -1106,51 +1243,36 @@ def phase_lm_train(dtype):
                 return step(params, momenta, tokens, labels)[-1]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times, losses = [], []
-        for _ in range(LM_TRAIN_WARMUP + LM_TRAIN_STEPS):
-            att.reset_launch_count()
-            att.reset_backward_launch_count()
-            t0 = time.perf_counter()
-            losses.append(run())
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            launches = (att.launch_count(), att.backward_launch_count())
-            if launches != (cfg.n_layers, cfg.n_layers):
-                raise AssertionError(
-                    "LM train step (%s, %s) launched %s (forward, backward) "
-                    "kernels, not %d each" % (DTYPE_NAME[dtype], builder,
-                                              launches, cfg.n_layers))
-            totals[0] += launches[0]
-            totals[1] += launches[1]
-        losses = [x.item() for x in losses]
+        what = "LM train step (%s, %s)" % (DTYPE_NAME[dtype], builder)
+        with step_mode(mode):
+            times, losses, counts, launches = lm_train_timed(run, cfg, what)
+        totals = [t + n for t, n in zip(totals, launches)]
         ms = sorted(times[LM_TRAIN_WARMUP:])[LM_TRAIN_STEPS // 2]
         res = dict(step_ms_median=ms, step_ms_first=times[:LM_TRAIN_WARMUP],
                    tokens_s=LM_BATCH * LM_SEQ / ms * 1e3,
                    peak_share=flops / (ms / 1e3) / PEAK_FLOPS[dtype],
-                   losses=losses,
+                   losses=losses, timed_counts=counts,
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        out[builder] = res
-        log("LM train %s (%s), %s step, %d layers, batch %dx%d: ms/step "
+        if mode == "captured":
+            out[builder] = res
+        else:
+            out[builder]["eager"] = res
+        log("LM train %s (%s), %s step, %s, %d layers, batch %dx%d: ms/step "
             "median of %d %.3f, first %d %s, %.1f tokens/s, %.2f%% of the %g "
             "TFLOP/s peak at %.4g TFLOP/step (matmul %.4g, attention fwd+bwd "
-            "%.4g); loss %s; peak memory %.1f GB; launches per step %d "
-            "forward, %d backward (%s)"
-            % (DTYPE_NAME[dtype], flags, builder, cfg.n_layers, LM_BATCH,
-               LM_SEQ, LM_TRAIN_STEPS, ms, LM_TRAIN_WARMUP,
+            "%.4g); loss %s; peak memory %.2f GB; timed steps' counters %s; "
+            "launches per step %d forward, %d backward (%s)"
+            % (DTYPE_NAME[dtype], flags, builder, mode, cfg.n_layers,
+               LM_BATCH, LM_SEQ, LM_TRAIN_STEPS, ms, LM_TRAIN_WARMUP,
                ["%.1f" % t for t in times[:LM_TRAIN_WARMUP]],
                res["tokens_s"], 100 * res["peak_share"],
                PEAK_FLOPS[dtype] / 1e12, flops / 1e12, matmul_flops / 1e12,
                attn_flops / 1e12, ["%.4f" % x for x in losses],
-               res["peak_mem_gb"], cfg.n_layers, cfg.n_layers,
+               res["peak_mem_gb"], counts, cfg.n_layers, cfg.n_layers,
                att.design(dtype, cfg.d_model // cfg.n_heads)))
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError("non-finite LM train loss (%s, %s): %s"
-                                 % (DTYPE_NAME[dtype], builder, losses))
-        if not losses[-1] < losses[0]:
-            raise AssertionError("the LM train loss did not fall (%s, %s): "
-                                 "%s" % (DTYPE_NAME[dtype], builder, losses))
+        lm_step_checks(what, mode, losses, counts)
         del params, momenta, step, run
-        torch.cuda.empty_cache()
+        free_card()
     return out, tuple(totals)
 
 
@@ -1166,10 +1288,11 @@ def phase_lm_pythia(dtype):
     """The D-32 LM at Pythia-31M's widths on one seeded batch of 8 x 2048
     tokens: LM_REQUESTS batches scored (ms/batch, tokens/s; n_layers
     forward launches each), then LM_TRAIN_WARMUP + LM_TRAIN_STEPS steps of
-    ``make_train_step`` (lr LM_TRAIN_LR; ms/step, tokens/s, share of
-    peak; n_layers forward and backward launches a step; the loss must
-    stay finite and fall).  Returns its numbers and the (forward,
-    backward) launches of the scored and trained runs."""
+    ``make_train_step`` from the same init, captured and then eager (lr
+    LM_TRAIN_LR; ms/step, tokens/s, share of peak, peak memory; n_layers
+    forward and backward launches a step; the loss must stay finite and
+    fall).  Returns its numbers (the eager ones under "eager") and the
+    (forward, backward) launches of the scored and trained runs."""
     from mxnet_tpu_torch.models import transformer as tr
     from mxnet_tpu_torch.ops import attention as att
     flags = tf32_flags() if dtype == torch.float32 else DTYPE_NAME[dtype]
@@ -1208,57 +1331,54 @@ def phase_lm_pythia(dtype):
     score_ms = sorted(times)[len(times) // 2]
     flops, matmul_flops, attn_flops = lm_train_flops(cfg, PYTHIA_BATCH,
                                                      PYTHIA_SEQ)
-    step = tr.make_train_step(cfg, lr=LM_TRAIN_LR)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_times, losses, totals = [], [], [0, 0]
-    for _ in range(LM_TRAIN_WARMUP + LM_TRAIN_STEPS):
-        att.reset_launch_count()
-        att.reset_backward_launch_count()
-        t0 = time.perf_counter()
-        losses.append(step(params, tokens, labels)[-1])
+    modes, totals = {}, [0, 0]
+    for mode in STEP_MODES:
+        # the step updates the params in place: each mode from the init
+        ps = {n: t.clone() for n, t in params.items()}
+        step = tr.make_train_step(cfg, lr=LM_TRAIN_LR)
+        what = "D-32 LM step (%s)" % DTYPE_NAME[dtype]
         torch.cuda.synchronize()
-        step_times.append(1e3 * (time.perf_counter() - t0))
-        launches = (att.launch_count(), att.backward_launch_count())
-        if launches != (cfg.n_layers, cfg.n_layers):
-            raise AssertionError("D-32 LM step (%s) launched %s (forward, "
-                                 "backward) kernels, not %d each"
-                                 % (DTYPE_NAME[dtype], launches,
-                                    cfg.n_layers))
+        torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            step_times, losses, counts, launches = lm_train_timed(
+                lambda: step(ps, tokens, labels)[-1], cfg, what)
         totals = [t + n for t, n in zip(totals, launches)]
-    losses = [x.item() for x in losses]
-    ms = sorted(step_times[LM_TRAIN_WARMUP:])[LM_TRAIN_STEPS // 2]
+        ms = sorted(step_times[LM_TRAIN_WARMUP:])[LM_TRAIN_STEPS // 2]
+        modes[mode] = dict(
+            step_ms_median=ms, step_ms_first=step_times[:LM_TRAIN_WARMUP],
+            tokens_s=tokens_per_batch / ms * 1e3,
+            peak_share=flops / (ms / 1e3) / PEAK_FLOPS[dtype],
+            losses=losses, timed_counts=counts,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        lm_step_checks(what, mode, losses, counts)
+        del ps, step
+        free_card()
     res = dict(dtype=DTYPE_NAME[dtype], flags=flags, design=design,
                params_m=n_params / 1e6, score_ms_median=score_ms,
                score_ms=times, score_tokens_s=tokens_per_batch / score_ms
-               * 1e3, nll=nlls, step_ms_median=ms,
-               step_ms_first=step_times[:LM_TRAIN_WARMUP],
-               tokens_s=tokens_per_batch / ms * 1e3,
-               peak_share=flops / (ms / 1e3) / PEAK_FLOPS[dtype],
-               losses=losses,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log("LM D=32 %s (%s, %s kernels; Pythia-31M widths, %.1f M params, %d "
-        "layers, batch %dx%d): scored ms/batch %s median %.3f, %.1f "
-        "tokens/s, NLL %s; train ms/step median of %d %.3f, first %d %s, "
-        "%.1f tokens/s, %.2f%% of the %g TFLOP/s peak at %.4g TFLOP/step "
-        "(matmul %.4g, attention fwd+bwd %.4g); loss %s; peak memory %.1f "
-        "GB; launches scored %d, per step %d forward, %d backward"
-        % (DTYPE_NAME[dtype], flags, design, n_params / 1e6, cfg.n_layers,
-           PYTHIA_BATCH, PYTHIA_SEQ, ["%.3f" % t for t in times], score_ms,
-           res["score_tokens_s"], ["%.4f" % x for x in nlls], LM_TRAIN_STEPS,
-           ms, LM_TRAIN_WARMUP, ["%.1f" % t for t in step_times[:3]],
-           res["tokens_s"], 100 * res["peak_share"], PEAK_FLOPS[dtype] / 1e12,
-           flops / 1e12, matmul_flops / 1e12, attn_flops / 1e12,
-           ["%.4f" % x for x in losses], res["peak_mem_gb"], scored,
-           cfg.n_layers, cfg.n_layers))
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError("non-finite D-32 LM loss (%s): %s"
-                             % (DTYPE_NAME[dtype], losses))
-    if not losses[-1] < losses[0]:
-        raise AssertionError("the D-32 LM loss did not fall (%s): %s"
-                             % (DTYPE_NAME[dtype], losses))
-    del params, step, tokens, labels, seq
-    torch.cuda.empty_cache()
+               * 1e3, nll=nlls, **modes["captured"])
+    res["eager"] = modes["eager"]
+    for mode in STEP_MODES:
+        r = modes[mode]
+        log("LM D=32 %s (%s, %s kernels; Pythia-31M widths, %.1f M params, "
+            "%d layers, batch %dx%d): scored ms/batch %s median %.3f, %.1f "
+            "tokens/s, NLL %s; train %s ms/step median of %d %.3f, first %d "
+            "%s, %.1f tokens/s, %.2f%% of the %g TFLOP/s peak at %.4g "
+            "TFLOP/step (matmul %.4g, attention fwd+bwd %.4g); loss %s; peak "
+            "memory %.2f GB; timed steps' counters %s; launches scored %d, "
+            "per step %d forward, %d backward"
+            % (DTYPE_NAME[dtype], flags, design, n_params / 1e6,
+               cfg.n_layers, PYTHIA_BATCH, PYTHIA_SEQ,
+               ["%.3f" % t for t in times], score_ms, res["score_tokens_s"],
+               ["%.4f" % x for x in nlls], mode, LM_TRAIN_STEPS,
+               r["step_ms_median"], LM_TRAIN_WARMUP,
+               ["%.1f" % t for t in r["step_ms_first"]], r["tokens_s"],
+               100 * r["peak_share"], PEAK_FLOPS[dtype] / 1e12,
+               flops / 1e12, matmul_flops / 1e12, attn_flops / 1e12,
+               ["%.4f" % x for x in r["losses"]], r["peak_mem_gb"],
+               r["timed_counts"], scored, cfg.n_layers, cfg.n_layers))
+    del params, tokens, labels, seq
+    free_card()
     return res, (scored + totals[0], totals[1])
 
 
@@ -1628,18 +1748,21 @@ def resnet_module(ctx, batch, dtype=torch.float32, image=RESNET_IMAGE,
     return mod
 
 
-def resnet_train_setup(mod, params=None):
+def resnet_train_setup(mod, params=None, optimizer="sgd",
+                       optimizer_params=None):
     """Xavier init after ``random.seed(0)`` (or ``params``, a
-    ``get_params()`` pair), then SGD lr 0.1, momentum 0.9, wd 1e-4."""
+    ``get_params()`` pair), then SGD lr 0.1, momentum 0.9, wd 1e-4 (or
+    ``optimizer`` with ``optimizer_params``)."""
     import mxnet_tpu_torch as mt
     if params is None:
         mt.random.seed(0)
         mod.init_params(initializer=mt.initializer.Xavier())
     else:
         mod.set_params(*params)
-    mod.init_optimizer(optimizer="sgd", optimizer_params=(
-        ("learning_rate", RESNET_LR), ("momentum", RESNET_MOMENTUM),
-        ("wd", RESNET_WD)))
+    mod.init_optimizer(optimizer=optimizer, optimizer_params=(
+        optimizer_params or (("learning_rate", RESNET_LR),
+                             ("momentum", RESNET_MOMENTUM),
+                             ("wd", RESNET_WD))))
 
 
 def resnet_batch(ctx, batch, dtype, image=RESNET_IMAGE, classes=1000,
@@ -1715,12 +1838,21 @@ def phase_resnet_parity():
     mod = resnet_module(init, RESNET_PARITY_BATCH)
     resnet_train_setup(mod)
     params = mod.get_params()
-    runs = {}
+    runs, steps = {}, {}
     for dtype in (torch.float64, torch.float32):
         p = _cast_params(params, dtype)
-        # (CPU, card)
-        runs[dtype] = [_resnet_two_steps(ctx, dtype, p)
-                       for ctx in (mt.cpu(), mt.gpu(0))]
+        # (CPU, card); the card's two steps replay one captured program
+        cpu = _resnet_two_steps(mt.cpu(), dtype, p)
+        before = counter_snapshot()
+        runs[dtype] = [cpu, _resnet_two_steps(mt.gpu(0), dtype, p)]
+        name = str(dtype)[6:]
+        steps[name] = counter_delta(before)
+        if steps[name] != dict(graph_captures=1, graph_replays=2,
+                               program_calls=2):
+            raise AssertionError("ResNet-50 parity on the card (%s): %s, not "
+                                 "one captured program replayed once a step"
+                                 % (name, steps[name]))
+        free_card()
     diffs = {dt: _resnet_diffs(r[1], r[0]) for dt, r in runs.items()}
     (cpu32, gpu32), (cpu64, gpu64) = runs[torch.float32], runs[torch.float64]
     fp32 = {"card-cpu": diffs[torch.float32],
@@ -1734,11 +1866,11 @@ def phase_resnet_parity():
 
     def fmt(d):
         return {k: "%.3g" % v for k, v in d.items()}
-    log("ResNet-50 parity, batch %d, 2 steps, card against CPU: fp64 largest "
-        "|diff| %s (limits %s); fp32, %s: card against CPU step-1 outputs "
-        "%.3g (limit %g)"
-        % (RESNET_PARITY_BATCH, fmt(diffs[torch.float64]), tol64, flags,
-           diffs[torch.float32]["out1"], tol32["out1"]))
+    log("ResNet-50 parity, batch %d, 2 steps, card (captured: %s) against "
+        "CPU: fp64 largest |diff| %s (limits %s); fp32, %s: card against CPU "
+        "step-1 outputs %.3g (limit %g)"
+        % (RESNET_PARITY_BATCH, steps, fmt(diffs[torch.float64]), tol64,
+           flags, diffs[torch.float32]["out1"], tol32["out1"]))
     for name in fp32:
         log("  fp32 %-11s largest |diff| %s, root-sum-square %s"
             % (name, fmt(fp32[name]), fmt(fp32_l2[name])))
@@ -1748,8 +1880,8 @@ def phase_resnet_parity():
     if bad:
         raise AssertionError("ResNet-50 on the card disagrees with the CPU: "
                              "%s" % bad)
-    return dict(fp64=diffs[torch.float64], fp32=fp32, fp32_l2=fp32_l2), \
-        params
+    return dict(fp64=diffs[torch.float64], fp32=fp32, fp32_l2=fp32_l2,
+                card_steps=steps), params
 
 def _timed(fn, n):
     times = []
@@ -1762,55 +1894,86 @@ def _timed(fn, n):
 
 
 def phase_resnet_train(dtype):
-    """bench.py's ResNet-50 training step at batch 32 on the card: ms/step,
-    img/s, inference img/s and the share of peak."""
+    """bench.py's ResNet-50 training step at batch 32 on the card, captured
+    (one replay a step) and eager (``capture.eager()``) in turn: ms/step,
+    img/s, peak memory and the step counters of the timed steps of each;
+    inference img/s and the share of peak.  The captured figures are the
+    result's top level, the eager ones under "eager"."""
     import mxnet_tpu_torch as mt
     flags = tf32_flags() if dtype == torch.float32 else "bf16"
     gpu = mt.gpu(0)
-    mod = resnet_module(gpu, RESNET_BATCH, dtype)
-    resnet_train_setup(mod)
-    db = resnet_batch(gpu, RESNET_BATCH, dtype)
-    ex = mod._exec_group.execs[0]
-    stat = next(n for n in ex.aux_names if n.endswith("running_mean"))
-    before = ex.aux_dict[stat]._data.clone()
-    torch.cuda.reset_peak_memory_stats()
-    warm = _timed(lambda: mod._fit_step(db), RESNET_WARMUP)
-    if mod._cached_step is None:
-        raise AssertionError("ResNet-50 step fell off CachedTrainStep")
-    times = _timed(lambda: mod._fit_step(db), RESNET_STEPS)
-    prob = mod.get_outputs()[0]._data
-    label = db.label[0]._data.long()
-    loss = -torch.log(prob.float().gather(1, label[:, None])).mean().item()
-    moved = (ex.aux_dict[stat]._data != before).any().item()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fwd = _timed(lambda: mod.forward(db, is_train=False), RESNET_WARMUP)
-    fwd = _timed(lambda: mod.forward(db, is_train=False), RESNET_STEPS)
-    ms = sorted(times)[len(times) // 2]
-    fwd_ms = sorted(fwd)[len(fwd) // 2]
     peak = PEAK_FLOPS[dtype]
-    res = dict(
-        dtype=DTYPE_NAME[dtype], flags=flags, batch=RESNET_BATCH,
-        step_ms_median=ms, step_ms_first5=warm, img_s=RESNET_BATCH / ms * 1e3,
-        infer_ms_median=fwd_ms, infer_img_s=RESNET_BATCH / fwd_ms * 1e3,
-        train_peak_share=RESNET_TRAIN_FLOPS * RESNET_BATCH / ms * 1e3 / peak,
-        infer_peak_share=RESNET_FWD_FLOPS * RESNET_BATCH / fwd_ms * 1e3
-        / peak, loss=loss, peak_mem_gb=peak_gb)
-    log("ResNet-50 %s (%s) on %s, batch %d through CachedTrainStep: %d "
-        "timed steps, ms/step median %.3f, first 5 (warm-up) %s, %.1f img/s, "
-        "%.2f%% of the %g TFLOP/s peak at 24.6 GFLOP/img; inference median "
-        "%.3f ms, %.1f img/s (%.2f%% of peak at 8.2 GFLOP/img); loss after "
-        "%d steps %.4f; %s moved: %s; peak memory %.1f GB"
-        % (DTYPE_NAME[dtype], flags, torch.cuda.get_device_name(0),
-           RESNET_BATCH, RESNET_STEPS, ms, ["%.1f" % t for t in warm],
-           res["img_s"], 100 * res["train_peak_share"], peak / 1e12, fwd_ms,
-           res["infer_img_s"], 100 * res["infer_peak_share"],
-           RESNET_WARMUP + RESNET_STEPS, loss, stat, moved, peak_gb))
-    if not math.isfinite(loss):
-        raise AssertionError("non-finite ResNet-50 loss (%s)" % dtype)
-    if not moved:
-        raise AssertionError("the BatchNorm moving statistics did not move")
-    del mod, ex, db, prob
-    torch.cuda.empty_cache()
+    modes = {}
+    for mode in STEP_MODES:
+        mod = resnet_module(gpu, RESNET_BATCH, dtype)
+        resnet_train_setup(mod)
+        db = resnet_batch(gpu, RESNET_BATCH, dtype)
+        ex = mod._exec_group.execs[0]
+        stat = next(n for n in ex.aux_names if n.endswith("running_mean"))
+        before = ex.aux_dict[stat]._data.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            warm = _timed(lambda: mod._fit_step(db), RESNET_WARMUP)
+            if mod._cached_step is None:
+                raise AssertionError("ResNet-50 step fell off "
+                                     "CachedTrainStep")
+            counts = counter_snapshot()
+            times = _timed(lambda: mod._fit_step(db), RESNET_STEPS)
+            counts = counter_delta(counts)
+        prob = mod.get_outputs()[0]._data
+        label = db.label[0]._data.long()
+        loss = -torch.log(prob.float().gather(1, label[:, None])).mean() \
+            .item()
+        moved = (ex.aux_dict[stat]._data != before).any().item()
+        ms = sorted(times)[len(times) // 2]
+        modes[mode] = dict(
+            step_ms_median=ms, step_ms_first5=warm,
+            img_s=RESNET_BATCH / ms * 1e3,
+            train_peak_share=RESNET_TRAIN_FLOPS * RESNET_BATCH / ms * 1e3
+            / peak, loss=loss, peak_mem_gb=torch.cuda.max_memory_allocated()
+            / 1e9, timed_counts=counts)
+        want = dict(graph_captures=0, program_calls=RESNET_STEPS,
+                    graph_replays=RESNET_STEPS if mode == "captured" else 0)
+        log("ResNet-50 %s (%s) on %s, batch %d through CachedTrainStep, "
+            "%s: %d timed steps, ms/step median %.3f, first 5 (warm-up) %s, "
+            "%.1f img/s, %.2f%% of the %g TFLOP/s peak at 24.6 GFLOP/img; "
+            "timed steps' counters %s; loss after %d steps %.4f; %s moved: "
+            "%s; peak memory %.2f GB"
+            % (DTYPE_NAME[dtype], flags, torch.cuda.get_device_name(0),
+               RESNET_BATCH, mode, RESNET_STEPS, ms,
+               ["%.1f" % t for t in warm], modes[mode]["img_s"],
+               100 * modes[mode]["train_peak_share"], peak / 1e12, counts,
+               RESNET_WARMUP + RESNET_STEPS, loss, stat, moved,
+               modes[mode]["peak_mem_gb"]))
+        if not math.isfinite(loss):
+            raise AssertionError("non-finite ResNet-50 loss (%s, %s)"
+                                 % (dtype, mode))
+        if not moved:
+            raise AssertionError("the BatchNorm moving statistics did not "
+                                 "move (%s)" % mode)
+        if counts != want:
+            raise AssertionError("ResNet-50 %s steps: counters %s, want %s"
+                                 % (mode, counts, want))
+        if mode == "eager":
+            fwd = _timed(lambda: mod.forward(db, is_train=False),
+                         RESNET_WARMUP)
+            fwd = _timed(lambda: mod.forward(db, is_train=False),
+                         RESNET_STEPS)
+        del mod, ex, db, prob
+        free_card()
+    fwd_ms = sorted(fwd)[len(fwd) // 2]
+    res = dict(dtype=DTYPE_NAME[dtype], flags=flags, batch=RESNET_BATCH,
+               infer_ms_median=fwd_ms,
+               infer_img_s=RESNET_BATCH / fwd_ms * 1e3,
+               infer_peak_share=RESNET_FWD_FLOPS * RESNET_BATCH / fwd_ms
+               * 1e3 / peak, **modes["captured"])
+    res["eager"] = modes["eager"]
+    log("ResNet-50 %s inference median %.3f ms, %.1f img/s (%.2f%% of peak "
+        "at 8.2 GFLOP/img); captured step %.3f ms against eager %.3f"
+        % (DTYPE_NAME[dtype], fwd_ms, res["infer_img_s"],
+           100 * res["infer_peak_share"], res["step_ms_median"],
+           res["eager"]["step_ms_median"]))
     return res
 
 
@@ -1906,11 +2069,22 @@ def phase_gluon_parity(params):
     against one Module step from the same init and batch."""
     import mxnet_tpu_torch as mt
     flags = tf32_flags()
-    runs = {}
+    runs, steps = {}, {}
     for dtype in (torch.float64, torch.float32):
         p = _cast_params(params, dtype)
-        runs[dtype] = [_gluon_steps(ctx, dtype, p, 2)
-                       for ctx in (mt.cpu(), mt.gpu(0))]
+        cpu = _gluon_steps(mt.cpu(), dtype, p, 2)
+        # the card's steps: forward, backward and update graphs captured at
+        # step 1, each replayed once a step
+        before = counter_snapshot()
+        runs[dtype] = [cpu, _gluon_steps(mt.gpu(0), dtype, p, 2)]
+        name = str(dtype)[6:]
+        steps[name] = counter_delta(before)
+        if steps[name] != dict(graph_captures=3, graph_replays=6,
+                               program_calls=6):
+            raise AssertionError("Gluon ResNet-50 parity on the card (%s): "
+                                 "%s, not three graphs replayed once a step"
+                                 % (name, steps[name]))
+        free_card()
     keys = ("out1", "params1", "out2", "params2", "aux2")
     diffs = {dt: _resnet_diffs({k: r[1][k] for k in keys},
                                {k: r[0][k] for k in keys})
@@ -1937,10 +2111,12 @@ def phase_gluon_parity(params):
     def fmt(d):
         return {k: "%.3g" % v for k, v in d.items()}
     log("Gluon ResNet-50 parity (hybridize, SoftmaxCrossEntropyLoss, "
-        "Trainer sgd), batch %d, 2 steps, card against CPU: fp64 largest "
-        "|diff| %s (limits %s); fp32, %s: step-1 outputs %.3g (limit %g); "
-        "fp64 card, Gluon against Module after one step %s (limits %s)"
-        % (RESNET_PARITY_BATCH, fmt(diffs[torch.float64]), tol64, flags,
+        "Trainer sgd), batch %d, 2 steps, card (captured: %s) against CPU: "
+        "fp64 largest |diff| %s (limits %s); fp32, %s: step-1 outputs %.3g "
+        "(limit %g); fp64 card, Gluon against Module after one step %s "
+        "(limits %s)"
+        % (RESNET_PARITY_BATCH, steps, fmt(diffs[torch.float64]), tol64,
+           flags,
            diffs[torch.float32]["out1"], tol32["out1"], fmt(vs_module),
            GLUON_MODULE_TOL))
     bad = [k for k, v in diffs[torch.float64].items() if v > tol64[k]]
@@ -1951,9 +2127,9 @@ def phase_gluon_parity(params):
     if bad:
         raise AssertionError("Gluon ResNet-50 disagrees: %s" % bad)
     del mod
-    torch.cuda.empty_cache()
+    free_card()
     return dict(fp64=diffs[torch.float64], fp32=diffs[torch.float32],
-                vs_module=vs_module)
+                vs_module=vs_module, card_steps=steps)
 
 
 # Every optimizer with a fused update, in phase 15's bitwise check, with
@@ -2037,70 +2213,335 @@ def phase_gluon_fused_bitwise():
 
 
 def phase_gluon_train(dtype, module_res):
-    """ResNet-50 trained through Gluon at batch 32 on the card: ms/step,
-    img/s and the share of peak beside phase 10's Module figures
-    (``module_res``); the loss must be finite, a moving statistic must
-    move, the timed steps must trace nothing and make one fused update
-    each."""
+    """ResNet-50 trained through Gluon at batch 32 on the card, captured
+    (three replays a step: forward, backward, update) and eager in turn:
+    ms/step, img/s, the share of peak and peak memory beside phase 10's
+    Module figures (``module_res``); the loss must be finite, a moving
+    statistic must move, the timed steps must trace nothing, make one
+    fused update each and move the step counters as their mode does."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.gluon import block, fused_trainer
     flags = tf32_flags() if dtype == torch.float32 else "bf16"
     gpu = mt.gpu(0)
-    net = gluon_resnet(gpu, dtype)
-    trainer = gluon_trainer(net)
-    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
-    db = resnet_batch(gpu, RESNET_BATCH, dtype)
-    res = {}
-
-    def step():
-        res["out"], res["loss"] = gluon_step(net, trainer, loss_fn, db)
-    warm = _timed(step, RESNET_WARMUP)
-    stat = next(p for n, p in net.collect_params().items()
-                if n.endswith("running_mean"))
-    before = stat.data()._data.clone()
-    block.reset_trace_count()
-    fused_trainer.reset_update_counts()
-    times = _timed(step, RESNET_STEPS)
-    traces = block.trace_count()
-    fused = fused_trainer.fused_update_count()
-    loop = fused_trainer.loop_update_count()
-    loss = res["loss"]._data.float().mean().item()
-    moved = (stat.data()._data != before).any().item()
-    ms = sorted(times)[len(times) // 2]
     peak = PEAK_FLOPS[dtype]
-    out = dict(
-        dtype=DTYPE_NAME[dtype], flags=flags, batch=RESNET_BATCH,
-        step_ms_median=ms, step_ms_first5=warm, img_s=RESNET_BATCH / ms * 1e3,
-        train_peak_share=RESNET_TRAIN_FLOPS * RESNET_BATCH / ms * 1e3 / peak,
-        loss=loss, traces_timed=traces,
-        fused_updates_per_step=fused / RESNET_STEPS,
-        loop_updates=loop, module_step_ms_median=module_res["step_ms_median"],
-        module_img_s=module_res["img_s"])
-    log("Gluon ResNet-50 %s (%s) on %s, batch %d (hybridize, "
-        "SoftmaxCrossEntropyLoss, Trainer sgd): %d timed steps, ms/step "
-        "median %.3f, first 5 (warm-up) %s, %.1f img/s, %.2f%% of the %g "
-        "TFLOP/s peak at 24.6 GFLOP/img; Module (phase 10) %.3f ms/step, "
-        "%.1f img/s; loss after %d steps %.4f; %s moved: %s; traces in the "
-        "timed steps %d; fused updates %d in %d steps, per-parameter "
-        "updates %d"
-        % (DTYPE_NAME[dtype], flags, torch.cuda.get_device_name(0),
-           RESNET_BATCH, RESNET_STEPS, ms, ["%.1f" % t for t in warm],
-           out["img_s"], 100 * out["train_peak_share"], peak / 1e12,
-           module_res["step_ms_median"], module_res["img_s"],
-           RESNET_WARMUP + RESNET_STEPS, loss, stat.name, moved, traces,
-           fused, RESNET_STEPS, loop))
-    if not math.isfinite(loss):
-        raise AssertionError("non-finite Gluon ResNet-50 loss (%s)" % dtype)
-    if not moved:
-        raise AssertionError("the Gluon BatchNorm moving statistics did not "
-                             "move")
-    if traces != 0 or fused != RESNET_STEPS or loop != 0:
-        raise AssertionError(
-            "Gluon steps: %d traces, %d fused updates and %d per-parameter "
-            "updates in %d timed steps (want 0, %d, 0)"
-            % (traces, fused, loop, RESNET_STEPS, RESNET_STEPS))
-    del net, trainer, db, res
-    torch.cuda.empty_cache()
+    modes = {}
+    for mode in STEP_MODES:
+        net = gluon_resnet(gpu, dtype)
+        trainer = gluon_trainer(net)
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        db = resnet_batch(gpu, RESNET_BATCH, dtype)
+        res = {}
+
+        def step():
+            res["out"], res["loss"] = gluon_step(net, trainer, loss_fn, db)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            warm = _timed(step, RESNET_WARMUP)
+            stat = next(p for n, p in net.collect_params().items()
+                        if n.endswith("running_mean"))
+            before = stat.data()._data.clone()
+            block.reset_trace_count()
+            fused_trainer.reset_update_counts()
+            counts = counter_snapshot()
+            times = _timed(step, RESNET_STEPS)
+            counts = counter_delta(counts)
+        traces = block.trace_count()
+        fused = fused_trainer.fused_update_count()
+        loop = fused_trainer.loop_update_count()
+        loss = res["loss"]._data.float().mean().item()
+        moved = (stat.data()._data != before).any().item()
+        ms = sorted(times)[len(times) // 2]
+        modes[mode] = dict(
+            step_ms_median=ms, step_ms_first5=warm,
+            img_s=RESNET_BATCH / ms * 1e3,
+            train_peak_share=RESNET_TRAIN_FLOPS * RESNET_BATCH / ms * 1e3
+            / peak, loss=loss, traces_timed=traces,
+            fused_updates_per_step=fused / RESNET_STEPS, loop_updates=loop,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            timed_counts=counts)
+        replays = 3 if mode == "captured" else 0
+        want = dict(graph_captures=0,
+                    graph_replays=replays * RESNET_STEPS,
+                    program_calls=max(replays, 1) * RESNET_STEPS)
+        log("Gluon ResNet-50 %s (%s) on %s, batch %d (hybridize, "
+            "SoftmaxCrossEntropyLoss, Trainer sgd), %s: %d timed steps, "
+            "ms/step median %.3f, first 5 (warm-up) %s, %.1f img/s, %.2f%% "
+            "of the %g TFLOP/s peak at 24.6 GFLOP/img; Module (phase 10, "
+            "%s) %.3f ms/step; timed steps' counters %s; loss after %d "
+            "steps %.4f; %s moved: %s; traces in the timed steps %d; fused "
+            "updates %d in %d steps, per-parameter updates %d; peak memory "
+            "%.2f GB"
+            % (DTYPE_NAME[dtype], flags, torch.cuda.get_device_name(0),
+               RESNET_BATCH, mode, RESNET_STEPS, ms,
+               ["%.1f" % t for t in warm], modes[mode]["img_s"],
+               100 * modes[mode]["train_peak_share"], peak / 1e12, mode,
+               (module_res if mode == "captured"
+                else module_res["eager"])["step_ms_median"], counts,
+               RESNET_WARMUP + RESNET_STEPS, loss, stat.name, moved, traces,
+               fused, RESNET_STEPS, loop, modes[mode]["peak_mem_gb"]))
+        if not math.isfinite(loss):
+            raise AssertionError("non-finite Gluon ResNet-50 loss (%s, %s)"
+                                 % (dtype, mode))
+        if not moved:
+            raise AssertionError("the Gluon BatchNorm moving statistics did "
+                                 "not move (%s)" % mode)
+        if traces != 0 or fused != RESNET_STEPS or loop != 0:
+            raise AssertionError(
+                "Gluon steps (%s): %d traces, %d fused updates and %d "
+                "per-parameter updates in %d timed steps (want 0, %d, 0)"
+                % (mode, traces, fused, loop, RESNET_STEPS, RESNET_STEPS))
+        if counts != want:
+            raise AssertionError("Gluon ResNet-50 %s steps: counters %s, "
+                                 "want %s" % (mode, counts, want))
+        del net, trainer, db, res, stat, step
+        free_card()
+    out = dict(dtype=DTYPE_NAME[dtype], flags=flags, batch=RESNET_BATCH,
+               module_step_ms_median=module_res["step_ms_median"],
+               module_img_s=module_res["img_s"], **modes["captured"])
+    out["eager"] = modes["eager"]
+    return out
+
+
+# Captured against eager on one card (phase 17).  The fused update of every
+# rule over Parameters of ResNet-50's shapes (the first convolution, a
+# BatchNorm scale, a 1x1 convolution, the classifier), seeded gradients, lr
+# halved each step by a FactorScheduler: the traced lr, wd, t and what the
+# rules derive from them must replay one graph and round as the eager
+# floats do.
+CAPTURE_FUSED_STEPS = 6
+CAPTURE_FUSED_SHAPES = ((64, 3, 7, 7), (64,), (2048, 512, 1, 1),
+                        (1000, 2048), (1000,))
+CAPTURE_FUSED_OPTIMIZERS = FUSED_CHECK_OPTIMIZERS
+# A hybridized block called more than once in one recording: twice on two
+# inputs (a shared-weight pair), or SHARED_UNROLL times on its own output
+# (a cell over time steps).  Captured against eager, weights and
+# gradients after SHARED_STEPS Trainer steps, to SHARED_REL, the fp32
+# relative limit the port's Gluon Trainer is held to on the CPU
+# (tests/test_torch_gluon_train.py).
+SHARED_WIDTH, SHARED_BATCH, SHARED_UNROLL, SHARED_STEPS = 1024, 64, 3, 3
+SHARED_REL = 1e-6
+
+
+def fused_updates_run(dtype, name, mode):
+    """CAPTURE_FUSED_STEPS ``Trainer.step``s of optimizer ``name`` in
+    ``mode``; returns the weights and states after them and the captures
+    of each step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.optimizer import _state_raw
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mt.random.seed(0)
+    with mt.gpu(0):
+        params = []
+        for i, shape in enumerate(CAPTURE_FUSED_SHAPES):
+            p = mt.gluon.Parameter("p%d_%s" % (i, "weight" if len(shape) > 1
+                                              else "gamma"),
+                                   shape=shape, dtype=dtype)
+            p.initialize(mt.init.Xavier(), ctx=mt.gpu(0))
+            params.append(p)
+        sched = mt.lr_scheduler.FactorScheduler(step=1, factor=0.5)
+        trainer = mt.gluon.Trainer(params, name, dict(
+            learning_rate=0.1, wd=1e-4, lr_scheduler=sched,
+            **CAPTURE_FUSED_OPTIMIZERS[name]))
+        captures = []
+        with step_mode(mode):
+            for _ in range(CAPTURE_FUSED_STEPS):
+                for p in params:
+                    p.grad()._data.copy_(torch.randn(
+                        p.shape, generator=gen, device="cuda").to(dtype))
+                    p._fresh_grad = True
+                before = counter_snapshot()
+                trainer.step(RESNET_BATCH)
+                captures.append(counter_delta(before)["graph_captures"])
+        out = [p.data()._data.clone() for p in params]
+        for i in sorted(trainer._updater.states):
+            raw = _state_raw(trainer._updater.states[i])
+            out += [t.clone() for t in (raw if isinstance(raw, tuple)
+                                        else (raw,)) if t is not None]
+    return out, captures
+
+
+def shared_block_run(mode, unroll):
+    """SHARED_STEPS Trainer steps of a hybridized Dense (tanh) called more
+    than once in each recording, in ``mode``; returns the weights and
+    gradients, the captures of each step and the block's program slots."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    mt.random.seed(0)
+    with mt.name.NameManager():
+        net = mt.gluon.nn.HybridSequential()
+        with net.name_scope():
+            net.add(mt.gluon.nn.Dense(SHARED_WIDTH, activation="tanh",
+                                      in_units=SHARED_WIDTH))
+    net.initialize(mt.initializer.Xavier(), ctx=gpu)
+    net.hybridize()
+    params = list(net.collect_params().values())
+    trainer = mt.gluon.Trainer(params, "sgd", {"learning_rate": 0.1})
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    captures = []
+    with step_mode(mode):
+        for _ in range(SHARED_STEPS):
+            x1, x2 = (mt.nd.NDArray(torch.randn(
+                SHARED_BATCH, SHARED_WIDTH, generator=gen, device="cuda"), gpu)
+                for _ in range(2))
+            before = counter_snapshot()
+            with mt.autograd.record():
+                if unroll:
+                    h = x1
+                    for _ in range(SHARED_UNROLL):
+                        h = net(h)
+                    loss = (h * x2).sum()
+                else:
+                    loss = ((net(x1) - net(x2)) ** 2).sum()
+            loss.backward()
+            trainer.step(SHARED_BATCH)
+            captures.append(counter_delta(before)["graph_captures"])
+    out = [p.data()._data.clone() for p in params] \
+        + [p.grad()._data.clone() for p in params]
+    return out, captures, len(net._cached_op._programs)
+
+
+def phase_capture_vs_eager(resnet_init):
+    """Captured steps against ``capture.eager()`` on one card: the fused
+    update of every rule bit for bit over CAPTURE_FUSED_STEPS scheduled
+    steps (fp32 and bf16), one capture and then none; a block called
+    more than once in one recording (a program a call, SHARED_REL); both LM
+    step builders, 3 steps in fp32 and bf16, to ``LM_TRAIN_PARITY_TOL``
+    (and whether bit for bit); ResNet-50 at batch 2 in fp64 through
+    ``Module``, captured against eager beside eager against eager (cuDNN
+    may sum with atomics), to ``RESNET_PARITY_TOL``."""
+    tf32_flags()
+    out, bad = {"fused": {}, "lm": {}}, []
+    for dtype, name in itertools.product((torch.float32, torch.bfloat16),
+                                         CAPTURE_FUSED_OPTIMIZERS):
+        cap, caps = fused_updates_run(dtype, name, "captured")
+        eag, _ = fused_updates_run(dtype, name, "eager")
+        same = all(torch.equal(a, b) for a, b in zip(cap, eag))
+        worst = max((a.double() - b.double()).abs().max().item()
+                    for a, b in zip(cap, eag))
+        key = "%s[%s]" % (name, DTYPE_NAME[dtype])
+        out["fused"][key] = dict(bitwise=same, worst=worst, captures=caps)
+        log("fused %s update, %d steps of a halving lr, captured against "
+            "eager: bit for bit %s (largest |diff| %.3g); captures per step "
+            "%s" % (key, CAPTURE_FUSED_STEPS, same, worst, caps))
+        if not same or caps != [1] + [0] * (CAPTURE_FUSED_STEPS - 1):
+            bad.append("fused " + key)
+        free_card()
+    out["shared_block"] = {}
+    for unroll in (False, True):
+        cap, caps, slots = shared_block_run("captured", unroll)
+        eag, _, _ = shared_block_run("eager", unroll)
+        rel = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(cap, eag))
+        same = all(torch.equal(a, b) for a, b in zip(cap, eag))
+        calls = SHARED_UNROLL if unroll else 2
+        key = "unrolled x%d" % SHARED_UNROLL if unroll else "shared pair"
+        # each call's forward and backward graphs, and the update
+        want = [2 * calls + 1] + [0] * (SHARED_STEPS - 1)
+        out["shared_block"][key] = dict(rel=rel, bitwise=same,
+                                        captures=caps, slots=slots)
+        log("Dense %d (tanh) called %d times in each recording (%s), %d "
+            "Trainer steps, captured against eager: weights and gradients "
+            "largest relative |diff| %.3g (limit %g), bit for bit %s; "
+            "captures per step %s (want %s), program slots %d"
+            % (SHARED_WIDTH, calls, key, SHARED_STEPS, rel, SHARED_REL,
+               same, caps, want, slots))
+        if rel > SHARED_REL or caps != want or slots != 2:
+            bad.append("shared block " + key)
+        free_card()
+    params, tokens, labels = lm_train_parity_init()
+    for dtype, builder in itertools.product(tuple(LM_TRAIN_PARITY_TOL),
+                                            ("plain", "zero1")):
+        cap = lm_train_run("cuda", dtype, builder, params, tokens, labels)
+        with step_mode("eager"):
+            eag = lm_train_run("cuda", dtype, builder, params, tokens,
+                               labels)
+        diffs = lm_train_diffs(cap, eag)
+        worst = {k: max(d[k] for d in diffs) for k in diffs[0]}
+        tol = LM_TRAIN_PARITY_TOL[dtype]
+        key = "%s[%s]" % (builder, DTYPE_NAME[dtype])
+        out["lm"][key] = dict(worst=worst,
+                              bitwise=not any(worst.values()))
+        log("LM step %s, %d steps, captured against eager: largest |diff| "
+            "%s (limits %s), bit for bit %s"
+            % (key, LM_TRAIN_PARITY_STEPS, worst, tol,
+               out["lm"][key]["bitwise"]))
+        bad += ["lm %s %s" % (key, k) for k in worst if worst[k] > tol[k]]
+        free_card()
+    import mxnet_tpu_torch as mt
+    p64 = _cast_params(resnet_init, torch.float64)
+    runs = {}
+    for run in ("eager", "eager again", "captured"):
+        with step_mode("eager" if run.startswith("eager") else "captured"):
+            runs[run] = _resnet_two_steps(mt.gpu(0), torch.float64, p64)
+        free_card()
+    spread = _resnet_diffs(runs["eager again"], runs["eager"])
+    diffs = _resnet_diffs(runs["captured"], runs["eager"])
+    tol = RESNET_PARITY_TOL[torch.float64]
+    out["resnet_fp64"] = dict(captured_eager=diffs, eager_eager=spread)
+    log("ResNet-50 fp64, batch %d, 2 Module steps on the card: captured "
+        "against eager %s, eager against eager %s (limits %s)"
+        % (RESNET_PARITY_BATCH, diffs, spread, tol))
+    bad += ["resnet fp64 " + k for k in diffs if diffs[k] > tol[k]]
+    if bad:
+        raise AssertionError("captured steps disagree with eager: %s" % bad)
+    return out
+
+
+# ResNet-50 through Module (phase 18) with rules other than SGD, whose
+# fused updates read per-step scalars from the device table: Nadam (its
+# momentum schedule, derived from t each step) and RMSProp (lr and wd
+# only), lr lowered each step by a FactorScheduler: captured and eager,
+# RULE_WARMUP then RULE_STEPS timed steps each, batch 32.
+RULE_OPTIMIZERS = ("nadam", "rmsprop")
+RULE_WARMUP, RULE_STEPS = 5, 10
+
+
+def phase_resnet_rules(dtype):
+    """ms/step, peak memory and the counters of the timed steps, captured
+    against eager; the captured steps must replay one program a step and
+    capture none, the loss stay finite."""
+    import mxnet_tpu_torch as mt
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    gpu = mt.gpu(0)
+    out = {}
+    for name, mode in itertools.product(RULE_OPTIMIZERS, STEP_MODES):
+        mod = resnet_module(gpu, RESNET_BATCH, dtype)
+        sched = mt.lr_scheduler.FactorScheduler(step=1, factor=0.9)
+        resnet_train_setup(mod, optimizer=name, optimizer_params=(
+            ("learning_rate", 1e-3), ("wd", RESNET_WD),
+            ("lr_scheduler", sched)))
+        db = resnet_batch(gpu, RESNET_BATCH, dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            warm = _timed(lambda: mod._fit_step(db), RULE_WARMUP)
+            counts = counter_snapshot()
+            times = _timed(lambda: mod._fit_step(db), RULE_STEPS)
+            counts = counter_delta(counts)
+        prob = mod.get_outputs()[0]._data
+        label = db.label[0]._data.long()
+        loss = -torch.log(prob.float().gather(1, label[:, None])).mean() \
+            .item()
+        ms = sorted(times)[len(times) // 2]
+        res = out.setdefault(name, {})[mode] = dict(
+            step_ms_median=ms, step_ms_first5=warm, loss=loss,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            timed_counts=counts)
+        want = dict(graph_captures=0, program_calls=RULE_STEPS,
+                    graph_replays=RULE_STEPS if mode == "captured" else 0)
+        log("ResNet-50 %s (%s) through Module with %s, lr x0.9 a step, "
+            "batch %d, %s: %d timed steps, ms/step median %.3f, first %d "
+            "%s; timed steps' counters %s; loss %.4f; peak memory %.2f GB"
+            % (DTYPE_NAME[dtype], flags, name, RESNET_BATCH, mode,
+               RULE_STEPS, ms, RULE_WARMUP, ["%.1f" % t for t in warm],
+               counts, loss, res["peak_mem_gb"]))
+        if not math.isfinite(loss) or counts != want:
+            raise AssertionError("ResNet-50 %s %s steps: loss %s, counters "
+                                 "%s, want %s" % (name, mode, loss, counts,
+                                                  want))
+        del mod, db, prob
+        free_card()
     return out
 
 
@@ -2125,6 +2566,10 @@ def main():
     gluon_parity["fused_bitwise_optimizers"] = phase_gluon_fused_bitwise()
     gluon = [phase_gluon_train(dt, r) for dt, r in zip(
         (torch.float32, torch.bfloat16), resnet)]
+    captured_vs_eager = phase_capture_vs_eager(resnet_init)
+    captured_vs_eager["rules"] = {
+        DTYPE_NAME[dt]: phase_resnet_rules(dt)
+        for dt in (torch.float32, torch.bfloat16)}
     lm_train, train_launches = {}, {}
     for dt in LM_TRAIN_DTYPES:
         lm_train[dt], train_launches[dt] = phase_lm_train(dt)
@@ -2241,14 +2686,17 @@ def main():
             "shape": list(SCALE_MAIN_SHAPE),
         })
     log(card)
-    print(json.dumps({"resnet50": {"card": card, "parity": parity,
-                                   "train": resnet,
-                                   "gluon_parity": gluon_parity,
-                                   "gluon_train": gluon}}))
+    print(json.dumps({"resnet50": {
+        "card": card, "parity": parity, "train": resnet,
+        "gluon_parity": gluon_parity, "gluon_train": gluon,
+        "captured_vs_eager": {k: captured_vs_eager[k]
+                              for k in ("fused", "shared_block",
+                                        "resnet_fp64", "rules")}}}))
     print(json.dumps({"lm_train": {
         "card": card, "batch": LM_BATCH, "seq": LM_SEQ,
         "train": {DTYPE_NAME[dt]: r for dt, r in lm_train.items()},
-        "parity": {DTYPE_NAME[dt]: r for dt, r in train_parity.items()}}}))
+        "parity": {DTYPE_NAME[dt]: r for dt, r in train_parity.items()},
+        "captured_vs_eager": captured_vs_eager["lm"]}}))
     print(json.dumps({"lm_d32": {
         "card": card, "config": PYTHIA_31M, "batch": PYTHIA_BATCH,
         "seq": PYTHIA_SEQ,

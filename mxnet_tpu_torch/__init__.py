@@ -17,7 +17,8 @@ scale kernel (``ops.scale``); the ResNet training path -- ``gluon``
 (blocks with ``hybridize()`` as a cached graph, layers, losses,
 ``Trainer`` with its fused step, the ResNet model zoo), ``io``
 (``NDArrayIter``), ``metric`` and ``mod`` (``Module`` with its fused
-train step).
+train step).  On the card each training step replays CUDA graphs
+captured once (``capture``, with the counters of ``profiler``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from .base import MXNetError
 from .context import Context, cpu, gpu, current_context
 from . import ops, parallel, models
 from . import autograd, random, ndarray, symbol, executor, rtc
+from . import capture, profiler
 from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
 from . import module as mod
@@ -35,5 +37,6 @@ from . import initializer as init
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "ops", "parallel", "models", "autograd", "random", "ndarray",
            "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
+           "capture", "profiler",
            "lr_scheduler",
            "test_utils", "io", "metric", "gluon", "module", "mod"]

@@ -116,18 +116,25 @@ def _note_inputs(inputs, diff_idx):
             _STATE.variables[id(inputs[i])] = inputs[i]
 
 
-def _write_grad(v, g):
-    """Write ``g`` into ``v``'s gradient buffer by its ``grad_req`` and mark
-    it fresh for ``Trainer.step``'s stale-gradient check (reference
-    ``mxnet_tpu/autograd.py:158``); a variable that got no gradient keeps
-    its buffer and its staleness."""
-    if g is None or v._grad is None or v._grad_req == "null":
-        return
-    if v._grad_req == "add":
-        v._grad._data.add_(g)
-    else:
-        v._grad._data.copy_(g)
-    v._fresh_grad = True
+def _write_grads(variables, grads):
+    """Write each gradient into its variable's buffer by its ``grad_req``,
+    all ``write``s in one multi-tensor copy and all ``add``s in one
+    multi-tensor add, and mark each fresh for ``Trainer.step``'s
+    stale-gradient check (reference ``mxnet_tpu/autograd.py:158``); a
+    variable that got no gradient keeps its buffer and its staleness."""
+    by_req = {"write": ([], []), "add": ([], [])}
+    for v, g in zip(variables, grads):
+        if g is None or v._grad is None or v._grad_req == "null":
+            continue
+        dst, src = by_req[v._grad_req]
+        dst.append(v._grad._data)
+        src.append(g)
+        v._fresh_grad = True
+    with torch.no_grad():
+        if by_req["write"][0]:
+            torch._foreach_copy_(*by_req["write"])
+        if by_req["add"][0]:
+            torch._foreach_add_(*by_req["add"])
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
@@ -155,8 +162,6 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         return
     grads = torch.autograd.grad(outs, [v._data for v in variables], seeds,
                                 retain_graph=retain_graph, allow_unused=True)
-    with torch.no_grad():
-        for v, g in zip(variables, grads):
-            _write_grad(v, g)
+    _write_grads(variables, grads)
     if not retain_graph:
         _STATE.variables = {}

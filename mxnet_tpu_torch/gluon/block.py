@@ -36,7 +36,10 @@ from ..symbol import Symbol
 from .. import autograd
 from .. import name as _name
 from .. import random as _random
+from .. import capture
+from ..base import MXNetError
 from ..executor import _run_graph
+from ..symbol.symbol import _topo
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "trace_count",
@@ -298,6 +301,56 @@ class HybridBlock(Block):
         raise NotImplementedError
 
 
+class _Claim:
+    """A recorded call's hold on its program's saved activations: taken
+    when its forward graph replays, given up when its backward has run or
+    its recording is dropped.  Until then the next recorded call of the
+    same signature takes the next slot, with a program of its own."""
+
+    def __init__(self, pending, key):
+        self._pending, self._key = pending, key
+        pending.add(key)
+
+    def release(self):
+        if self._key is not None:
+            self._pending.discard(self._key)
+            self._key = None
+
+    __del__ = release
+
+
+class _Replayed(torch.autograd.Function):
+    """A recorded call of a captured ``_CachedOp``: the forward replays
+    the program's forward graph, the backward its backward graph, in the
+    manner of ``torch.cuda.make_graphed_callables``.  ``tensors`` are the
+    Parameters' tensors and then the inputs; their gradients come back
+    from the backward graph's static outputs (``autograd.backward`` copies
+    them into the gradient buffers at once).  ``claim`` holds the
+    program's saved activations for this call until its backward."""
+
+    @staticmethod
+    def forward(ctx, prog, claim, n_in, *tensors):
+        outs = prog.replay(0, tensors[len(tensors) - n_in:])
+        ctx.prog, ctx.claim, ctx.n = prog, claim, len(tensors)
+        ctx.generation = prog.replays[0]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.prog.replays[0] != ctx.generation:
+            # only a second backward of a retained graph gets here
+            raise MXNetError(
+                "%s: the captured forward was replayed again before this "
+                "backward, which needs the activations it saved"
+                % ctx.prog.name)
+        got = ctx.prog.replay(1, grads, clone=False)
+        ctx.claim.release()
+        full = [None] * ctx.n
+        for pos, g in zip(ctx.prog.live["present"], got):
+            full[pos] = g
+        return (None, None, None) + tuple(full)
+
+
 class _CachedOp:
     """The replay of a hybridized block: one traced Symbol per signature
     (input shapes, dtypes and devices, training mode), run by
@@ -308,12 +361,25 @@ class _CachedOp:
     ``backward`` writes into their gradient buffers, and inputs that came
     out of recorded ops stay connected to them.  The moving statistics
     that a training call computes (aux outputs) are written back into
-    their Parameters, as the JAX package's ``_CachedOp`` does."""
+    their Parameters, as the JAX package's ``_CachedOp`` does.
+
+    On the card each signature is a captured program (``capture``), the
+    JAX package's one ``jax.jit`` program a block: not recording, one
+    graph (the forward and the moving statistics' write-back); recording,
+    a forward graph and a backward graph behind :class:`_Replayed`, so a
+    recorded call and its backward are one replay each.  A block called
+    again before the backward of its last recorded call (a shared-weight
+    net, an unrolled cell) takes the next slot: the k-th such call has a
+    program of its own, as each call has its own ``jax.vjp`` in the JAX
+    package, and the next recording reuses them."""
 
     def __init__(self, block):
         self._block = block
         self._params = {p.name: p for p in block.collect_params().values()}
         self._graphs = {}  # signature -> (Symbol, output nesting)
+        self._programs = []  # slot -> capture.StepCache
+        self._pending = set()  # (signature, slot) of calls held (_Claim)
+        self._draws = {}  # id(Symbol) -> whether an op of it draws
 
     def _graph(self, flat_in, in_fmt, train):
         key = (repr(in_fmt), train, tuple(
@@ -332,20 +398,32 @@ class _CachedOp:
         flat_in, in_fmt = _flatten(list(args))
         train = autograd.is_training()
         symbol, out_fmt = self._graph(flat_in, in_fmt, train)
-        arg_vals = {"data%d" % i: x._data for i, x in enumerate(flat_in)}
         names = [n for n in symbol.list_arguments() if n in self._params]
         used = [self._params[n].data() for n in names]
-        arg_vals.update(zip(names, (a._data for a in used)))
-        aux_vals = {n: self._params[n].data()._data
-                    for n in symbol.list_auxiliary_states()}
+        aux_names = symbol.list_auxiliary_states()
         ctx = flat_in[0].context
+        graph = capture.graph_for(flat_in[0]._data.device)
+        if graph is not None:
+            outs = self._replay(graph, symbol, train, flat_in, names, used,
+                                aux_names, ctx)
+        else:
+            outs = self._eager(symbol, train, flat_in, names, used,
+                               aux_names, ctx)
+        if autograd.is_recording():
+            nds = used + flat_in
+            autograd._note_inputs(nds, range(len(nds)))
+        out, _ = _regroup([NDArray(o, ctx) for o in outs], out_fmt)
+        return out
+
+    def _eager(self, symbol, train, flat_in, names, used, aux_names, ctx):
+        arg_vals = {"data%d" % i: x._data for i, x in enumerate(flat_in)}
+        arg_vals.update(zip(names, (a._data for a in used)))
+        aux_vals = {n: self._params[n].data()._data for n in aux_names}
         gen = _random.generator(ctx)
         if autograd.is_recording():
             with torch.enable_grad():
                 outs, new_aux = _run_graph(symbol, arg_vals, aux_vals,
                                            train, gen)
-            nds = used + flat_in
-            autograd._note_inputs(nds, range(len(nds)))
         else:
             with torch.no_grad():
                 outs, new_aux = _run_graph(symbol, arg_vals, aux_vals,
@@ -355,8 +433,86 @@ class _CachedOp:
         for name, value in new_aux.items():
             if value is not aux_vals[name]:
                 self._params[name].data()._set_data(value)
-        out, _ = _regroup([NDArray(o, ctx) for o in outs], out_fmt)
-        return out
+        return outs
+
+    def _replay(self, graph, symbol, train, flat_in, names, used, aux_names,
+                ctx):
+        """The call as one replay of the signature's captured program (and,
+        recording, its backward as one more)."""
+        params = [a._data for a in used]
+        xs = [x._data for x in flat_in]
+        # recording with nothing to differentiate is a forward, as eagerly
+        recording = autograd.is_recording() and any(
+            t.requires_grad for t in params + xs)
+        auxs = [self._params[n].data()._data for n in aux_names]
+        gen = _random.generator(ctx)
+        draws = self._draws.get(id(symbol))
+        if draws is None:
+            draws = self._draws[id(symbol)] = any(
+                n.op is not None and n.op.needs_rng
+                for n in _topo(symbol._outputs))
+        need = tuple(t.requires_grad for t in params + xs) if recording \
+            else None
+        live = {}
+
+        def run(leaves, inputs, grad_mode):
+            arg_vals = {"data%d" % i: x for i, x in enumerate(inputs)}
+            arg_vals.update(zip(names, leaves))
+            aux_vals = dict(zip(aux_names, auxs))
+            with torch.set_grad_enabled(grad_mode):
+                outs, new_aux = _run_graph(symbol, arg_vals, aux_vals,
+                                           train, gen)
+            with torch.no_grad():
+                moved = [(aux_vals[n], v) for n, v in new_aux.items()
+                         if v is not aux_vals[n]]
+                if moved:
+                    torch._foreach_copy_([d for d, _ in moved],
+                                         [v for _, v in moved])
+            return outs
+
+        def forward(*inputs):
+            return [o.detach() for o in run(params, inputs, False)]
+
+        def recorded_forward(*inputs):
+            wrt = [t.detach().requires_grad_(r)
+                   for t, r in zip(params + list(inputs), need)]
+            outs = run(wrt[:len(params)], wrt[len(params):], True)
+            live["outs"] = outs
+            live["wrt"] = [(i, t) for i, t in enumerate(wrt) if need[i]]
+            return [o.detach() for o in outs]
+
+        def backward(*grads):
+            outs, wrt = live["outs"], live["wrt"]
+            diff = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            got = torch.autograd.grad([o for o, _ in diff],
+                                      [t for _, t in wrt],
+                                      [g for _, g in diff], allow_unused=True)
+            live["present"] = [i for (i, _), g in zip(wrt, got)
+                               if g is not None]
+            return [g for g in got if g is not None]
+
+        stages = (lambda: [recorded_forward, backward]) if recording \
+            else (lambda: [forward])
+        sig = (id(symbol), train, need)
+        slot = 0
+        if recording:
+            shapes = tuple((x.shape, x.dtype, x.device) for x in xs)
+            while (sig, shapes, slot) in self._pending:
+                slot += 1
+        while len(self._programs) <= slot:
+            self._programs.append(capture.StepCache("_CachedOp(%s) call %d"
+                                                    % (self._block.name,
+                                                       len(self._programs))))
+        prog = self._programs[slot].program(
+            sig, graph, xs[0].device, stages, xs, params + auxs,
+            [gen] if draws else [])
+        if not recording:
+            return prog.replay(0, xs)
+        if not hasattr(prog, "live"):  # captured just now, by these stages
+            prog.live = live
+        return _Replayed.apply(prog, _Claim(self._pending,
+                                            (sig, shapes, slot)),
+                               len(xs), *(params + xs))
 
 
 class SymbolBlock(HybridBlock):

@@ -11,6 +11,13 @@ for bit.  The reference's ZeRO plan (ROADMAP A.8), its guardian, chaos
 and overlap hooks (A.10, A.7) and its telemetry spans (A.11) are not
 ported.
 
+On the card the fused step is one captured program (``capture``),
+replayed once a step over the Parameters' weights, gradients and states
+in place, with ``rescale_grad``, lr, wd and Adam's t traced: with the
+forward and backward graphs of a hybridized block, a Gluon step is three
+replays.  ``profiler.counter("program_calls")`` counts one a fused step
+(replayed or eager) and one a parameter on the loop.
+
 ``MXNET_FUSED_TRAINER=0`` turns the fused step off (read at import;
 :func:`refresh_from_env` reads it again).  :func:`fused_update_count` and
 :func:`loop_update_count` count the updates of each path.
@@ -19,7 +26,9 @@ from __future__ import annotations
 
 import os
 
-from ..optimizer import _state_raw
+from .. import capture, profiler
+from .. import random as _random
+from ..optimizer import TracedHyper, _state_raw, _state_tensors
 
 __all__ = ["fused_trainer_enabled", "refresh_from_env", "run_fused_step",
            "fused_update_count", "loop_update_count", "reset_update_counts"]
@@ -65,12 +74,15 @@ def reset_update_counts():
 def _count_loop_update():
     global _loop_updates
     _loop_updates += 1
+    profiler.bump("program_calls")
 
 
 def run_fused_step(trainer, slots):
     """One fused step over ``slots`` ([(slot index, Parameter)]): states,
     update counts and lr/wd per slot as the loop makes them, then one
-    ``fused_update`` of every weight and state, in place."""
+    ``fused_update`` of every weight and state, in place: on the card one
+    replay of the step's captured program, its hyper-parameters traced
+    (``optimizer.TracedHyper``), else one eager call."""
     global _fused_updates
     opt, updater = trainer._optimizer, trainer._updater
     for slot, param in slots:
@@ -84,4 +96,19 @@ def run_fused_step(trainer, slots):
     grads = [param.grad()._data for _, param in slots]
     states = [_state_raw(updater.states[slot]) for slot, _ in slots]
     _fused_updates += 1
-    opt.fused_update(weights, grads, states, lrs, wds, counts)
+    graph = capture.graph_for(weights[0].device)
+    if graph is None:
+        profiler.bump("program_calls")
+        opt.fused_update(weights, grads, states, lrs, wds, counts)
+        return
+    hyper = TracedHyper(opt, lrs, wds, counts)
+    gens = [_random.generator(slots[0][1].data().context)] \
+        if opt.draws_random else []
+    step = ("trainer_step", tuple(slot for slot, _ in slots))
+    prog = trainer._programs.program(
+        step + (hyper.key,), graph, weights[0].device,
+        lambda: [lambda values: opt.fused_update(
+            weights, grads, states, **hyper.unpack(values)) or []],
+        [hyper.values], weights + grads + _state_tensors(states), gens,
+        family=hyper.family and step + (hyper.family,))
+    prog.replay(0, [hyper.values])

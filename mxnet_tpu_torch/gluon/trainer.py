@@ -20,6 +20,7 @@ kvstore instance raise ``MXNetError`` (ROADMAP A.7), and so do
 from __future__ import annotations
 
 from ..base import MXNetError
+from .. import capture
 from .. import optimizer as opt
 from . import fused_trainer as _fused
 from .parameter import Parameter, ParameterDict
@@ -61,6 +62,7 @@ class Trainer:
                 "or workers is not ported yet (ROADMAP A.7); on one context "
                 "use None, 'device' or 'local'" % (kvstore,))
         self._contexts_checked = False
+        self._programs = capture.StepCache("Trainer.step")
 
     def _make_optimizer(self, optimizer, hyper):
         slots = dict(enumerate(self._params))

@@ -8,7 +8,8 @@ steps: plain SGD (:func:`make_train_step`) and SGD with momentum through
 the ZeRO-1 update (:func:`make_train_step_zero1`, one rank).  Attention
 goes through :func:`mxnet_tpu_torch.ops.flash_attention`, forward and
 backward: the CUDA kernels for a tensor on the card, at every sequence
-length, and the plain versions on the CPU.  The mesh
+length, and the plain versions on the CPU.  On the card each train step
+is one replay of a captured CUDA graph (``capture``).  The mesh
 (data/tensor/sequence-parallel) path is not ported yet.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..base import MXNetError
+from .. import capture
 from ..context import as_device
 from ..ops.attention import flash_attention
 from ..parallel import zero
@@ -193,6 +195,19 @@ def _on_device(dev, params, tokens, labels):
     return tokens.to(dev), labels.to(dev)
 
 
+def _run_step(programs, body, buffers, tokens, labels):
+    """``body(tokens, labels) -> [loss]``, updating ``buffers`` in place:
+    eagerly on the CPU (or inside ``capture.eager()``), else one replay of
+    its captured program, keyed on the batch's shape, with the tokens and
+    labels copied into the program's static inputs."""
+    graph = capture.graph_for(tokens.device)
+    if graph is None:
+        return body(tokens, labels)
+    prog = programs.program("lm_step", graph, tokens.device, lambda: [body],
+                            [tokens, labels], buffers)
+    return prog.replay(0, [tokens, labels])
+
+
 def make_train_step(cfg, lr=0.1, device=None):
     """The train step ``step(params, tokens, labels) -> (new_params,
     loss)``: the gradients of the mean next-token NLL, then
@@ -201,19 +216,26 @@ def make_train_step(cfg, lr=0.1, device=None):
     CUDA card) is where the params must lie; tokens and labels are moved
     there.  The update is in place, so ``new_params`` is ``params``: the
     JAX step donates them, so callers already treat the old dict as
-    consumed."""
+    consumed.  On the card the step is one replay of a captured program
+    (``capture``), as the JAX step is one jitted program; the loss comes
+    back as a copy."""
     dev = as_device(device)
     loss_of = _lm_loss_fn(cfg)
+    programs = capture.StepCache("make_train_step")
 
     def step(params, tokens, labels):
         tokens, labels = _on_device(dev, params, tokens, labels)
-        loss, grads = _loss_and_grads(loss_of, params, tokens, labels)
         ps = list(params.values())
-        with torch.no_grad():
-            # lr * g rounded to the param's dtype, then subtracted: the
-            # JAX package's order of operations
-            torch._foreach_sub_(ps, torch._foreach_mul(
-                [g.to(p.dtype) for p, g in zip(ps, grads)], lr))
+
+        def body(tokens, labels):
+            loss, grads = _loss_and_grads(loss_of, params, tokens, labels)
+            with torch.no_grad():
+                # lr * g rounded to the param's dtype, then subtracted: the
+                # JAX package's order of operations
+                torch._foreach_sub_(ps, torch._foreach_mul(
+                    [g.to(p.dtype) for p, g in zip(ps, grads)], lr))
+            return [loss]
+        (loss,) = _run_step(programs, body, ps, tokens, labels)
         return params, loss
 
     return step
@@ -227,10 +249,12 @@ def make_train_step_zero1(cfg, params, lr=0.1, momentum=0.9, group=None):
     update).  Returns ``(step, momenta)``, the momenta zeros like each
     param, with ``step(params, momenta, tokens, labels) -> (new_params,
     new_momenta, loss)`` on the device the params lie on, updating both
-    dicts in place."""
+    dicts in place; on the card one replay of a captured program, as
+    :func:`make_train_step`."""
     momenta = {n: torch.zeros_like(p) for n, p in params.items()}
     dev = next(iter(params.values())).device
     loss_of = _lm_loss_fn(cfg)
+    programs = capture.StepCache("make_train_step_zero1")
 
     def momentum_sgd(ps, gs, ms, hyper):
         # elementwise, in the JAX formula's order: momentum * m rounded,
@@ -243,10 +267,14 @@ def make_train_step_zero1(cfg, params, lr=0.1, momentum=0.9, group=None):
 
     def step(params, momenta, tokens, labels):
         tokens, labels = _on_device(dev, params, tokens, labels)
-        loss, grads = _loss_and_grads(loss_of, params, tokens, labels)
-        with torch.no_grad():
-            zero.sharded_update(momentum_sgd, list(params.values()), grads,
-                                [momenta[n] for n in params], {}, group)
+        ps, ms = list(params.values()), [momenta[n] for n in params]
+
+        def body(tokens, labels):
+            loss, grads = _loss_and_grads(loss_of, params, tokens, labels)
+            with torch.no_grad():
+                zero.sharded_update(momentum_sgd, ps, grads, ms, {}, group)
+            return [loss]
+        (loss,) = _run_step(programs, body, ps + ms, tokens, labels)
         return params, momenta, loss
 
     return step, momenta

@@ -20,7 +20,9 @@ checkpoints, ``reshape`` caching and monitors are not ported yet.
 from __future__ import annotations
 
 import logging
+import os
 import warnings
+from collections import OrderedDict
 
 import numpy as np
 
@@ -159,6 +161,8 @@ class Module(BaseModule):
         self._data_shapes = _as_descs(data_shapes)
         self._label_shapes = _as_descs(label_shapes)
         self._exec_group = self._make_exec_group()
+        self._reshape_cache = OrderedDict({self._shape_key():
+                                           self._exec_group})
         self.binded = True
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
@@ -171,12 +175,32 @@ class Module(BaseModule):
             self.inputs_need_grad, fixed_param_names=self._fixed_param_names,
             grad_req=self._grad_req)
 
+    def _shape_key(self):
+        return tuple((d.name, tuple(d.shape), str(d.dtype))
+                     for d in (self._data_shapes or [])
+                     + (self._label_shapes or []))
+
     def reshape(self, data_shapes, label_shapes=None):
-        """Rebind for new input shapes, keeping the parameters."""
+        """Rebind for new input shapes, keeping the parameters.  The
+        executor groups of recent shapes are kept (at most
+        ``MXNET_MODULE_RESHAPE_CACHE``, default 8, the least recently used
+        dropped first), each with its train step and captured programs,
+        so alternating shapes rebind nothing (reference
+        ``mxnet_tpu/module/module.py:329-352``)."""
         self._require_bound()
         self._data_shapes = _as_descs(data_shapes)
         self._label_shapes = _as_descs(label_shapes)
-        self._exec_group = self._make_exec_group()
+        key = self._shape_key()
+        group = self._reshape_cache.pop(key, None)
+        if group is None:
+            group = self._make_exec_group()
+            limit = max(int(os.environ.get("MXNET_MODULE_RESHAPE_CACHE",
+                                           "8")), 1)
+            while len(self._reshape_cache) >= limit:
+                self._reshape_cache.popitem(last=False)
+        self._reshape_cache[key] = group
+        self._exec_group = group
+        self._cached_step = getattr(group, "cached_step", None)
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
@@ -275,13 +299,16 @@ class Module(BaseModule):
         ex = self._exec_group.execs[0]
         if any(r not in ("write", "null") for r in ex.grad_req.values()):
             return None
-        if self._cached_step is not None and self._cached_step._exec is ex:
-            return self._cached_step
+        step = self._cached_step
+        if step is not None and step._exec is ex \
+                and step._updater is self._updater:
+            return step
         try:
             self._cached_step = CachedTrainStep(
                 ex, self._updater, self._exec_group.param_names)
         except ValueError:
             self._cached_step, self._cached_step_unusable = None, True
+        self._exec_group.cached_step = self._cached_step
         return self._cached_step
 
     def get_outputs(self, merge_multi_context=True):

@@ -42,6 +42,7 @@ import os
 import torch
 
 from ..base import MXNetError
+from .. import profiler
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_reference", "FlashAttention",
@@ -63,29 +64,30 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG = -1e30
 
-_launches = 0
-_bwd_launches = 0
+FWD_COUNTER = "flash_attn_fwd_launches"
+BWD_COUNTER = "flash_attn_bwd_launches"
 
 
 def launch_count():
-    """Forward kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    """Forward kernel launches since the last :func:`reset_launch_count`
+    (the ``profiler`` counter ``FWD_COUNTER``; replays of a captured graph
+    count the launches captured in it)."""
+    return profiler.counter(FWD_COUNTER)
 
 
 def reset_launch_count():
-    global _launches
-    _launches = 0
+    profiler.reset_counters(FWD_COUNTER)
 
 
 def backward_launch_count():
     """Backward kernel launches (one per :func:`flash_attention_backward`
-    call on the card) since the last :func:`reset_backward_launch_count`."""
-    return _bwd_launches
+    call on the card) since the last :func:`reset_backward_launch_count`
+    (the ``profiler`` counter ``BWD_COUNTER``)."""
+    return profiler.counter(BWD_COUNTER)
 
 
 def reset_backward_launch_count():
-    global _bwd_launches
-    _bwd_launches = 0
+    profiler.reset_counters(BWD_COUNTER)
 
 
 def design(dtype, head_dim):
@@ -250,8 +252,7 @@ def _launch_forward(q, k, v, causal, scale):
         raise MXNetError("flash_attention: %s kernel failed with cudaError_t"
                          " %d at shape %s %s"
                          % (name, err, tuple(q.shape), q.dtype))
-    global _launches
-    _launches += 1
+    profiler.bump(FWD_COUNTER)
     return out
 
 
@@ -316,8 +317,7 @@ def _launch_backward(q, k, v, do, causal, scale):
         raise MXNetError("flash_attention_backward: %s kernel failed with "
                          "cudaError_t %d at shape %s %s"
                          % (name, err, tuple(q.shape), q.dtype))
-    global _bwd_launches
-    _bwd_launches += 1
+    profiler.bump(BWD_COUNTER)
     return dq, dk, dv
 
 

@@ -15,6 +15,7 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from .. import profiler
 from . import _build
 
 __all__ = ["scale", "scale_reference", "launch_count", "reset_launch_count",
@@ -23,17 +24,17 @@ __all__ = ["scale", "scale_reference", "launch_count", "reset_launch_count",
 KERNEL_SOURCE = "mxnet_tpu_torch/ops/csrc/scale.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_launches = 0
+COUNTER = "scale_launches"
 
 
 def launch_count():
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+    """Kernel launches since the last :func:`reset_launch_count` (the
+    ``profiler`` counter ``COUNTER``)."""
+    return profiler.counter(COUNTER)
 
 
 def reset_launch_count():
-    global _launches
-    _launches = 0
+    profiler.reset_counters(COUNTER)
 
 
 def _kernel():
@@ -82,6 +83,5 @@ def scale(x, alpha):
     if err != 0:
         raise MXNetError("scale: kernel launch failed with cudaError_t %d at "
                          "shape %s %s" % (err, tuple(x.shape), x.dtype))
-    global _launches
-    _launches += 1
+    profiler.bump(COUNTER)
     return out

@@ -45,7 +45,8 @@ from .ops import optim_ops as _kern
 
 __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
            "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam", "Signum",
-           "Test", "create", "get_updater", "Updater", "register"]
+           "Test", "create", "get_updater", "Updater", "register",
+           "TracedHyper"]
 
 _REGISTRY = {}
 
@@ -76,6 +77,17 @@ def _state_raw(state):
     return tuple(_state_raw(s) for s in state)
 
 
+def _state_tensors(states):
+    """The tensors of a list of raw state structures, in order."""
+    out = []
+    for s in states:
+        if isinstance(s, tuple):
+            out.extend(_state_tensors(s))
+        elif s is not None:
+            out.append(s)
+    return out
+
+
 def _state_writeback(state, new_raw):
     """Copy new tensor values into a state structure's NDArrays, in
     place (a tensor that already is the state's is left as it is)."""
@@ -94,9 +106,97 @@ def _zeros_like(weight, dtype=None):
                     dtype=dtype or weight._data.dtype)
 
 
+class _Traced:
+    """One traced hyper-parameter (``TracedHyper``): 0-dim device views of
+    one value of the step's table, in fp64 and in fp32 (the fp32 rounding
+    of the same double).  The slots that share a value share the object."""
+    __slots__ = ("f64", "f32")
+
+    def __init__(self, f64, f32):
+        self.f64, self.f32 = f64, f32
+
+    def at(self, dtype):
+        """The view an operand of ``dtype`` is multiplied with: fp64 for an
+        fp64 operand, fp32 (the op-math type) for the others."""
+        return self.f64 if dtype == torch.float64 else self.f32
+
+
+def _at(h, dtype):
+    """A per-slot hyper-parameter as an operand of ``dtype`` takes it: a
+    Python float as it is, a traced one as its view."""
+    return h.at(dtype) if isinstance(h, _Traced) else h
+
+
+def _traced(hs):
+    return bool(hs) and isinstance(hs[0], _Traced)
+
+
+def _apply(op, xs, hs, inplace=False):
+    """``op(x, h)`` over lists (``op`` is ``"mul"`` or ``"add"``): new
+    tensors, or with ``inplace`` into ``xs``.  ``hs`` holds Python floats
+    (one multi-tensor op), or traced hyper-parameters (:class:`_Traced`).
+    Each result rounds once, as a multi-tensor op with a float scalar
+    rounds it: in the operand's op-math type (fp64 for fp64, fp32 for the
+    others, which a 16-bit 0-dim tensor would not give), then to the
+    operand's dtype."""
+    foreach = getattr(torch, "_foreach_%s%s" % (op, "_" if inplace else ""))
+    if not _traced(hs):
+        return foreach(xs, hs)
+    groups = {}
+    for i, (x, h) in enumerate(zip(xs, hs)):
+        groups.setdefault((id(h), x.dtype), ([], h.at(x.dtype)))[0].append(i)
+    out = list(xs)
+    for idx, h in groups.values():
+        part = [xs[i] for i in idx]
+        # the multi-tensor add's Tensor overload reads the scalar back to
+        # the host, which a capture refuses; its product does not
+        if op == "mul" and part[0].dtype == h.dtype:
+            res = foreach(part, h)
+        else:
+            # h broadcast as a tensor promotes the result to its type (a
+            # 16-bit operand's to fp32), and ``out`` rounds it once to the
+            # operand's; the group goes through one flat buffer, so that is
+            # one kernel and not one a slot
+            flat = torch.cat([x.reshape(-1) for x in part])
+            getattr(torch, op)(flat, h.expand(flat.shape), out=flat)
+            res = [r.view(x.shape) for r, x in zip(
+                torch.split(flat, [x.numel() for x in part]), part)]
+            if inplace:
+                torch._foreach_copy_(part, res)
+        if not inplace:
+            for i, r in zip(idx, res):
+                out[i] = r
+    return None if inplace else out
+
+
+def _scale(xs, hs):
+    """``[x * h]`` over lists, as new tensors (:func:`_apply`)."""
+    return _apply("mul", xs, hs)
+
+
+def _scale_(xs, hs):
+    """``x *= h`` over lists (:func:`_apply`)."""
+    _apply("mul", xs, hs, inplace=True)
+
+
+def _shift_(xs, hs):
+    """``x += h`` over lists (:func:`_apply`)."""
+    _apply("add", xs, hs, inplace=True)
+
+
+def _lr_wd(self, lrs, wds, counts):
+    """``Optimizer.step_scalars`` of a rule that reads lr and wd as they
+    are."""
+    return {"lr": list(lrs), "wd": list(wds)}
+
+
 def _prep_grads(grads, rescale_grad, clip_gradient):
-    """``ops/optim_ops.py::_prep_grad`` over a list of tensors."""
-    g = torch._foreach_mul(grads, rescale_grad)
+    """``ops/optim_ops.py::_prep_grad`` over a list of tensors;
+    ``rescale_grad`` a float, or traced (one tensor a slot)."""
+    if isinstance(rescale_grad, (list, tuple)):
+        g = _scale(grads, rescale_grad)
+    else:
+        g = torch._foreach_mul(grads, rescale_grad)
     if clip_gradient is not None and clip_gradient > 0:
         torch._foreach_clamp_min_(g, -clip_gradient)
         torch._foreach_clamp_max_(g, clip_gradient)
@@ -105,7 +205,7 @@ def _prep_grads(grads, rescale_grad, clip_gradient):
 
 def _plus_wd(g, weights, wds):
     """``g + wd * weight`` over lists, in place into ``g``."""
-    torch._foreach_add_(g, torch._foreach_mul(weights, wds))
+    torch._foreach_add_(g, _scale(weights, wds))
     return g
 
 
@@ -231,13 +331,53 @@ class Optimizer:
         _state_writeback(state, new_state)
         weight._set_data(new_w)
 
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
         """Update every tensor of ``weights`` and of ``states`` (their raw
         state structures) in place, in one call: ``lrs``, ``wds`` and
-        ``counts`` hold one value per tensor.  Raises
+        ``counts`` hold one value per tensor.  With ``traced`` (a captured
+        update, ``TracedHyper.unpack``) the rule reads its
+        ``step_scalars`` and ``rescale_grad`` from there, device views one
+        a slot, and not ``lrs``, ``wds`` or ``counts``.  Raises
         ``NotImplementedError`` where there is no fused rule."""
         raise NotImplementedError("%s has no fused update"
                                   % type(self).__name__)
+
+    # -- captured fused updates (``capture``) -------------------------------
+    # The optimizer's own attributes that a step, and so a captured graph,
+    # does not freeze: the per-slot lr and wd come from these, and
+    # ``rescale_grad`` is traced or keyed on its own.
+    _PER_STEP = ("lr", "wd", "rescale_grad", "num_update",
+                 "begin_num_update")
+    # whether the update draws from the device's generator
+    draws_random = False
+
+    def static_hyper(self):
+        """The class and every scalar attribute a fused update reads as a
+        constant (momentum, betas, epsilon, clip_gradient, ...): a captured
+        update is keyed on them."""
+        return (type(self),) + tuple(sorted(
+            (k, v) for k, v in vars(self).items() if k not in self._PER_STEP
+            and (v is None or isinstance(v, (bool, int, float)))))
+
+    def step_scalars(self, lrs, wds, counts):
+        """The per-slot scalars that ``fused_update`` reads each step, by
+        name, as the host computes them: lr and wd, and what the rule
+        derives from them and the update counts (Adam's bias-corrected lr,
+        Nadam's momentum schedule, ...).  A captured update reads them
+        from a device tensor the host fills before each replay
+        (``TracedHyper``), and ``fused_update(..., traced=)`` takes them
+        so.  None where the rule's ``fused_update`` takes only host
+        floats, which a capture then freezes and keys on."""
+        return None
+
+    def _hyper(self, lrs, wds, counts, traced):
+        """A ``fused_update``'s per-slot scalars (``step_scalars``, traced
+        or as host floats) and its ``rescale_grad`` (traced: one value a
+        slot; else the float)."""
+        if traced is not None:
+            return traced, traced["rescale_grad"]
+        return self.step_scalars(lrs, wds, counts), self.rescale_grad
 
 
 @register
@@ -264,7 +404,8 @@ class SGD(Optimizer):
 
     def update_step(self, w, g, state, hyper):
         kw = dict(lr=hyper["lr"], wd=hyper["wd"],
-                  rescale_grad=self.rescale_grad, clip_gradient=self._clip())
+                  rescale_grad=hyper.get("rescale_grad", self.rescale_grad),
+                  clip_gradient=self._clip())
         if isinstance(state, tuple):  # multi-precision
             mom, w32 = state
             if mom is not None:
@@ -278,16 +419,25 @@ class SGD(Optimizer):
                                          **kw)
         return _kern._sgd_update(w, g, **kw), None
 
+    step_scalars = _lr_wd
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
         """The multi-precision slots go one by one through ``update_step``;
         the others through multi-tensor ops."""
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        lrs, wds = h["lr"], h["wd"]
         plain = [i for i, s in enumerate(states) if not isinstance(s, tuple)]
         for i in range(len(weights)):
             if isinstance(states[i], tuple):
+                # the fp32 copy is updated: fp32 operands
+                f32 = torch.float32
                 new_w, new_s = self.update_step(
                     weights[i], grads[i], states[i],
-                    {"lr": lrs[i], "wd": wds[i], "t": counts[i]})
+                    {"lr": _at(lrs[i], f32), "wd": _at(wds[i], f32),
+                     "rescale_grad": _at(rescale[i], f32) if traced
+                     else rescale})
                 weights[i].copy_(new_w)
                 for dst, src in zip(states[i], new_s):
                     if dst is not None:
@@ -295,10 +445,11 @@ class SGD(Optimizer):
         if not plain:
             return
         ws = [weights[i] for i in plain]
-        g = _prep_grads([grads[i] for i in plain], self.rescale_grad,
+        g = _prep_grads([grads[i] for i in plain],
+                        [rescale[i] for i in plain] if traced else rescale,
                         self._clip())
         step = _plus_wd(g, ws, [wds[i] for i in plain])
-        torch._foreach_mul_(step, [lrs[i] for i in plain])
+        _scale_(step, [lrs[i] for i in plain])
         if self.momentum == 0.0:
             torch._foreach_sub_(ws, step)
             return
@@ -331,18 +482,22 @@ class NAG(Optimizer):
         lookahead = g + self.momentum * new_mom
         return w - lr * (lookahead + wd * w), new_mom
 
+    step_scalars = _lr_wd
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
         if states[0] is None:
-            step = _plus_wd(g, weights, wds)
+            step = _plus_wd(g, weights, h["wd"])
         else:
             torch._foreach_mul_(states, self.momentum)
             torch._foreach_add_(states, g)
             step = torch._foreach_add(g, torch._foreach_mul(states,
                                                             self.momentum))
-            _plus_wd(step, weights, wds)
-        torch._foreach_mul_(step, lrs)
+            _plus_wd(step, weights, h["wd"])
+        _scale_(step, h["lr"])
         torch._foreach_sub_(weights, step)
 
 
@@ -351,6 +506,8 @@ class SGLD(Optimizer):
     """Stochastic gradient Langevin dynamics (reference ``:419``): a
     gradient step at lr/2 plus N(0, lr) noise, drawn from the weight's
     device generator (``random.generator``)."""
+
+    draws_random = True
 
     def _noise(self, w):
         from . import random as _random
@@ -364,15 +521,21 @@ class SGLD(Optimizer):
         stepped = w - lr / 2 * (g + wd * w)
         return stepped + math.sqrt(lr) * self._noise(w), None
 
+    def step_scalars(self, lrs, wds, counts):
+        return {"wd": list(wds), "half_lr": [lr / 2 for lr in lrs],
+                "sqrt_lr": [math.sqrt(lr) for lr in lrs]}
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
-        step = _plus_wd(g, weights, wds)
-        torch._foreach_mul_(step, [lr / 2 for lr in lrs])
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
+        step = _plus_wd(g, weights, h["wd"])
+        _scale_(step, h["half_lr"])
         torch._foreach_sub_(weights, step)
         # one draw a tensor, in the order of the per-parameter loop
         noise = [self._noise(w) for w in weights]
-        torch._foreach_mul_(noise, [math.sqrt(lr) for lr in lrs])
+        _scale_(noise, h["sqrt_lr"])
         torch._foreach_add_(weights, noise)
 
 
@@ -400,17 +563,21 @@ class DCASGD(Optimizer):
             return w + new_mom, (new_mom, w)
         return w - lr * compensated, (None, w)
 
+    step_scalars = _lr_wd
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
         prev = _part(states, 1)
         drift = torch._foreach_sub(weights, prev)
         gg = torch._foreach_mul(g, self.lamda)
         torch._foreach_mul_(gg, g)
         torch._foreach_mul_(gg, drift)
-        comp = _plus_wd(g, weights, wds)
+        comp = _plus_wd(g, weights, h["wd"])
         torch._foreach_add_(comp, gg)
-        torch._foreach_mul_(comp, lrs)
+        _scale_(comp, h["lr"])
         torch._foreach_copy_(prev, weights)
         if states[0][0] is None:
             torch._foreach_sub_(weights, comp)
@@ -449,19 +616,24 @@ class Adam(Optimizer):
             clip_gradient=self._clip())
         return new_w, (new_mean, new_var)
 
+    def step_scalars(self, lrs, wds, counts):
+        return {"lr": [self._corrected_lr(lr, t)
+                       for lr, t in zip(lrs, counts)], "wd": list(wds)}
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
         means, vars_ = _part(states, 0), _part(states, 1)
-        g = _plus_wd(_prep_grads(grads, self.rescale_grad, self._clip()),
-                     weights, wds)
+        g = _plus_wd(_prep_grads(grads, rescale, self._clip()), weights,
+                     h["wd"])
         torch._foreach_mul_(means, self.beta1)
         torch._foreach_add_(means, torch._foreach_mul(g, 1 - self.beta1))
         gg = torch._foreach_mul(g, g)
         torch._foreach_mul_(gg, 1 - self.beta2)
         torch._foreach_mul_(vars_, self.beta2)
         torch._foreach_add_(vars_, gg)
-        step = torch._foreach_mul(means, [self._corrected_lr(lr, t)
-                                          for lr, t in zip(lrs, counts)])
+        step = _scale(means, h["lr"])
         den = torch._foreach_sqrt(vars_)
         torch._foreach_add_(den, self.epsilon)
         torch._foreach_div_(step, den)
@@ -488,15 +660,19 @@ class AdaGrad(Optimizer):
                             + wd * w)
         return stepped, hist
 
+    step_scalars = _lr_wd
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
         torch._foreach_add_(states, torch._foreach_mul(g, g))
         den = torch._foreach_add(states, self.float_stable_eps)
         torch._foreach_sqrt_(den)
         step = torch._foreach_div(g, den)
-        _plus_wd(step, weights, wds)
-        torch._foreach_mul_(step, lrs)
+        _plus_wd(step, weights, h["wd"])
+        _scale_(step, h["lr"])
         torch._foreach_sub_(weights, step)
 
 
@@ -529,10 +705,14 @@ class RMSProp(Optimizer):
         new_w, nn = _kern._rmsprop_update(w, g, n, **kw)
         return new_w, (nn,)
 
+    step_scalars = _lr_wd
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _plus_wd(_prep_grads(grads, self.rescale_grad, self._clip()),
-                     weights, wds)
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _plus_wd(_prep_grads(grads, rescale, self._clip()), weights,
+                     h["wd"])
         ns = _part(states, 0)
         gg = torch._foreach_mul(g, g)
         torch._foreach_mul_(gg, 1 - self.gamma1)
@@ -547,7 +727,7 @@ class RMSProp(Optimizer):
         else:
             den = torch._foreach_add(ns, self.epsilon)
         torch._foreach_sqrt_(den)
-        step = torch._foreach_mul(g, lrs)
+        step = _scale(g, h["lr"])
         torch._foreach_div_(step, den)
         if self.centered:
             torch._foreach_mul_(deltas, self.gamma2)
@@ -580,9 +760,14 @@ class AdaDelta(Optimizer):
         acc_dx = self.rho * acc_dx + (1.0 - self.rho) * dx * dx
         return w - dx - wd * w, (acc_g, acc_dx)
 
+    def step_scalars(self, lrs, wds, counts):
+        return {"wd": list(wds)}
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
         acc_g, acc_dx = _part(states, 0), _part(states, 1)
         gg = torch._foreach_mul(g, 1.0 - self.rho)
         torch._foreach_mul_(gg, g)
@@ -596,7 +781,7 @@ class AdaDelta(Optimizer):
         torch._foreach_mul_(dd, dx)
         torch._foreach_mul_(acc_dx, self.rho)
         torch._foreach_add_(acc_dx, dd)
-        decay = torch._foreach_mul(weights, wds)
+        decay = _scale(weights, h["wd"])
         torch._foreach_sub_(weights, dx)
         torch._foreach_sub_(weights, decay)
 
@@ -620,21 +805,25 @@ class Ftrl(Optimizer):
             clip_gradient=self._clip())
         return new_w, (new_z, new_n)
 
+    def step_scalars(self, lrs, wds, counts):
+        return {"inv_lr": [1.0 / lr for lr in lrs], "wd": list(wds)}
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
         zs, ns = _part(states, 0), _part(states, 1)
         old_root = torch._foreach_sqrt(ns)
         torch._foreach_add_(ns, torch._foreach_mul(g, g))
         root = torch._foreach_sqrt(ns)
-        inv_lrs = [1.0 / lr for lr in lrs]
         sigma = torch._foreach_sub(root, old_root)
-        torch._foreach_mul_(sigma, inv_lrs)
+        _scale_(sigma, h["inv_lr"])
         torch._foreach_add_(zs, g)
         torch._foreach_sub_(zs, torch._foreach_mul(sigma, weights))
         den = torch._foreach_add(root, self.beta)
-        torch._foreach_mul_(den, inv_lrs)
-        torch._foreach_add_(den, wds)
+        _scale_(den, h["inv_lr"])
+        _shift_(den, h["wd"])
         num = torch._foreach_sign(zs)
         torch._foreach_mul_(num, self.lamda1)
         num = torch._foreach_sub(zs, num)
@@ -671,17 +860,22 @@ class Adamax(Optimizer):
         u = torch.maximum(self.beta2 * u, torch.abs(g))
         return w - lr * m / u, (m, u)
 
+    def step_scalars(self, lrs, wds, counts):
+        return {"lr": [self._corrected_lr(lr, t)
+                       for lr, t in zip(lrs, counts)], "wd": list(wds)}
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _plus_wd(_prep_grads(grads, self.rescale_grad, self._clip()),
-                     weights, wds)
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _plus_wd(_prep_grads(grads, rescale, self._clip()), weights,
+                     h["wd"])
         ms, us = _part(states, 0), _part(states, 1)
         torch._foreach_mul_(ms, self.beta1)
         torch._foreach_add_(ms, torch._foreach_mul(g, 1.0 - self.beta1))
         torch._foreach_mul_(us, self.beta2)
         torch._foreach_maximum_(us, torch._foreach_abs(g))
-        step = torch._foreach_mul(ms, [self._corrected_lr(lr, t)
-                                       for lr, t in zip(lrs, counts)])
+        step = _scale(ms, h["lr"])
         torch._foreach_div_(step, us)
         torch._foreach_sub_(weights, step)
 
@@ -733,14 +927,22 @@ class Nadam(Optimizer):
         return w - lr * m_bar / (torch.sqrt(v_hat) + self.epsilon), \
             (m, v, sched)
 
-    @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
+    def step_scalars(self, lrs, wds, counts):
         sch = [self._schedule(t) for t in counts]
-        g = _plus_wd(_prep_grads(grads, self.rescale_grad, self._clip()),
-                     weights, wds)
+        return {"lr": list(lrs), "wd": list(wds),
+                "mu_t": [s[0] for s in sch], "mu_next": [s[1] for s in sch],
+                "inv_v_corr": [s[2] for s in sch],
+                "one_minus_mu_t": [1.0 - s[0] for s in sch]}
+
+    @torch.no_grad()
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _plus_wd(_prep_grads(grads, rescale, self._clip()), weights,
+                     h["wd"])
         ms, vs, scheds = _part(states, 0), _part(states, 1), _part(states, 2)
-        torch._foreach_mul_(scheds, [s[0] for s in sch])
-        sched_next = torch._foreach_mul(scheds, [s[1] for s in sch])
+        _scale_(scheds, h["mu_t"])
+        sched_next = _scale(scheds, h["mu_next"])
         torch._foreach_mul_(ms, self.beta1)
         torch._foreach_add_(ms, torch._foreach_mul(g, 1.0 - self.beta1))
         gg = torch._foreach_mul(g, 1.0 - self.beta2)
@@ -753,11 +955,11 @@ class Nadam(Optimizer):
         torch._foreach_neg_(sched_next)
         torch._foreach_add_(sched_next, 1.0)
         m_hat = torch._foreach_div(ms, sched_next)
-        v_hat = torch._foreach_mul(vs, [s[2] for s in sch])
-        torch._foreach_mul_(g_hat, [1.0 - s[0] for s in sch])
-        torch._foreach_mul_(m_hat, [s[1] for s in sch])
+        v_hat = _scale(vs, h["inv_v_corr"])
+        _scale_(g_hat, h["one_minus_mu_t"])
+        _scale_(m_hat, h["mu_next"])
         torch._foreach_add_(g_hat, m_hat)
-        torch._foreach_mul_(g_hat, lrs)
+        _scale_(g_hat, h["lr"])
         den = torch._foreach_sqrt(v_hat)
         torch._foreach_add_(den, self.epsilon)
         torch._foreach_div_(g_hat, den)
@@ -785,9 +987,13 @@ class Signum(Optimizer):
                                         wd_lh=self.wd_lh, **kw)
         return _kern._signsgd_update(w, g, **kw), None
 
+    step_scalars = _lr_wd
+
     @torch.no_grad()
-    def fused_update(self, weights, grads, states, lrs, wds, counts):
-        g = _prep_grads(grads, self.rescale_grad, self._clip())
+    def fused_update(self, weights, grads, states, lrs, wds, counts,
+                     traced=None):
+        h, rescale = self._hyper(lrs, wds, counts, traced)
+        g = _prep_grads(grads, rescale, self._clip())
         if states[0] is None:
             sign = torch._foreach_sign(g)
         else:
@@ -795,8 +1001,8 @@ class Signum(Optimizer):
             torch._foreach_sub_(states, torch._foreach_mul(
                 g, 1 - self.momentum))
             sign = torch._foreach_sign(torch._foreach_neg(states))
-        _plus_wd(sign, weights, wds)
-        torch._foreach_mul_(sign, lrs)
+        _plus_wd(sign, weights, h["wd"])
+        _scale_(sign, h["lr"])
         torch._foreach_sub_(weights, sign)
 
 
@@ -818,6 +1024,59 @@ class Test(Optimizer):
                                             _state_raw(state), {})
         _state_writeback(state, new_s)
         weight._set_data(new_w)
+
+
+class TracedHyper:
+    """The hyper-parameters of one captured ``fused_update``, the JAX
+    package's traced ``hyper`` dict (``module/cached_step.py:181-185``,
+    ``gluon/fused_trainer.py``).  A graph freezes a Python float, so
+    ``values`` holds fp64 host numbers, computed each step by the
+    optimizer's own arithmetic (``step_scalars``): ``rescale_grad``, then
+    each distinct value of each per-slot scalar (lr, wd, Adam's
+    bias-corrected lr, Nadam's schedule, ...).  The step copies ``values``
+    into a device tensor before each replay, and :meth:`unpack` (called
+    while the graph is captured) gives each slot views of it: fp64 for an
+    fp64 operand, the fp32 rounding of the same double for the others, so
+    that the update rounds as it does with floats.  ``key`` is what the
+    graph depends on: the optimizer's ``static_hyper`` and which slots
+    share a value, so a learning-rate schedule or a changing update count
+    replays the same graph.  A rule without ``step_scalars`` keys on its
+    floats (``rescale_grad``, lr, wd and the counts): a change recaptures,
+    it never replays stale, and its new program replaces the old one of
+    its ``family`` (``capture.StepCache.program``)."""
+
+    def __init__(self, opt, lrs, wds, counts):
+        named = opt.step_scalars(lrs, wds, counts)
+        if named is None:
+            self._host = (list(lrs), list(wds), list(counts))
+            self.family = ("host", opt.static_hyper())
+            self.key = self.family + ((opt.rescale_grad,),) + tuple(
+                tuple(v) for v in self._host)
+            self.values = torch.zeros(0, dtype=torch.float64)
+            return
+        self._host, self.family = None, None
+        table = {("rescale_grad", float(opt.rescale_grad)): 0}
+        self._at = {name: tuple(table.setdefault((name, float(v)), len(table))
+                                for v in vals)
+                    for name, vals in named.items()}
+        self._n = len(lrs)
+        self.key = ("traced", opt.static_hyper(), tuple(self._at.items()))
+        self.values = torch.tensor([v for _, v in table], dtype=torch.float64)
+
+    def unpack(self, values):
+        """``fused_update``'s keyword arguments from ``values`` on the
+        device (its static copy)."""
+        if self._host is not None:
+            lrs, wds, counts = self._host
+            return dict(lrs=lrs, wds=wds, counts=counts)
+        f32, views = values.float(), {}
+
+        def at(idx):
+            return [views.setdefault(j, _Traced(values[j], f32[j]))
+                    for j in idx]
+        traced = {name: at(idx) for name, idx in self._at.items()}
+        traced["rescale_grad"] = at([0] * self._n)
+        return dict(lrs=None, wds=None, counts=None, traced=traced)
 
 
 class Updater:

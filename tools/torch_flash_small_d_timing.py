@@ -4,9 +4,10 @@
 Times the forward and backward kernels that ``attention.design`` picks at
 D 16 and 32, causal, in fp32 (TF32 off), bf16 and fp16, at (8, 12, 1024,
 32) (GPT-2 small's layer shape at D 32), the same at D 16, and the
-Pythia-31M-width layer shape (8, 8, 2048, 32), beside their plain versions
-and SDPA (forward, and its backward as ``torch.autograd.grad``
-less its forward).  Each number is the median of three rounds of
+Pythia-31M-width layer shape (8, 8, 2048, 32), beside their plain versions,
+SDPA (forward, and its backward as ``torch.autograd.grad`` less its
+forward) and their bounds (``chip_smoke.attention_bound_ms`` and
+``attention_bwd_bound_ms``, computed from the shape).  Each number is the median of three rounds of
 ``chip_smoke.cuda_ms``.  Run from the root of a checkout on the card:
 
     python3 tools/torch_flash_small_d_timing.py [--repo PATH]
@@ -78,6 +79,10 @@ def main():
                        design=att.design(dtype, shape[-1]),
                        **{n: sorted(r[n] for r in rounds)[1] for n in fns})
             row["bwd_sdpa_ms"] = sdpa_bwd[1]
+            row["fwd_bound_ms"], row["fwd_bound_by"] = \
+                cs.attention_bound_ms(shape, dtype, True)[:2]
+            row["bwd_bound_ms"], row["bwd_bound_by"] = \
+                cs.attention_bwd_bound_ms(shape, dtype, True)[:2]
             rows.append(row)
             print(" ".join("%s=%s" % (n, ("%.4f" % x if isinstance(x, float)
                                           else x)) for n, x in row.items()),

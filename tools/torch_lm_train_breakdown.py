@@ -20,12 +20,18 @@ steps, then 3 steps under ``torch.profiler``.  It prints the device time per ste
   gradients);
 
 with the device operations per step, the device's busy share of the wall
-time and the top kernels by name.  Then, with the profiler off, it times
+time and the top kernels by name.  By default the step runs eagerly
+(inside ``capture.eager()``); with ``--captured`` it replays its captured
+CUDA graph, as it does on the card by default: a replayed kernel was
+launched by the graph, not inside the loss or the update, so those two
+count under "rest" there, and the flash kernels and the products keep
+their groups (by kernel name).  Then, with the profiler off, it times
 3 runs of 5 steps and prints each run's median ms/step.  Run from the
 repository root on the card:
 
     python3 tools/torch_lm_train_breakdown.py [--config pythia-31m]
                                               [--dtypes fp32,bf16]
+                                              [--captured]
 
 The last line is one JSON object with the numbers.
 """
@@ -46,6 +52,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from mxnet_tpu_torch import capture  # noqa: E402
 from mxnet_tpu_torch.models import transformer as tr  # noqa: E402
 
 # name -> (widths, batch, sequence length)
@@ -203,10 +210,11 @@ def breakdown(dtype, config):
     if device_ms == 0:
         raise SystemExit("torch.profiler recorded no device time")
     launches /= STEPS
-    print("\nLM train %s %s (%s), batch %dx%d: wall %.3f ms/step (profiler "
-          "on), device %.3f ms, busy %.1f%%, %.1f device ops per step"
-          % (config, str(dtype)[6:], flags, batch, seq_len, wall_ms, device_ms,
-             100 * device_ms / wall_ms, launches))
+    mode = "eager" if capture.graph_for("cuda") is None else "captured"
+    print("\nLM train %s %s (%s), %s, batch %dx%d: wall %.3f ms/step "
+          "(profiler on), device %.3f ms, busy %.1f%%, %.1f device ops per "
+          "step" % (config, str(dtype)[6:], flags, mode, batch, seq_len,
+                    wall_ms, device_ms, 100 * device_ms / wall_ms, launches))
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("  %-34s %9.3f ms  %5.1f%%" % (name, ms, 100 * ms / device_ms))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
@@ -225,7 +233,8 @@ def breakdown(dtype, config):
           % (RUNS, RUN_STEPS, ["%.3f" % m for m in medians]))
     del params, step
     torch.cuda.empty_cache()
-    return {"config": config, "dtype": str(dtype)[6:], "flags": flags,
+    return {"config": config, "mode": mode, "dtype": str(dtype)[6:],
+            "flags": flags,
             "batch": batch,
             "seq": seq_len, "steps": STEPS, "step_ms_medians": medians,
             "wall_ms": wall_ms, "device_ms": device_ms,
@@ -238,6 +247,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=sorted(CONFIGS), default="gpt2-small")
     ap.add_argument("--dtypes", default="fp32,bf16,fp16")
+    ap.add_argument("--captured", action="store_true",
+                    help="profile the replayed captured step, not the "
+                    "eager one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_lm_train_breakdown: needs a CUDA card")
@@ -246,8 +258,9 @@ def main():
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = [breakdown(DTYPES[n], args.config)
-            for n in args.dtypes.split(",")]
+    with contextlib.nullcontext() if args.captured else capture.eager():
+        rows = [breakdown(DTYPES[n], args.config)
+                for n in args.dtypes.split(",")]
     print(json.dumps({"card": card, "breakdown": rows}))
 
 

@@ -24,6 +24,12 @@ device time per step by group:
 - the device operations per step, the device's busy share of the wall
   time, and the top kernels by name.
 
+By default the step runs eagerly (inside ``capture.eager()``); with
+``--captured`` it replays its captured CUDA graphs, as it does on the card
+by default.  A replayed kernel was launched by a graph, not by an op, so
+the captured step's device time is one group, "captured step", beside
+its device operations, busy share and top kernels.
+
 Each device operation is counted once, from the profiler's Kineto events:
 a ``FunctionEvent``'s ``kernels`` can list a kernel that another event
 with the same correlation id lists too.  A kernel's phase and operation
@@ -32,7 +38,7 @@ are those of the CPU op that launched it, found by correlation id.
 Then, with the profiler off, it times 3 runs of 10 steps and prints each
 run's median ms/step.  Run from the repository root on the card:
 
-    python3 tools/torch_resnet_breakdown.py [--gluon]
+    python3 tools/torch_resnet_breakdown.py [--gluon] [--captured]
 
 The last line is one JSON object with the numbers.
 """
@@ -55,6 +61,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
+from mxnet_tpu_torch import capture  # noqa: E402
 from mxnet_tpu_torch.gluon import block  # noqa: E402
 from mxnet_tpu_torch.module import cached_step  # noqa: E402
 from mxnet_tpu_torch.ops import registry  # noqa: E402
@@ -71,7 +78,7 @@ def annotated():
     profiler; undone on exit."""
     saved_fns = {op: op.fn for op in set(registry.OP_REGISTRY.values())}
     saved = (cached_step._run_graph, block._run_graph,
-             mt.optimizer.SGD.fused_update, mt.autograd._write_grad)
+             mt.optimizer.SGD.fused_update, mt.autograd._write_grads)
 
     def wrap(name, fn):
         def inner(*args, **kwargs):
@@ -83,14 +90,14 @@ def annotated():
     cached_step._run_graph = wrap("phase:forward", saved[0])
     block._run_graph = wrap("phase:forward", saved[1])
     mt.optimizer.SGD.fused_update = wrap("phase:update", saved[2])
-    mt.autograd._write_grad = wrap("phase:grad write", saved[3])
+    mt.autograd._write_grads = wrap("phase:grad write", saved[3])
     try:
         yield
     finally:
         for op, fn in saved_fns.items():
             op.fn = fn
         (cached_step._run_graph, block._run_graph,
-         mt.optimizer.SGD.fused_update, mt.autograd._write_grad) = saved
+         mt.optimizer.SGD.fused_update, mt.autograd._write_grads) = saved
 
 
 def _ranges(events, prefixes):
@@ -173,10 +180,16 @@ def _gluon_step(dtype):
     return step, check
 
 
-def profile_steps(dtype, gluon=False):
+def profile_steps(dtype, gluon=False, captured=False):
+    with contextlib.nullcontext() if captured else capture.eager():
+        return _profile_steps(dtype, gluon, captured)
+
+
+def _profile_steps(dtype, gluon, captured):
     flags = cs.tf32_flags() if dtype == torch.float32 else "bf16"
     step, check = (_gluon_step if gluon else _module_step)(dtype)
     path = "Gluon" if gluon else "Module"
+    mode = "captured" if captured else "eager"
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
@@ -213,7 +226,7 @@ def profile_steps(dtype, gluon=False):
         if phase is None:
             phase = "backward" if label and label.startswith(
                 "autograd") else "other"
-        g = _group(phase, label)
+        g = "captured step" if captured else _group(phase, label)
         groups[g] = groups.get(g, 0.0) + ms
         kk = kernels.setdefault(k.name(), [0.0, 0])
         kk[0] += ms
@@ -223,10 +236,10 @@ def profile_steps(dtype, gluon=False):
     if device_ms == 0:
         raise SystemExit("torch.profiler recorded no device time")
     launches /= STEPS
-    print("ResNet-50 %s step %s (%s), batch %d: wall %.3f ms/step (profiler "
-          "on), device %.3f ms, busy %.1f%%, %.1f device ops per step"
-          % (path, cs.DTYPE_NAME[dtype], flags, cs.RESNET_BATCH, wall_ms,
-             device_ms, 100 * device_ms / wall_ms, launches))
+    print("ResNet-50 %s step %s (%s), %s, batch %d: wall %.3f ms/step "
+          "(profiler on), device %.3f ms, busy %.1f%%, %.1f device ops per "
+          "step" % (path, cs.DTYPE_NAME[dtype], flags, mode, cs.RESNET_BATCH,
+                    wall_ms, device_ms, 100 * device_ms / wall_ms, launches))
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("  %-30s %9.4f ms  %5.1f%%" % (name, ms, 100 * ms / device_ms))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
@@ -240,8 +253,9 @@ def profile_steps(dtype, gluon=False):
     print("profiler off: median ms/step of %d runs of %d steps: %s"
           % (RUNS, STEPS, ["%.3f" % m for m in medians]))
     del step, check
-    torch.cuda.empty_cache()
-    return {"path": path, "dtype": cs.DTYPE_NAME[dtype], "flags": flags,
+    cs.free_card()
+    return {"path": path, "mode": mode, "dtype": cs.DTYPE_NAME[dtype],
+            "flags": flags,
             "batch": cs.RESNET_BATCH, "steps": STEPS,
             "step_ms_medians": medians, "wall_ms": wall_ms,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms,
@@ -253,6 +267,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--gluon", action="store_true",
                     help="profile the Gluon step instead of Module's")
+    ap.add_argument("--captured", action="store_true",
+                    help="profile the replayed captured step, not the "
+                    "eager one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_resnet_breakdown: needs a CUDA card")
@@ -260,7 +277,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    runs = [profile_steps(dt, args.gluon)
+    runs = [profile_steps(dt, args.gluon, args.captured)
             for dt in (torch.float32, torch.bfloat16)]
     print(json.dumps({"card": card, "runs": runs}))
 
