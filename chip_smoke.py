@@ -147,10 +147,28 @@ before it captures, and those runs launch the kernels too
    and bf16, captured and eager in turn: 5 warm-up and 10 timed steps
    each; ms/step and peak memory; the captured steps replay one program
    a step and capture none.
+19. Checkpoint and resume (run after phase 18), cuDNN deterministic for
+   this phase only: ResNet-50 at batch 32 in fp32 (TF32 off) and bf16,
+   through ``Module`` with SGD momentum (phase 10's set-up) and through
+   phase 16's hybridized net with ``Trainer("adam")``, 3 steps, a
+   checkpoint with the optimizer states (``save_checkpoint``;
+   ``Block.save_params`` and ``Trainer.save_states``), 3 more steps (run
+   A); a fresh Module (``Module.load``, ``bind``, ``init_optimizer``) or
+   net and Trainer loads the files and takes the same 3 batches; a
+   second uninterrupted run (run C) gives the card's run-to-run spread.
+   The parameters, moving statistics and optimizer states of the resume
+   must equal run A's bit for bit, or lie within run C's distance from
+   run A; the arrays reloaded from the files must equal the saved ones
+   bit for bit; the resumed steps capture each program once and replay
+   it, run A's steps after the checkpoint capture none.  The files'
+   sizes and the save and load seconds are printed, and ``nd.save``/
+   ``nd.load`` of GPT-2 small's parameters (``GPT2_SMALL``, 163M with
+   its untied output projection) in fp32, bf16 and fp16 is timed and
+   held bit for bit.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
-line, the
+line, phase 19's as one ``{"checkpoint": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -164,6 +182,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import time
 
@@ -1766,12 +1785,13 @@ def resnet_train_setup(mod, params=None, optimizer="sgd",
 
 
 def resnet_batch(ctx, batch, dtype, image=RESNET_IMAGE, classes=1000,
-                 label_dtype=torch.float32):
-    """One ``DataBatch`` from ``RandomState(0)``, as bench.py makes it."""
+                 label_dtype=torch.float32, seed=0):
+    """One ``DataBatch`` from ``RandomState(seed)``, as bench.py makes it
+    (seed 0)."""
     import numpy as np
     from mxnet_tpu_torch import nd
     from mxnet_tpu_torch.io import DataBatch
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     return DataBatch(
         [nd.array(rng.rand(batch, 3, image, image).astype(np.float32),
                   ctx=ctx, dtype=dtype)],
@@ -2545,6 +2565,359 @@ def phase_resnet_rules(dtype):
     return out
 
 
+# -- phase 19: checkpoint and resume ------------------------------------------
+# ResNet-50 trained CKPT_STEPS steps, checkpointed, trained CKPT_STEPS more
+# (run A); a fresh Module or net and Trainer loads the checkpoint and trains
+# the same CKPT_STEPS batches (the resume); a second uninterrupted run (run
+# C) measures the card's own run-to-run spread.  The resume is held bit for
+# bit to run A unless run C differs from run A too; then to run C's spread.
+CKPT_STEPS = 3
+CKPT_GLUON_ADAM = {"learning_rate": 1e-3, "wd": RESNET_WD}
+
+
+def _host_copy(t):
+    return t.detach().to("cpu", copy=True)
+
+
+def _bit_gap(a, b):
+    """Over the tensors of two {name: tensor} dicts: the elements whose bits
+    differ, and the largest |a - b|."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    differ, worst = 0, 0.0
+    if sorted(a) != sorted(b):
+        raise AssertionError("the runs hold different tensors: %s"
+                             % sorted(set(a) ^ set(b))[:4])
+    for k in a:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError("%s: %s %s against %s %s" % (
+                k, x.dtype, tuple(x.shape), y.dtype, tuple(y.shape)))
+        if not x.numel():
+            continue
+        it = ints[x.element_size()]
+        differ += int((x.view(it) != y.view(it)).sum())
+        worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return differ, worst
+
+
+def module_train_state(mod):
+    """Host copies of a Module's parameters, moving statistics and SGD
+    momenta, by name."""
+    arg, aux = mod.get_params()
+    out = {"param:" + n: _host_copy(a._data) for n, a in arg.items()}
+    out.update({"aux:" + n: _host_copy(a._data) for n, a in aux.items()})
+    names = mod._exec_group.param_names
+    out.update({"momentum:" + names[i]: _host_copy(s._data)
+                for i, s in mod._updater.states.items() if s is not None})
+    return out
+
+
+def gluon_train_state(net, trainer):
+    """Host copies of a Gluon net's parameters and moving statistics and of
+    its Trainer's states (Adam's mean and var), by name."""
+    from mxnet_tpu_torch.optimizer import _state_raw, _state_tensors
+    out = {("param:" if p.grad_req != "null" else "aux:") + n:
+           _host_copy(p.data()._data)
+           for n, p in net.collect_params().items()}
+    for slot, state in trainer._updater.states.items():
+        for j, t in enumerate(_state_tensors([_state_raw(state)])):
+            out["state:%d.%d" % (slot, j)] = _host_copy(t)
+    return out
+
+
+def _steps(step, batches):
+    """Run ``step`` on each batch; returns the step counters it moved."""
+    before = counter_snapshot()
+    for db in batches:
+        step(db)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return counter_delta(before)
+
+
+def _timed_call(fn):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def checkpoint_module_runs(ctx, dtype, tmp, batch=RESNET_BATCH,
+                           image=RESNET_IMAGE, **model_kw):
+    """Phase 19 (a): ResNet (``resnet_module``) through Module with SGD
+    momentum, checkpointed after CKPT_STEPS steps with its optimizer
+    states.  Returns the run A, resume and run C states, the reloaded
+    files' arrays against the saved ones, the step counters after the
+    checkpoint, the file sizes and the save and load seconds."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataDesc
+    classes = model_kw.get("classes", 1000)
+    out_dtype = torch.float64 if dtype == torch.float64 else torch.float32
+    batches = [resnet_batch(ctx, batch, dtype, image, classes, seed=s)
+               for s in range(2 * CKPT_STEPS)]
+    prefix = "%s/resnet-%s" % (tmp, DTYPE_NAME.get(dtype, str(dtype)))
+
+    def fresh_run():
+        mod = resnet_module(ctx, batch, dtype, image, **model_kw)
+        resnet_train_setup(mod)
+        return mod
+    res = {}
+    mod = fresh_run()
+    _steps(mod._fit_step, batches[:CKPT_STEPS])
+    _, res["save_s"] = _timed_call(lambda: mod.save_checkpoint(
+        prefix, CKPT_STEPS, save_optimizer_states=True))
+    saved = module_train_state(mod)
+    names = list(mod._exec_group.param_names)
+    res["counts_a"] = _steps(mod._fit_step, batches[CKPT_STEPS:])
+    res["a"] = module_train_state(mod)
+    del mod
+    free_card_if_any()
+    mod = fresh_run()
+    _steps(mod._fit_step, batches)
+    res["c"] = module_train_state(mod)
+    del mod
+    free_card_if_any()
+    loaded, res["load_params_s"] = _timed_call(lambda: mt.mod.Module.load(
+        prefix, CKPT_STEPS, load_optimizer_states=True, context=ctx))
+    loaded.bind(data_shapes=[DataDesc("data", (batch, 3, image, image),
+                                      dtype=dtype)],
+                label_shapes=[DataDesc("softmax_label", (batch,),
+                                       dtype=out_dtype)])
+    _, res["load_states_s"] = _timed_call(lambda: loaded.init_optimizer(
+        optimizer="sgd", optimizer_params=(
+            ("learning_rate", RESNET_LR), ("momentum", RESNET_MOMENTUM),
+            ("wd", RESNET_WD))))
+    res["counts_resumed"] = _steps(loaded._fit_step, batches[CKPT_STEPS:])
+    res["resumed"] = module_train_state(loaded)
+    del loaded
+    free_card_if_any()
+    files = {ext: "%s-%04d.%s" % (prefix, CKPT_STEPS, ext)
+             for ext in ("params", "states")}
+    files["json"] = prefix + "-symbol.json"
+    res["bytes"] = {k: os.path.getsize(f) for k, f in files.items()}
+    back = {("param:" if k.startswith("arg:") else "aux:") + k[4:]:
+            a._data for k, a in mt.nd.load(files["params"]).items()}
+    upd = mt.optimizer.get_updater(mt.optimizer.SGD())
+    with open(files["states"], "rb") as f:
+        upd.set_states(f.read())
+    back.update({"momentum:" + names[i]: s._data
+                 for i, s in upd.states.items() if s is not None})
+    res["file_gap"] = _bit_gap(saved, back)
+    return res
+
+
+def checkpoint_gluon_runs(ctx, dtype, tmp, batch=RESNET_BATCH,
+                          image=RESNET_IMAGE, **model_kw):
+    """Phase 19 (b): the hybridized ResNet of phase 16 (``gluon_resnet``)
+    trained by ``Trainer("adam")``, checkpointed through
+    ``Block.save_params`` and ``Trainer.save_states``, resumed in a fresh
+    net and Trainer; returns what ``checkpoint_module_runs`` returns."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import _pickle
+    classes = model_kw.get("classes", 1000)
+    batches = [resnet_batch(ctx, batch, dtype, image, classes, seed=s)
+               for s in range(2 * CKPT_STEPS)]
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    prefix = "%s/gluon-%s" % (tmp, DTYPE_NAME.get(dtype, str(dtype)))
+    files = {"params": prefix + ".params", "states": prefix + ".states"}
+
+    def fresh_run():
+        net = gluon_resnet(ctx, dtype, **model_kw)
+        return net, mt.gluon.Trainer(net.collect_params(), "adam",
+                                     dict(CKPT_GLUON_ADAM))
+
+    def stepper(net, trainer):
+        return lambda db: gluon_step(net, trainer, loss_fn, db)
+    res = {}
+    net, trainer = fresh_run()
+    _steps(stepper(net, trainer), batches[:CKPT_STEPS])
+
+    def save():
+        net.save_params(files["params"])
+        trainer.save_states(files["states"])
+    _, res["save_s"] = _timed_call(save)
+    saved = gluon_train_state(net, trainer)
+    strip = net.prefix
+    res["counts_a"] = _steps(stepper(net, trainer), batches[CKPT_STEPS:])
+    res["a"] = gluon_train_state(net, trainer)
+    del net, trainer
+    free_card_if_any()
+    net, trainer = fresh_run()
+    _steps(stepper(net, trainer), batches)
+    res["c"] = gluon_train_state(net, trainer)
+    del net, trainer
+    free_card_if_any()
+    net, trainer = fresh_run()
+    _, res["load_params_s"] = _timed_call(
+        lambda: net.load_params(files["params"]))
+    _, res["load_states_s"] = _timed_call(
+        lambda: trainer.load_states(files["states"]))
+    if trainer._optimizer.num_update != CKPT_STEPS:
+        raise AssertionError("the resumed Trainer's update count is %d, want "
+                             "%d" % (trainer._optimizer.num_update,
+                                     CKPT_STEPS))
+    res["counts_resumed"] = _steps(stepper(net, trainer),
+                                   batches[CKPT_STEPS:])
+    res["resumed"] = gluon_train_state(net, trainer)
+    del net, trainer
+    free_card_if_any()
+    res["bytes"] = {k: os.path.getsize(f) for k, f in files.items()}
+    back = {}
+    for k, a in mt.nd.load(files["params"]).items():
+        kind = "param:" if "param:" + strip + k in saved else "aux:"
+        back[kind + strip + k] = a._data
+    with open(files["states"], "rb") as f:
+        payload = _pickle.loads(f.read())
+    upd = mt.optimizer.get_updater(mt.optimizer.Adam())
+    upd.set_states(payload["updater"])
+    from mxnet_tpu_torch.optimizer import _state_raw, _state_tensors
+    for slot, state in upd.states.items():
+        for j, t in enumerate(_state_tensors([_state_raw(state)])):
+            back["state:%d.%d" % (slot, j)] = t
+    res["file_gap"] = _bit_gap(saved, back)
+    if payload["num_update"] != CKPT_STEPS:
+        raise AssertionError("the states file holds num_update %s, want %d"
+                             % (payload["num_update"], CKPT_STEPS))
+    return res
+
+
+def free_card_if_any():
+    if torch.cuda.is_available():
+        free_card()
+    else:
+        gc.collect()
+
+
+def resume_verdict(what, res, replays_per_step):
+    """Hold a resume (``checkpoint_*_runs``) to run A: bit for bit, or
+    within run C's gap from run A where the card's own runs differ; the
+    files' arrays bit for bit; the resumed steps one capture of each
+    program then replays, run A's none.  Returns the summary."""
+    resume_gap = _bit_gap(res["a"], res["resumed"])
+    spread = _bit_gap(res["a"], res["c"])
+    n = CKPT_STEPS * replays_per_step
+    want_a = dict(graph_captures=0, graph_replays=n, program_calls=n)
+    want_r = dict(graph_captures=replays_per_step, graph_replays=n,
+                  program_calls=n)
+    summary = dict(
+        resume_bits_differ=resume_gap[0], resume_max_abs=resume_gap[1],
+        rerun_bits_differ=spread[0], rerun_max_abs=spread[1],
+        bitwise=resume_gap[0] == 0, file_bits_differ=res["file_gap"][0],
+        counts_after_save=res["counts_a"],
+        counts_resumed=res["counts_resumed"], bytes=res["bytes"],
+        save_s=res["save_s"], load_params_s=res["load_params_s"],
+        load_states_s=res["load_states_s"], tensors=len(res["a"]))
+    log("%s: resumed against uninterrupted: %d elements differ in their "
+        "bits (max |diff| %.3g); two uninterrupted runs: %d (%.3g); files "
+        "against the saved arrays: %d; counters after the checkpoint %s, "
+        "resumed %s; files %s bytes; save %.3f s, load params %.3f s, "
+        "states %.3f s" % (
+            what, resume_gap[0], resume_gap[1], spread[0], spread[1],
+            res["file_gap"][0], res["counts_a"], res["counts_resumed"],
+            res["bytes"], res["save_s"], res["load_params_s"],
+            res["load_states_s"]))
+    if res["file_gap"][0]:
+        raise AssertionError("%s: %d elements reloaded from the files differ "
+                             "from the saved ones" % (what,
+                                                      res["file_gap"][0]))
+    if resume_gap[0] and resume_gap[1] > spread[1]:
+        raise AssertionError(
+            "%s: the resumed run lies %.3g from the uninterrupted one, "
+            "beyond the %.3g between two uninterrupted runs"
+            % (what, resume_gap[1], spread[1]))
+    graphs = capture_active()
+    if graphs and (res["counts_a"] != want_a
+                   or res["counts_resumed"] != want_r):
+        raise AssertionError("%s: counters after the checkpoint %s (want "
+                             "%s), resumed %s (want %s)" % (
+                                 what, res["counts_a"], want_a,
+                                 res["counts_resumed"], want_r))
+    return summary
+
+
+def capture_active():
+    """Whether this run's steps capture (on the card, or on the CPU under
+    ``capture.stand_in``)."""
+    from mxnet_tpu_torch import capture
+    return capture.graph_for("cuda" if torch.cuda.is_available()
+                             else "cpu") is not None
+
+
+def nd_save_load_timing(tmp, dtype):
+    """GPT-2 small's parameters (``GPT2_SMALL``, seeded) on the card in
+    ``dtype``: ``nd.save`` of them (each copied to the host once) and
+    ``nd.load`` back to host arrays, timed, and the loaded bits against
+    the saved ones."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer as tr
+    cfg = tr.TransformerLMConfig(dtype=torch.float32, **GPT2_SMALL)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {n: t.to(dtype) for n, t in
+              tr.init_transformer_params(gen, cfg).items()}
+    arrays = {n: mt.nd.NDArray(t, mt.gpu(0)) for n, t in params.items()}
+    fname = "%s/gpt2-%s.params" % (tmp, DTYPE_NAME[dtype])
+    _, save_s = _timed_call(lambda: mt.nd.save(fname, arrays))
+    back, load_s = _timed_call(lambda: mt.nd.load(fname))
+    gap = _bit_gap({n: t.cpu() for n, t in params.items()},
+                   {n: a._data for n, a in back.items()})
+    size = os.path.getsize(fname)
+    os.remove(fname)
+    res = dict(params=sum(t.numel() for t in params.values()), bytes=size,
+               save_s=save_s, load_s=load_s, bits_differ=gap[0],
+               save_gb_s=size / save_s / 1e9, load_gb_s=size / load_s / 1e9)
+    log("nd.save / nd.load of GPT-2 small's %d parameters in %s (%d bytes) "
+        "on %s: save %.3f s (%.2f GB/s), load %.3f s (%.2f GB/s); %d "
+        "elements differ in their bits" % (
+            res["params"], DTYPE_NAME[dtype], size,
+            torch.cuda.get_device_name(0), save_s, res["save_gb_s"], load_s,
+            res["load_gb_s"], gap[0]))
+    if gap[0]:
+        raise AssertionError("nd.load gave other bits than nd.save wrote "
+                             "(%s)" % DTYPE_NAME[dtype])
+    del params, arrays, back
+    free_card()
+    return res
+
+
+def phase_checkpoint(card):
+    """Phase 19: ResNet-50 Module (SGD momentum) and Gluon (Adam) resumed
+    from a checkpoint on the card, in fp32 (TF32 off) and bf16, with
+    cuDNN in its deterministic mode for this phase; the files' sizes and
+    the save and load seconds; GPT-2 small's parameters through
+    ``nd.save``/``nd.load`` in fp32, bf16 and fp16."""
+    import tempfile
+    import mxnet_tpu_torch as mt
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"card": card, "steps": CKPT_STEPS, "batch": RESNET_BATCH,
+           "cudnn_deterministic": True}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for dtype in (torch.float32, torch.bfloat16):
+                flags = tf32_flags() if dtype == torch.float32 else "bf16"
+                for kind, runs, replays in (
+                        ("module_sgd", checkpoint_module_runs, 1),
+                        ("gluon_adam", checkpoint_gluon_runs, 3)):
+                    what = "phase 19 ResNet-50 %s %s (%s), batch %d, on %s" \
+                        % (kind, DTYPE_NAME[dtype], flags, RESNET_BATCH,
+                           card)
+                    res = runs(mt.gpu(0), dtype, tmp)
+                    out.setdefault(kind, {})[DTYPE_NAME[dtype]] = \
+                        resume_verdict(what, res, replays)
+                    del res
+                    free_card()
+            out["nd_save_load"] = {DTYPE_NAME[dt]: nd_save_load_timing(
+                tmp, dt) for dt in (torch.float32, torch.bfloat16,
+                                    torch.float16)}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return out
+
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2570,6 +2943,7 @@ def main():
     captured_vs_eager["rules"] = {
         DTYPE_NAME[dt]: phase_resnet_rules(dt)
         for dt in (torch.float32, torch.bfloat16)}
+    checkpoint = phase_checkpoint(card)
     lm_train, train_launches = {}, {}
     for dt in LM_TRAIN_DTYPES:
         lm_train[dt], train_launches[dt] = phase_lm_train(dt)
@@ -2701,6 +3075,7 @@ def main():
         "card": card, "config": PYTHIA_31M, "batch": PYTHIA_BATCH,
         "seq": PYTHIA_SEQ,
         "runs": {DTYPE_NAME[dt]: r for dt, r in pythia.items()}}}))
+    print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,9 @@ scale kernel (``ops.scale``); the ResNet training path -- ``gluon``
 (``NDArrayIter``), ``metric`` and ``mod`` (``Module`` with its fused
 train step).  On the card each training step replays CUDA graphs
 captured once (``capture``, with the counters of ``profiler``).
+Serialization reads and writes the JAX package's files: ``nd.save``/
+``load`` over ``stream``, Symbol JSON, ``model`` checkpoints, optimizer
+and ``Trainer`` states, with the epoch ``callback``s.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from . import autograd, random, ndarray, symbol, executor, rtc
 from . import capture, profiler
 from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
+from . import stream, model, callback
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -39,4 +43,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
            "capture", "profiler",
            "lr_scheduler",
-           "test_utils", "io", "metric", "gluon", "module", "mod"]
+           "test_utils", "io", "metric", "gluon", "module", "mod",
+           "stream", "model", "callback"]

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "np_dtype", "dtype_name"]
+__all__ = ["MXNetError", "torch_dtype", "np_dtype", "dtype_name",
+           "DTYPE_TO_CODE", "CODE_TO_DTYPE"]
 
 
 class MXNetError(Exception):
@@ -24,6 +25,15 @@ _TORCH_TO_NP = {
     torch.uint8: np.dtype(np.uint8), torch.bool: np.dtype(np.bool_),
 }
 _NP_TO_TORCH = {v: k for k, v in _TORCH_TO_NP.items()}
+
+# mshadow type codes (reference mshadow/base.h TypeFlag), which the binary
+# NDArray format stores (``mxnet_tpu/base.py:41-50``); bfloat16 takes the
+# JAX package's code 7.
+DTYPE_TO_CODE = {
+    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.uint8: 3,
+    torch.int32: 4, torch.int8: 5, torch.int64: 6, torch.bfloat16: 7,
+}
+CODE_TO_DTYPE = {v: k for k, v in DTYPE_TO_CODE.items()}
 
 
 def torch_dtype(dtype):

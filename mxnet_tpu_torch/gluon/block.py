@@ -167,6 +167,18 @@ class Block:
             ret.update(child.collect_params())
         return ret
 
+    def save_params(self, filename):
+        """Write the parameters to ``filename``, named without this block's
+        prefix (reference ``gluon/block.py:165``)."""
+        self.collect_params().save(filename, strip_prefix=self.prefix)
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        """Set the parameters from a :meth:`save_params` file, in place: a
+        hybridized block's captured programs replay on the new values."""
+        self.collect_params().load(filename, ctx, allow_missing,
+                                   ignore_extra, self.prefix)
+
     def register_child(self, block):
         self._children.append(block)
 

@@ -86,8 +86,7 @@ def run_fused_step(trainer, slots):
     global _fused_updates
     opt, updater = trainer._optimizer, trainer._updater
     for slot, param in slots:
-        if slot not in updater.states:
-            updater.states[slot] = opt.create_state(slot, param.data())
+        updater.state_for(slot, param.data())
         opt._update_count(slot)
     lrs = [opt._get_lr(slot) for slot, _ in slots]
     wds = [opt._get_wd(slot) for slot, _ in slots]

@@ -7,8 +7,10 @@ the stale-gradient flag ``_fresh_grad`` that backward sets and
 ``Trainer.step`` clears, and the prefixed registry ``ParameterDict``.
 As in the JAX package a Parameter owns one NDArray on one context.
 ``cast`` gives the NDArray a new tensor of the new dtype (an in-place
-copy would keep the old one).  Saving and loading parameter files waits
-for ``nd.save``/``load``.
+copy would keep the old one).  ``ParameterDict.save``/``load``
+(``:369-400``) write and read ``nd.save`` files; ``set_data`` copies a
+loaded value into the Parameter's own tensor, in place, so a captured
+program that reads it replays on the new value.
 """
 from __future__ import annotations
 
@@ -293,4 +295,47 @@ class ParameterDict:
             init = initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every Parameter's value to ``filename`` (``nd.save``), named
+        without ``strip_prefix``."""
+        arg_dict = {}
+        for param in self.values():
+            weight = param.data()
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix %s is to be striped before saving, but "
+                    "Parameter %s does not start with it"
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = weight
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set each Parameter from ``filename``, its names read with
+        ``restore_prefix`` before them (an ``arg:``/``aux:`` tag dropped).
+        A Parameter not yet initialized is made on ``ctx`` (default: its
+        own or the current context)."""
+        loaded = nd.load(filename)
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise IOError(
+                        "Parameter %s is missing in file %s"
+                        % (name, filename))
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        for name in arg_dict:
+            if name not in self._params:
+                if not ignore_extra:
+                    raise IOError(
+                        "Parameter %s loaded from file %s is not present "
+                        "in ParameterDict" % (name, filename))
+                continue
+            param = self[name]
+            if ctx and param._data is None and not param._deferred_init:
+                param._ctx_list = list(ctx)
+            param.set_data(arg_dict[name])
 

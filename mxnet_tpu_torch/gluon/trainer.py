@@ -14,14 +14,20 @@ path.
 Every Parameter must live on one context; a kvstore over one context is
 the identity, so the specs ``None``, ``"device"`` and ``"local"`` are
 taken and nothing is reduced.  Several contexts, another kvstore or a
-kvstore instance raise ``MXNetError`` (ROADMAP A.7), and so do
-``save_states``/``load_states`` (serialization, A.3).
+kvstore instance raise ``MXNetError`` (ROADMAP A.7).
+
+``save_states``/``load_states`` (reference ``:265-310``) write and read
+the JAX package's versioned states file: the Updater's states and the
+per-slot update counts that Adam's bias correction reads, so a resumed
+step continues where the saved run stood.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
+from .. import _pickle
 from .. import capture
 from .. import optimizer as opt
+from ..stream import open_stream
 from . import fused_trainer as _fused
 from .parameter import Parameter, ParameterDict
 
@@ -133,9 +139,37 @@ class Trainer:
             self._updater(slot, param.grad(), param.data())
 
     def save_states(self, fname):
-        raise MXNetError("Trainer.save_states: serialization is not ported "
-                         "yet (ROADMAP A.3)")
+        """Write the optimizer's states and update counts to ``fname``: a
+        pickled dict ``{"__mxnet_trainer_states__": 2, "updater": <the
+        Updater's states pickle>, "index_update_count": {slot: n},
+        "num_update": n}``, which either package reads."""
+        if self._optimizer is None:
+            raise AssertionError("trainer has no optimizer")
+        payload = {
+            "__mxnet_trainer_states__": 2,
+            "updater": self._updater.get_states(),
+            "index_update_count":
+                {int(k): int(v) for k, v in
+                 self._optimizer._index_update_count.items()},
+            "num_update": int(self._optimizer.num_update),
+        }
+        with open_stream(fname, "wb") as fh:
+            fh.write(_pickle.dumps(payload))
 
     def load_states(self, fname):
-        raise MXNetError("Trainer.load_states: serialization is not ported "
-                         "yet (ROADMAP A.3)")
+        """Restore what :meth:`save_states` wrote, or a legacy file (the
+        Updater's states pickle alone, which carries no counts).  The
+        next step's captured update captures again, once, over the new
+        states."""
+        with open_stream(fname, "rb") as fh:
+            payload = _pickle.loads(fh.read())
+        if isinstance(payload, dict) \
+                and "__mxnet_trainer_states__" in payload:
+            self._updater.set_states(payload["updater"])
+            self._optimizer = self._updater.optimizer
+            self._optimizer._index_update_count = \
+                dict(payload["index_update_count"])
+            self._optimizer.num_update = int(payload["num_update"])
+        else:
+            self._updater.set_states_payload(payload)
+            self._optimizer = self._updater.optimizer

@@ -2,9 +2,9 @@
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (``BaseModule`` :74,
 ``_fit_step`` :95, ``fit`` :102, ``score`` :180, ``iter_predict`` :205,
-``predict`` :217), written in terms of the primitives a subclass
-implements (``bind``, ``forward``, ``backward``, ``update``, ...).
-Checkpoint hooks, monitors and parameter files are not ported yet.
+``predict`` :217, ``save_params``/``load_params`` :258-280), written in
+terms of the primitives a subclass implements (``bind``, ``forward``,
+``backward``, ``update``, ...).  Monitors are not ported yet.
 """
 from __future__ import annotations
 
@@ -184,6 +184,29 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        """Write the parameters to ``fname`` as one ``nd.save`` dict, named
+        ``arg:<name>`` and ``aux:<name>``."""
+        arg_params, aux_params = self.get_params()
+        blob = {}
+        for prefix, group in (("arg:", arg_params), ("aux:", aux_params)):
+            for name, array in group.items():
+                blob[prefix + name] = array
+        nd.save(fname, blob)
+
+    def load_params(self, fname):
+        """Read parameters written by :meth:`save_params`."""
+        arg_params, aux_params = {}, {}
+        for key, array in nd.load(fname).items():
+            kind, _, name = key.partition(":")
+            if kind == "arg":
+                arg_params[name] = array
+            elif kind == "aux":
+                aux_params[name] = array
+            else:
+                raise ValueError("unrecognised key %r in %s" % (key, fname))
+        self.set_params(arg_params, aux_params)
 
     def _require_ready(self):
         if not (self.binded and self.params_initialized):

@@ -67,13 +67,11 @@ class CachedTrainStep:
             for n in _topo(executor._symbol._outputs))
 
     def _ensure_states(self):
-        """Optimizer state made through the Updater, as the two-call path
-        makes it."""
+        """Optimizer state through the Updater, as the two-call path makes
+        it (and moves a loaded one)."""
         for name in self._pnames:
-            idx = self._pidx[name]
-            if idx not in self._updater.states:
-                self._updater.states[idx] = self._opt.create_state(
-                    idx, self._exec.arg_dict[name])
+            self._updater.state_for(self._pidx[name],
+                                    self._exec.arg_dict[name])
 
     def run(self, feed):
         """One step; ``feed`` maps data and label names to NDArrays.

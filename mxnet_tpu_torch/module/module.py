@@ -13,9 +13,16 @@ backward and the update of every parameter in one call through
 or the setup does not allow it; then it calls ``forward_backward`` and
 ``update``.
 
+Checkpoints (``load`` :84, ``save_checkpoint`` :94, the optimizer
+states :105-120): ``prefix-symbol.json``, ``prefix-NNNN.params`` and
+``prefix-NNNN.states`` in the formats both packages read
+(``model.py``, ``Updater.get_states``).  ``Module.load(...,
+load_optimizer_states=True)`` installs the states at
+``init_optimizer``.
+
 :func:`params_from_jax` carries the JAX package's ``get_params()`` over
 as numpy arrays.  One context only (the kvstore slice is not ported);
-checkpoints, ``reshape`` caching and monitors are not ported yet.
+monitors are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from ..base import MXNetError, dtype_name
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
+from ..model import load_checkpoint
+from ..stream import open_stream
 from ..initializer import Uniform, InitDesc
 from ..io import DataDesc
 from .base_module import BaseModule, _check_input_names
@@ -72,8 +81,50 @@ class Module(BaseModule):
         self._arg_params = self._aux_params = None
         self._params_dirty = False
         self._optimizer = self._updater = None
+        self._preload_opt_states = None
         self._cached_step, self._cached_step_unusable = None, False
         self._exec_group = self._data_shapes = self._label_shapes = None
+
+    # -- checkpoints -----------------------------------------------------------
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module from ``prefix-symbol.json`` and ``prefix-%04d.params``
+        (``kwargs`` go to the constructor); bind it and call
+        ``init_optimizer``, which installs ``prefix-%04d.states`` where
+        ``load_optimizer_states``."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write the symbol, the parameters and, where asked, the optimizer
+        states of ``epoch``."""
+        self._symbol.save(prefix + "-symbol.json")
+        params_file = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(params_file)
+        logging.info('Saved checkpoint to "%s"', params_file)
+        if save_optimizer_states:
+            states_file = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(states_file)
+            logging.info('Saved optimizer state to "%s"', states_file)
+
+    def save_optimizer_states(self, fname):
+        if not self.optimizer_initialized:
+            raise AssertionError("optimizer not initialized")
+        with open_stream(fname, "wb") as fh:
+            fh.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Install the states of ``fname``; a captured step that held the
+        old ones captures again at its next step."""
+        if not self.optimizer_initialized:
+            raise AssertionError("optimizer not initialized")
+        with open_stream(fname, "rb") as fh:
+            self._updater.set_states(fh.read())
 
     output_names = property(lambda self: self._output_names)
     data_names = property(lambda self: self._data_names)
@@ -250,6 +301,9 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self._cached_step, self._cached_step_unusable = None, False
         self.optimizer_initialized = True
+        if self._preload_opt_states:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- computation ---------------------------------------------------------
     def forward(self, data_batch, is_train=None):

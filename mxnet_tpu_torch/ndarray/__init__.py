@@ -1,7 +1,8 @@
 """``nd`` namespace: NDArray and the generated operator functions.
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py:21-86``: one function per
-registered op, made from the registry at import.  Public
+registered op, made from the registry at import, and ``save``/``load``
+(``utils``).  Public
 (non-underscore) ops land in this namespace; every op lands in
 ``mxnet_tpu_torch.ndarray._internal``.  Kernels registered later by
 ``rtc.register`` are added the same way.
@@ -14,6 +15,7 @@ import types
 
 from .ndarray import (NDArray, array, zeros, ones, full, empty, invoke,
                       concatenate, params_from_jax)
+from .utils import save, load, save_to_bytes, load_from_bytes
 from ..ops.registry import OP_REGISTRY
 
 
@@ -67,4 +69,5 @@ for _name, _op in OP_REGISTRY.items():
 sys.modules[__name__ + "._internal"] = _internal
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
-           "concatenate", "params_from_jax"]
+           "concatenate", "params_from_jax", "save", "load", "save_to_bytes",
+           "load_from_bytes"]

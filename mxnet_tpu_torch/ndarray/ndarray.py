@@ -140,6 +140,13 @@ class NDArray:
         return "%s\n<NDArray %s @%s>" % (
             self.asnumpy(), "x".join(str(s) for s in self.shape), self._ctx)
 
+    def __reduce__(self):
+        """A plain pickle of this package: the tensor on the host and the
+        context, restored there.  Optimizer-state files use the form that
+        both packages read instead (``_pickle.dumps``)."""
+        return (_nd_rebuild, (self._data.detach().cpu(),
+                              self._ctx.device_type, self._ctx.device_id))
+
     # -- conversion / copy -------------------------------------------------
     def _derive(self, fn):
         """``fn(tensor)`` as a new NDArray that owns its storage (a copy
@@ -293,6 +300,31 @@ class NDArray:
             v = value
         with torch.no_grad():
             self._data[key] = v  # casts to this array's dtype
+
+
+def _nd_rebuild(tensor, device_type, device_id):
+    ctx = Context(device_type, device_id)
+    return NDArray(tensor.to(ctx.torch_device), ctx)
+
+
+def _nd_unpickle(npy, dev_type, dev_id, stype):
+    """An NDArray from the JAX package's pickled form
+    (``mxnet_tpu/ndarray/ndarray.py:462``), which ``_pickle.loads`` maps
+    to this function: on ``cpu(0)`` whatever context the file names (an
+    optimizer state moves to its weight's context at its next update).
+    ``npy`` is a numpy array, or a ``_pickle.HostArray`` of raw bfloat16
+    words."""
+    if stype != "default":
+        raise MXNetError("sparse NDArray load not supported yet")
+    bf16 = getattr(npy, "bfloat16", False)
+    host = np.array(npy, dtype=np.int16 if bf16 else None, order="C")
+    try:
+        tensor = torch.from_numpy(host)
+    except TypeError as e:
+        raise MXNetError("cannot load an NDArray of dtype %s" % host.dtype) \
+            from e
+    return NDArray(tensor.view(torch.bfloat16) if bf16 else tensor,
+                   Context("cpu", 0))
 
 
 def invoke(op, inputs, attrs, out=None):

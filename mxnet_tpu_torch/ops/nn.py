@@ -70,14 +70,14 @@ def _window_sum(x, kernel, stride):
 @register("Pooling", aliases=["Pooling_v1"])
 def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
              pad=(), pooling_convention="valid", count_include_pad=True,
-             **kw):
+             p_value=2, **kw):
     nd = data.ndim - 2
     if global_pool:
         kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
     kernel = _tup(kernel, nd)
     stride = _tup(stride or 1, nd)
     pad = _tup(pad or 0, nd)
-    if pool_type not in ("max", "avg", "sum"):
+    if pool_type not in ("max", "avg", "sum", "lp"):
         raise ValueError("unknown pool_type %s" % pool_type)
     extra = [0] * nd
     if pooling_convention == "full":
@@ -90,7 +90,8 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
             out = math.ceil((size + 2 * pad[i] - kernel[i]) / stride[i]) + 1
             extra[i] = max(0, (out - 1) * stride[i] + kernel[i] - size
                            - 2 * pad[i])
-    if not any(extra) and all(2 * p <= k for p, k in zip(pad, kernel)):
+    if pool_type != "lp" and not any(extra) \
+            and all(2 * p <= k for p, k in zip(pad, kernel)):
         # torch pads these itself, as the JAX package does: -inf for max,
         # zeros counted (count_include_pad) or not for avg and sum
         if pool_type == "max":
@@ -107,6 +108,11 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
         fill = -math.inf if data.is_floating_point() \
             else torch.iinfo(data.dtype).min
         return _MAX_POOL[nd](F.pad(data, widths, value=fill), kernel, stride)
+    if pool_type == "lp":
+        # (sum |x|^p)^(1/p) over each window, the padding counting zeros
+        p = float(p_value)
+        total = _window_sum(F.pad(data.abs() ** p, widths), kernel, stride)
+        return total ** (1.0 / p)
     total = _window_sum(F.pad(data, widths), kernel, stride)
     if pool_type == "sum":
         return total

@@ -34,12 +34,12 @@ quotient).  No update reads anything back from the device.
 from __future__ import annotations
 
 import math
-import pickle
 
 import numpy as np
 import torch
 
 from .base import MXNetError
+from . import _pickle
 from . import ndarray as nd
 from .ops import optim_ops as _kern
 
@@ -99,6 +99,17 @@ def _state_writeback(state, new_raw):
         return
     for slot, val in zip(state, new_raw):
         _state_writeback(slot, val)
+
+
+def _state_to(state, ctx):
+    """A state structure with every NDArray on ``ctx``: the structure
+    itself where it is there already, else one with copies."""
+    if state is None:
+        return None
+    if isinstance(state, nd.NDArray):
+        return state if state.context == ctx else state.copyto(ctx)
+    moved = tuple(_state_to(s, ctx) for s in state)
+    return state if all(m is s for m, s in zip(moved, state)) else moved
 
 
 def _zeros_like(weight, dtype=None):
@@ -1081,21 +1092,43 @@ class TracedHyper:
 
 class Updater:
     """Per-index stateful wrapper (reference ``get_updater``): creates the
-    optimizer state of an index at its first update; ``get_states`` and
-    ``set_states`` carry the states (and the optimizer) as a pickle, in
-    memory."""
+    optimizer state of an index at its first update.  ``get_states`` and
+    ``set_states`` carry the states as a pickle that the JAX package's
+    ``Updater`` reads and writes too (``_pickle``; reference
+    ``mxnet_tpu/optimizer.py:685-722``): ``{index: state}``, a state
+    being an NDArray (SGD's momentum), a tuple of them (Adam's ``(mean,
+    var)``, multi-precision SGD's ``(momentum, weight32)``) or None.  A
+    loaded state lands on ``cpu(0)`` and moves to its weight's context
+    at the next update (:meth:`state_for`), a new tensor there, so a
+    captured step that held the old one captures again, once."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
 
-    def __call__(self, index, grad, weight):
+    def state_for(self, index, weight):
+        """The state of ``index`` on ``weight``'s context: made at the
+        index's first update, moved where ``set_states`` left it
+        elsewhere."""
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+        else:
+            self.states[index] = _state_to(self.states[index],
+                                           weight.context)
+        return self.states[index]
+
+    def __call__(self, index, grad, weight):
+        self.optimizer.update(index, weight, grad,
+                              self.state_for(index, weight))
 
     def set_states(self, states):
-        payload = pickle.loads(states)
+        """Install the states of a ``get_states`` pickle (either
+        package's)."""
+        self.set_states_payload(_pickle.loads(states))
+
+    def set_states_payload(self, payload):
+        """Install an already decoded ``get_states`` payload: the states,
+        or a (states, optimizer) pair whose optimizer is None."""
         if isinstance(payload, tuple) and len(payload) == 2:
             self.states, maybe_opt = payload
             if maybe_opt is not None:
@@ -1104,8 +1137,14 @@ class Updater:
             self.states = payload
 
     def get_states(self, dump_optimizer=False):
-        return pickle.dumps((self.states, self.optimizer) if dump_optimizer
-                            else self.states)
+        """The states as a pickle that either package's ``set_states``
+        reads.  ``dump_optimizer`` (the optimizer pickled beside them, for
+        the kvstore's server, ROADMAP A.7) raises: a pickled optimizer
+        names this package's classes, which no restricted reader takes."""
+        if dump_optimizer:
+            raise MXNetError("Updater.get_states(dump_optimizer=True) is not "
+                             "ported (ROADMAP A.7)")
+        return _pickle.dumps(self.states)
 
 
 def get_updater(optimizer):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import sys
 import types
 
-from .symbol import Symbol, SymNode, var, Variable, Group
+from .symbol import Symbol, SymNode, var, Variable, Group, load, load_json
 from .op_meta import op_input_names, HINTS
 from ..ops.registry import OP_REGISTRY
 from .. import name as _name_mod
@@ -71,4 +71,5 @@ for _name, _op in OP_REGISTRY.items():
         setattr(_this, _name, _fn)
 sys.modules[__name__ + "._internal"] = _internal
 
-__all__ = ["Symbol", "SymNode", "var", "Variable", "Group"]
+__all__ = ["Symbol", "SymNode", "var", "Variable", "Group", "load",
+           "load_json"]

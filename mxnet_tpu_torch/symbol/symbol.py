@@ -4,20 +4,24 @@ Counterpart of ``mxnet_tpu/symbol/symbol.py:36-480``.  A Symbol is a small
 Python DAG over the same op registry the eager path uses.  Shape and
 dtype inference runs each op's own function on ``meta`` tensors (torch's
 shape-only device), so inference cannot diverge from execution; binding
-(``executor.py``) interprets the graph node by node.  JSON save/load is
-not ported yet.
+(``executor.py``) interprets the graph node by node.  ``tojson``/``save``
+write MXNet's symbol JSON as the JAX package writes it (``:408-432``),
+and ``load_json``/``load`` read it, upgrading the legacy dialects as the
+JAX package does (``:514-600``).
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype, np_dtype, dtype_name
-from ..ops.registry import get_op, attr_to_string
+from ..ops.registry import get_op, attr_to_string, parse_attr_string
 from .. import name as _name_mod
-from .op_meta import infer_param_shapes, HINTS
+from .op_meta import infer_param_shapes, op_input_names, HINTS
 
-__all__ = ["Symbol", "var", "Variable", "Group"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
 
 
 class SymNode:
@@ -326,6 +330,37 @@ class Symbol:
                 [f(n) for n, _ in self._outputs],
                 [f(n) for n in self._aux_nodes()])
 
+    # -- serialization -----------------------------------------------------
+    def tojson(self):
+        """The graph as MXNet's symbol JSON: nodes in topological order,
+        their attrs as strings, ``arg_nodes``, ``heads`` and
+        ``mxnet_version`` 1200 (``attrs.framework`` names this package)."""
+        nodes = _topo(self._outputs)
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            jnodes.append({
+                "op": "null" if n.op is None else n.op.name,
+                "name": n.name,
+                "attrs": {k: attr_to_string(v) for k, v in n.attrs.items()},
+                "inputs": [[nid[id(s)], oi, 0] for s, oi in n.inputs],
+            })
+        graph = {
+            "nodes": jnodes,
+            "arg_nodes": [i for i, n in enumerate(nodes) if n.op is None],
+            "heads": [[nid[id(n)], oi, 0] for n, oi in self._outputs],
+            "attrs": {"mxnet_version": ["int", 1200],
+                      "framework": ["str", "mxnet_tpu_torch"]},
+        }
+        return json.dumps(graph, indent=2)
+
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` (a path or a scheme URI,
+        :mod:`mxnet_tpu_torch.stream`)."""
+        from ..stream import open_stream
+        with open_stream(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- binding (implemented in executor.py) ------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
@@ -370,3 +405,68 @@ def Group(symbols):
     for s in symbols:
         outs.extend(s._outputs)
     return Symbol(outs)
+
+
+def load_json(json_str):
+    """A Symbol from symbol JSON, of this package, of the JAX package or of
+    MXNet (legacy dialects upgraded, :func:`_upgrade_json`).  A variable
+    that feeds an op's auxiliary input is an auxiliary state."""
+    graph = _upgrade_json(json.loads(json_str))
+    nodes = [SymNode(None if jn["op"] == "null" else get_op(jn["op"]),
+                     jn["name"],
+                     {k: parse_attr_string(v)
+                      for k, v in _node_attrs(jn).items()}, [])
+             for jn in graph["nodes"]]
+    for jn, node in zip(graph["nodes"], nodes):
+        node.inputs = [(nodes[i], oi) for i, oi, *_ in jn["inputs"]]
+        if node.op is not None:
+            _, aux_names = op_input_names(node.op, node.attrs)
+            first_aux = len(node.inputs) - len(aux_names)
+            for pos, (src, _) in enumerate(node.inputs):
+                if pos >= first_aux and src.op is None:
+                    src.is_aux = True
+    return Symbol([(nodes[i], oi) for i, oi, *_ in graph["heads"]])
+
+
+def _node_attrs(jn):
+    """Node attr dict across JSON generations: modern ``attrs``, 0.9-era
+    ``attr``, pre-0.9 ``param`` (reference legacy_json_util.cc upgrades the
+    same progression in place)."""
+    return jn.get("attrs") or jn.get("attr") or jn.get("param") or {}
+
+
+def _upgrade_json(graph):
+    """Upgrade legacy symbol JSON in place, as the JAX package does
+    (``mxnet_tpu/symbol/symbol.py:547-583``, after the reference's
+    src/nnvm/legacy_json_util.cc): (a) node attrs under ``attr`` or
+    ``param`` move to ``attrs``; (b) a variable's flat metadata
+    (``init``, ``lr_mult``, ``wd_mult``, ``dtype``, ``shape``) takes its
+    ``__key__`` form; (c) before 0.9, variable metadata left on the
+    consuming op node (``init``, ``lr_mult``, ``wd_mult``) takes it too,
+    while an op's own ``dtype``/``shape`` stay."""
+    version = 0
+    g_attrs = graph.get("attrs") or {}
+    if isinstance(g_attrs.get("mxnet_version"), (list, tuple)) \
+            and len(g_attrs["mxnet_version"]) == 2:
+        version = int(g_attrs["mxnet_version"][1])
+    for jn in graph.get("nodes", []):
+        attrs = _node_attrs(jn)
+        if jn.get("op") == "null":
+            for key in ("init", "lr_mult", "wd_mult", "dtype", "shape"):
+                if key in attrs:
+                    attrs["__%s__" % key] = attrs.pop(key)
+        elif version < 900:
+            for key in ("init", "lr_mult", "wd_mult"):
+                if key in attrs:
+                    attrs["__%s__" % key] = attrs.pop(key)
+        jn.pop("param", None)
+        jn.pop("attr", None)
+        jn["attrs"] = attrs
+    return graph
+
+
+def load(fname):
+    """A Symbol from a JSON file (a path or a scheme URI)."""
+    from ..stream import open_stream
+    with open_stream(fname, "r") as f:
+        return load_json(f.read())

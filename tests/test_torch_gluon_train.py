@@ -722,10 +722,6 @@ def test_trainer_refusals():
         for kv in ("dist_sync", "nccl", object()):
             with pytest.raises(MXNetError, match="A.7"):
                 mt.gluon.Trainer(params, "sgd", kvstore=kv)
-        trainer = mt.gluon.Trainer(params, "sgd")
-        for call in (trainer.save_states, trainer.load_states):
-            with pytest.raises(MXNetError, match="A.3"):
-                call("states")
         two = mt.gluon.nn.Dense(2, in_units=3)
         two.initialize(ctx=[mt.cpu(0), mt.cpu(1)])
         trainer = mt.gluon.Trainer(two.collect_params(), "sgd")

@@ -15,7 +15,7 @@ from mxnet_tpu_torch.models import transformer as tt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mxnet_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "mxnet_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "mxnet_tpu", "ml_dtypes"}
 
 
 def _port_files():
@@ -43,7 +43,9 @@ def test_import_leaves_no_jax_in_a_clean_process():
             "mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.test_utils, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.block, "
-            "mxnet_tpu_torch.gluon.fused_trainer; "
+            "mxnet_tpu_torch.gluon.fused_trainer, mxnet_tpu_torch.stream, "
+            "mxnet_tpu_torch.model, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch._pickle, mxnet_tpu_torch.ndarray.utils; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (sorted(FORBIDDEN),))
     env = dict(os.environ, PYTHONPATH=REPO)
