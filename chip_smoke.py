@@ -166,9 +166,40 @@ before it captures, and those runs launch the kernels too
    its untied output projection) in fp32, bf16 and fp16 is timed and
    held bit for bit.
 
+20. The vision zoo at full width (after phase 14): (a) Inception-v3
+   (``get_model("inceptionv3")``, 1000 classes) traced on
+   ``sym.Variable`` with ``SoftmaxOutput``, bound by ``Module`` as
+   ``examples/train_inception_v3.py`` binds it (Xavier, SGD lr 0.05,
+   momentum 0.9, wd 1e-4), batch 32 at 299 x 299, fp32 (TF32 off) and
+   bf16, captured and eager in turn: 5 warm-up and 30 timed steps (1
+   replay a step captured, no capture), its ``Dropout(0.5)`` live in the
+   captured step; (b) AlexNet through Gluon (``hybridize()``,
+   ``SoftmaxCrossEntropyLoss``, ``Trainer("sgd")``) at the reference's
+   per-GPU batch of 512, 224 x 224, both ``Dropout(0.5)`` live, 3
+   replays a timed step; two recorded forwards of one batch must differ
+   and two predict forwards agree, and AlexNet's own Dropout block at
+   the classifier's shape must draw a new mask on each replay, keep a
+   fraction within 5 sigma of 0.5 and put its backward's zeros where its
+   forward's are (whether an eager call and a captured replay from one
+   generator state draw the same mask is printed); ms/step, img/s, peak
+   memory and the share of peak at the FLOPs of ``ZOO_FWD_FLOPS``; (c)
+   scoring at batch 32 (``ZOO_SCORE_MODELS``, median of 10), fp32 and
+   bf16; (d) one model of each family (``ZOO_PARITY_MODELS``) card
+   against CPU in fp64 at batch 2 from one init, every Dropout rate 0:
+   the predict-mode logits and one SGD step's gradients, weights and
+   moving statistics, held to ``ZOO_PARITY_TOL``.
+21. The op sweep: every case of ``test_utils.op_cases`` (one or more for
+   each op of the elemwise, reduce, matrix and nn modules) on the card
+   against the CPU, forward and gradients, fp32 (TF32 off) at each
+   case's tolerance and the unary, reduce, dot and batch_dot cases again
+   in bf16; each random op's 10^6 draws on the card within 5 standard
+   errors of its distribution's mean and variance.
+
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
-line, phase 19's as one ``{"checkpoint": {...}}`` line, the
+line, phase 19's as one ``{"checkpoint": {...}}`` line, phase 20's as
+one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
+"worst": [...]}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -186,6 +217,7 @@ import os
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 # atol per dtype.  fp32: the kernel and the plain version both sum in fp32,
@@ -2917,6 +2949,444 @@ def phase_checkpoint(card):
     return out
 
 
+# -- phase 20: the vision zoo at full width -----------------------------------
+# The reference's published per-GPU training configurations
+# (example/image-classification/README.md): Inception-v3 at batch 32
+# (299 x 299) and AlexNet at batch 512 (224 x 224), 1000 classes.
+# Inception-v3 goes through Module as examples/train_inception_v3.py
+# builds it (SGD lr 0.05, momentum 0.9, wd 1e-4, Xavier), AlexNet through
+# Gluon.  FLOPs counted from the graph's convolution and FC shapes (a
+# multiply-add is two): forward 11.46 GFLOP/img for Inception-v3 and 1.43
+# for AlexNet; a training step is three forwards.
+INCEPTION_BATCH, INCEPTION_IMAGE, INCEPTION_LR = 32, 299, 0.05
+ALEXNET_BATCH, ALEXNET_IMAGE = 512, 224
+ZOO_WARMUP, ZOO_STEPS = 5, 30
+ZOO_FWD_FLOPS = {"inceptionv3": 11.46e9, "alexnet": 1.43e9}
+# scoring at batch 32, 224 x 224, median of 10 forwards after 3
+ZOO_SCORE_MODELS = ("vgg16", "vgg16_bn", "densenet121", "squeezenet1.1",
+                    "mobilenet1.0")
+ZOO_SCORE_BATCH, ZOO_SCORE_RUNS = 32, 10
+# card against CPU (d): one model of each family, batch 2, fp64, one init,
+# every Dropout rate 0.  Each limit lies about two orders of magnitude
+# above the largest difference of the sound runs on the H100 and far below
+# what a fault reads.  The forward in predict mode, 1e-13 of
+# max(1, |logit|) (read: at most 5.7e-16).  The gradients of one SGD
+# step, relative to the largest gradient of their parameter, 1e-8 (read:
+# at most 2.4e-10, fp64 sums in other orders amplified by BatchNorm over
+# two samples).  The weights and the moving statistics after the step,
+# 1e-10 of max(1, |value|) (read: at most 9.8e-13 and 3.7e-14); the
+# weight-decay share of the step alone, lr * wd * |w|, is about 1e-6, and
+# a moving statistic's share of the batch's is 0.1 of it.
+ZOO_PARITY_MODELS = (("alexnet", 224), ("vgg11", 224),
+                     ("inceptionv3", 299), ("densenet121", 224),
+                     ("squeezenet1.1", 224), ("mobilenet1.0", 224))
+ZOO_PARITY_TOL = dict(logits=1e-13, grads=1e-8, params=1e-10, aux=1e-10)
+
+
+def _median(times):
+    return sorted(times)[len(times) // 2]
+
+
+def zoo_inception_train(card, dtype):
+    """(a) Inception-v3 through Module at batch 32, captured and eager."""
+    import mxnet_tpu_torch as mt
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    gpu = mt.gpu(0)
+    peak = PEAK_FLOPS[dtype]
+    train_flops = 3 * ZOO_FWD_FLOPS["inceptionv3"]
+    modes = {}
+    for mode in STEP_MODES:
+        mod = resnet_module(gpu, INCEPTION_BATCH, dtype,
+                            image=INCEPTION_IMAGE, model="inceptionv3")
+        resnet_train_setup(mod, optimizer_params=(
+            ("learning_rate", INCEPTION_LR), ("momentum", RESNET_MOMENTUM),
+            ("wd", RESNET_WD)))
+        db = resnet_batch(gpu, INCEPTION_BATCH, dtype,
+                          image=INCEPTION_IMAGE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            warm = _timed(lambda: mod._fit_step(db), ZOO_WARMUP)
+            step = mod._cached_step
+            if step is None or not step._draws:
+                raise AssertionError("Inception-v3 step: CachedTrainStep %s, "
+                                     "its Dropout not drawing"
+                                     % ("missing" if step is None else "on"))
+            counts = counter_snapshot()
+            times = _timed(lambda: mod._fit_step(db), ZOO_STEPS)
+            counts = counter_delta(counts)
+        prob = mod.get_outputs()[0]._data
+        label = db.label[0]._data.long()
+        loss = -torch.log(prob.float().gather(1, label[:, None])).mean() \
+            .item()
+        ms = _median(times)
+        modes[mode] = dict(
+            step_ms_median=ms, step_ms_first5=warm,
+            img_s=INCEPTION_BATCH / ms * 1e3,
+            train_peak_share=train_flops * INCEPTION_BATCH / ms * 1e3 / peak,
+            loss=loss, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            timed_counts=counts)
+        want = dict(graph_captures=0, program_calls=ZOO_STEPS,
+                    graph_replays=ZOO_STEPS if mode == "captured" else 0)
+        log("phase 20a Inception-v3 %s (%s) on %s, batch %d at %d x %d "
+            "through Module (SGD lr %g), %s: ms/step median %.3f, first 5 "
+            "%s, %.1f img/s, %.2f%% of the %g TFLOP/s peak at %.1f "
+            "GFLOP/img; timed steps' counters %s; loss %.4f; peak memory "
+            "%.2f GB"
+            % (DTYPE_NAME[dtype], flags, card, INCEPTION_BATCH,
+               INCEPTION_IMAGE, INCEPTION_IMAGE, INCEPTION_LR, mode, ms,
+               ["%.1f" % t for t in warm], modes[mode]["img_s"],
+               100 * modes[mode]["train_peak_share"], peak / 1e12,
+               train_flops / 1e9, counts, loss, modes[mode]["peak_mem_gb"]))
+        if not math.isfinite(loss):
+            raise AssertionError("non-finite Inception-v3 loss (%s, %s)"
+                                 % (dtype, mode))
+        if counts != want:
+            raise AssertionError("Inception-v3 %s steps: counters %s, want "
+                                 "%s" % (mode, counts, want))
+        del mod, db, prob, step
+        free_card()
+    out = dict(dtype=DTYPE_NAME[dtype], flags=flags, batch=INCEPTION_BATCH,
+               image=INCEPTION_IMAGE, **modes["captured"])
+    out["eager"] = modes["eager"]
+    return out
+
+
+def _probe_masks(drop, x, mode):
+    """One recorded call of the hybridized Dropout block ``drop`` on ``x``
+    (which has a gradient buffer) and its backward with a head of ones:
+    the output's zero pattern and the gradient's, as bool tensors."""
+    import mxnet_tpu_torch as mt
+    with step_mode(mode):
+        with mt.autograd.record():
+            y = drop(x)
+        y.backward(mt.nd.ones(y.shape, ctx=x.context, dtype=x.dtype))
+    return (y._data == 0), (x.grad._data == 0)
+
+
+def zoo_dropout_checks(net, dtype):
+    """(b)'s mask checks on AlexNet's own first Dropout block, called alone
+    at the classifier's shape (batch x 4096) as a hybridized block: two
+    consecutive replays draw different masks; the kept fraction lies
+    within 5 sigma of 0.5; the forward's zeros are the backward's; and,
+    from one generator state, whether the eager call and the captured
+    replay draw the same mask."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    drop = net.classifier[1]
+    drop.hybridize()
+    x = mt.nd.array(np.ones((ALEXNET_BATCH, 4096), np.float32), ctx=gpu,
+                    dtype=dtype)
+    x.attach_grad()
+    gen = mt.random.generator(gpu)
+    state = gen.get_state()
+    eager_fwd, _ = _probe_masks(drop, x, "eager")
+    gen.set_state(state)
+    counts = counter_snapshot()
+    first_fwd, first_bwd = _probe_masks(drop, x, "captured")
+    second_fwd, second_bwd = _probe_masks(drop, x, "captured")
+    counts = counter_delta(counts)
+    n = first_fwd.numel()
+    kept = 1.0 - first_fwd.float().mean().item()
+    sigma = math.sqrt(0.25 / n)
+    res = dict(
+        shape=[ALEXNET_BATCH, 4096], kept_fraction=kept,
+        kept_sigmas=abs(kept - 0.5) / sigma,
+        replays_differ=bool((first_fwd != second_fwd).any().item()),
+        fwd_zeros_are_bwd_zeros=bool(torch.equal(first_fwd, first_bwd)
+                                     and torch.equal(second_fwd, second_bwd)),
+        eager_equals_captured=bool(torch.equal(eager_fwd, first_fwd)),
+        counts=counts)
+    if not res["replays_differ"]:
+        raise AssertionError("two replays of the captured Dropout drew the "
+                             "same mask")
+    if res["kept_sigmas"] > 5:
+        raise AssertionError("Dropout kept %.5f of %d, %.1f sigma from 0.5"
+                             % (kept, n, res["kept_sigmas"]))
+    if not res["fwd_zeros_are_bwd_zeros"]:
+        raise AssertionError("the captured Dropout's backward zeros are not "
+                             "its forward's")
+    return res
+
+
+def zoo_alexnet_train(card, dtype):
+    """(b) AlexNet through Gluon at batch 512, both Dropouts live, captured
+    and eager; the mask checks; two recorded forwards of one batch differ
+    (fresh masks in the whole net) and two predict-mode forwards do not."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon import block, fused_trainer
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    gpu = mt.gpu(0)
+    peak = PEAK_FLOPS[dtype]
+    train_flops = 3 * ZOO_FWD_FLOPS["alexnet"]
+    modes = {}
+    for mode in STEP_MODES:
+        net = gluon_resnet(gpu, dtype, model="alexnet")
+        trainer = gluon_trainer(net)
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        db = resnet_batch(gpu, ALEXNET_BATCH, dtype, image=ALEXNET_IMAGE)
+        res = {}
+
+        def step():
+            res["out"], res["loss"] = gluon_step(net, trainer, loss_fn, db)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            warm = _timed(step, ZOO_WARMUP)
+            block.reset_trace_count()
+            fused_trainer.reset_update_counts()
+            counts = counter_snapshot()
+            times = _timed(step, ZOO_STEPS)
+            counts = counter_delta(counts)
+            traces = block.trace_count()
+            fused = fused_trainer.fused_update_count()
+            x = db.data[0]
+            with mt.autograd.record():
+                a = net(x)._data.clone()
+            with mt.autograd.record():
+                b = net(x)._data.clone()
+            c, d = net(x)._data.clone(), net(x)._data.clone()
+        loss = res["loss"]._data.float().mean().item()
+        ms = _median(times)
+        modes[mode] = dict(
+            step_ms_median=ms, step_ms_first5=warm,
+            img_s=ALEXNET_BATCH / ms * 1e3,
+            train_peak_share=train_flops * ALEXNET_BATCH / ms * 1e3 / peak,
+            loss=loss, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            timed_counts=counts, traces_timed=traces,
+            fused_updates_per_step=fused / ZOO_STEPS,
+            recorded_forwards_differ=bool((a != b).any().item()),
+            predict_forwards_equal=bool(torch.equal(c, d)))
+        replays = 3 if mode == "captured" else 0
+        want = dict(graph_captures=0, graph_replays=replays * ZOO_STEPS,
+                    program_calls=max(replays, 1) * ZOO_STEPS)
+        log("phase 20b AlexNet %s (%s) on %s, batch %d at %d x %d through "
+            "Gluon (hybridize, SoftmaxCrossEntropyLoss, Trainer sgd), "
+            "Dropout live, %s: ms/step median %.3f, first 5 %s, %.1f img/s, "
+            "%.2f%% of the %g TFLOP/s peak at %.2f GFLOP/img; timed steps' "
+            "counters %s; traces %d; loss %.4f; two recorded forwards "
+            "differ: %s, two predict forwards equal: %s; peak memory "
+            "%.2f GB"
+            % (DTYPE_NAME[dtype], flags, card, ALEXNET_BATCH, ALEXNET_IMAGE,
+               ALEXNET_IMAGE, mode, ms, ["%.1f" % t for t in warm],
+               modes[mode]["img_s"], 100 * modes[mode]["train_peak_share"],
+               peak / 1e12, train_flops / 1e9, counts, traces, loss,
+               modes[mode]["recorded_forwards_differ"],
+               modes[mode]["predict_forwards_equal"],
+               modes[mode]["peak_mem_gb"]))
+        if not math.isfinite(loss):
+            raise AssertionError("non-finite AlexNet loss (%s, %s)"
+                                 % (dtype, mode))
+        if counts != want or traces != 0 or fused != ZOO_STEPS:
+            raise AssertionError(
+                "AlexNet %s steps: counters %s (want %s), %d traces, %d "
+                "fused updates in %d steps" % (mode, counts, want, traces,
+                                               fused, ZOO_STEPS))
+        if not modes[mode]["recorded_forwards_differ"] \
+                or not modes[mode]["predict_forwards_equal"]:
+            raise AssertionError("AlexNet's Dropout (%s): recorded forwards "
+                                 "must differ and predict forwards agree"
+                                 % mode)
+        if mode == "captured":
+            masks = zoo_dropout_checks(net, dtype)
+            log("phase 20b AlexNet %s Dropout masks at %s: kept %.5f (%.2f "
+                "sigma), replays differ %s, forward zeros are backward zeros "
+                "%s, eager call and captured replay from one generator state "
+                "draw the same mask: %s; counters %s"
+                % (DTYPE_NAME[dtype], masks["shape"], masks["kept_fraction"],
+                   masks["kept_sigmas"], masks["replays_differ"],
+                   masks["fwd_zeros_are_bwd_zeros"],
+                   masks["eager_equals_captured"], masks["counts"]))
+        del net, trainer, db, res, step, a, b, c, d, x
+        free_card()
+    out = dict(dtype=DTYPE_NAME[dtype], flags=flags, batch=ALEXNET_BATCH,
+               image=ALEXNET_IMAGE, masks=masks, **modes["captured"])
+    out["eager"] = modes["eager"]
+    return out
+
+
+def zoo_scoring(card, dtype):
+    """(c) Scoring at batch 32, 224 x 224: a hybridized net in predict mode,
+    one captured forward a call; median of 10 after 3."""
+    import mxnet_tpu_torch as mt
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    gpu = mt.gpu(0)
+    out = {}
+    for name in ZOO_SCORE_MODELS:
+        net = gluon_resnet(gpu, dtype, model=name)
+        x = resnet_batch(gpu, ZOO_SCORE_BATCH, dtype).data[0]
+        _timed(lambda: net(x), 3)
+        times = _timed(lambda: net(x), ZOO_SCORE_RUNS)
+        logits = net(x)._data.float()
+        ms = _median(times)
+        out[name] = dict(ms_median=ms, img_s=ZOO_SCORE_BATCH / ms * 1e3,
+                         finite=bool(torch.isfinite(logits).all().item()))
+        log("phase 20c %s scoring %s (%s) on %s, batch %d at 224 x 224: "
+            "%.3f ms/batch median of %d, %.1f img/s"
+            % (name, DTYPE_NAME[dtype], flags, card, ZOO_SCORE_BATCH, ms,
+               ZOO_SCORE_RUNS, out[name]["img_s"]))
+        if not out[name]["finite"]:
+            raise AssertionError("%s scored non-finite logits" % name)
+        del net, x, logits
+        free_card()
+    return out
+
+
+def _zoo_parity_run(ctx, name, size, params, x, y):
+    """Predict-mode logits, then one SGD step's gradients and the weights
+    and moving statistics after it, fp64 on the CPU."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.test_utils import set_dropout
+    net = gluon_resnet(ctx, torch.float64, params=params, model=name)
+    set_dropout(net, 0.0)
+    trainer = gluon_trainer(net)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    xs = mt.nd.array(x, ctx=ctx, dtype="float64")
+    ys = mt.nd.array(y, ctx=ctx, dtype="float64")
+    logits = net(xs)._data.to("cpu", copy=True)
+    with mt.autograd.record():
+        loss = loss_fn(net(xs), ys)
+    loss.backward()
+    trainer.step(x.shape[0])
+    ps = net.collect_params().items()
+    return dict(
+        logits=logits,
+        grads={n: p.grad()._data.to("cpu", copy=True) for n, p in ps
+               if p.grad_req != "null"},
+        params={n: p.data()._data.to("cpu", copy=True) for n, p in ps
+                if p.grad_req != "null"},
+        aux={n: p.data()._data.to("cpu", copy=True) for n, p in ps
+             if p.grad_req == "null"})
+
+
+def zoo_card_vs_cpu(card):
+    """(d) One model of each family, batch 2, fp64, card against CPU."""
+    import mxnet_tpu_torch as mt
+    out = {}
+    for name, size in ZOO_PARITY_MODELS:
+        rng = np.random.RandomState(0)
+        x = rng.rand(2, 3, size, size)
+        y = rng.randint(0, 1000, 2).astype(np.float64)
+        with mt.name.NameManager():
+            init = mt.gluon.model_zoo.vision.get_model(name, classes=1000)
+        init.cast("float64")
+        mt.random.seed(0)
+        init.initialize(mt.initializer.Xavier(), ctx=mt.cpu())
+        init(mt.nd.array(x, ctx=mt.cpu(), dtype="float64"))
+        params = ({n: p.data() for n, p in init.collect_params().items()},
+                  {})
+        cpu = _zoo_parity_run(mt.cpu(), name, size, params, x, y)
+        gpu = _zoo_parity_run(mt.gpu(0), name, size, params, x, y)
+
+        def worst(key, relative=False):
+            a, b = cpu[key], gpu[key]
+            if not isinstance(a, dict):
+                return ((a - b).abs().max()
+                        / max(1.0, a.abs().max().item())).item()
+            return max((((a[n] - b[n]).abs().max()
+                         / (max(a[n].abs().max().item(), 1e-30) if relative
+                            else max(1.0, a[n].abs().max().item()))).item()
+                        for n in a), default=0.0)
+        diffs = dict(logits=worst("logits"), grads=worst("grads", True),
+                     params=worst("params"), aux=worst("aux"))
+        out[name] = diffs
+        log("phase 20d %s card against CPU, fp64, batch 2 at %d x %d, "
+            "Dropout 0, on %s: %s (limits %s)"
+            % (name, size, size, card,
+               {k: "%.3g" % v for k, v in diffs.items()}, ZOO_PARITY_TOL))
+        bad = [k for k, v in diffs.items() if not v <= ZOO_PARITY_TOL[k]]
+        if bad:
+            raise AssertionError("%s on the card disagrees with the CPU: %s"
+                                 % (name, bad))
+        del init, cpu, gpu, params
+        free_card()
+    return out
+
+
+def phase_zoo(card):
+    """Phase 20: (a) Inception-v3 through Module, (b) AlexNet through Gluon
+    with live Dropout, (c) scoring, (d) card against CPU."""
+    res = {"card": card}
+    res["inceptionv3_module"] = {DTYPE_NAME[dt]: zoo_inception_train(card, dt)
+                                 for dt in (torch.float32, torch.bfloat16)}
+    res["alexnet_gluon"] = {DTYPE_NAME[dt]: zoo_alexnet_train(card, dt)
+                            for dt in (torch.float32, torch.bfloat16)}
+    res["scoring"] = {DTYPE_NAME[dt]: zoo_scoring(card, dt)
+                      for dt in (torch.float32, torch.bfloat16)}
+    res["card_vs_cpu_fp64"] = zoo_card_vs_cpu(card)
+    return res
+
+
+# -- phase 21: the op sweep ---------------------------------------------------
+# Every op of the elemwise, reduce, matrix and nn modules on the card
+# against the CPU from the same seeded inputs (test_utils.op_cases: the
+# cases and their tolerances), fp32 with TF32 off, forward and gradients;
+# the unary, reduce, dot and batch_dot cases again in bf16 (BF16_TOL).
+# Each random op draws 10^6 samples on the card, whose mean and variance
+# must lie within OP_RANDOM_K standard errors of the distribution's own.
+OP_RANDOM_N, OP_RANDOM_K = 10 ** 6, 5.0
+
+
+def _tol_ratio(got, want, tol):
+    """The largest |got - want| / (atol + rtol |want|): 1 is the limit."""
+    if got.shape != want.shape:
+        return math.inf
+    both_nan = np.isnan(got) & np.isnan(want)
+    same_inf = np.isinf(want) & (got == want)
+    with np.errstate(invalid="ignore"):
+        err = np.where(both_nan | same_inf, 0.0, np.abs(got - want))
+    lim = tol["atol"] + tol["rtol"] * np.where(np.isfinite(want),
+                                                np.abs(want), 0.0)
+    return float(np.max(err / lim)) if err.size else 0.0
+
+
+def phase_op_sweep(card):
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import test_utils
+    flags = tf32_flags()
+    held, rows = 0, []
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for case in test_utils.op_cases():
+            if dtype == "bfloat16" and not case["bf16"]:
+                continue
+            tol = case["tol"] if dtype == "float32" else test_utils.BF16_TOL
+            cpu = test_utils.run_op_case(mt, case, mt.cpu(), dtype)
+            gpu = test_utils.run_op_case(mt, case, mt.gpu(0), dtype)
+            ratio = max([_tol_ratio(g, c, tol) for g, c in
+                         zip(gpu[0] + gpu[1], cpu[0] + cpu[1])] or [0.0])
+            if len(gpu[0]) != len(cpu[0]):
+                ratio = math.inf
+            rows.append(("%s %s" % (case["name"], dtype), ratio))
+            held += int(ratio <= 1.0)
+    random_rows = []
+    for name, draw, mean, var in test_utils.random_cases():
+        mt.random.seed(21)
+        samples = draw(mt.nd, OP_RANDOM_N, mt.gpu(0))
+        if samples.context != mt.gpu(0):
+            raise AssertionError("%s drew on %s" % (name, samples.context))
+        errs = [float(e) for e in test_utils.moment_errors(
+            samples.asnumpy(), mean, var)]
+        random_rows.append((name, errs))
+        held += int(max(errs) <= OP_RANDOM_K)
+    seconds = time.perf_counter() - t0
+    rows.sort(key=lambda r: -r[1])
+    bad = [r for r in rows if not r[1] <= 1.0] + [
+        r for r in random_rows if not max(r[1]) <= OP_RANDOM_K]
+    log("phase 21 op sweep on %s (%s): %d deterministic cases (fp32 and "
+        "bf16) and %d random ops held, %.1f s; worst cases (error over "
+        "limit) %s; random ops' mean and variance in standard errors %s"
+        % (card, flags, len(rows), len(random_rows), seconds,
+           [(n, "%.3g" % r) for n, r in rows[:5]],
+           [(n, "%.2f" % e[0], "%.2f" % e[1]) for n, e in random_rows]))
+    if bad:
+        raise AssertionError("ops on the card disagree with the CPU: %s"
+                             % bad)
+    return dict(held=held, cases=len(rows), random=len(random_rows),
+                seconds=seconds,
+                worst=[[n, r] for n, r in rows[:5]],
+                random_moments={n: list(e) for n, e in random_rows})
+
 
 def main():
     card = phase_device()
@@ -2955,6 +3425,8 @@ def main():
     pythia, pythia_launches = {}, {}
     for dt in DTYPE_NAME:
         pythia[dt], pythia_launches[dt] = phase_lm_pythia(dt)
+    zoo = phase_zoo(card)
+    ops = phase_op_sweep(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import scale as sc
     n_layers = GPT2_SMALL["n_layers"]
@@ -3076,6 +3548,8 @@ def main():
         "seq": PYTHIA_SEQ,
         "runs": {DTYPE_NAME[dt]: r for dt, r in pythia.items()}}}))
     print(json.dumps({"checkpoint": checkpoint}))
+    print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"ops": ops}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

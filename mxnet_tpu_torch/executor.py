@@ -36,7 +36,10 @@ def _run_graph(symbol, arg_vals, aux_vals, train_mode, gen):
                                   else arg_vals)[node.name]
             continue
         ins = [env[(id(s), oi)] for s, oi in node.inputs]
-        outs = node.op.traceable(node.attrs, train_mode=train_mode,
+        attrs = node.attrs
+        if node.op.no_inputs and attrs.get("ctx") is None:
+            attrs = dict(attrs, ctx=gen.device)
+        outs = node.op.traceable(attrs, train_mode=train_mode,
                                  rng=gen if node.op.needs_rng else None)(*ins)
         for i, o in enumerate(outs):
             env[(id(node), i)] = o

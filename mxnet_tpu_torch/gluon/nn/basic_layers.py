@@ -1,17 +1,23 @@
-"""Gluon basic layers: ``Sequential``, ``HybridSequential``, ``Dense``,
-``Activation``, ``BatchNorm`` and ``Flatten``.
+"""Gluon basic layers.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py`` (``Sequential``
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``
 :18, ``HybridSequential`` :40, ``Dense`` :62, ``Activation`` :111,
-``BatchNorm`` :146, ``Flatten`` :228), the layers the ResNets use.  Each
-lowers to the op of the same name in the shared registry.
+``Dropout`` :130, ``BatchNorm`` :146, ``LeakyReLU`` :193, ``Embedding``
+:208, ``Flatten`` :228, ``InstanceNorm`` :238, ``LayerNorm`` :260,
+``Lambda`` :281 and ``HybridLambda`` :298.  Each lowers to the op of the
+same name in the shared registry, and the parameters keep the JAX
+package's names (``weight``, ``gamma``, ``beta``), so a ``.params`` file
+written by either package loads in the other.  ``Dropout`` is active
+only in training mode (``autograd.record()`` or ``train_mode()``), and
+draws from the generator of its input's device.
 """
 from __future__ import annotations
 
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "BatchNorm", "Flatten"]
+           "Dropout", "BatchNorm", "LeakyReLU", "Embedding", "Flatten",
+           "InstanceNorm", "LayerNorm", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -97,6 +103,18 @@ class Activation(HybridBlock):
         return F.Activation(x, act_type=self._act_type)
 
 
+class Dropout(HybridBlock):
+    """Zeroes each element with probability ``rate`` in training and scales
+    the rest by 1 / (1 - rate); the identity otherwise."""
+
+    def __init__(self, rate, **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization over ``axis``; the running statistics are aux
     parameters that the BatchNorm op's extra outputs update.  ``scale``
@@ -139,3 +157,114 @@ class Flatten(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` where ``x >= 0``, ``alpha * x`` elsewhere."""
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class Embedding(HybridBlock):
+    """Index -> dense vector lookup; the gradient of ``weight`` adds up the
+    rows of repeated indices."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype}
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim),
+            init=weight_initializer, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+
+class InstanceNorm(HybridBlock):
+    """Normalization of each instance and channel over its spatial axes;
+    ``scale`` False (the default) leaves ``gamma`` out of training."""
+
+    def __init__(self, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"eps": epsilon}
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, **self._kwargs)
+
+
+class LayerNorm(HybridBlock):
+    """Normalization over ``axis`` (the last by default)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon}
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, **self._kwargs)
+
+
+class Lambda(Block):
+    """A function, or the name of an ``nd`` function, as a Block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            if not hasattr(nd, function):
+                raise ValueError("Function name %s is not found in ndarray."
+                                 % function)
+            function = getattr(nd, function)
+        self._func_impl = function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function ``f(F, x, *args)``, or the name of an op that both ``nd``
+    and ``sym`` have, as a HybridBlock."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name = self._func_impl = None
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            from ... import symbol as sym
+            if not (hasattr(nd, function) and hasattr(sym, function)):
+                raise ValueError("Function name %s is not found in "
+                                 "ndarray/symbol." % function)
+            self._func_name = function
+        else:
+            self._func_impl = function
+
+    def hybrid_forward(self, F, x, *args):
+        if self._func_name is not None:
+            return getattr(F, self._func_name)(x, *args)
+        return self._func_impl(F, x, *args)

@@ -2,7 +2,7 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py:21-86``: one function per
 registered op, made from the registry at import, and ``save``/``load``
-(``utils``).  Public
+(``utils``), and ``nd.random``.  Public
 (non-underscore) ops land in this namespace; every op lands in
 ``mxnet_tpu_torch.ndarray._internal``.  Kernels registered later by
 ``rtc.register`` are added the same way.
@@ -14,7 +14,8 @@ import sys
 import types
 
 from .ndarray import (NDArray, array, zeros, ones, full, empty, invoke,
-                      concatenate, params_from_jax)
+                      concatenate, arange, eye, moveaxis, onehot_encode,
+                      waitall, params_from_jax)
 from .utils import save, load, save_to_bytes, load_from_bytes
 from ..ops.registry import OP_REGISTRY
 
@@ -68,6 +69,9 @@ for _name, _op in OP_REGISTRY.items():
         setattr(_this, _name, _fn)
 sys.modules[__name__ + "._internal"] = _internal
 
+from . import random  # noqa: E402,F401
+
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
-           "concatenate", "params_from_jax", "save", "load", "save_to_bytes",
-           "load_from_bytes"]
+           "concatenate", "arange", "eye", "moveaxis", "onehot_encode",
+           "waitall", "params_from_jax", "save", "load", "save_to_bytes",
+           "load_from_bytes", "random"]

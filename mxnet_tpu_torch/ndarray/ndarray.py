@@ -34,7 +34,8 @@ from .. import random as _random
 from ..ops.registry import get_op
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
-           "concatenate"]
+           "concatenate", "arange", "eye", "moveaxis", "onehot_encode",
+           "waitall"]
 
 
 def _owned(t, sources):
@@ -94,6 +95,18 @@ class NDArray:
     def grad(self):
         return self._grad
 
+    @property
+    def T(self):
+        """The transpose (the ``transpose`` op: all axes reversed)."""
+        return invoke(get_op("transpose"), [self], {})[0]
+
+    def wait_to_read(self):
+        """Block until the work that writes this array has run."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    wait_to_write = wait_to_read
+
     def _set_data(self, tensor):
         """Copy ``tensor`` into this array's own tensor, in place."""
         with torch.no_grad():
@@ -135,6 +148,10 @@ class NDArray:
         if not self.shape:
             raise TypeError("len() of unsized object")
         return self.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
 
     def __repr__(self):
         return "%s\n<NDArray %s @%s>" % (
@@ -206,16 +223,144 @@ class NDArray:
     def flatten(self):
         return invoke(get_op("Flatten"), [self], {})[0]
 
+    def _op(self, name, *others, **attrs):
+        return invoke(get_op(name), [self, *others], attrs)[0]
+
+    def reshape_like(self, other):
+        return self._op("reshape_like", other)
+
+    def expand_dims(self, axis):
+        return self._op("expand_dims", axis=axis)
+
+    def transpose(self, axes=None):
+        return self._op("transpose", axes=axes)
+
+    def swapaxes(self, dim1, dim2):
+        return self._op("SwapAxis", dim1=dim1, dim2=dim2)
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return invoke(get_op("SliceChannel"), [self],
+                      {"num_outputs": num_outputs, "axis": axis,
+                       "squeeze_axis": squeeze_axis})
+
+    def slice(self, begin, end, step=None):
+        return self._op("slice", begin=begin, end=end, step=step)
+
+    def slice_axis(self, axis, begin, end):
+        return self._op("slice_axis", axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return self._op("take", indices, axis=axis, mode=mode)
+
+    def pick(self, index, axis=-1, keepdims=False):
+        return self._op("pick", index, axis=axis, keepdims=keepdims)
+
+    def one_hot(self, depth, **kw):
+        return self._op("one_hot", depth=depth, **kw)
+
+    def broadcast_to(self, shape):
+        return self._op("broadcast_to", shape=tuple(shape))
+
+    def broadcast_axes(self, axis, size):
+        return self._op("broadcast_axis", axis=axis, size=size)
+
+    def tile(self, reps):
+        return self._op("tile", reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return self._op("repeat", repeats=repeats, axis=axis)
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return self._op("Pad", mode=mode, pad_width=pad_width,
+                        constant_value=constant_value)
+
+    def flip(self, axis):
+        return self._op("reverse", axis=axis)
+
+    def clip(self, a_min, a_max):
+        return self._op("clip", a_min=a_min, a_max=a_max)
+
+    def abs(self):
+        return self._op("abs")
+
+    def sign(self):
+        return self._op("sign")
+
+    def sqrt(self):
+        return self._op("sqrt")
+
+    def square(self):
+        return self._op("square")
+
+    def exp(self):
+        return self._op("exp")
+
+    def log(self):
+        return self._op("log")
+
+    def sigmoid(self):
+        return self._op("sigmoid")
+
+    def tanh(self):
+        return self._op("tanh")
+
     def relu(self):
-        return invoke(get_op("relu"), [self], {})[0]
+        return self._op("relu")
+
+    def softmax(self, axis=-1):
+        return self._op("softmax", axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return self._op("log_softmax", axis=axis)
+
+    def dot(self, other, **kw):
+        return self._op("dot", other, **kw)
+
+    def _reduce(self, opname, axis=None, keepdims=False, **kw):
+        return self._op(opname, axis=axis, keepdims=keepdims, **kw)
 
     def sum(self, axis=None, keepdims=False):
-        return invoke(get_op("sum"), [self],
-                      {"axis": axis, "keepdims": keepdims})[0]
+        return self._reduce("sum", axis, keepdims)
 
     def mean(self, axis=None, keepdims=False):
-        return invoke(get_op("mean"), [self],
-                      {"axis": axis, "keepdims": keepdims})[0]
+        return self._reduce("mean", axis, keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return self._reduce("prod", axis, keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._reduce("max", axis, keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._reduce("min", axis, keepdims)
+
+    def nansum(self, axis=None, keepdims=False):
+        return self._reduce("nansum", axis, keepdims)
+
+    def nanprod(self, axis=None, keepdims=False):
+        return self._reduce("nanprod", axis, keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        return self._reduce("argmax", axis, keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._reduce("argmin", axis, keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return self._op("norm", ord=ord, axis=axis, keepdims=keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return self._op("argsort", axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return self._op("sort", axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        """The list of outputs (one, or two for ``ret_typ="both"``), as
+        the JAX package's method returns them."""
+        return invoke(get_op("topk"), [self],
+                      {"axis": axis, "k": k, "ret_typ": ret_typ,
+                       "is_ascend": is_ascend})
 
     # -- arithmetic --------------------------------------------------------
     _SCALAR_OPS = {
@@ -231,6 +376,8 @@ class NDArray:
         "_greater_equal": ("_greater_equal_scalar", "_lesser_equal_scalar"),
         "_lesser": ("_lesser_scalar", "_greater_scalar"),
         "_lesser_equal": ("_lesser_equal_scalar", "_greater_equal_scalar"),
+        "elemwise_maximum": ("_maximum_scalar", "_maximum_scalar"),
+        "elemwise_minimum": ("_minimum_scalar", "_minimum_scalar"),
     }
 
     def _binary(self, opname, other, reverse=False):
@@ -255,7 +402,9 @@ class NDArray:
     def __rmod__(self, o): return self._binary("elemwise_mod", o, True)
     def __pow__(self, o): return self._binary("elemwise_power", o)
     def __rpow__(self, o): return self._binary("elemwise_power", o, True)
+    def __matmul__(self, o): return self.dot(o)
     def __neg__(self): return invoke(get_op("negative"), [self], {})[0]
+    def __abs__(self): return invoke(get_op("abs"), [self], {})[0]
 
     def __eq__(self, o):
         if o is None:
@@ -340,6 +489,8 @@ def invoke(op, inputs, attrs, out=None):
     ctx = attrs.pop("ctx", None)
     ctx = inputs[0]._ctx if ctx is None and inputs else as_context(ctx)
     attrs.pop("name", None)
+    if op.no_inputs:  # a creation op makes its output on the context
+        attrs["ctx"] = ctx.torch_device
     tin = [x._data for x in inputs]
     rng = _random.generator(ctx) if op.needs_rng else None
     train = ag.is_training()
@@ -413,6 +564,43 @@ def empty(shape, ctx=None, dtype=None):
 def concatenate(arrays, axis=0, always_copy=True):
     """Join NDArrays along ``axis`` (the ``Concat`` op)."""
     return invoke(get_op("Concat"), list(arrays), {"dim": axis})[0]
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None,
+           infer_range=False):
+    """``[start, stop)`` by ``step``, each value ``repeat`` times."""
+    return invoke(get_op("_arange"), [],
+                  {"start": start, "stop": stop, "step": step,
+                   "repeat": repeat, "dtype": dtype or "float32",
+                   "ctx": ctx})[0]
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    """An N x M (M 0: N) array with ones on the k-th diagonal."""
+    return invoke(get_op("_eye"), [],
+                  {"N": N, "M": M, "k": k, "dtype": dtype or "float32",
+                   "ctx": ctx})[0]
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with axis ``source`` moved to ``destination``."""
+    axes = list(range(tensor.ndim))
+    axes.remove(source % tensor.ndim)
+    axes.insert(destination % tensor.ndim, source % tensor.ndim)
+    return tensor.transpose(axes)
+
+
+def onehot_encode(indices, out):
+    """One-hot rows of ``indices`` written into ``out`` (its second axis
+    is the depth)."""
+    return invoke(get_op("one_hot"), [indices], {"depth": out.shape[1]},
+                  out=out)[0]
+
+
+def waitall():
+    """Block until all work queued on the card has run."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def params_from_jax(np_params, executor):

@@ -1,9 +1,11 @@
 """Operators of the PyTorch package and their hand-written CUDA kernels.
 
 Registered ops (``registry.OP_REGISTRY``, behind ``nd.<op>`` and
-``sym.<op>``): ``elemwise``, ``reduce``, ``matrix``, ``nn`` and
-``optim_ops``, counterparts of the ``mxnet_tpu/ops`` modules of the same
-names.
+``sym.<op>``): ``elemwise``, ``reduce``, ``matrix``, ``nn``,
+``random_ops`` and ``optim_ops``, counterparts of the ``mxnet_tpu/ops``
+modules of the same names.  None of them is a hand-written kernel: the
+JAX package computes them with ``jnp``/``lax`` outside any Pallas
+kernel, and here they are PyTorch ops.
 
 Kernels, each with its plain version and launch counter:
 ``attention`` (on the tensor cores: the forward in
@@ -15,7 +17,8 @@ the backward in ``csrc/flash_attn_bwd_sm90.cu`` and
 (``csrc/scale.cu``, counterpart of the user kernel ``pl_scale`` that
 ``rtc.register`` installs).
 """
-from . import registry, elemwise, reduce, matrix, nn, optim_ops  # noqa: F401
+from . import registry, elemwise, reduce, matrix, nn, random_ops  # noqa: F401
+from . import optim_ops  # noqa: F401
 from . import attention, scale
 from .attention import flash_attention, flash_attention_reference
 

@@ -1,18 +1,34 @@
-"""Neural-network layer ops: ``FullyConnected``, ``Convolution``,
-``Pooling``, ``BatchNorm``, ``Activation`` and ``SoftmaxOutput``.
+"""Neural-network layer ops.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` (``FullyConnected``:39,
-``Convolution``:56, ``Pooling``:106, ``BatchNorm``:174,
-``Activation``:243, ``SoftmaxOutput``:363 with its semantic backward
-``_softmax_output_bwd``:314).  The JAX package leaves these products and
-windows to XLA, outside any Pallas kernel, so here they are
-``torch.matmul`` and ``torch.nn.functional``'s convolutions and pools
-(cuBLAS and cuDNN on the card).  Layout is MXNet's: NCHW data, OIHW
-weights.  ``BatchNorm`` is the JAX formula written in torch ops, not
-``F.batch_norm``: MXNet's momentum weighs the old statistic, and the
-moving variance takes the biased batch variance.  ``SoftmaxOutput``
-keeps MXNet's semantic gradient: ``(softmax - onehot) * grad_scale /
-norm`` whatever the head gradient is, and zeros for the label.
+Counterpart of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``:39,
+``Convolution``:56, ``Deconvolution``:79, ``Pooling``:106,
+``UpSampling``:153, ``BatchNorm``:174, ``InstanceNorm``,
+``LayerNorm``, ``L2Normalization`` and ``LRN`` (:200-240),
+``Activation``:243, ``LeakyReLU``:258, ``SoftmaxActivation`` and
+``Dropout`` (:284-302), ``SoftmaxOutput``:363 with its semantic backward
+``_softmax_output_bwd``:314, the regression and SVM heads,
+``softmax_cross_entropy`` and ``MakeLoss`` (:377-448), the sequence ops
+(:450-500) and ``Crop``:666.  The ops of the long tail (``RNN``, the
+grid and sampler ops, ``ROIPooling``, ``Correlation``) are not here.
+
+The JAX package leaves these products and windows to XLA, outside any
+Pallas kernel, so here they are ``torch.matmul`` and
+``torch.nn.functional``'s convolutions and pools (cuBLAS and cuDNN on
+the card).  Layout is MXNet's: NCHW data, OIHW weights; a
+``Deconvolution`` weight is (C, F/g, *k), which is torch's
+``conv_transpose`` layout, with ``adj`` as its ``output_padding``
+(``target_shape`` and ``dilate`` are accepted and, as in the JAX
+package, not used).  ``BatchNorm``, ``InstanceNorm`` and ``LayerNorm``
+are the JAX formulas written in torch ops (the biased variance,
+``(x - mean) * rsqrt(var + eps)``), not ``F.batch_norm`` or
+``F.layer_norm``: MXNet's momentum weighs the old statistic.  The loss
+heads keep MXNet's semantic gradients (``SoftmaxOutput``: ``(softmax -
+onehot) * grad_scale / norm`` whatever the head gradient is, zeros for
+the label).  ``Dropout`` and ``LeakyReLU(act_type="rrelu")`` draw from
+the generator the caller passes (``needs_rng``): the mask is drawn as
+uniforms below the keep probability, cast to the data's dtype and
+divided by the keep probability in that dtype, then multiplied, as the
+JAX package orders it.
 """
 from __future__ import annotations
 
@@ -21,7 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .elemwise import _max0
+from ..base import MXNetError
+from .elemwise import _make_loss_bwd, _max0
 from .registry import register
 
 
@@ -54,17 +71,38 @@ def _convolution(data, weight, *maybe_bias, kernel=(), stride=(), dilate=(),
                      int(num_group))
 
 
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution")
+def _deconvolution(data, weight, *maybe_bias, kernel=(), stride=(),
+                   dilate=(), pad=(), adj=(), target_shape=(), num_filter=1,
+                   num_group=1, no_bias=True, **kw):
+    nd = len(kernel)
+    bias = maybe_bias[0] if maybe_bias and not no_bias else None
+    return _DECONV[nd](data, weight, bias, _tup(stride or 1, nd),
+                       _tup(pad or 0, nd), _tup(adj or 0, nd),
+                       int(num_group))
+
+
+def _avg_pool1d(x, kernel, stride, pad, count_include_pad=True,
+                divisor_override=None):
+    """``avg_pool1d`` with ``divisor_override``, which torch's lacks: the
+    2-D pool over a trailing axis of one."""
+    return F.avg_pool2d(x.unsqueeze(-1), kernel + (1,), stride + (1,),
+                        pad + (0,), count_include_pad=count_include_pad,
+                        divisor_override=divisor_override).squeeze(-1)
+
+
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
-_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+_AVG_POOL = {1: _avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
 def _window_sum(x, kernel, stride):
     """Sum over each window of an already padded ``x`` (no padding)."""
-    nd = len(kernel)
-    if nd == 1:  # avg_pool1d takes no divisor_override
-        return _window_sum(x.unsqueeze(-1), kernel + (1,),
-                           stride + (1,)).squeeze(-1)
-    return _AVG_POOL[nd](x, kernel, stride, 0, divisor_override=1)
+    return _AVG_POOL[len(kernel)](x, kernel, stride, (0,) * len(kernel),
+                                  divisor_override=1)
 
 
 @register("Pooling", aliases=["Pooling_v1"])
@@ -96,11 +134,10 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
         # zeros counted (count_include_pad) or not for avg and sum
         if pool_type == "max":
             return _MAX_POOL[nd](data, kernel, stride, pad)
-        if nd in _AVG_POOL:
-            return _AVG_POOL[nd](
-                data, kernel, stride, pad,
-                count_include_pad=bool(count_include_pad),
-                divisor_override=1 if pool_type == "sum" else None)
+        return _AVG_POOL[nd](
+            data, kernel, stride, pad,
+            count_include_pad=bool(count_include_pad),
+            divisor_override=1 if pool_type == "sum" else None)
     # F.pad takes (low, high) pairs from the last axis back
     widths = [w for i in reversed(range(nd))
               for w in (pad[i], pad[i] + extra[i])]
@@ -224,3 +261,260 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                     normalization="null", out_grad=False, smooth_alpha=0.0,
                     **kw):
     return _softmax_fwd(data, multi_output, preserve_shape)
+
+
+@register("UpSampling")
+def _upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
+                multi_input_mode="concat", num_args=1, **kw):
+    s = int(scale)
+    if sample_type == "nearest":
+        outs = [a.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+                for a in args]
+        if len(outs) == 1:
+            return outs[0]
+        if multi_input_mode == "sum":
+            out = outs[0]
+            for o in outs[1:]:
+                out = out + o
+            return out
+        return torch.cat(outs, dim=1)
+    # bilinear: jax.image.resize's half-pixel sampling, which ignores the
+    # weight input; for an upsampling its edge rows are the input's
+    data = args[0]
+    return F.interpolate(data, scale_factor=s, mode="bilinear",
+                         align_corners=False)
+
+
+def _normalize(data, red, eps):
+    """``(x - mean) * rsqrt(var + eps)`` over ``red`` with the biased
+    variance, as ``jnp.var``."""
+    mean = torch.mean(data, dim=red, keepdim=True)
+    var = torch.mean(torch.square(torch.abs(data - mean)), dim=red,
+                     keepdim=True)
+    return (data - mean) * torch.rsqrt(var + eps)
+
+
+@register("InstanceNorm")
+def _instance_norm(data, gamma, beta, eps=1e-3, **kw):
+    shape = (1, -1) + (1,) * (data.ndim - 2)
+    return _normalize(data, tuple(range(2, data.ndim)), eps) \
+        * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("LayerNorm")
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
+                **kw):
+    ax = axis % data.ndim
+    shape = [1] * data.ndim
+    shape[ax] = data.shape[ax]
+    return _normalize(data, (ax,), eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register("L2Normalization")
+def _l2_normalization(data, eps=1e-10, mode="instance", **kw):
+    if mode == "instance":
+        red = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        red = (1,)
+    else:  # spatial
+        red = tuple(range(2, data.ndim))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=red,
+                                       keepdim=True) + eps)
+
+
+@register("LRN")
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **kw):
+    n = int(nsize)
+    half = n // 2
+    padded = F.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    windows = padded[:, 0:data.shape[1]]
+    for i in range(1, n):
+        windows = windows + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + (alpha / nsize) * windows, beta)
+
+
+_SELU_SCALE, _SELU_ALPHA = 1.0507009873554805, 1.6732632423543772
+
+
+def _need_rng(rng, what):
+    """A draw in training has the caller's generator; without one the
+    wiring is at fault, and an identity would hide it."""
+    if rng is None:
+        raise MXNetError("%s draws in training but was given no generator"
+                         % what)
+
+
+@register("LeakyReLU", needs_rng=True, takes_mode=True)
+def _leaky_relu(data, *maybe_gamma, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, rng=None,
+                train_mode=False, **kw):
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * (torch.exp(data) - 1))
+    if act_type == "selu":
+        return _SELU_SCALE * F.elu(data, _SELU_ALPHA)
+    if act_type == "prelu":
+        gamma = maybe_gamma[0]
+        shape = [1] * data.ndim
+        if gamma.numel() > 1 and data.ndim > 1:
+            shape[1] = gamma.numel()
+        return torch.where(data >= 0, data, gamma.reshape(shape) * data)
+    if act_type == "rrelu":
+        lo, hi = float(lower_bound), float(upper_bound)
+        if train_mode:
+            _need_rng(rng, "LeakyReLU(act_type='rrelu')")
+            r = torch.rand(data.shape, generator=rng, device=data.device,
+                           dtype=data.dtype) * (hi - lo) + lo
+            return torch.where(data >= 0, data, r * data)
+        return torch.where(data >= 0, data, (lo + hi) / 2.0 * data)
+    raise ValueError("unknown act_type %s" % act_type)
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(data, mode="instance", **kw):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+@register("Dropout", needs_rng=True, takes_mode=True)
+def _dropout(data, p=0.5, mode="training", axes=(), rng=None,
+             train_mode=False, **kw):
+    if (not train_mode and mode != "always") or p <= 0:
+        return data
+    _need_rng(rng, "Dropout")
+    shape = list(data.shape)
+    for a in axes or ():
+        shape[a] = 1
+    keep = 1.0 - p
+    draw = torch.rand(shape, generator=rng, device=data.device)
+    return data * ((draw < keep).to(data.dtype) / keep)
+
+
+def _linreg_bwd(out_grads, inputs, outputs, attrs):
+    data, label = inputs
+    gs = attrs.get("grad_scale", 1.0)
+    return ((outputs[0] - label.reshape(data.shape)) * gs,
+            torch.zeros_like(label))
+
+
+@register("LinearRegressionOutput", nondiff_inputs=(1,),
+          custom_vjp=_linreg_bwd)
+def _lin_reg_output(data, label, grad_scale=1.0, **kw):
+    return data
+
+
+def _maereg_bwd(out_grads, inputs, outputs, attrs):
+    data, label = inputs
+    gs = attrs.get("grad_scale", 1.0)
+    return (torch.sign(data - label.reshape(data.shape)) * gs,
+            torch.zeros_like(label))
+
+
+@register("MAERegressionOutput", nondiff_inputs=(1,), custom_vjp=_maereg_bwd)
+def _mae_reg_output(data, label, grad_scale=1.0, **kw):
+    return data
+
+
+@register("LogisticRegressionOutput", nondiff_inputs=(1,),
+          custom_vjp=_linreg_bwd)
+def _log_reg_output(data, label, grad_scale=1.0, **kw):
+    return torch.sigmoid(data)
+
+
+def _svm_bwd(out_grads, inputs, outputs, attrs):
+    data, label = inputs
+    margin = attrs.get("margin", 1.0)
+    reg = attrs.get("regularization_coefficient", 1.0)
+    c = data.shape[-1]
+    lab = label.to(torch.int64)
+    oh = _one_hot(label, c, data.dtype)
+    score_y = torch.gather(data, -1, lab[..., None])
+    dist = (margin - (score_y - data)) * (1 - oh)
+    if attrs.get("use_linear", False):
+        viol = (margin - (score_y - data) > 0).to(data.dtype) * (1 - oh)
+        grad = reg * (viol - oh * torch.sum(viol, dim=-1, keepdim=True))
+    else:
+        grad = reg * 2 * _max0(dist)
+        grad = grad - oh * torch.sum(grad, dim=-1, keepdim=True)
+    return (grad, torch.zeros_like(label))
+
+
+@register("SVMOutput", nondiff_inputs=(1,), custom_vjp=_svm_bwd)
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False, **kw):
+    return data
+
+
+@register("softmax_cross_entropy", nondiff_inputs=(1,))
+def _softmax_cross_entropy(data, label, **kw):
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int64)
+    return -torch.sum(torch.gather(logp, -1, lab[..., None]))
+
+
+@register("MakeLoss", custom_vjp=_make_loss_bwd)
+def _make_loss_layer(data, grad_scale=1.0, valid_thresh=0.0,
+                     normalization="null", **kw):
+    if normalization == "batch":
+        return data / data.shape[0]
+    if normalization == "valid":
+        valid = torch.sum((data > valid_thresh).to(data.dtype))
+        return data / torch.clamp_min(valid, 1.0)
+    return data.clone()
+
+
+@register("SequenceMask")
+def _sequence_mask(data, *maybe_len, use_sequence_length=False, value=0.0,
+                   axis=0, **kw):
+    if not use_sequence_length or not maybe_len:
+        return data
+    lens = maybe_len[0].to(torch.int64)
+    pos = torch.arange(data.shape[axis], device=data.device)
+    mask = pos[:, None] < lens[None, :] if axis == 0 \
+        else pos[None, :] < lens[:, None]
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - 2))
+    return torch.where(mask, data, data.new_full((), value))
+
+
+@register("SequenceLast", nondiff_inputs=(1,))
+def _sequence_last(data, *maybe_len, use_sequence_length=False, axis=0,
+                   **kw):
+    if not use_sequence_length or not maybe_len:
+        return torch.select(data, axis, data.shape[axis] - 1)
+    last = maybe_len[0].to(torch.int64) - 1
+    if axis == 0:
+        return data[last, torch.arange(data.shape[1], device=data.device)]
+    return data[torch.arange(data.shape[0], device=data.device), last]
+
+
+@register("SequenceReverse")
+def _sequence_reverse(data, *maybe_len, use_sequence_length=False, axis=0,
+                      **kw):
+    if not use_sequence_length or not maybe_len:
+        return torch.flip(data, (0,))
+    lens = maybe_len[0].to(torch.int64)
+    pos = torch.arange(data.shape[0], device=data.device)[:, None]
+    rev = lens[None, :] - 1 - pos
+    idx = torch.where(rev >= 0, rev, pos)
+    idx = idx.reshape(idx.shape + (1,) * (data.ndim - 2)).expand(data.shape)
+    return torch.gather(data, 0, idx)
+
+
+@register("Crop", nondiff_inputs=(1,))
+def _crop_op(*args, offset=(0, 0), h_w=(0, 0), center_crop=False,
+             num_args=1, **kw):
+    data = args[0]
+    if len(args) > 1:
+        th, tw = args[1].shape[2], args[1].shape[3]
+    else:
+        th, tw = int(h_w[0]), int(h_w[1])
+    if center_crop:
+        oy = (data.shape[2] - th) // 2
+        ox = (data.shape[3] - tw) // 2
+    else:
+        oy, ox = int(offset[0]), int(offset[1])
+    return data[:, :, oy:oy + th, ox:ox + tw]

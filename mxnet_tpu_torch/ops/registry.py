@@ -18,9 +18,10 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import as_device
 
 __all__ = ["Op", "register", "get_op", "list_ops", "OP_REGISTRY",
-           "parse_attr_string", "attr_to_string"]
+           "parse_attr_string", "attr_to_string", "op_device"]
 
 OP_REGISTRY = {}
 
@@ -53,6 +54,17 @@ def attr_to_string(v):
     if isinstance(v, np.dtype):
         return v.name
     return str(v)
+
+
+def op_device(ctx, rng=None):
+    """The device a creation op makes its output on: its ``ctx`` attr (a
+    ``torch.device``, a Context or a name), else its generator's device,
+    else the current context's."""
+    if isinstance(ctx, torch.device):
+        return ctx
+    if ctx is None and rng is not None:
+        return rng.device
+    return as_device(ctx)
 
 
 class _SemanticGrad(torch.autograd.Function):
@@ -98,11 +110,15 @@ class Op:
     custom_vjp : optional ``bwd(out_grads, inputs, outputs, attrs) ->
         input_grads`` (one per input), used instead of autograd (semantic
         gradients).
+    no_inputs : a creation op (``_zeros``, ``_arange``, the ``_random_*``
+        draws): it takes no tensor and makes its output on the device its
+        ``ctx`` attr names, or where its generator lives.
     """
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
                  nondiff_inputs=(), aux_updates=None, takes_mode=False,
-                 needs_rng=False, custom_vjp=None, attr_defaults=None):
+                 needs_rng=False, custom_vjp=None, attr_defaults=None,
+                 no_inputs=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -113,6 +129,7 @@ class Op:
         self.needs_rng = needs_rng
         self.custom_vjp = custom_vjp
         self.attr_defaults = dict(attr_defaults or {})
+        self.no_inputs = no_inputs
 
     def n_outputs(self, attrs):
         if callable(self.num_outputs):

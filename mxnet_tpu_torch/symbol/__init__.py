@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/symbol/__init__.py:20-105``.  Symbolic op
 functions take Symbols positionally or by input name
 (``sym.FullyConnected(data=d, ...)``) and create variable nodes for the
 parameter inputs left out (``fc1_weight``, ``fc1_bias``), which
-``simple_bind`` then sizes from the data shape.
+``simple_bind`` then sizes from the data shape.  ``sym.random`` makes
+sampling nodes.
 """
 from __future__ import annotations
 
@@ -71,5 +72,7 @@ for _name, _op in OP_REGISTRY.items():
         setattr(_this, _name, _fn)
 sys.modules[__name__ + "._internal"] = _internal
 
+from . import random  # noqa: E402,F401
+
 __all__ = ["Symbol", "SymNode", "var", "Variable", "Group", "load",
-           "load_json"]
+           "load_json", "random"]

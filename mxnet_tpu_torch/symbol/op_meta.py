@@ -1,12 +1,13 @@
 """Per-op metadata for symbolic composition.
 
-Counterpart of ``mxnet_tpu/symbol/op_meta.py:22-176``, for the ops this
-package registers (input and aux names ``:41-51``, parameter shapes
-``:112``, ``:133``).  Forward shapes come from running each op on ``meta``
-tensors; this module supplies what that cannot derive: (1) canonical
-input/aux names, so ``sym.FullyConnected(data=d, ...)`` creates
-``fc1_weight``/``fc1_bias`` variables, and (2) data -> parameter shape
-inference, so ``simple_bind`` allocates parameters from the data shape.
+Counterpart of ``mxnet_tpu/symbol/op_meta.py:22-176`` for the ops this
+package registers (the ``RNN``, ``ROIPooling`` and sampler-grid entries
+wait for their ops).  Forward shapes come from running each op on
+``meta`` tensors; this module supplies what that cannot derive: (1)
+canonical input/aux names, so ``sym.FullyConnected(data=d, ...)``
+creates ``fc1_weight``/``fc1_bias`` variables, and (2) data -> parameter
+shape inference, so ``simple_bind`` allocates parameters from the data
+shape.
 """
 from __future__ import annotations
 
@@ -19,33 +20,64 @@ __all__ = ["op_input_names", "infer_param_shapes", "HINTS"]
 # name hints for auto-naming (reference: lowercase op name)
 HINTS = {
     "FullyConnected": "fullyconnected", "Convolution": "convolution",
-    "BatchNorm": "batchnorm", "Pooling": "pooling",
-    "Activation": "activation",
-    "SoftmaxOutput": "softmaxoutput", "Flatten": "flatten",
-    "Reshape": "reshape", "elemwise_add": "_plus", "elemwise_sub": "_minus",
-    "elemwise_mul": "_mul", "elemwise_div": "_div",
+    "Deconvolution": "deconvolution", "BatchNorm": "batchnorm",
+    "Pooling": "pooling", "Activation": "activation", "Dropout": "dropout",
+    "SoftmaxOutput": "softmaxoutput", "Embedding": "embedding",
+    "Concat": "concat", "Flatten": "flatten", "Reshape": "reshape",
+    "LeakyReLU": "leakyrelu", "elemwise_add": "_plus",
+    "elemwise_sub": "_minus", "elemwise_mul": "_mul", "elemwise_div": "_div",
 }
+
+_LABELLED = ("SoftmaxOutput", "Softmax", "LinearRegressionOutput",
+             "LogisticRegressionOutput", "MAERegressionOutput", "SVMOutput",
+             "softmax_cross_entropy")
 
 
 def op_input_names(op, attrs):
     """Return (input_names, aux_names); aux_names are the trailing inputs."""
-    name = op.name
-    if name in ("Convolution", "Convolution_v1"):
-        return (["data", "weight"] if attrs.get("no_bias", False)
+    name, a = op.name, attrs
+    if name in ("Convolution", "Convolution_v1", "Deconvolution"):
+        base = ["data", "weight"]
+        # MXNet's defaults: Convolution no_bias=False, Deconvolution True
+        if not a.get("no_bias", name == "Deconvolution"):
+            base.append("bias")
+        return base, []
+    if name == "FullyConnected":
+        return (["data", "weight"] if a.get("no_bias", False)
                 else ["data", "weight", "bias"]), []
     if name in ("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm"):
         return ["data", "gamma", "beta"], ["moving_mean", "moving_var"]
-    if name in ("add_n", "ElementWiseSum", "elemwise_sum", "Concat"):
-        return ["arg%d" % i for i in range(int(attrs.get("num_args") or 1))], []
-    if name == "FullyConnected":
-        return (["data", "weight"] if attrs.get("no_bias", False)
-                else ["data", "weight", "bias"]), []
-    if name in ("SoftmaxOutput", "Softmax"):
+    if name in ("InstanceNorm", "LayerNorm"):
+        return ["data", "gamma", "beta"], []
+    if name == "Embedding":
+        return ["data", "weight"], []
+    if name == "LeakyReLU":
+        if a.get("act_type", "leaky") == "prelu":
+            return ["data", "gamma"], []
+        return ["data"], []
+    if name in _LABELLED:
         return ["data", "label"], []
-    if name.startswith(("elemwise_", "broadcast_")) or name in (
-            "_plus", "_minus", "_mul", "_div", "_maximum", "_minimum",
-            "_power", "_mod"):
+    if name in ("dot", "batch_dot") or name.startswith(
+            ("elemwise_", "broadcast_")) or name in (
+                "_plus", "_minus", "_mul", "_div", "_grad_add", "_maximum",
+                "_minimum", "_power", "_mod", "_hypot"):
         return ["lhs", "rhs"], []
+    if name in ("Concat", "add_n", "stack", "elemwise_sum", "ElementWiseSum",
+                "UpSampling"):
+        return ["arg%d" % i for i in range(int(a.get("num_args") or 1))], []
+    if name == "where":
+        return ["condition", "x", "y"], []
+    if name in ("take", "batch_take", "gather_nd", "scatter_nd"):
+        return ["a", "indices"], []
+    if name in ("SequenceMask", "SequenceLast", "SequenceReverse"):
+        if a.get("use_sequence_length", False):
+            return ["data", "sequence_length"], []
+        return ["data"], []
+    if name == "Crop":
+        n = int(a.get("num_args", 1))
+        return ["data"] + (["crop_like"] if n > 1 else []), []
+    if getattr(op, "no_inputs", False):
+        return [], []
     return ["data"], []
 
 
@@ -60,7 +92,7 @@ def infer_param_shapes(node, in_structs):
     dshape = tuple(data.shape)
 
     def meta(shape):
-        return torch.empty(shape, dtype=data.dtype, device="meta")
+        return torch.empty(tuple(shape), dtype=data.dtype, device="meta")
 
     out = [None] * len(in_structs)
     if name in ("Convolution", "Convolution_v1"):
@@ -70,10 +102,26 @@ def infer_param_shapes(node, in_structs):
         out[1] = meta((nf, dshape[1] // g) + kernel)
         if len(in_structs) > 2:
             out[2] = meta((nf,))
+    elif name == "Deconvolution":
+        kernel = tuple(a.get("kernel", ()))
+        g = int(a.get("num_group", 1))
+        nf = int(a.get("num_filter", 1))
+        out[1] = meta((dshape[1], nf // g) + kernel)
+        if len(in_structs) > 2:
+            out[2] = meta((nf,))
     elif name in ("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm"):
         c = dshape[int(a.get("axis", 1)) % len(dshape)]
         for i in range(1, len(in_structs)):
             out[i] = meta((c,))
+    elif name == "InstanceNorm":
+        out[1] = out[2] = meta((dshape[1],))
+    elif name == "LayerNorm":
+        c = dshape[int(a.get("axis", -1)) % len(dshape)]
+        out[1] = out[2] = meta((c,))
+    elif name == "Embedding":
+        out[1] = meta((int(a.get("input_dim")), int(a.get("output_dim"))))
+    elif name == "LeakyReLU" and a.get("act_type") == "prelu":
+        out[1] = meta((dshape[1],))
     elif name == "FullyConnected":
         nh = int(a.get("num_hidden", 1))
         in_dim = math.prod(dshape[1:]) if a.get("flatten", True) \
@@ -86,6 +134,11 @@ def infer_param_shapes(node, in_structs):
             out[1] = meta((dshape[0],) + dshape[2:])
         else:
             out[1] = meta((dshape[0],))
+    elif name in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                  "MAERegressionOutput"):
+        out[1] = meta(dshape)
+    elif name in ("SVMOutput", "softmax_cross_entropy"):
+        out[1] = meta((dshape[0],))
     else:
         return None
     return out

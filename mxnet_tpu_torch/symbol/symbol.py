@@ -261,8 +261,14 @@ class Symbol:
                     "cannot infer shape for inputs %s of node %s; provide "
                     "their shapes" % (missing, node.name))
             try:
+                attrs = dict(node.attrs, ctx=torch.device("meta")) \
+                    if node.op.no_inputs else node.attrs
+                # a draw on meta tensors makes shapes only, so any
+                # generator will do for an op that draws
                 with torch.no_grad():
-                    out = node.op.apply(in_structs, node.attrs)
+                    out = node.op.apply(
+                        in_structs, attrs, rng=torch.Generator()
+                        if node.op.needs_rng else None)
             except Exception as e:  # any op error is an inference failure
                 raise MXNetError("shape inference failed at node %s (op %s): "
                                  "%s" % (node.name, node.op.name, e)) from e

@@ -1,5 +1,7 @@
-"""Test helpers: the synthetic-digits stand-in for MNIST, and the
-fp64-referenced row check of the flash-attention backward.
+"""Test helpers: the synthetic-digits stand-in for MNIST, the
+fp64-referenced row check of the flash-attention backward, and the op
+sweep's cases (``op_cases``, ``random_cases``), and ``set_dropout``,
+which turns a zoo model's Dropout off for a parity check.
 
 ``get_mnist`` is this package's own copy of the recipe in
 ``mxnet_tpu/test_utils.py:396-434`` (numpy only, so the arrays are equal
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 
 __all__ = ["get_mnist", "attention_grads_fp64", "row_errors",
-           "sharp_row_check", "SHARP_ROW_C"]
+           "sharp_row_check", "SHARP_ROW_C", "op_cases", "run_op_case",
+           "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
+           "LIBM_TOL", "SUM_TOL", "set_dropout"]
 
 
 def _synthetic_digits(n, rng, protos):
@@ -119,3 +123,506 @@ def sharp_row_check(got, plain, exact, scales, rtol, c=SHARP_ROW_C):
     return dict(kernel=max(k.max().item() for k in kern),
                 plain=max(p.max().item() for p in ref), worst=worst,
                 ok=worst <= 1.0)
+
+
+# --- the op sweep ------------------------------------------------------------
+# One or more seeded cases for every op of the elemwise, reduce, matrix and
+# nn modules: the same inputs go through two runs (the JAX package and this
+# one on the CPU in tests/test_torch_ops_breadth.py; this package on the
+# card and on the CPU in chip_smoke.py's op sweep), forward and, for the
+# inputs in "diff", the gradient under a seeded head gradient.  Each case
+# states its tolerance beside it: FP32_TOL by default; where a case needs
+# more, the reason is given there.  "bf16" marks the cases that run again
+# in bfloat16 (the unary and reduce ops, dot and batch_dot), held to
+# BF16_TOL.  Random draws are held by their moments instead
+# (``random_cases``).
+
+FP32_TOL = dict(rtol=1e-5, atol=1e-6)
+# bfloat16 keeps 8 significant bits: two runs that round the same fp32
+# value at different places (a fused chain against op by op) differ by up
+# to two units in the last place, 2^-6 relative
+BF16_TOL = dict(rtol=2.0 ** -6, atol=2.0 ** -8)
+# transcendental functions of another library's making (lgamma, erfinv,
+# the inverse hyperbolics) agree to a few fp32 ulps, not one
+LIBM_TOL = dict(rtol=1e-4, atol=1e-6)
+# a gradient that sums tens of terms of size 1 with cancellation (a
+# normalization's gamma and input gradients) lands 1e-6 from the other
+# summation order's
+SUM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+_UNARY_DOMAINS = {
+    "abs": (0.2, 2.0, True), "arccos": (-0.9, 0.9, False),
+    "arccosh": (1.1, 3.0, False), "arcsin": (-0.9, 0.9, False),
+    "arcsinh": (-2.0, 2.0, False), "arctan": (-2.0, 2.0, False),
+    "arctanh": (-0.9, 0.9, False), "cbrt": (0.2, 3.0, True),
+    "ceil": (-3.0, 3.0, False), "cos": (-3.0, 3.0, False),
+    "cosh": (-2.0, 2.0, False), "degrees": (-3.0, 3.0, False),
+    "exp": (-2.0, 2.0, False), "expm1": (-2.0, 2.0, False),
+    "fix": (-3.0, 3.0, False), "floor": (-3.0, 3.0, False),
+    "gamma": (0.5, 4.0, False), "gammaln": (0.5, 4.0, False),
+    "log": (0.1, 4.0, False), "log10": (0.1, 4.0, False),
+    "log1p": (-0.5, 3.0, False), "log2": (0.1, 4.0, False),
+    "negative": (-2.0, 2.0, False), "radians": (-90.0, 90.0, False),
+    "rcbrt": (0.2, 3.0, True), "reciprocal": (0.5, 3.0, True),
+    "relu": (-2.0, 2.0, False), "rint": (-3.0, 3.0, False),
+    "round": (-3.0, 3.0, False), "rsqrt": (0.5, 4.0, False),
+    "sigmoid": (-4.0, 4.0, False), "sign": (-3.0, 3.0, False),
+    "sin": (-3.0, 3.0, False), "sinh": (-2.0, 2.0, False),
+    "sqrt": (0.1, 4.0, False), "square": (-2.0, 2.0, False),
+    "tan": (-1.2, 1.2, False), "tanh": (-2.0, 2.0, False),
+    "trunc": (-3.0, 3.0, False), "erf": (-2.0, 2.0, False),
+    "erfinv": (-0.9, 0.9, False), "softsign": (-3.0, 3.0, False),
+}
+_LIBM = ("gamma", "gammaln", "erfinv", "arccosh", "arcsinh", "arctanh",
+         "cbrt", "rcbrt", "tan", "sinh", "cosh", "expm1", "log1p")
+
+
+def _case(op, inputs, attrs=None, diff=(), tol=None, bf16=False, train=True,
+          tag="", seeded=None):
+    return dict(op=op, inputs=[np.asarray(a, np.float32) for a in inputs],
+                attrs=dict(attrs or {}), diff=tuple(diff), seeded=seeded,
+                tol=dict(tol or FP32_TOL), bf16=bf16, train=train,
+                name=op + (("[%s]" % tag) if tag else ""))
+
+
+def op_cases(seed=0):
+    """The sweep's cases (see above), each a dict with ``op``, ``inputs``
+    (float32 numpy arrays), ``attrs``, ``diff`` (input positions whose
+    gradient is compared), ``seeded`` (the outputs given a head gradient,
+    None: all), ``tol``, ``bf16``, ``train`` and ``name``."""
+    rng = np.random.RandomState(seed)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def signed(lo, hi, *shape):
+        return u(lo, hi, *shape) * rng.choice([-1.0, 1.0], shape)
+
+    def idx(n, *shape):
+        return rng.randint(0, n, shape).astype(np.float32)
+
+    cases = []
+    add = cases.append
+    # unary math
+    for op, (lo, hi, sym) in _UNARY_DOMAINS.items():
+        x = signed(lo, hi, 3, 5) if sym else u(lo, hi, 3, 5)
+        add(_case(op, [x], diff=[0], bf16=True,
+                  tol=LIBM_TOL if op in _LIBM else FP32_TOL))
+    halves = np.array([[-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5, -3.5]])
+    add(_case("round", [halves], tag="halves to even"))
+    add(_case("rint", [halves], tag="halves to even"))
+    add(_case("gamma", [np.array([[-2.5, -1.5, -0.5, 0.5, 2.5]])],
+              tol=LIBM_TOL, tag="negative: |gamma|"))
+    add(_case("erfinv", [np.array([[-1.5, -1.0, 1.0, 1.5, 0.0]])],
+              tag="edges"))
+    x = u(-2, 2, 3, 5)
+    for op in ("_copy", "BlockGrad", "make_loss", "_NoGradient",
+               "_CrossDeviceCopy"):
+        add(_case(op, [x], diff=[0]))
+    add(_case("make_loss", [x], {"grad_scale": 0.5}, diff=[0],
+              tag="grad_scale"))
+    add(_case("smooth_l1", [u(-3, 3, 4, 5)], {"scalar": 1.5}, diff=[0]))
+    for op in ("softmax", "log_softmax", "softmin"):
+        add(_case(op, [u(-2, 2, 3, 4, 5)], {"axis": 1}, diff=[0]))
+    add(_case("softmax", [u(-2, 2, 3, 5)], {"temperature": 2.0}, diff=[0],
+              tag="temperature"))
+    add(_case("Cast", [u(-2, 2, 3, 4)], {"dtype": "float64"}, diff=[0]))
+    add(_case("clip", [u(-3, 3, 4, 5)], {"a_min": -1.0, "a_max": 1.5},
+              diff=[0]))
+    add(_case("clip", [np.array([[-1.0, 0.0, 1.0, 2.0]])],
+              {"a_min": -1.0, "a_max": 1.0}, diff=[0], tag="at the bounds"))
+    add(_case("where", [idx(2, 3, 4), u(-1, 1, 3, 4), u(-1, 1, 3, 4)],
+              diff=[1, 2]))
+    add(_case("add_n", [u(-1, 1, 3, 4) for _ in range(3)], {"num_args": 3},
+              diff=[0, 1, 2]))
+    add(_case("_identity_with_attr_like_rhs", [u(-1, 1, 3), u(-1, 1, 3)],
+              diff=[0]))
+    # binary, broadcast and scalar families
+    a, b = u(0.5, 2, 2, 1, 4), u(0.5, 2, 1, 3, 4)
+    for op in ("add", "sub", "mul", "div", "mod", "power", "maximum",
+               "minimum", "hypot"):
+        add(_case("broadcast_%s" % op, [a, b], diff=[0, 1]))
+        add(_case("elemwise_%s" % op, [a[:, :1], b[:1, :1]], diff=[0, 1]))
+    add(_case("_grad_add", [a, a], diff=[0, 1]))
+    add(_case("_scatter_elemwise_div", [a, a + 1], diff=[0, 1]))
+    bits_a, bits_b = idx(2, 3, 4), idx(2, 3, 4)
+    for op in ("equal", "not_equal", "greater", "greater_equal", "lesser",
+               "lesser_equal", "logical_and", "logical_or", "logical_xor"):
+        add(_case("_%s" % op, [bits_a, bits_b]))
+        add(_case("broadcast_%s" % op, [bits_a, bits_b[:1]]))
+    x = np.round(u(-2, 2, 3, 4) * 2) / 2  # ties with the scalar 0.5
+    for op in ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
+               "_mul_scalar", "_div_scalar", "_rdiv_scalar", "_mod_scalar",
+               "_power_scalar", "_maximum_scalar", "_minimum_scalar",
+               "_hypot_scalar", "_equal_scalar", "_not_equal_scalar",
+               "_greater_scalar", "_greater_equal_scalar", "_lesser_scalar",
+               "_lesser_equal_scalar", "_logical_and_scalar",
+               "_logical_or_scalar", "_logical_xor_scalar",
+               "_scatter_plus_scalar", "_scatter_minus_scalar"):
+        pos = op in ("_rdiv_scalar", "_power_scalar", "_mod_scalar")
+        logical = "equal" in op or "greater" in op or "lesser" in op \
+            or "logical" in op
+        add(_case(op, [u(0.5, 2, 3, 4) if pos else x], {"scalar": 0.5},
+                  diff=[] if logical else [0]))
+    add(_case("_rmod_scalar", [u(0.5, 2, 3, 4)], {"scalar": 3.0}, diff=[0]))
+    add(_case("_rpower_scalar", [u(-1, 1, 3, 4)], {"scalar": 2.0},
+              diff=[0]))
+    # reductions (ties: two equal maxima share max's gradient)
+    x = u(-2, 2, 3, 4, 5)
+    x[0, 0, :2] = 3.0
+    for op in ("sum", "mean", "max", "min", "nansum"):
+        add(_case(op, [x], {"axis": 1}, diff=[0], bf16=True))
+        add(_case(op, [x], {"axis": (0, 2), "keepdims": True}, diff=[0],
+                  bf16=True, tag="axes keepdims"))
+        add(_case(op, [x], diff=[0], tag="all"))
+        add(_case(op, [x], {"axis": -1, "exclude": True}, diff=[0],
+                  tag="exclude"))
+    xp = u(0.5, 1.5, 3, 4, 5)
+    for op in ("prod", "nanprod"):
+        add(_case(op, [xp], {"axis": (1, 2)}, diff=[0], bf16=True))
+        add(_case(op, [xp], {"axis": -1}, diff=[0], tag="last"))
+    xn = u(-2, 2, 3, 4)
+    xn[1, 2] = np.nan
+    add(_case("nansum", [xn], {"axis": 1}, tag="nan"))
+    add(_case("nanprod", [np.where(np.isnan(xn), xn, xn / 2 + 1)],
+              {"axis": 1}, tag="nan"))
+    for op in ("argmax", "argmin"):
+        add(_case(op, [x], {"axis": 1}, bf16=True))
+        add(_case(op, [x], {"axis": 2, "keepdims": True}, tag="keepdims"))
+        add(_case(op, [x], tag="flat"))
+    add(_case("argmax_channel", [x]))
+    add(_case("norm", [x], diff=[0], bf16=True))
+    add(_case("norm", [x], {"ord": 1, "axis": 1}, diff=[0], tag="l1"))
+    add(_case("norm", [x], {"axis": (1, 2), "keepdims": True}, diff=[0],
+              tag="axes"))
+    add(_case("_square_sum", [x], {"axis": 1}, diff=[0], bf16=True))
+    y = u(-1, 1, 3, 1, 5)
+    add(_case("broadcast_axis", [y], {"axis": 1, "size": 4}, diff=[0]))
+    add(_case("broadcast_to", [y], {"shape": (0, 4, 5)}, diff=[0]))
+    add(_case("broadcast_like", [y, x], diff=[0]))
+    # shape and layout
+    x = u(-1, 1, 2, 3, 4)
+    add(_case("Reshape", [x], {"shape": (-1, 0)}, diff=[0]))
+    add(_case("Flatten", [x], diff=[0]))
+    add(_case("expand_dims", [x], {"axis": -2}, diff=[0]))
+    add(_case("transpose", [x], diff=[0]))
+    add(_case("transpose", [x], {"axes": (1, 0, 2)}, diff=[0], tag="axes"))
+    add(_case("SwapAxis", [x], {"dim1": 0, "dim2": 2}, diff=[0]))
+    add(_case("reshape_like", [x, u(0, 1, 6, 4)], diff=[0]))
+    add(_case("Concat", [x, x * 2], {"dim": 2, "num_args": 2}, diff=[0, 1]))
+    add(_case("stack", [x, x * 2], {"axis": 1, "num_args": 2}, diff=[0, 1]))
+    add(_case("SliceChannel", [u(-1, 1, 2, 6, 3)], {"num_outputs": 3},
+              diff=[0]))
+    add(_case("SliceChannel", [u(-1, 1, 2, 3, 4)],
+              {"num_outputs": 3, "axis": 1, "squeeze_axis": True}, diff=[0],
+              tag="squeeze"))
+    add(_case("_internal_getitem", [x], {"key": (slice(None), 1)}, diff=[0]))
+    add(_case("slice", [x], {"begin": (0, 1, None), "end": (2, 3, None)},
+              diff=[0]))
+    add(_case("slice", [x], {"begin": (None, 2, 3), "end": (None, 0, 0),
+                             "step": (None, -1, -2)}, diff=[0],
+              tag="negative steps"))
+    add(_case("slice_axis", [x], {"axis": 2, "begin": 1, "end": -1},
+              diff=[0]))
+    add(_case("slice_like", [x, u(0, 1, 1, 2, 3)], {"axes": (1, 2)},
+              diff=[0]))
+    add(_case("reverse", [x], {"axis": (0, 2)}, diff=[0]))
+    add(_case("tile", [x], {"reps": (2, 1, 2)}, diff=[0]))
+    add(_case("tile", [u(-1, 1, 3)], {"reps": (2, 2)}, diff=[0],
+              tag="more reps"))
+    add(_case("repeat", [x], {"repeats": 2, "axis": 1}, diff=[0]))
+    add(_case("repeat", [x], {"repeats": 3}, diff=[0], tag="flat"))
+    x4 = u(-1, 1, 1, 2, 4, 5)
+    pw = (0, 0, 0, 0, 1, 2, 2, 1)
+    add(_case("Pad", [x4], {"mode": "constant", "pad_width": pw,
+                            "constant_value": 0.5}, diff=[0]))
+    add(_case("Pad", [x4], {"mode": "edge", "pad_width": pw}, diff=[0],
+              tag="edge"))
+    add(_case("Pad", [x4], {"mode": "reflect", "pad_width": pw}, diff=[0],
+              tag="reflect"))
+    # products
+    a2, b2 = u(-1, 1, 4, 5), u(-1, 1, 5, 3)
+    add(_case("dot", [a2, b2], diff=[0, 1], bf16=True))
+    add(_case("dot", [a2.T.copy(), b2.T.copy()],
+              {"transpose_a": True, "transpose_b": True}, diff=[0, 1],
+              bf16=True, tag="transposed"))
+    add(_case("dot", [u(-1, 1, 2, 3, 4), u(-1, 1, 4, 5)], diff=[0, 1],
+              tag="n-d"))
+    add(_case("dot", [u(-1, 1, 4), u(-1, 1, 4)], diff=[0, 1], tag="1-d"))
+    ba, bb = u(-1, 1, 2, 4, 5), u(-1, 1, 2, 5, 3)
+    add(_case("batch_dot", [ba, bb], diff=[0, 1], bf16=True))
+    add(_case("batch_dot", [ba.transpose(0, 2, 1).copy(),
+                            bb.transpose(0, 2, 1).copy()],
+              {"transpose_a": True, "transpose_b": True}, diff=[0, 1],
+              bf16=True, tag="transposed"))
+    # indexing
+    src = u(-1, 1, 5, 3)
+    add(_case("take", [src, np.array([0, 4, 1, 1])], diff=[0]))
+    add(_case("take", [u(-1, 1, 2, 5), np.array([[0, 6], [-1, 2]])],
+              {"axis": 1, "mode": "wrap"}, diff=[0], tag="wrap"))
+    add(_case("take", [src, np.array([0, 7, -2])], {"mode": "clip"},
+              diff=[0], tag="clip"))
+    add(_case("batch_take", [src, np.array([0, 2, 1, 1, 0])], diff=[0]))
+    add(_case("pick", [src, np.array([0, 2, 1, 1, 0])], {"axis": 1},
+              diff=[0]))
+    add(_case("Embedding", [np.array([[1, 1], [4, 0]]), u(-1, 1, 5, 3)],
+              {"input_dim": 5, "output_dim": 3}, diff=[1]))
+    add(_case("one_hot", [np.array([0, 3, 1, 4])],
+              {"depth": 5, "on_value": 2.0, "off_value": -1.0}))
+    ind = np.array([[0, 2, 3], [1, 4, 0]])
+    add(_case("gather_nd", [u(-1, 1, 4, 5), ind], diff=[0]))
+    add(_case("scatter_nd", [u(-1, 1, 3), ind], {"shape": (4, 5)},
+              diff=[0]))
+    add(_case("_scatter_set_nd", [u(-1, 1, 4, 5), ind, u(-1, 1, 3)],
+              {"shape": (4, 5)}, diff=[0, 2]))
+    # ordering, with ties
+    xs = np.round(u(-2, 2, 3, 7) * 2) / 2
+    add(_case("sort", [xs], {"axis": 1}, diff=[0]))
+    add(_case("sort", [xs], {"axis": 1, "is_ascend": False}, diff=[0],
+              tag="descending"))
+    add(_case("argsort", [xs], {"axis": 1}))
+    add(_case("argsort", [xs], {"axis": 0, "is_ascend": False,
+                                "dtype": "int32"}, tag="descending int32"))
+    for ret in ("indices", "value", "mask", "both"):
+        add(_case("topk", [xs], {"k": 3, "ret_typ": ret},
+                  diff=[0] if ret in ("value", "both") else [], tag=ret,
+                  seeded=[0]))
+    add(_case("topk", [xs], {"k": 2, "axis": 0, "is_ascend": True,
+                             "ret_typ": "both"}, diff=[0], tag="ascending",
+              seeded=[0]))
+    # creation
+    add(_case("_zeros", [], {"shape": (2, 3)}))
+    add(_case("_ones", [], {"shape": 4, "dtype": "int32"}))
+    add(_case("_full", [], {"shape": (2, 2), "value": 1.5}))
+    add(_case("_arange", [], {"start": 0.5, "stop": 3.2, "step": 0.3,
+                              "repeat": 2}))
+    add(_case("_arange", [], {"start": 5}, tag="stop None"))
+    add(_case("_eye", [], {"N": 3, "M": 4, "k": 1}))
+    add(_case("zeros_like", [x]))
+    add(_case("ones_like", [x]))
+    add(_case("diag", [u(-1, 1, 4)], {"k": -1}, diff=[0]))
+    add(_case("diag", [u(-1, 1, 3, 4)], {"k": 1}, diff=[0], tag="2-d"))
+    add(_case("_slice_assign", [u(-1, 1, 4, 5), u(-1, 1, 2, 2)],
+              {"begin": (1, 0), "end": (3, 4), "step": (1, 2)},
+              diff=[0, 1]))
+    add(_case("_crop_assign_scalar", [u(-1, 1, 4, 5)],
+              {"begin": (1, 1), "end": (3, 4), "scalar": 2.0}, diff=[0]))
+    add(_case("IdentityAttachKLSparseReg", [u(0.1, 0.9, 4, 5)],
+              {"sparseness_target": 0.2, "penalty": 0.01}, diff=[0]))
+    # neural-network layers
+    add(_case("FullyConnected", [u(-1, 1, 4, 2, 3), u(-1, 1, 5, 6),
+                                 u(-1, 1, 5)], {"num_hidden": 5},
+              diff=[0, 1, 2]))
+    add(_case("Convolution", [u(-1, 1, 2, 4, 7, 7), u(-1, 1, 6, 2, 3, 3),
+                              u(-1, 1, 6)],
+              {"kernel": (3, 3), "num_filter": 6, "num_group": 2,
+               "pad": (1, 1)}, diff=[0, 1, 2]))
+    for kernel, stride, pad, adj, group, extra in (
+            ((3, 3), (2, 2), (1, 1), (1, 1), 1, True),
+            ((4, 4), (2, 2), (1, 1), (0, 0), 2, False),
+            ((3,), (3,), (0,), (2,), 1, True)):
+        c = 4
+        shape = (2, c) + (5,) * len(kernel)
+        w = u(-1, 1, c, 6 // group, *kernel)
+        ins = [u(-1, 1, *shape), w] + ([u(-1, 1, 6)] if extra else [])
+        add(_case("Deconvolution", ins,
+                  {"kernel": kernel, "stride": stride, "pad": pad,
+                   "adj": adj, "num_filter": 6, "num_group": group,
+                   "no_bias": not extra}, diff=range(len(ins)),
+                  tag="%dd g%d" % (len(kernel), group)))
+    add(_case("Pooling", [u(-1, 1, 2, 3, 9)],
+              {"kernel": (3,), "stride": (2,), "pad": (1,),
+               "pool_type": "avg", "count_include_pad": False}, diff=[0],
+              tag="1-d avg"))
+    add(_case("Pooling", [u(-1, 1, 2, 3, 9)],
+              {"kernel": (3,), "stride": (2,), "pool_type": "sum",
+               "pooling_convention": "full"}, diff=[0], tag="1-d sum full"))
+    up = u(-1, 1, 1, 2, 3, 4)
+    add(_case("UpSampling", [up], {"scale": 2, "sample_type": "nearest",
+                                   "num_args": 1}, diff=[0]))
+    add(_case("UpSampling", [up, up * 2],
+              {"scale": 2, "sample_type": "nearest", "num_args": 2,
+               "multi_input_mode": "sum"}, diff=[0, 1], tag="sum"))
+    add(_case("UpSampling", [up, up * 2],
+              {"scale": 3, "sample_type": "nearest", "num_args": 2},
+              diff=[0, 1], tag="concat"))
+    add(_case("UpSampling", [up, u(-1, 1, 2, 1, 4, 4)],
+              {"scale": 2, "sample_type": "bilinear", "num_args": 2,
+               "num_filter": 2}, diff=[0], tag="bilinear"))
+    xb = u(-1, 1, 4, 3, 5, 5)
+    add(_case("BatchNorm", [xb, u(0.5, 1.5, 3), u(-1, 1, 3), u(-1, 1, 3),
+                            u(0.5, 1.5, 3)],
+              {"fix_gamma": False, "eps": 1e-5}, diff=[0, 1, 2],
+              tol=SUM_TOL))
+    add(_case("InstanceNorm", [xb, u(0.5, 1.5, 3), u(-1, 1, 3)],
+              {"eps": 1e-5}, diff=[0, 1, 2], tol=SUM_TOL))
+    add(_case("LayerNorm", [xb, u(0.5, 1.5, 5), u(-1, 1, 5)], diff=[0, 1, 2],
+              tol=SUM_TOL))
+    add(_case("LayerNorm", [xb, u(0.5, 1.5, 3), u(-1, 1, 3)], {"axis": 1},
+              diff=[0, 1, 2], tol=SUM_TOL, tag="axis 1"))
+    for mode in ("instance", "channel", "spatial"):
+        add(_case("L2Normalization", [xb], {"mode": mode}, diff=[0],
+                  tag=mode))
+    add(_case("LRN", [u(0, 1, 2, 7, 3, 3)], {"nsize": 5, "alpha": 1e-2},
+              diff=[0]))
+    for act in ("relu", "sigmoid", "tanh", "softrelu", "softsign"):
+        add(_case("Activation", [u(-2, 2, 3, 4)], {"act_type": act},
+                  diff=[0], tag=act))
+    xl = u(-2, 2, 2, 3, 4)
+    for act in ("leaky", "elu", "selu"):
+        add(_case("LeakyReLU", [xl], {"act_type": act, "slope": 0.3},
+                  diff=[0], tag=act))
+    add(_case("LeakyReLU", [xl, u(0, 0.5, 3)], {"act_type": "prelu"},
+              diff=[0, 1], tag="prelu"))
+    add(_case("LeakyReLU", [xl], {"act_type": "rrelu"}, diff=[0],
+              train=False, tag="rrelu at inference"))
+    add(_case("SoftmaxActivation", [xl], diff=[0]))
+    add(_case("SoftmaxActivation", [xl], {"mode": "channel"}, diff=[0],
+              tag="channel"))
+    add(_case("Dropout", [xl], {"p": 0.5}, diff=[0], train=False,
+              tag="inference"))
+    add(_case("Dropout", [xl], {"p": 0.0}, diff=[0], tag="p 0"))
+    logits, labels = u(-2, 2, 4, 5), np.array([0, 3, 1, 4])
+    add(_case("SoftmaxOutput", [logits, labels], {"grad_scale": 0.5},
+              diff=[0]))
+    add(_case("LinearRegressionOutput", [logits, u(-1, 1, 4, 5)],
+              {"grad_scale": 2.0}, diff=[0]))
+    add(_case("MAERegressionOutput", [logits, u(-1, 1, 4, 5)], diff=[0]))
+    add(_case("LogisticRegressionOutput", [logits, idx(2, 4, 5)], diff=[0]))
+    add(_case("SVMOutput", [logits, labels], {"margin": 1.5}, diff=[0]))
+    add(_case("SVMOutput", [logits, labels], {"use_linear": True,
+                                              "regularization_coefficient":
+                                              0.5}, diff=[0], tag="linear"))
+    add(_case("softmax_cross_entropy", [logits, labels], diff=[0]))
+    for norm in ("null", "batch", "valid"):
+        add(_case("MakeLoss", [u(-1, 1, 4, 3)],
+                  {"normalization": norm, "grad_scale": 0.5}, diff=[0],
+                  tag=norm))
+    seq, lens = u(-1, 1, 4, 3, 2), np.array([2, 4, 1])
+    for op in ("SequenceMask", "SequenceLast", "SequenceReverse"):
+        add(_case(op, [seq, lens], {"use_sequence_length": True,
+                                    "value": -1.0}, diff=[0]))
+        add(_case(op, [seq], diff=[0], tag="whole"))
+    add(_case("SequenceMask", [seq.transpose(1, 0, 2).copy(), lens],
+              {"use_sequence_length": True, "axis": 1}, diff=[0],
+              tag="axis 1"))
+    img = u(-1, 1, 2, 3, 6, 7)
+    add(_case("Crop", [img], {"offset": (1, 2), "h_w": (3, 4)}, diff=[0]))
+    add(_case("Crop", [img], {"h_w": (3, 4), "center_crop": True},
+              diff=[0], tag="center"))
+    add(_case("Crop", [img, u(0, 1, 1, 1, 4, 4)], {"num_args": 2},
+              diff=[0], tag="like"))
+    return cases
+
+
+def run_op_case(pkg, case, ctx, dtype="float32", head_seed=1):
+    """Run ``case`` through ``pkg`` (this package or the JAX one) on
+    ``ctx``: the visible outputs and the gradients of the inputs in
+    ``case["diff"]`` under seeded head gradients, as float64 numpy
+    arrays."""
+    op = pkg.ops.registry.get_op(case["op"])
+    nds = [pkg.nd.array(a, ctx=ctx, dtype=dtype) for a in case["inputs"]]
+    attrs = dict(case["attrs"])
+    if op.no_inputs:
+        attrs["ctx"] = ctx
+    diff = case["diff"]
+    for i in diff:
+        nds[i].attach_grad()
+    with pkg.autograd.record(train_mode=case["train"]):
+        outs = pkg.nd.invoke(op, nds, attrs)
+    if diff:
+        rng = np.random.RandomState(head_seed)
+        seeded = [outs[i] for i in (case["seeded"] or range(len(outs)))]
+        heads = [pkg.nd.array(rng.randn(*o.shape), ctx=ctx, dtype=o.dtype)
+                 for o in seeded]
+        pkg.autograd.backward(seeded, heads)
+
+    def host(x):
+        return np.asarray(x.astype("float64").asnumpy(), np.float64)
+    return [host(o) for o in outs], [host(nds[i].grad) for i in diff]
+
+
+def random_cases():
+    """One case per random op: (name, draw, mean, var), where
+    ``draw(nd, n, ctx)`` takes ``n`` samples through ``nd`` (this package's
+    or the JAX package's) on ``ctx`` as an NDArray, and ``mean``/``var`` are
+    the distribution's own moments (for the ``_sample_*`` ops, of the
+    pooled draws of two parameter rows)."""
+    def row(v):
+        return np.array(v, np.float32)
+
+    def pooled(means, variances):
+        m = float(np.mean(means))
+        return m, float(np.mean(np.asarray(variances) + (np.asarray(means)
+                                                          - m) ** 2))
+    k, p = 3, 0.4
+    mu, alpha = 2.0, 0.5
+    cases = [
+        ("_random_uniform", lambda nd, n, c: nd.random.uniform(
+            -1, 3, shape=(n,), ctx=c), 1.0, 16.0 / 12),
+        ("_random_normal", lambda nd, n, c: nd.random.normal(
+            0.5, 2.0, shape=(n,), ctx=c), 0.5, 4.0),
+        ("_random_gamma", lambda nd, n, c: nd.random.gamma(
+            2.5, 1.5, shape=(n,), ctx=c), 3.75, 2.5 * 1.5 ** 2),
+        ("_random_exponential", lambda nd, n, c: nd.random.exponential(
+            2.0, shape=(n,), ctx=c), 2.0, 4.0),
+        ("_random_poisson", lambda nd, n, c: nd.random.poisson(
+            3.5, shape=(n,), ctx=c), 3.5, 3.5),
+        ("_random_negative_binomial", lambda nd, n, c:
+         nd.random.negative_binomial(k, p, shape=(n,), ctx=c),
+         k * (1 - p) / p, k * (1 - p) / p ** 2),
+        ("_random_generalized_negative_binomial", lambda nd, n, c:
+         nd.random.generalized_negative_binomial(mu, alpha, shape=(n,),
+                                                 ctx=c),
+         mu, mu + alpha * mu ** 2),
+        ("_random_randint", lambda nd, n, c: nd.random.randint(
+            -2, 5, shape=(n,), ctx=c), 1.0, (49 - 1) / 12.0),
+        ("_sample_uniform", lambda nd, n, c: nd.random.uniform(
+            nd.array(row([0, 2]), ctx=c), nd.array(row([1, 5]), ctx=c),
+            shape=(n // 2,)), *pooled([0.5, 3.5], [1 / 12, 9 / 12])),
+        ("_sample_normal", lambda nd, n, c: nd.random.normal(
+            nd.array(row([-1, 1]), ctx=c), nd.array(row([1, 2]), ctx=c),
+            shape=(n // 2,)), *pooled([-1, 1], [1, 4])),
+        ("_sample_gamma", lambda nd, n, c: nd.random.gamma(
+            nd.array(row([1, 3]), ctx=c), nd.array(row([2, 0.5]), ctx=c),
+            shape=(n // 2,)), *pooled([2, 1.5], [4, 0.75])),
+        ("_sample_exponential", lambda nd, n, c: nd.random.exponential(
+            nd.array(row([1, 3]), ctx=c), shape=(n // 2,)),
+         *pooled([1, 1 / 3], [1, 1 / 9])),
+        ("_sample_poisson", lambda nd, n, c: nd.random.poisson(
+            nd.array(row([1, 6]), ctx=c), shape=(n // 2,)),
+         *pooled([1, 6], [1, 6])),
+        ("_sample_multinomial", lambda nd, n, c: nd.random.multinomial(
+            nd.array(row([0.1, 0.2, 0.3, 0.4]), ctx=c), shape=(n,)),
+         2.0, 1.0),
+        ("shuffle", lambda nd, n, c: nd.random.shuffle(
+            nd.array(np.arange(n, dtype=np.float32) % 10, ctx=c)),
+         4.5, 8.25),
+    ]
+    return cases
+
+
+def moment_errors(samples, mean, var):
+    """How many standard errors the sample mean and variance of
+    ``samples`` lie from ``mean`` and ``var`` (the variance's standard
+    error from the sample's fourth central moment)."""
+    x = np.asarray(samples, np.float64).reshape(-1)
+    n = x.size
+    m = x.mean()
+    c = x - m
+    s2 = (c ** 2).mean()
+    m4 = (c ** 4).mean()
+    return (abs(m - mean) / np.sqrt(var / n),
+            abs(s2 - var) / np.sqrt(max(m4 - s2 ** 2, 1e-30) / n))
+
+
+def set_dropout(block, rate, nn=None):
+    """Set every ``nn.Dropout`` under ``block`` to ``rate``.  ``nn`` is
+    the Gluon ``nn`` module whose blocks ``block`` is made of: this
+    package's by default, the JAX package's for its own."""
+    if nn is None:
+        from .gluon import nn
+    if isinstance(block, nn.Dropout):
+        block._rate = rate
+    for child in block._children:
+        set_dropout(child, rate, nn)

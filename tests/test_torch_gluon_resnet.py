@@ -224,8 +224,8 @@ def test_names_follow_the_construction_sequence():
 
 def test_default_context_and_refusals():
     """``initialize()`` without a context uses the current one, gpu(0): with
-    no card that raises (no move to the CPU).  Zoo names not ported and
-    pretrained weights raise."""
+    no card that raises (no move to the CPU).  A zoo name that neither
+    package has and pretrained weights raise."""
     net = build(mt, "resnet18_v1", thumbnail=True, classes=2)
     if torch.cuda.is_available():
         net.initialize()
@@ -236,6 +236,6 @@ def test_default_context_and_refusals():
         with pytest.raises(MXNetError):
             net.initialize()
     with pytest.raises(MXNetError):
-        mt.gluon.model_zoo.vision.get_model("vgg16")
+        mt.gluon.model_zoo.vision.get_model("resnet200_v3")
     with pytest.raises(MXNetError):
         mt.gluon.model_zoo.vision.resnet50_v1(pretrained=True)

@@ -28,7 +28,8 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_flash_sharp_rows.py"),
              os.path.join(REPO, "tools", "torch_lm_cpu_spread.py"),
              os.path.join(REPO, "tools", "torch_mlp_breakdown.py"),
-             os.path.join(REPO, "tools", "torch_resnet_breakdown.py")]
+             os.path.join(REPO, "tools", "torch_resnet_breakdown.py"),
+             os.path.join(REPO, "tools", "torch_zoo_chip.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -152,3 +153,35 @@ def test_cpu_scope_sets_the_default_context(no_cuda):
 def test_unsupported_device_raises():
     with pytest.raises(mt.MXNetError):
         context.as_device("meta")
+
+
+# The JAX package's op names this package does not register: the long tail
+# that waits for modules of its own (ROADMAP A.9).
+A9_OPS = {
+    "_linalg_gelqf", "_linalg_gemm", "_linalg_gemm2", "_linalg_potrf",
+    "_linalg_potri", "_linalg_sumlogdiag", "_linalg_syevd", "_linalg_syrk",
+    "_linalg_trmm", "_linalg_trsm", "linalg_gelqf", "linalg_gemm",
+    "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
+    "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",
+    "_contrib_CTCLoss", "_contrib_DeformableConvolution",
+    "_contrib_DeformablePSROIPooling", "_contrib_MultiBoxDetection",
+    "_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
+    "_contrib_MultiProposal", "_contrib_PSROIPooling", "_contrib_Proposal",
+    "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
+    "_contrib_ifft", "_contrib_quantize",
+    "RNN", "CTCLoss", "ctc_loss", "BilinearSampler", "GridGenerator",
+    "SpatialTransformer", "ROIPooling", "Correlation", "Custom",
+    "cast_storage", "_sparse_cast_storage", "sparse_retain",
+    "_sparse_retain",
+}
+
+
+def test_missing_op_names_are_the_long_tail():
+    """Every op name of the JAX package is registered here but the 47 of
+    A.9, and this package registers no name the JAX package lacks."""
+    from mxnet_tpu.ops import registry as ref
+    from mxnet_tpu_torch.ops import registry as port
+    assert len(A9_OPS) == 47
+    theirs, ours = set(ref.list_ops()), set(port.list_ops())
+    assert theirs - ours == A9_OPS
+    assert ours <= theirs

@@ -443,11 +443,14 @@ def _mlp(pkg):
 
 
 def _resnet18(pkg):
+    # the traced net's op nodes are named by the current name manager's
+    # counters, so the trace runs in the fresh one too: the process's
+    # global counters depend on what earlier tests built in each package
     with pkg.name.NameManager():
         net = pkg.gluon.model_zoo.vision.get_model(
             "resnet18_v1", classes=10, thumbnail=True)
-    return pkg.sym.SoftmaxOutput(net(pkg.sym.Variable("data")),
-                                 name="softmax")
+        return pkg.sym.SoftmaxOutput(net(pkg.sym.Variable("data")),
+                                     name="softmax")
 
 
 def test_json_roundtrip():

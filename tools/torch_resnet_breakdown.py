@@ -2,7 +2,9 @@
 """Where the time of one ResNet-50 training step goes on a CUDA card.
 
 Builds ``chip_smoke.py``'s ResNet-50 training step at batch 32, 3 x 224 x
-224, SGD with momentum, in fp32 (TF32 off) and bf16: by default the
+224, SGD with momentum, in fp32 (TF32 off) and bf16 (with ``--model``
+another zoo model of its training phases at its batch and size:
+Inception-v3 at 32 x 299², AlexNet at 512 x 224²): by default the
 Module step (``bench.py``'s configuration, ``Module._fit_step`` through
 ``CachedTrainStep``), with ``--gluon`` the Gluon step of phase 16
 (``hybridize()``, ``SoftmaxCrossEntropyLoss``, ``loss.backward()``,
@@ -38,7 +40,8 @@ are those of the CPU op that launched it, found by correlation id.
 Then, with the profiler off, it times 3 runs of 10 steps and prints each
 run's median ms/step.  Run from the repository root on the card:
 
-    python3 tools/torch_resnet_breakdown.py [--gluon] [--captured]
+    python3 tools/torch_resnet_breakdown.py [--gluon] [--captured] \
+        [--model inceptionv3|alexnet]
 
 The last line is one JSON object with the numbers.
 """
@@ -137,13 +140,21 @@ def _group(phase, label):
     return phase
 
 
-def _module_step(dtype):
-    """The Module step of phase 10 and a check that it took
-    CachedTrainStep."""
+# --model: the zoo models of chip_smoke.py's training phases, at their
+# batch and image size
+MODELS = {"resnet50_v1": (cs.RESNET_BATCH, cs.RESNET_IMAGE),
+          "inceptionv3": (cs.INCEPTION_BATCH, cs.INCEPTION_IMAGE),
+          "alexnet": (cs.ALEXNET_BATCH, cs.ALEXNET_IMAGE)}
+
+
+def _module_step(dtype, model):
+    """The Module step of phase 10 (20a for Inception-v3) and a check that
+    it took CachedTrainStep."""
     gpu = mt.gpu(0)
-    mod = cs.resnet_module(gpu, cs.RESNET_BATCH, dtype)
+    batch, image = MODELS[model]
+    mod = cs.resnet_module(gpu, batch, dtype, image=image, model=model)
     cs.resnet_train_setup(mod)
-    db = cs.resnet_batch(gpu, cs.RESNET_BATCH, dtype)
+    db = cs.resnet_batch(gpu, batch, dtype, image=image)
 
     def check():
         if mod._cached_step is None:
@@ -151,15 +162,16 @@ def _module_step(dtype):
     return (lambda: mod._fit_step(db)), check
 
 
-def _gluon_step(dtype):
-    """The Gluon step of phase 16 and a check that it traced nothing and
-    made one fused update a step."""
+def _gluon_step(dtype, model):
+    """The Gluon step of phase 16 (20b for AlexNet) and a check that it
+    traced nothing and made one fused update a step."""
     from mxnet_tpu_torch.gluon import fused_trainer
     gpu = mt.gpu(0)
-    net = cs.gluon_resnet(gpu, dtype)
+    batch, image = MODELS[model]
+    net = cs.gluon_resnet(gpu, dtype, model=model)
     trainer = cs.gluon_trainer(net)
     loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
-    db = cs.resnet_batch(gpu, cs.RESNET_BATCH, dtype)
+    db = cs.resnet_batch(gpu, batch, dtype, image=image)
     cs.gluon_step(net, trainer, loss_fn, db)  # traces the graph
     block.reset_trace_count()
     fused_trainer.reset_update_counts()
@@ -180,14 +192,15 @@ def _gluon_step(dtype):
     return step, check
 
 
-def profile_steps(dtype, gluon=False, captured=False):
+def profile_steps(dtype, gluon=False, captured=False, model="resnet50_v1"):
     with contextlib.nullcontext() if captured else capture.eager():
-        return _profile_steps(dtype, gluon, captured)
+        return _profile_steps(dtype, gluon, captured, model)
 
 
-def _profile_steps(dtype, gluon, captured):
+def _profile_steps(dtype, gluon, captured, model):
     flags = cs.tf32_flags() if dtype == torch.float32 else "bf16"
-    step, check = (_gluon_step if gluon else _module_step)(dtype)
+    step, check = (_gluon_step if gluon else _module_step)(dtype, model)
+    batch = MODELS[model][0]
     path = "Gluon" if gluon else "Module"
     mode = "captured" if captured else "eager"
     for _ in range(WARMUP):
@@ -236,9 +249,9 @@ def _profile_steps(dtype, gluon, captured):
     if device_ms == 0:
         raise SystemExit("torch.profiler recorded no device time")
     launches /= STEPS
-    print("ResNet-50 %s step %s (%s), %s, batch %d: wall %.3f ms/step "
+    print("%s %s step %s (%s), %s, batch %d: wall %.3f ms/step "
           "(profiler on), device %.3f ms, busy %.1f%%, %.1f device ops per "
-          "step" % (path, cs.DTYPE_NAME[dtype], flags, mode, cs.RESNET_BATCH,
+          "step" % (model, path, cs.DTYPE_NAME[dtype], flags, mode, batch,
                     wall_ms, device_ms, 100 * device_ms / wall_ms, launches))
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("  %-30s %9.4f ms  %5.1f%%" % (name, ms, 100 * ms / device_ms))
@@ -254,9 +267,9 @@ def _profile_steps(dtype, gluon, captured):
           % (RUNS, STEPS, ["%.3f" % m for m in medians]))
     del step, check
     cs.free_card()
-    return {"path": path, "mode": mode, "dtype": cs.DTYPE_NAME[dtype],
-            "flags": flags,
-            "batch": cs.RESNET_BATCH, "steps": STEPS,
+    return {"model": model, "path": path, "mode": mode,
+            "dtype": cs.DTYPE_NAME[dtype], "flags": flags,
+            "batch": batch, "steps": STEPS,
             "step_ms_medians": medians, "wall_ms": wall_ms,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms,
             "device_ops_per_step": launches, "groups_ms": groups,
@@ -270,6 +283,9 @@ def main():
     ap.add_argument("--captured", action="store_true",
                     help="profile the replayed captured step, not the "
                     "eager one")
+    ap.add_argument("--model", choices=sorted(MODELS), default="resnet50_v1",
+                    help="the zoo model (at its chip_smoke.py batch and "
+                    "image size)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_resnet_breakdown: needs a CUDA card")
@@ -277,7 +293,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(card)
-    runs = [profile_steps(dt, args.gluon, args.captured)
+    runs = [profile_steps(dt, args.gluon, args.captured, args.model)
             for dt in (torch.float32, torch.bfloat16)]
     print(json.dumps({"card": card, "runs": runs}))
 
