@@ -193,13 +193,40 @@ before it captures, and those runs launch the kernels too
    against the CPU, forward and gradients, fp32 (TF32 off) at each
    case's tolerance and the unary, reduce, dot and batch_dot cases again
    in bf16; each random op's 10^6 draws on the card within 5 standard
-   errors of its distribution's mean and variance.
+   errors of its distribution's mean and variance.  Its cases include
+   the fused ``RNN`` op: each mode, 1 and 2 layers, one and two
+   directions, with and without the state outputs.
+22. The RNN op on the card: whether the packed layout is cuDNN's weight
+   buffer (``cudnn_layout_check``; it is not, so torch copies the
+   weights into one at each call), and its dropout between layers in a
+   captured Module step (``rnn_dropout_checks``): a new mask each
+   replay, the kept share within 3 sigma of 0.5, an eager step and the
+   captured one from one generator state drawing the same mask.
+23. The PTB LSTM of MXNet's ``example/rnn/bucketing`` at its published
+   widths (``PTB``: 2 x 200, batch 32, buckets 10-60, SGD lr 0.01 wd
+   1e-5, ``Perplexity(ignore_label=0)``) through ``BucketingModule.fit``,
+   with per-step ``LSTMCell``s and with ``FusedRNNCell``, on a seeded
+   Zipf corpus over 10,000 words: captured and eager, one step on each
+   bucket then 30 in the iterator's shuffled order (per-bucket ms/step,
+   tokens/s, perplexity, 1 replay and no capture a timed step), the
+   device's busy share, and the memory held with the buckets' captured
+   steps in one graph pool (at most ``POOL_RATIO_LIMIT`` times that of
+   the largest bucket alone) and, for comparison, in one a bucket.
+24. The medium Gluon word LM (``WORD_LM``: 2 x 650, dropout 0.5, batch
+   32, bptt 35) as ``examples/word_language_model.py`` trains it,
+   captured (Embedding, Dense and loss hybridized; the fused Trainer
+   update) and eager: ms/step, tokens/s, busy share, peak memory.
+25. fp64 parity, the vocabulary cut to 1,000: (a) in both variants and
+   (b) (dropout 0, no clipping) card against CPU over 3 steps, held to
+   ``ZOO_PARITY_TOL``; (a) captured against eager over 8 steps of
+   shuffled buckets, within ``CAPTURED_EAGER_TOL``.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
 line, phase 19's as one ``{"checkpoint": {...}}`` line, phase 20's as
 one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
-"worst": [...]}}`` line, the
+"worst": [...]}}`` line, phases 22-25's as one ``{"rnn": {...}}`` line,
+the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -3388,6 +3415,731 @@ def phase_op_sweep(card):
                 random_moments={n: list(e) for n, e in random_rows})
 
 
+
+# -- phases 22-25: recurrent nets ---------------------------------------------
+# The reference's PTB LSTM (BASELINE.json:9, workload #3) at its published
+# widths.  (a) MXNet's example/rnn/bucketing/lstm_bucketing.py: 2 LSTMCells
+# of 200 (``SequentialRNNCell``), Embedding 200, FullyConnected to the
+# vocabulary + 1 (id 0 pads), SoftmaxOutput ignoring label 0, batch 32,
+# buckets 10-60 through ``BucketSentenceIter(invalid_label=0)``,
+# ``BucketingModule.fit`` with SGD lr 0.01, momentum 0, wd 1e-5, Xavier
+# (factor "in", magnitude 2.34) and ``Perplexity(ignore_label=0)``; again
+# with ``FusedRNNCell(200, num_layers=2)``, its cudnn_lstm_bucketing.py,
+# whose packed vector is drawn piece by piece as the cells' weights are
+# (``ptb_packed_init``).  (b) The medium word LM of MXNet's
+# example/gluon/word_language_model (emsize 650, nhid 650, 2 layers,
+# dropout 0.5) at batch 32 and bptt 35, built and trained as
+# examples/word_language_model.py does: Embedding, ``gluon.rnn.LSTM``,
+# Dense; SoftmaxCrossEntropyLoss, states detached between segments,
+# ``clip_global_norm`` at 0.25 a token, ``Trainer("sgd")`` at lr 1.0.  The
+# PTB text is not in the repository: the corpora are drawn from a seed
+# over PTB's 10,000 words, Zipf over the words, sentence lengths uniform
+# over 1-60 so that every bucket fills.
+PTB = dict(vocab=10000, hidden=200, embed=200, layers=2, batch=32,
+           buckets=(10, 20, 30, 40, 50, 60))
+PTB_OPT = (("learning_rate", 0.01), ("momentum", 0.0), ("wd", 1e-5))
+PTB_XAVIER = dict(factor_type="in", magnitude=2.34)
+PTB_SENTENCES, PTB_STEPS, PTB_SEED = 1500, 30, 13
+# the buckets' captured steps share one memory pool: the peak with all six
+# captured may be at most this many times the peak with only the largest
+POOL_RATIO_LIMIT = 1.25
+WORD_LM = dict(vocab=10000, emsize=650, nhid=650, layers=2, dropout=0.5,
+               batch=32, bptt=35)
+WORD_LM_LR, WORD_LM_CLIP = 1.0, 0.25
+WORD_LM_WARMUP, WORD_LM_STEPS, WORD_LM_SEED = 5, 30, 17
+# fp64 card against CPU (phase 25): the vocabulary cut to 1000, 3 steps,
+# held to ZOO_PARITY_TOL; captured against eager over the buckets in the
+# iterator's shuffled order, bit for bit or within this of max(1, |w|)
+RNN_PARITY_VOCAB, RNN_PARITY_STEPS, RNN_SHUFFLED_STEPS = 1000, 3, 8
+CAPTURED_EAGER_TOL = 1e-12
+# the RNN op's dropout check (phase 22): a 2-layer rnn_relu whose weights
+# pass ones through, so that its output is 1/keep where the mask between
+# the layers kept a unit and 0 where it dropped one
+RNN_DROPOUT_SHAPE = (35, 32, 650)
+RNN_DROPOUT_SIGMAS = 3.0
+
+
+def ptb_corpus(seed, sentences, vocab, max_len):
+    """Sentences of word ids 1..vocab (0 pads), Zipf over the words,
+    lengths uniform over 1..max_len."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    lengths = rng.randint(1, max_len + 1, sentences)
+    words = rng.choice(vocab, size=int(lengths.sum()), p=p / p.sum()) + 1
+    return [s.tolist() for s in np.split(words, np.cumsum(lengths)[:-1])]
+
+
+def ptb_sym_gen(pkg, cfg, fused):
+    """(a)'s ``sym_gen`` in ``pkg`` (either package)."""
+    vocab, hidden = cfg["vocab"] + 1, cfg["hidden"]
+
+    def sym_gen(seq_len):
+        data = pkg.sym.Variable("data")
+        label = pkg.sym.Variable("softmax_label")
+        embed = pkg.sym.Embedding(data, input_dim=vocab,
+                                  output_dim=cfg["embed"], name="embed")
+        if fused:
+            cell = pkg.rnn.FusedRNNCell(hidden, num_layers=cfg["layers"],
+                                        prefix="lstm_")
+        else:
+            cell = pkg.rnn.SequentialRNNCell()
+            for i in range(cfg["layers"]):
+                cell.add(pkg.rnn.LSTMCell(num_hidden=hidden,
+                                          prefix="lstm_l%d_" % i))
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = pkg.sym.Reshape(outputs, shape=(-1, hidden))
+        pred = pkg.sym.FullyConnected(pred, num_hidden=vocab, name="pred")
+        label = pkg.sym.Reshape(label, shape=(-1,))
+        pred = pkg.sym.SoftmaxOutput(pred, label, use_ignore=True,
+                                     ignore_label=0, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def ptb_packed_init(cfg, seed):
+    """The fused cell's packed vector, each weight matrix drawn by the
+    Xavier rule of the cells (U(-s, s), s = sqrt(2.34 / fan_in)) from a
+    seeded numpy generator, the biases zero."""
+    rng = np.random.RandomState(seed)
+    h, pieces = cfg["hidden"], []
+    for layer in range(cfg["layers"]):
+        for fan_in in (cfg["embed"] if layer == 0 else h, h):
+            s = math.sqrt(PTB_XAVIER["magnitude"] / fan_in)
+            pieces.append(rng.uniform(-s, s, 4 * h * fan_in))
+        pieces.append(np.zeros(8 * h))
+    return np.concatenate(pieces)
+
+
+def ptb_module(pkg, ctx, cfg, fused, dtype="float32", seed=0):
+    """(a)'s ``BucketingModule`` bound at the largest bucket, its
+    parameters initialized from ``seed`` and SGD ready."""
+    top = max(cfg["buckets"])
+    mod = pkg.mod.BucketingModule(ptb_sym_gen(pkg, cfg, fused),
+                                  default_bucket_key=top, context=ctx)
+    shape = (cfg["batch"], top)
+    mod.bind(data_shapes=[pkg.io.DataDesc("data", shape, dtype)],
+             label_shapes=[pkg.io.DataDesc("softmax_label", shape, dtype)])
+    pkg.random.seed(seed)
+    packed = {"lstm_parameters": pkg.nd.array(
+        ptb_packed_init(cfg, seed), ctx=ctx, dtype=dtype)} if fused else None
+    mod.init_params(pkg.init.Xavier(**PTB_XAVIER), arg_params=packed,
+                    allow_missing=True)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=PTB_OPT)
+    return mod
+
+
+def ptb_batches(pkg, cfg, dtype="float32", sentences=PTB_SENTENCES,
+                seed=PTB_SEED):
+    """(the iterator's batches of one epoch in its shuffled order, the
+    iterator); each batch's descriptions carry ``dtype``."""
+    pkg.random.seed(seed)
+    it = pkg.rnn.BucketSentenceIter(
+        ptb_corpus(seed, sentences, cfg["vocab"], max(cfg["buckets"])),
+        cfg["batch"], buckets=list(cfg["buckets"]), invalid_label=0,
+        dtype=dtype)
+
+    def typed(descs):
+        return [pkg.io.DataDesc(d.name, d.shape, dtype) for d in descs]
+    return [pkg.io.DataBatch(b.data, b.label, pad=0,
+                             bucket_key=b.bucket_key,
+                             provide_data=typed(b.provide_data),
+                             provide_label=typed(b.provide_label))
+            for b in it], it
+
+
+class BatchList:
+    """Given batches as the iterator ``fit`` takes."""
+
+    def __init__(self, batches, like):
+        self._batches = list(batches)
+        self.provide_data, self.provide_label = like.provide_data, \
+            like.provide_label
+
+    def __iter__(self):
+        return iter(self._batches)
+
+    def reset(self):
+        pass
+
+
+def ptb_fit(mod, batches, like, metric, on_card):
+    """``fit`` over ``batches`` for one epoch: per step (bucket, ms, the
+    peak memory so far), read at each batch's end."""
+    rec, last = [], [time.perf_counter()]
+
+    def at_end(param):
+        if on_card:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec.append((param.locals["batch"].bucket_key, 1e3 * (now - last[0]),
+                    torch.cuda.max_memory_allocated() if on_card else 0))
+        last[0] = now
+    mod.fit(BatchList(batches, like), num_epoch=1, eval_metric=metric,
+            batch_end_callback=at_end, optimizer="sgd",
+            optimizer_params=PTB_OPT)
+    return rec
+
+
+def device_profile(fn, steps):
+    """``fn`` under ``torch.profiler``: (device ms a step, wall ms a step,
+    the five device operations that took longest, ms a step each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ops[e.name()] = ops.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6 / steps
+    device = sum(ops.values())
+    if device == 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:5]
+    return device, wall, [[n[:90], ms] for n, ms in top]
+
+
+def _private_pools(mod):
+    """Give each bucket of ``mod`` a graph-memory pool of its own (the
+    comparison of phase 23's memory)."""
+    from mxnet_tpu_torch import capture
+    spawn = mod._spawn
+
+    def own_pool(*args, **kwargs):
+        bucket = spawn(*args, **kwargs)
+        bucket._graph_pool = capture.MemoryPool()
+        return bucket
+    mod._spawn = own_pool
+    mod._leader._graph_pool = capture.MemoryPool()
+
+
+def _held_bytes():
+    """What the process holds on the card once the unused cached blocks
+    are returned: live tensors and the graphs' memory pools."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def ptb_memory(ctx, cfg, fused, batches, like, private):
+    """The memory (a) holds, captured (``_held_bytes``): set up, after
+    steps on the largest bucket alone (only its program captured), then
+    after each other bucket's first step (its capture); and the peak of
+    allocated bytes over the whole run.  A replay's temporaries live in
+    the graphs' pools, which only the held bytes count."""
+    import mxnet_tpu_torch as mt
+    top = max(cfg["buckets"])
+    first = {}
+    for b in batches:
+        first.setdefault(b.bucket_key, b)
+    mod = ptb_module(mt, ctx, cfg, fused)
+    if private:
+        _private_pools(mod)
+    metric = mt.metric.Perplexity(ignore_label=0)
+    set_up = _held_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    ptb_fit(mod, [first[top]] * 2, like, metric, True)
+    out = dict(set_up=set_up, largest_only=_held_bytes(), per_bucket=[])
+    for key, b in first.items():
+        if key != top:
+            ptb_fit(mod, [b], like, metric, True)
+            out["per_bucket"].append([key, _held_bytes()])
+    out["all_buckets"] = out["per_bucket"][-1][1]
+    out["ratio"] = out["all_buckets"] / out["largest_only"]
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    del mod
+    free_card()
+    return out
+
+
+def ptb_bucketing_run(ctx, fused, cfg=PTB, steps=PTB_STEPS,
+                      sentences=PTB_SENTENCES):
+    """(a) in one cell variant, captured and eager in turn: one step on
+    each bucket (the captures), then ``steps`` timed steps in the
+    iterator's shuffled order through ``BucketingModule.fit``; per-bucket
+    ms/step medians, tokens/s (batch x bucket a step), the perplexity, the
+    counters; on the card also the peak memory (one pool and one a
+    bucket) and the device's busy share."""
+    import mxnet_tpu_torch as mt
+    on_card = ctx.device_type == "gpu"
+    batches, it = ptb_batches(mt, cfg, sentences=sentences)
+    first = {}
+    for b in batches:
+        first.setdefault(b.bucket_key, b)
+    if sorted(first) != sorted(cfg["buckets"]) or len(batches) < steps:
+        raise AssertionError("the corpus gave buckets %s and %d batches"
+                             % (sorted(first), len(batches)))
+    timed, out = batches[:steps], {}
+    for mode in STEP_MODES:
+        with step_mode(mode):
+            mod = ptb_module(mt, ctx, cfg, fused)
+            metric = mt.metric.Perplexity(ignore_label=0)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            ptb_fit(mod, list(first.values()), it, metric, on_card)
+            metric.reset()
+            counts = counter_snapshot()
+            rec = ptb_fit(mod, timed, it, metric, on_card)
+            counts = counter_delta(counts)
+            res = dict(counts=counts, perplexity=metric.get()[1])
+            per_bucket = {}
+            for key, ms, _ in rec:
+                per_bucket.setdefault(key, []).append(ms)
+            total_ms = sum(ms for _, ms, _ in rec)
+            res["ms_median_by_bucket"] = {k: _median(v) for k, v
+                                          in sorted(per_bucket.items())}
+            res["ms_mean"] = total_ms / len(rec)
+            res["tokens_s"] = cfg["batch"] * sum(k for k, _, _ in rec) \
+                / total_ms * 1e3
+            if on_card:
+                res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+                def one_each():
+                    for b in first.values():
+                        mod._fit_step(b)
+                        mod.update_metric(metric, b.label)
+                device, wall, top = device_profile(one_each, len(first))
+                res.update(profiled_device_ms=device, profiled_wall_ms=wall,
+                           busy_share=device / wall, top_device_ops=top)
+        replays = steps if mode == "captured" else 0
+        want = dict(graph_captures=0, graph_replays=replays,
+                    program_calls=steps)
+        if counts != want or not math.isfinite(res["perplexity"]):
+            raise AssertionError("(a) %s %s: counters %s (want %s), "
+                                 "perplexity %s" % (
+                                     "fused" if fused else "cells", mode,
+                                     counts, want, res["perplexity"]))
+        out[mode] = res
+        del mod
+        if on_card:
+            free_card()
+    if on_card:
+        out["memory"] = {
+            "one_pool": ptb_memory(ctx, cfg, fused, batches, it, False),
+            "a_pool_a_bucket": ptb_memory(ctx, cfg, fused, batches, it,
+                                          True)}
+    return out
+
+
+def word_lm_model(pkg, ctx, cfg, dtype="float32", seed=WORD_LM_SEED):
+    """(b)'s model, as examples/word_language_model.py builds it,
+    initialized (Xavier) on ``ctx`` from ``seed``."""
+    class RNNModel(pkg.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.embed = pkg.gluon.nn.Embedding(cfg["vocab"],
+                                                    cfg["emsize"])
+                self.rnn = pkg.gluon.rnn.LSTM(
+                    cfg["nhid"], cfg["layers"], layout="TNC",
+                    dropout=cfg["dropout"], input_size=cfg["emsize"])
+                self.decoder = pkg.gluon.nn.Dense(
+                    cfg["vocab"], flatten=False, in_units=cfg["nhid"])
+
+        def hybrid_forward(self, F, x, *state):
+            out, state = self.rnn(self.embed(x), list(state))
+            return self.decoder(out), state
+    with pkg.name.NameManager():
+        model = RNNModel(prefix="model_")
+    model.cast(dtype)
+    pkg.random.seed(seed)
+    model.collect_params().initialize(pkg.init.Xavier(), ctx=ctx)
+    return model
+
+
+def word_lm_data(cfg, segments, seed=WORD_LM_SEED):
+    """A token stream (Zipf over the vocabulary) folded into (time,
+    batch) columns, enough for ``segments`` segments of bptt."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, cfg["vocab"] + 1)
+    n = (segments * cfg["bptt"] + 1) * cfg["batch"]
+    return rng.choice(cfg["vocab"], size=n, p=p / p.sum()) \
+        .reshape(cfg["batch"], -1).T.astype(np.float64)
+
+
+def word_lm_step(pkg, model, trainer, loss_fn, x, y, state, cfg,
+                 grads_out=None, clip=WORD_LM_CLIP):
+    """One truncated-BPTT step of examples/word_language_model.py; the
+    gradients before clipping go to ``grads_out`` where given; no
+    clipping where ``clip`` is None."""
+    state = [s.detach() for s in state]
+    with pkg.autograd.record():
+        logits, state = model(x, *state)
+        loss = loss_fn(logits.reshape((-1, cfg["vocab"])), y.reshape((-1,)))
+    loss.backward()
+    params = [p for p in model.collect_params().values()
+              if p.grad_req != "null"]
+    if grads_out is not None:
+        grads_out.update({p.name: p.grad().asnumpy().copy()
+                          for p in params})
+    if clip is not None:
+        pkg.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                         clip * cfg["bptt"] * cfg["batch"])
+    trainer.step(cfg["bptt"] * cfg["batch"])
+    return loss, state, logits
+
+
+def word_lm_setup(pkg, ctx, cfg, dtype="float32"):
+    model = word_lm_model(pkg, ctx, cfg, dtype)
+    trainer = pkg.gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": WORD_LM_LR})
+    loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+    state = model.rnn.begin_state(cfg["batch"], ctx=ctx, dtype=dtype)
+    return model, trainer, loss_fn, state
+
+
+def _segment(pkg, ctx, data, i, cfg, dtype):
+    seg = data[i * cfg["bptt"]:(i + 1) * cfg["bptt"] + 1]
+    return (pkg.nd.array(seg[:-1], ctx=ctx, dtype=dtype),
+            pkg.nd.array(seg[1:], ctx=ctx, dtype=dtype))
+
+
+def word_lm_run(ctx, cfg=WORD_LM, warmup=WORD_LM_WARMUP,
+                steps=WORD_LM_STEPS):
+    """(b) captured (the Embedding, the Dense and the loss hybridized; the
+    Trainer's fused update) and eager: ms/step, tokens/s, the loss, the
+    counters; on the card the peak memory and the busy share."""
+    import mxnet_tpu_torch as mt
+    on_card = ctx.device_type == "gpu"
+    data = word_lm_data(cfg, warmup + steps)
+    out = {}
+    for mode in STEP_MODES:
+        model, trainer, loss_fn, state = word_lm_setup(mt, ctx, cfg)
+        for block in (model.embed, model.decoder, loss_fn):
+            block.hybridize()
+        box = {"state": state, "i": 0}
+
+        def step():
+            x, y = _segment(mt, ctx, data, box["i"] % (warmup + steps), cfg,
+                            "float32")
+            box["loss"], box["state"], _ = word_lm_step(
+                mt, model, trainer, loss_fn, x, y, box["state"], cfg)
+            box["i"] += 1
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with step_mode(mode):
+            for _ in range(warmup):
+                step()
+            counts = counter_snapshot()
+            times = _timed(step, steps) if on_card else [
+                _host_ms(step) for _ in range(steps)]
+            counts = counter_delta(counts)
+            loss = float(box["loss"].asnumpy().mean())
+            ms = _median(times)
+            res = dict(step_ms_median=ms, counts=counts, loss=loss,
+                       tokens_s=cfg["batch"] * cfg["bptt"] / ms * 1e3)
+            if on_card:
+                res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                device, wall, top = device_profile(
+                    lambda: [step() for _ in range(5)], 5)
+                res.update(profiled_device_ms=device, profiled_wall_ms=wall,
+                           busy_share=device / wall, top_device_ops=top)
+        if counts["graph_captures"] or counts["program_calls"] < steps \
+                or not math.isfinite(loss):
+            raise AssertionError("(b) %s: counters %s, loss %s"
+                                 % (mode, counts, loss))
+        out[mode] = res
+        del model, trainer, loss_fn, state, box
+        if on_card:
+            free_card()
+    return out
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+CUDNN_MODES = {"rnn_relu": 0, "rnn_tanh": 1, "lstm": 2, "gru": 3}
+# the fused RNN shapes the paths give the op: (a)'s FusedRNNCell and (b)'s
+# LSTM, (mode, layers, input width, hidden, bidirectional)
+RNN_LAYOUT_CASES = (("lstm", 2, 200, 200, False),
+                    ("lstm", 2, 650, 650, False), ("gru", 2, 64, 64, True),
+                    ("rnn_tanh", 1, 32, 48, True))
+
+
+def cudnn_layout_check(dtype=torch.float32):
+    """Whether the packed layout (``ops.nn.rnn_weights``) is cuDNN's own
+    weight buffer: cuDNN flattens fresh weights of each case into its
+    buffer (``torch._cudnn_rnn_flatten_weight``) and each must sit at the
+    packed vector's offset, the buffer as long as the vector.  Where they
+    do, torch hands the vector to cuDNN as it is; where not, it copies the
+    weights into a buffer at every call."""
+    from mxnet_tpu_torch.ops.nn import rnn_param_size, rnn_weights
+    out = {}
+    for mode, layers, width, hidden, bi in RNN_LAYOUT_CASES:
+        size = rnn_param_size(layers, width, hidden, mode, bi)
+        packed = torch.zeros(size, dtype=dtype, device="cuda")
+        views = rnn_weights(packed, layers, width, hidden, mode, bi)
+        fresh = [torch.zeros(v.shape, dtype=dtype, device="cuda")
+                 for v in views]
+        buf = torch._cudnn_rnn_flatten_weight(
+            fresh, 4, width, CUDNN_MODES[mode], hidden, 0, layers, False, bi)
+        item = packed.element_size()
+        offsets = [(v.data_ptr() - packed.data_ptr()) // item for v in views]
+        placed = [(f.data_ptr() - buf.data_ptr()) // item for f in fresh]
+        out["%s %dx%d%s" % (mode, layers, hidden, " bi" if bi else "")] = \
+            dict(same=buf.numel() == size and offsets == placed,
+                 buffer=buf.numel(), packed=size, packed_at=offsets[:8],
+                 cudnn_at=placed[:8])
+    return out
+
+
+def rnn_dropout_module(ctx, shape):
+    """A Module over one ``RNN`` node (rnn_relu, 2 layers, p 0.5) whose
+    weights pass its input through (identity input weights, zero
+    recurrent weights, biases and state), under ``MakeLoss``, with SGD
+    at lr 0 (the weights stay); fed ones, its output is 1/keep where the
+    mask between the layers kept a unit and 0 where it dropped one."""
+    import mxnet_tpu_torch as mt
+    t, n, h = shape
+    net = mt.sym.MakeLoss(mt.sym.RNN(
+        mt.sym.Variable("data"), state_size=h, num_layers=2,
+        mode="rnn_relu", p=0.5, name="rnn"))
+    mod = mt.mod.Module(net, data_names=("data",), label_names=None,
+                        context=ctx)
+    mod.bind(data_shapes=[mt.io.DataDesc("data", shape)])
+    eye = np.eye(h).ravel()
+    zero = np.zeros(h * h + 2 * h)
+    mod.init_params(arg_params={
+        "rnn_parameters": mt.nd.array(np.concatenate([eye, zero] * 2),
+                                      ctx=ctx),
+        "rnn_state": mt.nd.zeros((2, n, h), ctx=ctx)})
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.0),))
+    return mod, mt.io.DataBatch([mt.nd.ones(shape, ctx=ctx)], None)
+
+
+def rnn_dropout_checks(ctx, shape=RNN_DROPOUT_SHAPE):
+    """The RNN op's dropout in a captured step: a new mask at each replay,
+    the kept share within RNN_DROPOUT_SIGMAS of 0.5, and an eager step and
+    the captured one from one generator state drawing the same mask."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import capture
+    mod, batch = rnn_dropout_module(ctx, shape)
+    gen = mt.random.generator(ctx)
+    state = gen.get_state()
+
+    def kept():
+        mod._fit_step(batch)
+        return mod.get_outputs()[0]._data != 0
+    with capture.eager():
+        eager = kept()
+    gen.set_state(state)
+    counts = counter_snapshot()
+    first, second = kept(), kept()
+    counts = counter_delta(counts)
+    n = first.numel()
+    share = first.double().mean().item()
+    res = dict(shape=list(shape), kept_share=share,
+               kept_sigmas=abs(share - 0.5) / math.sqrt(0.25 / n),
+               replays_differ=bool((first != second).any().item()),
+               eager_equals_captured=bool(torch.equal(eager, first)),
+               counts=counts)
+    if not res["replays_differ"] or res["kept_sigmas"] > RNN_DROPOUT_SIGMAS \
+            or not res["eager_equals_captured"]:
+        raise AssertionError("the RNN op's dropout: %s" % res)
+    return res
+
+
+def _param_arrays(mod):
+    arg, aux = mod.get_params()
+    return {k: v.asnumpy().copy() for k, v in arg.items()}
+
+
+def _gaps(a, b, relative=False):
+    """The largest |a - b| over max(1, |a|) (or, ``relative``, over the
+    largest |a| of each array) across the arrays of two dicts or lists."""
+    pairs = zip(a.values(), b.values()) if isinstance(a, dict) \
+        else zip(a, b)
+    worst = 0.0
+    for x, y in pairs:
+        scale = max(np.abs(x).max(), 1e-30) if relative \
+            else max(1.0, np.abs(x).max())
+        worst = max(worst, float(np.abs(x - y).max() / scale))
+    return worst
+
+
+def ptb_parity_run(pkg, ctx, cfg, fused, batches, one_call=True):
+    """(a) in fp64 from one init: step 1 as forward, backward and update
+    (its gradients read), steps 2.. through the one-call step (or, not
+    ``one_call``, as step 1); the outputs of each step, the gradients and
+    the weights after."""
+    mod = ptb_module(pkg, ctx, cfg, fused, dtype="float64")
+    outs, grads = [], None
+    for b in batches:
+        if grads is None or not one_call:
+            mod.forward(b, is_train=True)
+            mod.backward()
+            if grads is None:
+                ex = mod._active._exec_group.execs[0]
+                grads = {n: ex.grad_dict[n].asnumpy().copy()
+                         for n in ex._grad_names}
+            mod.update()
+        else:
+            mod._fit_step(b)
+        outs.append(mod.get_outputs()[0].asnumpy().copy())
+    return dict(outputs=outs, grads=grads, params=_param_arrays(mod))
+
+
+def ptb_shuffled_run(ctx, cfg, fused, batches, mode):
+    """(a) in fp64, ``_fit_step`` over ``batches`` (the buckets in the
+    iterator's shuffled order) captured or eager: outputs and weights."""
+    import mxnet_tpu_torch as mt
+    with step_mode(mode):
+        mod = ptb_module(mt, ctx, cfg, fused, dtype="float64")
+        outs = []
+        for b in batches:
+            mod._fit_step(b)
+            outs.append(mod.get_outputs()[0].asnumpy().copy())
+    return dict(outputs=outs, params=_param_arrays(mod))
+
+
+def word_lm_parity_run(pkg, ctx, cfg, steps):
+    """(b) in fp64 with dropout 0 and no clipping from one init: the first
+    step's logits and gradients, the weights after ``steps``.  (Both
+    packages take ``clip_global_norm``'s norm in fp32; summed in other
+    orders it moves each update by about 1e-8 of itself.)"""
+    model, trainer, loss_fn, state = word_lm_setup(pkg, ctx, cfg, "float64")
+    data = word_lm_data(cfg, steps)
+    grads, logits = {}, None
+    for i in range(steps):
+        x, y = _segment(pkg, ctx, data, i, cfg, "float64")
+        _, state, out = word_lm_step(pkg, model, trainer, loss_fn, x, y,
+                                     state, cfg, grads if i == 0 else None,
+                                     clip=None)
+        logits = out.asnumpy().copy() if i == 0 else logits
+    params = {n: p.data().asnumpy()
+              for n, p in model.collect_params().items()}
+    return dict(logits=logits, grads=grads, params=params)
+
+
+def rnn_parity(card_ctx, cpu_ctx, ptb=None, lm=None, sentences=400):
+    """Phase 25: fp64 card against CPU for (a), both cell variants, and
+    (b) (by default at their widths, the vocabulary cut to
+    RNN_PARITY_VOCAB, (b)'s dropout 0); (a) captured against eager over
+    the buckets in the iterator's shuffled order."""
+    import mxnet_tpu_torch as mt
+    out = {}
+    small = ptb or dict(PTB, vocab=RNN_PARITY_VOCAB)
+    batches, _ = ptb_batches(mt, small, "float64", sentences=sentences)
+    for fused in (False, True):
+        name = "ptb_fused" if fused else "ptb_cells"
+        runs = [ptb_parity_run(mt, c, small, fused,
+                               batches[:RNN_PARITY_STEPS])
+                for c in (cpu_ctx, card_ctx)]
+        diffs = dict(logits=_gaps(runs[0]["outputs"], runs[1]["outputs"]),
+                     grads=_gaps(runs[0]["grads"], runs[1]["grads"], True),
+                     params=_gaps(runs[0]["params"], runs[1]["params"]))
+        shuffled = [ptb_shuffled_run(card_ctx, small, fused,
+                                     batches[:RNN_SHUFFLED_STEPS], m)
+                    for m in STEP_MODES]
+        diffs["captured_vs_eager"] = max(
+            _gaps(shuffled[0]["params"], shuffled[1]["params"]),
+            _gaps(shuffled[0]["outputs"], shuffled[1]["outputs"]))
+        diffs["shuffled_buckets"] = [b.bucket_key for b
+                                     in batches[:RNN_SHUFFLED_STEPS]]
+        out[name] = diffs
+    lm = lm or dict(WORD_LM, vocab=RNN_PARITY_VOCAB, dropout=0.0)
+    runs = [word_lm_parity_run(mt, c, lm, RNN_PARITY_STEPS)
+            for c in (cpu_ctx, card_ctx)]
+    out["word_lm"] = dict(
+        logits=_gaps([runs[0]["logits"]], [runs[1]["logits"]]),
+        grads=_gaps(runs[0]["grads"], runs[1]["grads"], True),
+        params=_gaps(runs[0]["params"], runs[1]["params"]))
+    bad = [(k, n) for k, d in out.items() for n, v in d.items()
+           if n in ZOO_PARITY_TOL and not v <= ZOO_PARITY_TOL[n]]
+    bad += [(k, "captured_vs_eager") for k, d in out.items()
+            if not d.get("captured_vs_eager", 0.0) <= CAPTURED_EAGER_TOL]
+    if bad:
+        raise AssertionError("recurrent nets: card against CPU or captured "
+                             "against eager out of bounds: %s (%s)"
+                             % (bad, out))
+    return out
+
+
+def phase_rnn(card):
+    """Phases 22-25: the RNN op's dropout in a captured step, (a) in both
+    cell variants, (b), and fp64 parity."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import attention as att, scale as sc
+    kernels = (att.FWD_COUNTER, att.BWD_COUNTER, sc.COUNTER)
+    before = {k: profiler.counter(k) for k in kernels}
+    flags = tf32_flags()
+    gpu = mt.gpu(0)
+    res = {"card": card, "flags": flags}
+    t0 = time.perf_counter()
+    res["cudnn_layout"] = {DTYPE_NAME.get(dt, "fp64"): cudnn_layout_check(dt)
+                           for dt in (torch.float32, torch.float64)}
+    log("phase 22 the packed layout against cuDNN's weight buffer: %s"
+        % res["cudnn_layout"])
+    res["dropout"] = rnn_dropout_checks(gpu)
+    log("phase 22 RNN op dropout in a captured Module step at %s: %s"
+        % (list(RNN_DROPOUT_SHAPE), res["dropout"]))
+    for fused in (False, True):
+        name = "ptb_fused" if fused else "ptb_cells"
+        res[name] = ptb_bucketing_run(gpu, fused)
+        for mode in STEP_MODES:
+            r = res[name][mode]
+            log("phase 23 (a) PTB LSTM %s %s on %s (%s), batch %d, buckets "
+                "%s: ms/step by bucket %s, mean %.3f, %.0f tokens/s, "
+                "perplexity %.1f, busy %.1f%%, peak %.3f GB, counters %s; "
+                "top device ops %s"
+                % ("FusedRNNCell" if fused else "LSTMCells", mode, card,
+                   flags, PTB["batch"], list(PTB["buckets"]),
+                   {k: "%.3f" % v for k, v
+                    in r["ms_median_by_bucket"].items()}, r["ms_mean"],
+                   r["tokens_s"], r["perplexity"], 100 * r["busy_share"],
+                   r["peak_mem_gb"], r["counts"], r["top_device_ops"]))
+        mem = res[name]["memory"]
+        for pools, m in mem.items():
+            log("phase 23 (a) %s memory held, %s: set up %d B, the largest "
+                "bucket alone captured %d B, all six %d B (x%.3f), after "
+                "each bucket %s; peak allocated %d B"
+                % (name, pools.replace("_", " "), m["set_up"],
+                   m["largest_only"], m["all_buckets"], m["ratio"],
+                   m["per_bucket"], m["peak_allocated"]))
+        if mem["one_pool"]["ratio"] > POOL_RATIO_LIMIT:
+            raise AssertionError("(a) %s: all six buckets captured hold "
+                                 "%.3f x the largest alone" % (
+                                     name, mem["one_pool"]["ratio"]))
+    res["word_lm"] = word_lm_run(gpu)
+    for mode in STEP_MODES:
+        r = res["word_lm"][mode]
+        log("phase 24 (b) word LM 2 x 650 %s on %s (%s), batch %d, bptt %d: "
+            "ms/step median %.3f, %.0f tokens/s, loss %.4f, busy %.1f%%, "
+            "peak %.3f GB, counters %s; top device ops %s"
+            % (mode, card, flags, WORD_LM["batch"], WORD_LM["bptt"],
+               r["step_ms_median"], r["tokens_s"], r["loss"],
+               100 * r["busy_share"], r["peak_mem_gb"], r["counts"],
+               r["top_device_ops"]))
+    res["parity_fp64"] = rnn_parity(gpu, mt.cpu())
+    log("phase 25 fp64 card against CPU (vocabulary %d, %d steps; limits "
+        "%s) and captured against eager over shuffled buckets (limit %g): "
+        "%s" % (RNN_PARITY_VOCAB, RNN_PARITY_STEPS, ZOO_PARITY_TOL,
+                CAPTURED_EAGER_TOL, res["parity_fp64"]))
+    res["seconds"] = time.perf_counter() - t0
+    # no hand-written kernel runs on these paths
+    res["kernel_launches"] = {k: profiler.counter(k) - before[k]
+                              for k in kernels}
+    log("phases 22-25: %.1f s, hand-kernel launches %s"
+        % (res["seconds"], res["kernel_launches"]))
+    if any(res["kernel_launches"].values()):
+        raise AssertionError("a hand-written kernel ran on the recurrent "
+                             "paths: %s" % res["kernel_launches"])
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3427,6 +4179,7 @@ def main():
         pythia[dt], pythia_launches[dt] = phase_lm_pythia(dt)
     zoo = phase_zoo(card)
     ops = phase_op_sweep(card)
+    rnn = phase_rnn(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import scale as sc
     n_layers = GPT2_SMALL["n_layers"]
@@ -3550,6 +4303,7 @@ def main():
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"ops": ops}))
+    print(json.dumps({"rnn": rnn}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,10 @@ train step).  On the card each training step replays CUDA graphs
 captured once (``capture``, with the counters of ``profiler``).
 Serialization reads and writes the JAX package's files: ``nd.save``/
 ``load`` over ``stream``, Symbol JSON, ``model`` checkpoints, optimizer
-and ``Trainer`` states, with the epoch ``callback``s.
+and ``Trainer`` states, with the epoch ``callback``s.  Recurrent nets:
+the ``RNN`` op (cuDNN's RNN on the card), ``rnn`` (symbolic cells,
+``BucketSentenceIter``), ``mod.BucketingModule`` (its buckets' captured
+steps in one memory pool) and ``gluon.rnn``.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from . import autograd, random, ndarray, symbol, executor, rtc
 from . import capture, profiler
 from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
-from . import stream, model, callback
+from . import stream, model, callback, rnn
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -44,4 +47,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "capture", "profiler",
            "lr_scheduler",
            "test_utils", "io", "metric", "gluon", "module", "mod",
-           "stream", "model", "callback"]
+           "stream", "model", "callback", "rnn"]

@@ -35,6 +35,20 @@ graph, all in one memory pool.
   added again on each of its replays (a kernel's launch count stays its
   launches on the device; the warm-ups count as the launches they are),
   with one ``graph_replays`` and one ``program_calls``.
+- Memory: a program's stages capture into one pool.  Programs of which
+  only one runs at a time can share a :class:`MemoryPool` (a
+  ``BucketingModule``'s buckets, a ``Module``'s input shapes): each
+  capture reuses the blocks the earlier ones freed, so the pool holds
+  about the largest program's activations, not their sum.  That is safe
+  in any replay order because nothing in the pool outlives its replay:
+  the static inputs are made before the capture, outside the pool; only
+  a single-stage program may share, since a forward's saved activations
+  wait for its backward; and a sharing program copies its outputs, as
+  the last step of its graph, into views of one buffer outside the pool
+  that every program of the pool writes (:meth:`MemoryPool.outputs`,
+  sized by the largest), which ``replay(clone=True)`` clones before
+  another program replays.  So the pool pins no program's outputs, and
+  one set of output buffers serves them all.
 - A capture that fails raises ``MXNetError`` naming the step and the
   cause; nothing falls back to eager.  No other graph may be destroyed
   while one captures, so the garbage collector runs before a capture
@@ -59,7 +73,7 @@ from .base import MXNetError
 from . import profiler
 
 __all__ = ["eager", "stand_in", "graph_for", "Program", "StepCache",
-           "WARMUP_RUNS", "MAX_PROGRAMS"]
+           "MemoryPool", "WARMUP_RUNS", "MAX_PROGRAMS"]
 
 WARMUP_RUNS = 3
 MAX_PROGRAMS = 8
@@ -124,14 +138,21 @@ class CudaGraph:
     def pool(device):
         return torch.cuda.graph_pool_handle()
 
+    _side = {}  # device index -> the warm-ups' stream
+
     @staticmethod
     @contextlib.contextmanager
     def side_stream(device):
-        """Work inside runs on a new stream that waits for the current
-        one, which then waits for it."""
+        """Work inside runs on a side stream that waits for the current
+        one, which then waits for it.  One side stream a device serves
+        every capture: cuBLAS keeps a workspace for each stream it meets,
+        so a new stream for each capture would hold one more each time."""
         with torch.cuda.device(device):
             current = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
+            side = CudaGraph._side.get(current.device_index)
+            if side is None:
+                side = CudaGraph._side[current.device_index] = \
+                    torch.cuda.Stream()
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 yield
@@ -144,6 +165,43 @@ class CudaGraph:
 
     def replay(self):
         self._graph.replay()
+
+
+class MemoryPool:
+    """One graph-memory pool for programs that never run at once (see the
+    module's notes): the pool of each graph class and device, made at the
+    first capture that asks for it, and the buffers their outputs go to."""
+
+    def __init__(self):
+        self._handles = {}
+        self._buffers = {}
+
+    def handle(self, graph_class, device):
+        key = (graph_class, str(device))
+        if key not in self._handles:
+            self._handles[key] = graph_class.pool(device)
+        return self._handles[key]
+
+    def outputs(self, like):
+        """Views shaped and typed as the tensors ``like``, of one flat
+        buffer a device and dtype that the pool's programs share; a
+        program that needs more than the buffer holds gets a larger one
+        (the older programs keep theirs)."""
+        need = {}
+        for t in like:
+            key = (t.device, t.dtype)
+            need[key] = need.get(key, 0) + t.numel()
+        for key, n in need.items():
+            if key not in self._buffers or self._buffers[key].numel() < n:
+                self._buffers[key] = torch.empty(n, dtype=key[1],
+                                                 device=key[0])
+        at, views = dict.fromkeys(need, 0), []
+        for t in like:
+            key = (t.device, t.dtype)
+            views.append(self._buffers[key][at[key]:at[key] + t.numel()]
+                         .view(t.shape))
+            at[key] += t.numel()
+        return views
 
 
 def _ident(t):
@@ -167,11 +225,19 @@ class Program:
     static buffers; each later stage's static inputs are zeros like the
     outputs of the stage before it (a backward's output gradients).
     ``buffers`` are the tensors the stages read or write in place,
-    ``generators`` the ``torch.Generator`` objects they draw from."""
+    ``generators`` the ``torch.Generator`` objects they draw from.  With a
+    ``pool`` (a :class:`MemoryPool`; one stage only) the program captures
+    into that shared pool, else into one of its own."""
 
     def __init__(self, name, graph_class, device, stages, inputs, buffers,
-                 generators=()):
+                 generators=(), pool=None):
+        if pool is not None and len(stages) != 1:
+            raise MXNetError("a program of %d stages cannot share a memory "
+                             "pool: its saved activations would be "
+                             "replayed over" % len(stages))
         self.name = name
+        self._pool = pool
+        self._dest = None  # a sharing program's output views
         self._stages = list(stages)
         self._buffers = list(buffers)
         self._idents = [_ident(b) for b in self._buffers]
@@ -189,6 +255,13 @@ class Program:
 
     def _run(self, i, stage):
         outs = list(stage(*self._static[i]))
+        if self._pool is not None:
+            if self._dest is None:
+                self._dest = self._pool.outputs([o.detach() for o in outs])
+            with torch.no_grad():
+                for d, o in zip(self._dest, outs):
+                    d.copy_(o)
+            return list(self._dest)
         if i + 1 < len(self._static) and self._static[i + 1] is None:
             self._static[i + 1] = [torch.zeros_like(o.detach())
                                    for o in outs]
@@ -213,7 +286,8 @@ class Program:
         with torch.no_grad():
             saved = [b.clone() for b in self._buffers]
         gen_states = [g.get_state() for g in self._gens]
-        pool = graph_class.pool(device)
+        pool = graph_class.pool(device) if self._pool is None \
+            else self._pool.handle(graph_class, device)
         self._graphs = [graph_class(device, pool, self._gens)
                         for _ in self._stages]
         try:
@@ -283,10 +357,12 @@ class Program:
 
 class StepCache:
     """The programs of one step by key, at most ``MAX_PROGRAMS``, the least
-    recently used dropped first."""
+    recently used dropped first; with a ``pool`` (a :class:`MemoryPool`)
+    they all capture into it."""
 
-    def __init__(self, name):
+    def __init__(self, name, pool=None):
         self.name = name
+        self._pool = pool
         self._programs = OrderedDict()
         self._families = {}  # family -> the key of its one program
 
@@ -312,7 +388,7 @@ class StepCache:
             while len(self._programs) >= MAX_PROGRAMS:
                 self._programs.popitem(last=False)
             prog = Program(self.name, graph_class, device, stages(), inputs,
-                           buffers, generators)
+                           buffers, generators, pool=self._pool)
         if family is not None:
             self._families[family] = key
         self._programs[key] = prog

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/initializer.py:26-240`` (``InitDesc``, the
 ``Initializer`` dispatch protocol, ``create`` and the registered names,
-``Zero``/``One``, ``Constant``, ``Uniform``, ``Normal``, ``Xavier``).
+``Zero``/``One``, ``Constant``, ``Uniform``, ``Normal``, ``Xavier``) and
+of ``:261-295`` (``LSTMBias``, ``FusedRNN``).
 A variable's ``__init__`` attr (``"zeros"``, ``"ones"``, or an
 initializer's ``dumps()``) wins; else the name decides the handler:
 ``*_weight`` takes the initializer's draw, ``*_bias``/``*_beta`` and
@@ -19,11 +20,14 @@ from __future__ import annotations
 import json
 import math
 
+import numpy as np
+
 from .base import MXNetError
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Xavier", "LSTMBias",
+           "FusedRNN"]
 
 _REGISTRY = {}
 
@@ -198,3 +202,42 @@ class Xavier(Initializer):
             arr[:] = _random.host_rng().normal(0, sigma, arr.shape)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros but the forget gate (the second quarter: gates i,f,g,o),
+    which is ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        per_gate = arr.shape[0] // 4
+        host = np.zeros(arr.shape, dtype="float32")
+        host[per_gate:2 * per_gate] = self.forget_bias
+        arr[:] = host
+    _init_default = _init_weight
+    _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """The packed vector of a fused RNN, drawn whole by ``init`` (an
+    initializer, its name or its ``dumps()``; default ``Uniform(0.1)``),
+    as the JAX package draws it: the packed layout needs no re-packing."""
+
+    def __init__(self, init=None, state_size=None, num_layers=None,
+                 mode=None, bidirectional=False, forget_bias=1.0):
+        super().__init__()
+        if isinstance(init, Initializer):
+            self._init = init
+        elif isinstance(init, str) and init:
+            self._init = create(init)
+        else:
+            self._init = Uniform(0.1)
+
+    def _init_weight(self, desc, arr):
+        self._init._init_weight(desc, arr)
+    _init_default = _init_weight

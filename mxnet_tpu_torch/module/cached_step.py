@@ -19,8 +19,11 @@ once a step over the executor's arguments and moving statistics and the
 optimizer's states, in place, with the hyper-parameters in a device
 tensor (``optimizer.TracedHyper``) that the host fills before each
 replay, so a learning-rate schedule never recaptures.  On the CPU, and
-inside ``capture.eager()``, it runs eagerly.
-``MXNET_MODULE_FUSED_STEP=0`` turns the fused step off.
+inside ``capture.eager()``, it runs eagerly.  Its programs capture into
+the ``pool`` it is given (``capture.MemoryPool``, one for all the steps
+of a ``Module`` or a ``BucketingModule``), and :meth:`capture` captures
+the step without taking it.  ``MXNET_MODULE_FUSED_STEP=0`` turns the
+fused step off.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ def fused_step_enabled():
 class CachedTrainStep:
     """The train step bound to (executor, updater, parameter names)."""
 
-    def __init__(self, executor, updater, param_names):
+    def __init__(self, executor, updater, param_names, pool=None):
         self._exec = executor
         self._updater = updater
         self._opt = updater.optimizer
@@ -61,7 +64,7 @@ class CachedTrainStep:
         if set(self._pnames) != grad_set:
             raise ValueError("fused step needs grads on params only")
         self._pidx = {n: i for i, n in enumerate(param_names)}
-        self._programs = capture.StepCache("CachedTrainStep")
+        self._programs = capture.StepCache("CachedTrainStep", pool)
         self._draws = self._opt.draws_random or any(
             n.op is not None and n.op.needs_rng
             for n in _topo(executor._symbol._outputs))
@@ -81,16 +84,8 @@ class CachedTrainStep:
             if k in ex.arg_dict:
                 ex.arg_dict[k]._set_data(v._data)
         self._ensure_states()
-        opt = self._opt
-        lrs, wds, counts = [], [], []
-        for name in self._pnames:
-            idx = self._pidx[name]
-            opt._update_count(idx)
-            lrs.append(opt._get_lr(idx))
-            wds.append(opt._get_wd(idx))
-            counts.append(opt._index_update_count[idx])
-        states = [_state_raw(self._updater.states[self._pidx[n]])
-                  for n in self._pnames]
+        lrs, wds, counts = self._hyper()
+        states = self._states()
         graph = capture.graph_for(ex._ctx.torch_device)
         if graph is None:
             profiler.bump("program_calls")
@@ -100,6 +95,38 @@ class CachedTrainStep:
         ex._train = None
         ex._outputs = [NDArray(o, ex._ctx) for o in outs]
         return ex._outputs
+
+    def capture(self):
+        """Capture the step's program without taking a step (the buffers,
+        the update counts and the generators are left as they were);
+        nothing where the step runs eagerly."""
+        graph = capture.graph_for(self._exec._ctx.torch_device)
+        if graph is None:
+            return
+        self._ensure_states()
+        opt = self._opt
+        held = dict(opt._index_update_count), opt.num_update
+        try:
+            lrs, wds, counts = self._hyper()
+        finally:
+            opt._index_update_count, opt.num_update = held
+        self._program(graph, self._states(), lrs, wds, counts)
+
+    def _hyper(self):
+        """Count this step's update and return its lrs, wds and counts."""
+        opt = self._opt
+        lrs, wds, counts = [], [], []
+        for name in self._pnames:
+            idx = self._pidx[name]
+            opt._update_count(idx)
+            lrs.append(opt._get_lr(idx))
+            wds.append(opt._get_wd(idx))
+            counts.append(opt._index_update_count[idx])
+        return lrs, wds, counts
+
+    def _states(self):
+        return [_state_raw(self._updater.states[self._pidx[n]])
+                for n in self._pnames]
 
     def _step(self, states, hyper):
         """Forward, gradients, ``fused_update(**hyper)`` and the moving
@@ -130,8 +157,9 @@ class CachedTrainStep:
                                      [v for _, v in moved])
         return [o.detach() for o in outs]
 
-    def _replay(self, graph, states, lrs, wds, counts):
-        """The step as one replay of its captured program."""
+    def _program(self, graph, states, lrs, wds, counts):
+        """The step's program, captured now where it is new, and the
+        hyper-parameter values to replay it with."""
         ex = self._exec
         hyper = TracedHyper(self._opt, lrs, wds, counts)
         buffers = [a._data for a in ex.arg_dict.values()] \
@@ -141,4 +169,10 @@ class CachedTrainStep:
             ("module_step", hyper.key), graph, ex._ctx.torch_device,
             lambda: [lambda values: self._step(states, hyper.unpack(values))],
             [hyper.values], buffers, gens, family=hyper.family)
-        return prog.replay(0, [hyper.values])
+        return prog, hyper.values
+
+    def _replay(self, graph, states, lrs, wds, counts):
+        """The step as one replay of its captured program; the outputs are
+        cloned out of its memory pool."""
+        prog, values = self._program(graph, states, lrs, wds, counts)
+        return prog.replay(0, [values])

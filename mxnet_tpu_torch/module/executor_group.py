@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from ..base import MXNetError
 from ..context import cpu
+from ..executor import Executor
 from .. import ndarray as nd
 
 __all__ = ["DataParallelExecutorGroup"]
@@ -20,7 +21,7 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write"):
+                 fixed_param_names=None, grad_req="write", shared_group=None):
         if len(contexts) != 1:
             raise MXNetError(
                 "Module on %d contexts %s: data parallelism over several "
@@ -61,8 +62,12 @@ class DataParallelExecutorGroup:
                      if d.dtype is not None}
         shapes = {d.name: d.shape
                   for d in list(data_shapes) + list(label_shapes or [])}
-        ex = symbol.simple_bind(self.contexts[0], grad_req=self.grad_req,
-                                type_dict=type_dict, **shapes)
+        self.shares_params = False
+        if shared_group is None:
+            ex = symbol.simple_bind(self.contexts[0], grad_req=self.grad_req,
+                                    type_dict=type_dict, **shapes)
+        else:
+            ex = self._bind_shared(shared_group.execs[0], type_dict, shapes)
         self.execs = [ex]
         self.data_arrays = [[ex.arg_dict[n]] for n in self.data_names]
         self.label_arrays = [[ex.arg_dict[n]] for n in self.label_names
@@ -72,6 +77,40 @@ class DataParallelExecutorGroup:
                             if self.grad_req.get(n, "null") != "null"
                             else None for n in self.param_names]
         self.aux_arrays = [[ex.aux_dict[n]] for n in self.aux_names]
+
+    def _bind_shared(self, donor, type_dict, shapes):
+        """Bind with ``donor``'s parameter, gradient and auxiliary NDArrays
+        where their shapes and dtypes are this symbol's; new zeros for the
+        rest.  ``shares_params`` says whether every parameter and
+        auxiliary state is shared."""
+        args, _, auxs = self.symbol._infer(shape_kwargs=shapes,
+                                           dtype_kwargs=type_dict)
+
+        def take(mine, theirs, name, meta):
+            """``theirs[name]`` where it is shaped and typed as ``meta``,
+            else new zeros; whether it was shared."""
+            have = theirs.get(name)
+            if have is not None and tuple(have.shape) == tuple(meta.shape) \
+                    and have._data.dtype == meta.dtype:
+                mine[name] = have
+                return True
+            mine[name] = nd.zeros(tuple(meta.shape), ctx=self.contexts[0],
+                                  dtype=meta.dtype)
+            return False
+
+        arg_dict, grad_dict, aux_dict = {}, {}, {}
+        shared = True
+        for name, meta in zip(self.arg_names, args):
+            params = name in self.param_names
+            shared &= take(arg_dict, donor.arg_dict if params else {}, name,
+                           meta) or not params
+            if params and self.grad_req.get(name, "null") != "null":
+                take(grad_dict, donor.grad_dict, name, meta)
+        for name, meta in zip(self.aux_names, auxs):
+            shared &= take(aux_dict, donor.aux_dict, name, meta)
+        self.shares_params = shared
+        return Executor._bind(self.symbol, self.contexts[0], arg_dict,
+                              grad_dict, self.grad_req, aux_dict)
 
     # -- params ------------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_extra=False):
@@ -123,6 +162,11 @@ class DataParallelExecutorGroup:
     def get_outputs(self, merge_multi_context=True):
         outs = self.execs[0].outputs
         return list(outs) if merge_multi_context else [[o] for o in outs]
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.inputs_need_grad
+        grads = [self.execs[0].grad_dict[n] for n in self.data_names]
+        return grads if merge_multi_context else [[g] for g in grads]
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(list(labels), self.execs[0].outputs)

@@ -1,17 +1,23 @@
 """``Module``: a symbol bound on a context and trained with an optimizer.
 
-Counterpart of ``mxnet_tpu/module/module.py:36`` (``bind`` :262,
-``init_params`` :203, ``get_params``/``set_params`` :183/:240,
+Counterpart of ``mxnet_tpu/module/module.py:36`` (``bind`` :262 with
+its ``shared_module`` :285-299, ``init_params`` :203,
+``get_params``/``set_params`` :183/:240, ``output_shapes`` :132,
 ``init_optimizer`` :356, ``forward``/``backward``/``update``
 :424-:538, ``_fit_step`` :453, ``_get_cached_step`` :474,
-``update_metric`` :549).  The module keeps host copies of the
+``get_input_grads`` :538, ``update_metric`` :549, ``prepare`` :557).
+The module keeps host copies of the
 parameters (NDArrays on ``cpu()``, as MXNet does) and the bound copies
 on its context; ``update`` marks the host copies stale, and
 ``get_params`` brings them up to date.  ``_fit_step`` does forward,
 backward and the update of every parameter in one call through
 ``cached_step.CachedTrainStep``, unless ``MXNET_MODULE_FUSED_STEP=0``
 or the setup does not allow it; then it calls ``forward_backward`` and
-``update``.
+``update``.  The captured steps of every input shape the module binds
+(its reshape cache) share one graph-memory pool
+(``capture.MemoryPool``); a ``BucketingModule`` hands its buckets one.
+Bound with a ``shared_module``, the executor holds that module's
+parameter, gradient and auxiliary NDArrays themselves.
 
 Checkpoints (``load`` :84, ``save_checkpoint`` :94, the optimizer
 states :105-120): ``prefix-symbol.json``, ``prefix-NNNN.params`` and
@@ -34,6 +40,7 @@ from collections import OrderedDict
 import numpy as np
 
 from ..base import MXNetError, dtype_name
+from .. import capture
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
@@ -84,6 +91,8 @@ class Module(BaseModule):
         self._preload_opt_states = None
         self._cached_step, self._cached_step_unusable = None, False
         self._exec_group = self._data_shapes = self._label_shapes = None
+        self._shares_device_params = False
+        self._graph_pool = capture.MemoryPool()
 
     # -- checkpoints -----------------------------------------------------------
     @staticmethod
@@ -139,6 +148,15 @@ class Module(BaseModule):
     def label_shapes(self):
         self._require_bound()
         return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        """(name, shape) of each output at the bound input shapes."""
+        self._require_bound()
+        shapes = {d.name: d.shape for d in self._data_shapes
+                  + (self._label_shapes or [])}
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, out_shapes))
 
     def _require_bound(self):
         if not self.binded:
@@ -196,11 +214,32 @@ class Module(BaseModule):
         self._exec_group.set_params(self._arg_params, self._aux_params,
                                     allow_extra=allow_extra)
 
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        """Set the parameters; with ``allow_missing`` only the names given
+        are written, straight into the bound arrays."""
+        if not allow_missing:
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params, allow_missing=False,
+                             force_init=force_init, allow_extra=allow_extra)
+            return
+        if self.params_initialized and not force_init:
+            warnings.warn("set_params ignored: already initialized "
+                          "(pass force_init=True to override)", stacklevel=2)
+            return
+        self._exec_group.set_params(arg_params, aux_params,
+                                    allow_extra=allow_extra)
+        self._params_dirty, self.params_initialized = True, True
+
     # -- binding -------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
         """Bind an executor for these input shapes (and dtypes, from each
-        ``DataDesc``)."""
+        ``DataDesc``).  With a bound ``shared_module`` the executor holds
+        that module's parameter, gradient and auxiliary NDArrays (a
+        ``BucketingModule``'s buckets share the leader's), and this module
+        takes its host parameters."""
         if force_rebind:
             self.binded, self._exec_group = False, None
         if self.binded:
@@ -211,20 +250,31 @@ class Module(BaseModule):
         self._grad_req = grad_req
         self._data_shapes = _as_descs(data_shapes)
         self._label_shapes = _as_descs(label_shapes)
-        self._exec_group = self._make_exec_group()
+        donor = getattr(shared_module, "_exec_group", None)
+        self._exec_group = self._make_exec_group(donor)
         self._reshape_cache = OrderedDict({self._shape_key():
                                            self._exec_group})
         self.binded = True
-        if self.params_initialized:
+        self._shares_device_params = donor is not None \
+            and self._exec_group.shares_params
+        if shared_module is not None:
+            if not self._shares_device_params \
+                    and shared_module._params_dirty:
+                shared_module.get_params()
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self.params_initialized = shared_module.params_initialized
+            self._params_dirty = shared_module._params_dirty
+        if self.params_initialized and not self._shares_device_params:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
-    def _make_exec_group(self):
+    def _make_exec_group(self, shared_group=None):
         self._cached_step = None
         return DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, self.for_training,
             self.inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=self._grad_req)
+            grad_req=self._grad_req, shared_group=shared_group)
 
     def _shape_key(self):
         return tuple((d.name, tuple(d.shape), str(d.dtype))
@@ -359,7 +409,8 @@ class Module(BaseModule):
             return step
         try:
             self._cached_step = CachedTrainStep(
-                ex, self._updater, self._exec_group.param_names)
+                ex, self._updater, self._exec_group.param_names,
+                pool=self._graph_pool)
         except ValueError:
             self._cached_step, self._cached_step_unusable = None, True
         self._exec_group.cached_step = self._cached_step
@@ -369,8 +420,18 @@ class Module(BaseModule):
         self._require_ready()
         return self._exec_group.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True):
+        self._require_ready()
+        if not self.inputs_need_grad:
+            raise AssertionError("bind with inputs_need_grad=True first")
+        return self._exec_group.get_input_grads(merge_multi_context)
+
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
+
+    def prepare(self, data_batch):
+        """Nothing to prepare on one context (the reference's hook for
+        sparse row pulls)."""
 
 
 def params_from_jax(arg_params, aux_params, symbol, ctx=None,

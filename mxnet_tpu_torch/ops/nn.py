@@ -8,8 +8,9 @@ Counterpart of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``:39,
 ``Dropout`` (:284-302), ``SoftmaxOutput``:363 with its semantic backward
 ``_softmax_output_bwd``:314, the regression and SVM heads,
 ``softmax_cross_entropy`` and ``MakeLoss`` (:377-448), the sequence ops
-(:450-500) and ``Crop``:666.  The ops of the long tail (``RNN``, the
-grid and sampler ops, ``ROIPooling``, ``Correlation``) are not here.
+(:450-500), ``Crop``:666 and the fused ``RNN`` (:491-607).  The ops of
+the long tail (the grid and sampler ops, ``ROIPooling``,
+``Correlation``) are not here.
 
 The JAX package leaves these products and windows to XLA, outside any
 Pallas kernel, so here they are ``torch.matmul`` and
@@ -29,6 +30,18 @@ the generator the caller passes (``needs_rng``): the mask is drawn as
 uniforms below the keep probability, cast to the data's dtype and
 divided by the keep probability in that dtype, then multiplied, as the
 JAX package orders it.
+
+``RNN`` runs torch's own recurrent functions (``torch._VF.lstm``,
+``gru``, ``rnn_tanh``, ``rnn_relu``; cuDNN's RNN on the card) over views
+into the packed parameter vector (per layer, per direction: ``i2h_W``,
+``h2h_W``, ``i2h_b``, ``h2h_b``; gates i,f,g,o and r,z,n), which is
+torch's weight list in its order.  cuDNN's own buffer puts every
+layer's matrices before all the biases, so on the card torch copies the
+weights into one at each call (the size of the weights; measured on the
+H100 in ``chip_smoke.cudnn_layout_check``).  With ``p > 0`` in training
+it runs one layer a call and draws the ``Dropout`` mask between layers
+from the op's generator, as ``Dropout`` does; torch's dropout state is
+never used.
 """
 from __future__ import annotations
 
@@ -518,3 +531,87 @@ def _crop_op(*args, offset=(0, 0), h_w=(0, 0), center_crop=False,
     else:
         oy, ox = int(offset[0]), int(offset[1])
     return data[:, :, oy:oy + th, ox:ox + tw]
+
+
+# --- Fused RNN ---------------------------------------------------------------
+_RNN_FN = {"lstm": torch._VF.lstm, "gru": torch._VF.gru,
+           "rnn_tanh": torch._VF.rnn_tanh, "rnn_relu": torch._VF.rnn_relu}
+
+
+def _gates(mode):
+    return {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def rnn_param_size(num_layers, input_size, state_size, mode,
+                   bidirectional=False):
+    """Length of the packed parameter vector (layout: ``rnn_weights``)."""
+    g, d, h = _gates(mode), 2 if bidirectional else 1, state_size
+    size = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else h * d
+        size += d * (g * h * in_sz + g * h * h + 2 * g * h)
+    return size
+
+
+def rnn_weights(params, num_layers, input_size, state_size, mode,
+                bidirectional):
+    """Views into the packed vector, per layer and direction ``i2h_W (G*H,
+    in)``, ``h2h_W (G*H, H)``, ``i2h_b``, ``h2h_b``: the weight list of
+    torch's recurrent functions, in its order."""
+    g, d, h = _gates(mode), 2 if bidirectional else 1, state_size
+    shapes = []
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else h * d
+        for _ in range(d):
+            shapes += [(g * h, in_sz), (g * h, h), (g * h,), (g * h,)]
+    sizes = [math.prod(s) for s in shapes]
+    if sum(sizes) != params.shape[0]:
+        raise MXNetError("RNN: %d parameters, the layout needs %d"
+                         % (params.shape[0], sum(sizes)))
+    return [w.view(s) for w, s in zip(params.split(sizes), shapes)]
+
+
+def _rnn_nout(attrs):
+    if not attrs.get("state_outputs", False):
+        return 1
+    return 3 if attrs.get("mode", "lstm") == "lstm" else 2
+
+
+@register("RNN", num_outputs=_rnn_nout, needs_rng=True, takes_mode=True)
+def _rnn(data, parameters, state, *maybe_cell, state_size=0, num_layers=1,
+         bidirectional=False, mode="lstm", p=0.0, state_outputs=False,
+         rng=None, train_mode=False, lstm_state_clip_min=None,
+         lstm_state_clip_max=None, projection_size=None, **kw):
+    """Fused multi-layer RNN. data: (T, N, C); state: (L*D, N, H)."""
+    h, n_layers = int(state_size), int(num_layers)
+    d = 2 if bidirectional else 1
+    is_lstm = mode == "lstm"
+    weights = rnn_weights(parameters, n_layers, data.shape[2], h, mode,
+                          bidirectional)
+    fn = _RNN_FN[mode]
+    # cuDNN keeps what its backward needs only when told it trains
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (data, parameters, state) + maybe_cell)
+    cell = maybe_cell[0] if is_lstm else None
+    drop = p > 0 and train_mode
+    if drop:
+        _need_rng(rng, "RNN(p > 0)")
+    per_call = 1 if drop else n_layers
+    x, hs, cs = data, [], []
+    for first in range(0, n_layers, per_call):
+        rows = slice(first * d, (first + per_call) * d)
+        hx = (state[rows], cell[rows]) if is_lstm else state[rows]
+        res = fn(x, hx, weights[first * 4 * d:(first + per_call) * 4 * d],
+                 True, per_call, 0.0, keep, bool(bidirectional), False)
+        x = res[0]
+        hs.append(res[1])
+        if is_lstm:
+            cs.append(res[2])
+        if drop and first + per_call < n_layers:
+            x = _dropout(x, p=p, rng=rng, train_mode=True)
+    if not state_outputs:
+        return x
+    outs = [x, torch.cat(hs) if len(hs) > 1 else hs[0]]
+    if is_lstm:
+        outs.append(torch.cat(cs) if len(cs) > 1 else cs[0])
+    return tuple(outs)

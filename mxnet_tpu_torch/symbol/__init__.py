@@ -12,7 +12,8 @@ from __future__ import annotations
 import sys
 import types
 
-from .symbol import Symbol, SymNode, var, Variable, Group, load, load_json
+from .symbol import (Symbol, SymNode, var, Variable, Group, load,
+                     load_json, zeros, ones, arange)
 from .op_meta import op_input_names, HINTS
 from ..ops.registry import OP_REGISTRY
 from .. import name as _name_mod
@@ -75,4 +76,4 @@ sys.modules[__name__ + "._internal"] = _internal
 from . import random  # noqa: E402,F401
 
 __all__ = ["Symbol", "SymNode", "var", "Variable", "Group", "load",
-           "load_json", "random"]
+           "load_json", "zeros", "ones", "arange", "random"]

@@ -1,8 +1,8 @@
 """Per-op metadata for symbolic composition.
 
 Counterpart of ``mxnet_tpu/symbol/op_meta.py:22-176`` for the ops this
-package registers (the ``RNN``, ``ROIPooling`` and sampler-grid entries
-wait for their ops).  Forward shapes come from running each op on
+package registers (the ``ROIPooling`` and sampler-grid entries wait for
+their ops).  Forward shapes come from running each op on
 ``meta`` tensors; this module supplies what that cannot derive: (1)
 canonical input/aux names, so ``sym.FullyConnected(data=d, ...)``
 creates ``fc1_weight``/``fc1_bias`` variables, and (2) data -> parameter
@@ -22,7 +22,7 @@ HINTS = {
     "FullyConnected": "fullyconnected", "Convolution": "convolution",
     "Deconvolution": "deconvolution", "BatchNorm": "batchnorm",
     "Pooling": "pooling", "Activation": "activation", "Dropout": "dropout",
-    "SoftmaxOutput": "softmaxoutput", "Embedding": "embedding",
+    "SoftmaxOutput": "softmaxoutput", "Embedding": "embedding", "RNN": "rnn",
     "Concat": "concat", "Flatten": "flatten", "Reshape": "reshape",
     "LeakyReLU": "leakyrelu", "elemwise_add": "_plus",
     "elemwise_sub": "_minus", "elemwise_mul": "_mul", "elemwise_div": "_div",
@@ -51,6 +51,11 @@ def op_input_names(op, attrs):
         return ["data", "gamma", "beta"], []
     if name == "Embedding":
         return ["data", "weight"], []
+    if name == "RNN":
+        ins = ["data", "parameters", "state"]
+        if a.get("mode", "lstm") == "lstm":
+            ins.append("state_cell")
+        return ins, []
     if name == "LeakyReLU":
         if a.get("act_type", "leaky") == "prelu":
             return ["data", "gamma"], []
@@ -122,6 +127,14 @@ def infer_param_shapes(node, in_structs):
         out[1] = meta((int(a.get("input_dim")), int(a.get("output_dim"))))
     elif name == "LeakyReLU" and a.get("act_type") == "prelu":
         out[1] = meta((dshape[1],))
+    elif name == "RNN":
+        from ..ops.nn import rnn_param_size
+        h, layers = int(a.get("state_size")), int(a.get("num_layers", 1))
+        bi = bool(a.get("bidirectional", False))
+        out[1] = meta((rnn_param_size(layers, dshape[2], h,
+                                      a.get("mode", "lstm"), bi),))
+        for i in range(2, len(in_structs)):
+            out[i] = meta((layers * (2 if bi else 1), dshape[1], h))
     elif name == "FullyConnected":
         nh = int(a.get("num_hidden", 1))
         in_dim = math.prod(dshape[1:]) if a.get("flatten", True) \

@@ -21,7 +21,8 @@ from ..ops.registry import get_op, attr_to_string, parse_attr_string
 from .. import name as _name_mod
 from .op_meta import infer_param_shapes, op_input_names, HINTS
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "zeros", "ones", "arange"]
 
 
 class SymNode:
@@ -411,6 +412,27 @@ def Group(symbols):
     for s in symbols:
         outs.extend(s._outputs)
     return Symbol(outs)
+
+
+# -- creation symbols (``mxnet_tpu/symbol/symbol.py:597-611``) ---------------
+def _dtype_attr(dtype):
+    return "float32" if dtype is None else dtype_name(dtype)
+
+
+def zeros(shape, dtype=None, **kwargs):
+    return Symbol._from_op("_zeros", [], {"shape": shape,
+                                          "dtype": _dtype_attr(dtype)})
+
+
+def ones(shape, dtype=None, **kwargs):
+    return Symbol._from_op("_ones", [], {"shape": shape,
+                                         "dtype": _dtype_attr(dtype)})
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, **kwargs):
+    return Symbol._from_op("_arange", [], {
+        "start": start, "stop": stop, "step": step, "repeat": repeat,
+        "dtype": _dtype_attr(dtype)})
 
 
 def load_json(json_str):

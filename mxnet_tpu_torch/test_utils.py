@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.nn import rnn_param_size
+
 __all__ = ["get_mnist", "attention_grads_fp64", "row_errors",
            "sharp_row_check", "SHARP_ROW_C", "op_cases", "run_op_case",
            "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
@@ -512,6 +514,30 @@ def op_cases(seed=0):
               diff=[0], tag="center"))
     add(_case("Crop", [img, u(0, 1, 1, 1, 4, 4)], {"num_args": 2},
               diff=[0], tag="like"))
+    # the fused RNN: each mode at 1 and 2 layers, one and two directions,
+    # with and without the state outputs; sums over the time steps in
+    # other orders, so SUM_TOL
+    t, n, c, h = 5, 3, 4, 6
+    for mode, layers, bi, states in (
+            ("lstm", 1, False, True), ("lstm", 2, True, False),
+            ("lstm", 2, False, True), ("gru", 1, False, True),
+            ("gru", 2, True, False), ("gru", 1, True, True),
+            ("rnn_tanh", 1, False, True), ("rnn_tanh", 2, True, False),
+            ("rnn_relu", 1, False, True), ("rnn_relu", 2, True, False)):
+        d = 2 if bi else 1
+        ins = [u(-1, 1, t, n, c),
+               u(-0.3, 0.3, rnn_param_size(layers, c, h, mode, bi)),
+               u(-1, 1, layers * d, n, h)]
+        if mode == "lstm":
+            ins.append(u(-1, 1, layers * d, n, h))
+        add(_case("RNN", ins, {"state_size": h, "num_layers": layers,
+                               "bidirectional": bi, "mode": mode,
+                               "state_outputs": states},
+                  diff=range(len(ins)), tol=SUM_TOL,
+                  tag="%s %d layer%s%s%s" % (
+                      mode, layers, "s" if layers > 1 else "",
+                      " bidirectional" if bi else "",
+                      " states" if states else "")))
     return cases
 
 

@@ -179,7 +179,7 @@ def test_composite_and_create():
     m.reset()
     assert np.isnan(m.get()[1])
     with pytest.raises(MXNetError):
-        mt.metric.create("f1")  # not ported yet
+        mt.metric.create("no_such_metric")  # unknown names raise
 
 
 def test_nonfinite_updates_are_excluded_and_counted():
