@@ -220,13 +220,39 @@ before it captures, and those runs launch the kernels too
    (b) (dropout 0, no clipping) card against CPU over 3 steps, held to
    ``ZOO_PARITY_TOL``; (a) captured against eager over 8 steps of
    shuffled buckets, within ``CAPTURED_EAGER_TOL``.
+26. The data path's loader: what the host offers for JPEG (``jpeg_probe``:
+   libjpeg's header and the package's build of it, nvJPEG, PIL, cv2, the
+   cores), a ``.rec`` of 2,048 seeded JPEGs as MXNet stores ImageNet
+   (shorter side 256, quality 95; ``test_utils.synthetic_image``),
+   encoded with libjpeg where it builds, else PIL; the resize kernel
+   (``ops.image_nvjpeg.resize_rgb_chw``) bit for bit against its plain
+   version (``RESIZE_CASES``) and timed beside it and ``F.interpolate``;
+   ``ImageRecordIter`` (batch 32 at 224 x 224, shuffle, mirror) on the
+   card, whose decoder is nvJPEG: img/s at ``preprocess_threads`` 1, 4,
+   8 and the core count, the copy of a batch to the card from pageable
+   and from pinned memory, the batch on the card equal to the host's bit
+   for bit, and the decoded pixels against the images before encoding
+   (``LIBJPEG_ERR`` x ``NVJPEG_MARGIN``).
+27. BASELINE #2 from that file: ResNet-50 through Gluon as
+   ``examples/train_imagenet.py`` trains it (``hybridize``,
+   ``SoftmaxCrossEntropyLoss``, ``Trainer("sgd")`` lr 0.1, momentum 0.9,
+   wd 1e-4), batch 32, fp32 (TF32 off) and bf16 (cast on the card), fed
+   by ``ImageRecordIter`` at 4 threads: 5 + 30 steps, ms/step and img/s
+   beside phase 16's, the busy share, each timed step 3 replays, 0
+   captures, 0 traces and 1 fused update; then ``Module.fit`` over 4
+   batches of the same iterator.
+28. BASELINE #1: idx files at MNIST's sizes (60,000 + 10,000 synthetic
+   digits), ``examples/train_mnist.py``'s LeNet through ``Module.fit``
+   over ``MNISTIter`` for one epoch at batch 64 (ms/step, test accuracy
+   at least ``LENET_JAX_CPU_ACCURACY`` less 0.02), and a Gluon LeNet fed
+   by ``DataLoader(vision.MNIST(...), num_workers=2)`` for 20 steps.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
 line, phase 19's as one ``{"checkpoint": {...}}`` line, phase 20's as
 one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
 "worst": [...]}}`` line, phases 22-25's as one ``{"rnn": {...}}`` line,
-the
+phases 26-28's as one ``{"data": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -308,6 +334,11 @@ MLP_LR, MLP_MOMENTUM, MLP_ALPHA = 0.1, 0.9, 0.5
 # Test accuracy of the JAX package after the same 64 steps on the CPU,
 # measured by tests/test_torch_mlp_train.py::test_jax_reference_accuracy.
 JAX_CPU_ACCURACY = 1.0
+# Test accuracy of the JAX package's LeNet after one epoch of 2,048 synthetic
+# digits through MNISTIter at batch 64 on the CPU, measured by
+# tests/test_torch_data_train.py::test_lenet_one_epoch_accuracy_against_jax;
+# phase 28 holds the card's LeNet to it less 0.02.
+LENET_JAX_CPU_ACCURACY = 1.0
 
 
 def log(*args):
@@ -444,9 +475,11 @@ def kernel_stems():
     """The stem of every CUDA source the port's wrappers launch."""
     import os
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
     sources = (list(att.KERNEL_SOURCES.values())
-               + list(att.BACKWARD_SOURCES.values()) + [sc.KERNEL_SOURCE])
+               + list(att.BACKWARD_SOURCES.values()) + [sc.KERNEL_SOURCE,
+                                                        nj.KERNEL_SOURCE])
     return sorted({os.path.splitext(os.path.basename(src))[0]
                    for src in sources})
 
@@ -1800,15 +1833,13 @@ def tf32_flags():
                torch.backends.cudnn.allow_tf32))
 
 
-def resnet_module(ctx, batch, dtype=torch.float32, image=RESNET_IMAGE,
-                  model="resnet50_v1", classes=1000, **model_kw):
-    """``bench.py::_module_train_rate``'s model, bound: the zoo model (cast
-    to ``dtype``) lowered to a Symbol, ``Cast`` to fp32 (fp64 stays fp64),
-    ``SoftmaxOutput(name="softmax")``, a ``Module`` on ``ctx`` bound at
-    ``batch`` x 3 x image x image; no parameters yet."""
+def resnet_symbol(dtype=torch.float32, model="resnet50_v1", classes=1000,
+                  **model_kw):
+    """``bench.py::_module_train_rate``'s model: the zoo model (cast to
+    ``dtype``) lowered to a Symbol, ``Cast`` to fp32 (fp64 stays fp64),
+    ``SoftmaxOutput(name="softmax")``."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import sym
-    from mxnet_tpu_torch.io import DataDesc
     with mt.name.NameManager():
         net = mt.gluon.model_zoo.vision.get_model(model, classes=classes,
                                                   **model_kw)
@@ -1816,9 +1847,19 @@ def resnet_module(ctx, batch, dtype=torch.float32, image=RESNET_IMAGE,
         net.cast(str(dtype).replace("torch.", ""))
     out_dtype = "float64" if dtype == torch.float64 else "float32"
     out = sym.Cast(net(sym.Variable("data")), dtype=out_dtype)
-    out = sym.SoftmaxOutput(out, sym.Variable("softmax_label"),
-                            name="softmax")
-    mod = mt.mod.Module(out, context=ctx)
+    return sym.SoftmaxOutput(out, sym.Variable("softmax_label"),
+                             name="softmax")
+
+
+def resnet_module(ctx, batch, dtype=torch.float32, image=RESNET_IMAGE,
+                  model="resnet50_v1", classes=1000, **model_kw):
+    """``resnet_symbol``'s model in a ``Module`` on ``ctx`` bound at
+    ``batch`` x 3 x image x image; no parameters yet."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataDesc
+    out_dtype = "float64" if dtype == torch.float64 else "float32"
+    mod = mt.mod.Module(resnet_symbol(dtype, model, classes, **model_kw),
+                        context=ctx)
     mod.bind(data_shapes=[DataDesc("data", (batch, 3, image, image),
                                    dtype=dtype)],
              label_shapes=[DataDesc("softmax_label", (batch,),
@@ -4140,6 +4181,513 @@ def phase_rnn(card):
     return res
 
 
+# -- phases 26-28: the data path ----------------------------------------------
+# Phase 26's .rec: ImageNet as MXNet stores it for training (im2rec --resize
+# 256, quality 95), of seeded images (``test_utils.synthetic_image``): the
+# real files are not in the repository.
+DATA_IMAGES, DATA_SHORT, DATA_QUALITY = 2048, 256, 95
+DATA_SHAPE, DATA_BATCH = (3, 224, 224), 32
+DATA_READ_BATCHES = 20       # batches timed at each thread count
+DATA_STEP_THREADS = 4        # examples/train_imagenet.py's preprocess_threads
+# A libjpeg decode's error against the images before encoding, on their
+# first 32 (x 255, 224 x 224, each resized by the plain formula), printed
+# by tests/test_torch_image_record_iter.py::
+# test_libjpeg_error_against_the_images.  The card's nvJPEG batch is held
+# to it times NVJPEG_MARGIN: both decode the same quantized coefficients,
+# and the decoders differ only in their IDCT and chroma upsampling, each a
+# fraction of the quantization error itself.
+LIBJPEG_ERR = {"mean": 3.3841, "rms": 4.4581}
+NVJPEG_MARGIN = 1.25
+# The resize kernel against its plain version: both make image_loader.cc's
+# roundings one by one in fp32, so bit for bit.
+RESIZE_ATOL = 0.0
+RESIZE_CASES = [((256, 341), (224, 224), 3, False),
+                ((256, 341), (224, 224), 3, True),
+                ((341, 256), (224, 224), 3, True),
+                ((37, 50), (64, 48), 4, False), ((1, 1), (5, 3), 3, True)]
+# phase 28: examples/train_mnist.py's LeNet, one epoch over MNIST's sizes
+LENET_BATCH, LENET_LR, LENET_MOMENTUM = 64, 0.1, 0.9
+MNIST_TRAIN, MNIST_TEST = 60000, 10000
+GLUON_LENET_STEPS = 20
+
+
+def jpeg_probe():
+    """What the host offers to code and decode JPEG: libjpeg's header and
+    the package's build of it, nvJPEG's header, PIL, cv2, the cores."""
+    import glob
+    import importlib.util
+    from mxnet_tpu_torch import _native, MXNetError
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    probe = {
+        "jpeglib_h": sorted(glob.glob("/usr/include/jpeglib.h")
+                            + glob.glob("/usr/include/*/jpeglib.h")),
+        "nvjpeg_h": os.path.exists(os.path.join(cuda, "include",
+                                                "nvjpeg.h")),
+        "PIL": importlib.util.find_spec("PIL") is not None,
+        "cv2": importlib.util.find_spec("cv2") is not None,
+        "nproc": os.cpu_count()}
+    try:
+        _native.image_lib()
+        probe["libjpeg_build"] = "built"
+    except MXNetError as e:
+        lines = str(e).splitlines()
+        probe["libjpeg_build"] = "failed: %s" % next(
+            (ln for ln in lines if "error" in ln), lines[-1])[:200]
+    return probe
+
+
+def resize_kernel_check(card):
+    """The resize kernel (``ops.image_nvjpeg.resize_rgb_chw``) against its
+    plain version on the card at RESIZE_CASES, and its time beside the
+    plain version's and ``F.interpolate``'s at the main path's shape."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    gen = torch.Generator().manual_seed(7)
+    worst = 0.0
+    for (sh, sw), (dh, dw), c, mirror in RESIZE_CASES:
+        src = torch.randint(0, 256, (sh, sw, 3), generator=gen,
+                            dtype=torch.uint8).cuda()
+        got = nj.resize_rgb_chw(src, dh, dw, c, mirror)
+        want = nj.resize_rgb_chw_reference(src, dh, dw, c, mirror)
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        if not err <= RESIZE_ATOL:
+            raise AssertionError("resize_rgb_chw disagrees with its plain "
+                                 "version at %s: %g" % ((sh, sw, dh, dw, c,
+                                                         mirror), err))
+    (sh, sw), (dh, dw), c, _ = RESIZE_CASES[0]
+    src = torch.randint(0, 256, (sh, sw, 3), generator=gen,
+                        dtype=torch.uint8).cuda()
+    as_float = src.permute(2, 0, 1)[None].float().contiguous()
+    res = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: nj.resize_rgb_chw(src, dh, dw, c, True), 200),
+        plain_ms=cuda_ms(lambda: nj.resize_rgb_chw_reference(
+            src, dh, dw, c, True), 50),
+        library_ms=cuda_ms(lambda: F.interpolate(
+            as_float, size=(dh, dw), mode="bilinear", align_corners=False),
+            200))
+    nbytes = sh * sw * 3 + c * dh * dw * 4
+    flops = c * dh * dw * 10          # 6 multiplies, 3 adds, 1 divide
+    bound = {"bytes": nbytes / HBM_BPS * 1e3,
+             "operations": flops / PEAK_FLOPS[torch.float32] * 1e3}
+    res["bound_by"] = max(bound, key=bound.get)
+    res["bound_ms"] = bound[res["bound_by"]]
+    res["shape"] = [sh, sw, dh, dw, c]
+    log("phase 26 resize_rgb_chw on %s: %d cases bit for bit against the "
+        "plain version (max |err| %g); %dx%d -> %dx%d x %d: kernel %.4f ms, "
+        "plain %.4f, F.interpolate (float input) %.4f, bound %.5f ms (%s)"
+        % (card, len(RESIZE_CASES), worst, sh, sw, dh, dw, c, res["ms"],
+           res["plain_ms"], res["library_ms"], res["bound_ms"],
+           res["bound_by"]))
+    return res
+
+
+def _read_rate(rec, threads):
+    """img/s of ``ImageRecordIter`` on the card at ``threads`` (one batch
+    after its start-up, then DATA_READ_BATCHES timed), and the decoder it
+    ran."""
+    import mxnet_tpu_torch as mt
+    it = mt.image.ImageRecordIter(
+        path_imgrec=rec, data_shape=DATA_SHAPE, batch_size=DATA_BATCH,
+        shuffle=True, rand_mirror=True, preprocess_threads=threads)
+    it.next()
+    t0 = time.perf_counter()
+    for _ in range(DATA_READ_BATCHES):
+        it.next()
+    seconds = time.perf_counter() - t0
+    return DATA_BATCH * DATA_READ_BATCHES / seconds, it.decoder
+
+
+def copy_times(batch, reps=20):
+    """ms to copy one host batch to the card with ``as_in_context`` from
+    the pinned buffer the card's loader writes it into, and from a
+    pageable copy of it; and ms to copy it from pageable into pinned
+    memory on the host (what pinning costs where a loader cannot write
+    into pinned memory itself)."""
+    pinned = batch.data[0]._data
+    if not pinned.is_pinned():
+        raise AssertionError("the card's loader gave a pageable batch")
+    host = pinned.clone()
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[reps // 2]
+    return dict(pageable_ms=timed(lambda: host.to("cuda")),
+                pinned_ms=timed(lambda: pinned.to("cuda")),
+                stage_into_pinned_ms=timed(lambda: pinned.clone().copy_(
+                    host)),
+                bytes=host.numel() * host.element_size())
+
+
+def nvjpeg_pixel_check(rec, n=32):
+    """The card's decode of the first ``n`` records (no shuffle, no mirror)
+    against the images before encoding, each resized by the plain formula:
+    mean, rms and max |err| x 255, held to LIBJPEG_ERR x NVJPEG_MARGIN."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    it = mt.image.ImageRecordIter(path_imgrec=rec, data_shape=DATA_SHAPE,
+                                  batch_size=n)
+    got = it.next().data[0]._data
+    errs = []
+    for i in range(n):
+        _, img = mt.test_utils.synthetic_image(0, i, DATA_SHORT)
+        want = nj.resize_rgb_chw_reference(torch.from_numpy(img),
+                                           *DATA_SHAPE[1:])
+        errs.append((got[i] - want).abs() * 255)
+    err = torch.stack(errs)
+    res = {"mean": err.mean().item(), "rms": err.pow(2).mean().sqrt().item(),
+           "max": err.max().item(), "libjpeg": LIBJPEG_ERR,
+           "margin": NVJPEG_MARGIN}
+    bad = [k for k in LIBJPEG_ERR if not res[k] <= LIBJPEG_ERR[k]
+           * NVJPEG_MARGIN]
+    if bad:
+        raise AssertionError("nvJPEG's pixels lie further from the images "
+                             "than libjpeg's with the margin: %s" % res)
+    return res
+
+
+def phase_data_loader(card, tmp):
+    """Phase 26: the probe, the .rec, the resize kernel, img/s of the card's
+    loader by thread count, the copy to the card, its bits and its pixels."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    res = {"probe": jpeg_probe()}
+    encode = mt._native.jpeg_encode if res["probe"]["libjpeg_build"] == \
+        "built" else mt.test_utils.pil_jpeg
+    res["encoder"] = "libjpeg" if encode is mt._native.jpeg_encode else "PIL"
+    t0 = time.perf_counter()
+    prefix = os.path.join(tmp, "train")
+    res["jpeg_mean_bytes"] = mt.test_utils.write_image_rec(
+        prefix, DATA_IMAGES, seed=0, short=DATA_SHORT, quality=DATA_QUALITY,
+        encode=encode, threads=os.cpu_count())
+    res["write_s"] = time.perf_counter() - t0
+    rec = prefix + ".rec"
+    res["rec_bytes"] = os.path.getsize(rec)
+    res["resize_kernel"] = resize_kernel_check(card)
+    profiler.reset_counters(nj.COUNTER)
+    rates = {}
+    for threads in sorted({1, 4, 8, os.cpu_count()}):
+        rates[threads], res["decoder"] = _read_rate(rec, threads)
+    res["img_s_by_threads"] = rates
+    it = mt.image.ImageRecordIter(path_imgrec=rec, data_shape=DATA_SHAPE,
+                                  batch_size=DATA_BATCH, shuffle=True,
+                                  rand_mirror=True)
+    batch = it.next()
+    on_card = batch.data[0].as_in_context(mt.gpu(0))
+    res["card_batch_bitwise"] = bool(torch.equal(on_card._data.cpu(),
+                                                 batch.data[0]._data))
+    if not res["card_batch_bitwise"]:
+        raise AssertionError("the batch on the card differs from the host's")
+    res["copy"] = copy_times(batch)
+    res["pixels"] = nvjpeg_pixel_check(rec)
+    log("phase 26 probe on %s: %s; decoder %s, files encoded with %s"
+        % (card, res["probe"], res["decoder"], res["encoder"]))
+    log("phase 26 .rec of %d images (shorter side %d, quality %d): %d bytes, "
+        "mean JPEG %.0f bytes, written in %.1f s"
+        % (DATA_IMAGES, DATA_SHORT, DATA_QUALITY, res["rec_bytes"],
+           res["jpeg_mean_bytes"], res["write_s"]))
+    log("phase 26 ImageRecordIter (%s) on %s, batch %d at %s, shuffle, "
+        "mirror: img/s by preprocess_threads %s; copy of a %d-byte batch to "
+        "the card %.3f ms pageable, %.3f ms pinned (+ %.3f ms staging into "
+        "the pinned buffer); the batch on the card equals the host's bit for "
+        "bit; pixels against the images (x 255) %s"
+        % (res["decoder"], card, DATA_BATCH, list(DATA_SHAPE),
+           {k: round(v, 1) for k, v in rates.items()}, res["copy"]["bytes"],
+           res["copy"]["pageable_ms"], res["copy"]["pinned_ms"],
+           res["copy"]["stage_into_pinned_ms"], res["pixels"]))
+    return res, rec
+
+
+class _RecordBatches:
+    """Batches of ``it`` moved to the card (``as_in_context``; bf16 cast
+    there), the iterator reset at its end; the host ms each ``next`` took
+    (``read_ms``: the loader's part of a step; the copy after it waits for
+    the step before, whose batch it follows on the card's stream)."""
+
+    def __init__(self, it, dtype):
+        self.it, self.dtype, self.read_ms = it, dtype, []
+
+    def next(self):
+        import mxnet_tpu_torch as mt
+        t0 = time.perf_counter()
+        try:
+            b = self.it.next()
+        except StopIteration:
+            self.it.reset()
+            b = self.it.next()
+        self.read_ms.append(1e3 * (time.perf_counter() - t0))
+        gpu = mt.gpu(0)
+        x = b.data[0].as_in_context(gpu)
+        if self.dtype == torch.bfloat16:
+            x = x.astype("bfloat16")
+        y = b.label[0].as_in_context(gpu)
+        return mt.io.DataBatch([x], [y])
+
+
+def data_gluon_resnet(card, rec, dtype, gluon_res):
+    """Phase 27: ResNet-50 through Gluon as examples/train_imagenet.py
+    trains it, fed by ``ImageRecordIter`` over ``rec``: 5 + 30 steps,
+    each timed step 3 replays, 0 captures, 0 traces, 1 fused update."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.gluon import block, fused_trainer
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    it = mt.image.ImageRecordIter(
+        path_imgrec=rec, data_shape=DATA_SHAPE, batch_size=DATA_BATCH,
+        shuffle=True, rand_mirror=True, preprocess_threads=DATA_STEP_THREADS)
+    feed = _RecordBatches(it, dtype)
+    net = gluon_resnet(mt.gpu(0), dtype)
+    trainer = gluon_trainer(net)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    res, per_step = {}, []
+
+    def step():
+        res["out"], res["loss"] = gluon_step(net, trainer, loss_fn,
+                                             feed.next())
+
+    def checked_step():
+        block.reset_trace_count()
+        fused_trainer.reset_update_counts()
+        before = counter_snapshot()
+        step()
+        per_step.append(dict(counter_delta(before),
+                             traces=block.trace_count(),
+                             fused=fused_trainer.fused_update_count()))
+    _timed(step, RESNET_WARMUP)
+    feed.read_ms.clear()
+    # as a training loop runs: no synchronize between steps, so the next
+    # batch is read while the card runs the step (the host keeps pace
+    # with the card: each batch's copy to it waits for the step before)
+    ends = [time.perf_counter()]
+    for _ in range(RESNET_STEPS):
+        checked_step()
+        ends.append(time.perf_counter())
+    torch.cuda.synchronize()
+    times = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+    mean_ms = 1e3 * (time.perf_counter() - ends[0]) / RESNET_STEPS
+    serial = _timed(step, RESNET_STEPS)
+    want = dict(graph_captures=0, graph_replays=3, program_calls=3,
+                traces=0, fused=1)
+    bad = [s for s in per_step if s != want]
+    if bad:
+        raise AssertionError("phase 27 %s steps: %s, want %s each"
+                             % (DTYPE_NAME[dtype], bad[:3], want))
+    device, wall, top = device_profile(
+        lambda: [step() for _ in range(5)], 5)
+    loss = res["loss"]._data.float().mean().item()
+    if not math.isfinite(loss):
+        raise AssertionError("phase 27: non-finite loss (%s)" % dtype)
+    ms = sorted(times)[len(times) // 2]
+    reads = feed.read_ms[:RESNET_STEPS]
+    wait = sorted(reads)[len(reads) // 2]
+    synthetic = None if gluon_res is None else next(
+        g for g in gluon_res
+        if g["dtype"] == DTYPE_NAME[dtype])["step_ms_median"]
+    serial_ms = sorted(serial)[len(serial) // 2]
+    out = dict(dtype=DTYPE_NAME[dtype], flags=flags,
+               step_ms_median=ms, img_s=DATA_BATCH / ms * 1e3,
+               step_ms_mean=mean_ms, serial_step_ms_median=serial_ms,
+               batch_read_ms_median=wait, loss=loss,
+               busy_share=device / wall, device_ms=device,
+               top_device_ops=top, per_step_counts=want,
+               phase16_step_ms_median=synthetic)
+    log("phase 27 Gluon ResNet-50 %s (%s) on %s fed by ImageRecordIter "
+        "(%s, %d threads), batch %d: ms/step median %.3f over %d steps "
+        "(mean %.3f), %.1f img/s; each step synchronized before the next "
+        "batch is read: median %.3f; ImageRecordIter.next %.3f ms median; "
+        "phase 16 (device batch) %s ms/step; busy %.1f%% (%.3f device ms "
+        "a step); every timed step %s; loss %.4f"
+        % (DTYPE_NAME[dtype], flags, card, it.decoder, DATA_STEP_THREADS,
+           DATA_BATCH, ms, RESNET_STEPS, mean_ms, out["img_s"], serial_ms,
+           wait,
+           "not run" if synthetic is None else "%.3f" % synthetic,
+           100 * out["busy_share"], device, want, loss))
+    del net, trainer, res, feed, it
+    free_card()
+    return out
+
+
+def data_module_fit(card, rec, steps=4):
+    """Phase 27, the Module front end: ``Module.fit`` over ``steps``
+    batches of the same iterator (fp32, SGD)."""
+    import mxnet_tpu_torch as mt
+    tf32_flags()
+    it = mt.io.ResizeIter(mt.image.ImageRecordIter(
+        path_imgrec=rec, data_shape=DATA_SHAPE, batch_size=DATA_BATCH,
+        shuffle=True, rand_mirror=True, preprocess_threads=DATA_STEP_THREADS),
+        steps)
+    mod = mt.mod.Module(resnet_symbol(torch.float32), context=mt.gpu(0))
+    seen = []
+    mt.random.seed(0)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, initializer=mt.initializer.Xavier(),
+            optimizer="sgd", optimizer_params=(
+                ("learning_rate", RESNET_LR), ("momentum", RESNET_MOMENTUM),
+                ("wd", RESNET_WD)),
+            batch_end_callback=lambda p: seen.append(p.nbatch))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    probs = mod.get_outputs()[0]._data
+    finite = bool(torch.isfinite(probs).all().item())
+    log("phase 27 Module.fit ResNet-50 fp32 on %s over %d batches of "
+        "ImageRecordIter: %.2f s (set-up and captures included), outputs "
+        "finite: %s" % (card, len(seen), seconds, finite))
+    if len(seen) != steps or not finite:
+        raise AssertionError("phase 27 Module.fit: %d batches, finite %s"
+                             % (len(seen), finite))
+    del mod, it
+    free_card()
+    return dict(batches=len(seen), seconds=seconds)
+
+
+def _train_mnist_example():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "train_mnist.py")
+    spec = importlib.util.spec_from_file_location("train_mnist_example",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gluon_lenet(mt):
+    """``build_lenet``'s net as Gluon layers."""
+    nn = mt.gluon.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(20, 5, activation="tanh"), nn.MaxPool2D(2, 2),
+                nn.Conv2D(50, 5, activation="tanh"), nn.MaxPool2D(2, 2),
+                nn.Flatten(), nn.Dense(500, activation="tanh"), nn.Dense(10))
+    return net
+
+
+def phase_data_lenet(card, tmp):
+    """Phase 28: idx files at MNIST's sizes, LeNet through ``Module.fit``
+    over ``MNISTIter`` for one epoch, then a Gluon LeNet fed by
+    ``DataLoader(vision.MNIST(...), num_workers=2)``."""
+    import mxnet_tpu_torch as mt
+    tf32_flags()
+    t0 = time.perf_counter()
+    root = mt.test_utils.write_mnist_idx(os.path.join(tmp, "mnist"),
+                                         MNIST_TRAIN, MNIST_TEST)
+    files = [os.path.join(root, n) for n in mt.test_utils.MNIST_FILES]
+    res = {"write_s": time.perf_counter() - t0}
+    example = _train_mnist_example()
+    mt.random.seed(0)
+    train = mt.io.MNISTIter(image=files[0], label=files[1],
+                            batch_size=LENET_BATCH, shuffle=True)
+    val = mt.io.MNISTIter(image=files[2], label=files[3],
+                          batch_size=LENET_BATCH, shuffle=False)
+    mod = mt.mod.Module(example.build_lenet(mt), context=mt.gpu(0))
+    stamps = []
+
+    def at_end(_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    mod.fit(train, optimizer="sgd", initializer=mt.initializer.Xavier(),
+            optimizer_params={"learning_rate": LENET_LR,
+                              "momentum": LENET_MOMENTUM},
+            num_epoch=1, batch_end_callback=at_end)
+    gaps = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+    res.update(steps=len(stamps), step_ms_median=gaps[len(gaps) // 2],
+               epoch_s=stamps[-1] - stamps[0] if stamps else 0.0,
+               accuracy=mod.score(val, "acc")[0][1])
+    log("phase 28 LeNet (examples/train_mnist.py) through Module.fit over "
+        "MNISTIter on %s (%s), %d x %d idx files written in %.1f s: %d steps "
+        "at batch %d, ms/step median %.3f (synchronized at each step's end), "
+        "epoch %.1f s; test accuracy %.4f (the JAX package's on the CPU at "
+        "the test's size %.4f, bar %.4f)"
+        % (card, tf32_flags(), MNIST_TRAIN, MNIST_TEST, res["write_s"],
+           res["steps"], LENET_BATCH, res["step_ms_median"], res["epoch_s"],
+           res["accuracy"], LENET_JAX_CPU_ACCURACY,
+           LENET_JAX_CPU_ACCURACY - 0.02))
+    if not res["accuracy"] >= LENET_JAX_CPU_ACCURACY - 0.02:
+        raise AssertionError("phase 28: LeNet test accuracy %.4f"
+                             % res["accuracy"])
+    del mod
+    # the Gluon front end on the same files
+    gpu = mt.gpu(0)
+    data = mt.gluon.data.vision.MNIST(
+        root=root, train=True,
+        transform=lambda x, y: (x.transpose((2, 0, 1)) / 255.0, y))
+    loader = mt.gluon.data.DataLoader(data, batch_size=LENET_BATCH,
+                                      shuffle=True, num_workers=2)
+    net = gluon_lenet(mt)
+    mt.random.seed(0)
+    net.initialize(mt.initializer.Xavier(), ctx=gpu)
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": LENET_LR, "momentum": LENET_MOMENTUM})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, stamps = [], []
+    for i, (x, y) in enumerate(loader):
+        if i == GLUON_LENET_STEPS:
+            break
+        x, y = x.as_in_context(gpu), y.as_in_context(gpu)
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(loss._data.mean().item())
+        stamps.append(time.perf_counter())
+    gaps = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+    res["gluon"] = dict(steps=len(losses), first_loss=losses[0],
+                        last_loss=losses[-1],
+                        step_ms_median=gaps[len(gaps) // 2])
+    log("phase 28 Gluon LeNet on %s fed by DataLoader(vision.MNIST, batch "
+        "%d, num_workers 2): %d steps, loss %.4f -> %.4f, ms/step median "
+        "%.3f" % (card, LENET_BATCH, len(losses), losses[0], losses[-1],
+                  res["gluon"]["step_ms_median"]))
+    if len(losses) != GLUON_LENET_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError("phase 28 Gluon LeNet: losses %s" % losses)
+    return res
+
+
+def phase_data(card, gluon_res):
+    """Phases 26-28 in a scratch directory of their own; returns the
+    ``{"data": ...}`` line's content and the resize kernel's launches on
+    the main path (phase 26's reads and phase 27's steps)."""
+    import tempfile
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import attention as att, scale as sc
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    others = (att.FWD_COUNTER, att.BWD_COUNTER, sc.COUNTER)
+    before = {k: profiler.counter(k) for k in others}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        res, rec = phase_data_loader(card, tmp)
+        res["resnet50"] = [data_gluon_resnet(card, rec, dt, gluon_res)
+                           for dt in (torch.float32, torch.bfloat16)]
+        res["module_fit"] = data_module_fit(card, rec)
+        launches = profiler.counter(nj.COUNTER)
+        res["lenet"] = phase_data_lenet(card, tmp)
+    res["card"] = card
+    res["seconds"] = time.perf_counter() - t0
+    res["resize_launches"] = launches
+    res["other_kernel_launches"] = {k: profiler.counter(k) - before[k]
+                                    for k in others}
+    log("phases 26-28: %.1f s; resize_rgb_chw launches %d; the other hand "
+        "kernels' %s" % (res["seconds"], launches,
+                         res["other_kernel_launches"]))
+    if launches == 0:
+        raise AssertionError("the card's loader never launched its resize "
+                             "kernel")
+    if any(res["other_kernel_launches"].values()):
+        raise AssertionError("a model kernel ran on the data paths: %s"
+                             % res["other_kernel_launches"])
+    return res, launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4180,7 +4728,9 @@ def main():
     zoo = phase_zoo(card)
     ops = phase_op_sweep(card)
     rnn = phase_rnn(card)
+    data, resize_launches = phase_data(card, gluon)
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
     n_layers = GPT2_SMALL["n_layers"]
     entries = []
@@ -4284,6 +4834,23 @@ def main():
             "library_ms": scale_kern[dt]["library_ms"],
             "shape": list(SCALE_MAIN_SHAPE),
         })
+    rk = data["resize_kernel"]
+    entries.append({
+        "name": "resize_rgb_chw[fp32]",
+        "route": "cuda",
+        "design": "simt, one thread an output pixel, nvJPEG's RGB in",
+        "source": nj.KERNEL_SOURCE,
+        "replaces": "native/image_loader.cc:86 (host C++ resize_to_chw; "
+                    "no Pallas kernel)",
+        "launches": resize_launches,
+        "max_abs_err": rk["max_abs_err"],
+        "ms": rk["ms"],
+        "plain_ms": rk["plain_ms"],
+        "bound_ms": rk["bound_ms"],
+        "bound_by": rk["bound_by"],
+        "library_ms": rk["library_ms"],
+        "shape": rk["shape"],
+    })
     log(card)
     print(json.dumps({"resnet50": {
         "card": card, "parity": parity, "train": resnet,
@@ -4304,6 +4871,7 @@ def main():
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"ops": ops}))
     print(json.dumps({"rnn": rnn}))
+    print(json.dumps({"data": data}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,11 @@ Serialization reads and writes the JAX package's files: ``nd.save``/
 and ``Trainer`` states, with the epoch ``callback``s.  Recurrent nets:
 the ``RNN`` op (cuDNN's RNN on the card), ``rnn`` (symbolic cells,
 ``BucketSentenceIter``), ``mod.BucketingModule`` (its buckets' captured
-steps in one memory pool) and ``gluon.rnn``.
+steps in one memory pool) and ``gluon.rnn``.  The data path: ``recordio``,
+the rest of ``io`` (``CSVIter``, ``MNISTIter``, ``ResizeIter``,
+``PrefetchingIter``), ``image`` (decode, augmenters, ``ImageIter``,
+``ImageDetIter``, ``ImageRecordIter``: libjpeg on host threads, or
+nvJPEG on a card) and ``gluon.data``.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from . import capture, profiler
 from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
 from . import stream, model, callback, rnn
+from . import recordio, image
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
@@ -47,4 +52,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "capture", "profiler",
            "lr_scheduler",
            "test_utils", "io", "metric", "gluon", "module", "mod",
-           "stream", "model", "callback", "rnn"]
+           "stream", "model", "callback", "rnn", "recordio", "image"]

@@ -1,26 +1,38 @@
-"""Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter`` and
-``NDArrayIter``.
+"""Data iterators.
 
 Counterpart of ``mxnet_tpu/io.py`` (``DataDesc`` :67, ``DataBatch``
-:106, ``DataIter`` :119, ``_init_data`` :372, ``NDArrayIter`` :400):
-``last_batch_handle`` ``pad`` (wrap the tail batch around and report the
-pad), ``discard`` (drop it) or ``roll_over`` (carry it into the next
-epoch); ``shuffle`` draws from the framework's host generator
-(``random.host_rng``), so a seeded shuffle gives the JAX package's
-order.  As in MXNet the batches are staged in host memory (NDArrays on
-``cpu()``): the executor copies each into its bound arrays on the card.
-The record, image, CSV and MNIST iterators are not ported yet.
+:106, ``DataIter`` :119, ``ResizeIter`` :214, ``_Slot`` :256,
+``PrefetchingIter`` :301, ``_init_data`` :372, ``NDArrayIter`` :400,
+``_WrappedArrayIter`` :527, ``CSVIter`` :550, ``_read_idx_file`` :569,
+``MNISTIter`` :582): ``last_batch_handle`` ``pad`` (wrap the tail batch
+around and report the pad), ``discard`` (drop it) or ``roll_over``
+(carry it into the next epoch); ``shuffle`` draws from the framework's
+host generator (``random.host_rng``), so a seeded shuffle gives the JAX
+package's order.  As in MXNet the batches are staged in host memory
+(NDArrays on ``cpu()``): the executor copies each into its bound arrays
+on the card, a Gluon loop with ``split_and_load`` or ``as_in_context``.
+``PrefetchingIter`` fills the next batch of each source on a thread of
+its own.  ``LibSVMIter`` emits CSR batches, and sparse storage is not
+ported: it raises (ROADMAP A.9).  The JAX package's batch-wait telemetry
+(``_timed_batch``) waits for the telemetry port (A.11).
 """
 from __future__ import annotations
 
+import os
+import struct
+import threading
+
 import numpy as np
 
+from .base import MXNetError
 from .context import cpu
 from . import ndarray as nd
 from . import random as _random
 from .ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
+           "PrefetchingIter", "NDArrayIter", "CSVIter", "MNISTIter",
+           "LibSVMIter"]
 
 
 class DataDesc:
@@ -101,6 +113,180 @@ class DataIter:
 
     def getpad(self):
         raise NotImplementedError()
+
+
+class _BatchView(DataIter):
+    """An iterator that serves a held ``current_batch``."""
+
+    current_batch = None
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class ResizeIter(_BatchView):
+    """An iterator presented as exactly ``size`` batches a epoch, the
+    source rewound whenever it runs out."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur >= self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+
+class _Slot:
+    """One producer thread that keeps one batch of ``source`` ready: it
+    fills ``batch`` whenever ``vacant`` is set, then sets ``ready``; the
+    end of the source is ``batch`` None."""
+
+    def __init__(self, source):
+        self.source = source
+        self.ready = threading.Event()
+        self.vacant = threading.Event()
+        self.vacant.set()
+        self.batch = None
+        self.error = None
+        self.live = True
+        self.thread = threading.Thread(target=self._produce, daemon=True)
+        self.thread.start()
+
+    def _produce(self):
+        while True:
+            self.vacant.wait()
+            if not self.live:
+                return
+            try:
+                self.batch = self.source.next()
+            except StopIteration:
+                self.batch = None
+            except Exception as e:   # handed to the consumer's thread
+                self.batch, self.error = None, e
+            self.vacant.clear()
+            self.ready.set()
+
+    def take(self):
+        """The held batch (None at the end); raises what the source
+        raised."""
+        self.ready.wait()
+        if self.error is not None:
+            error, self.error = self.error, None
+            raise error
+        return self.batch
+
+    def release(self):
+        """Hand the held batch over; the producer fills the next."""
+        self.ready.clear()
+        self.vacant.set()
+
+    def reset(self):
+        self.ready.wait()          # let a fill in flight land
+        self.error = None
+        self.source.reset()
+        self.release()
+
+    def shutdown(self):
+        self.live = False
+        self.vacant.set()
+
+
+class PrefetchingIter(_BatchView):
+    """Prefetches one batch ahead from each of one or more iterators on
+    threads of their own, and merges their batches into one DataBatch a
+    step (names renamed through ``rename_data``/``rename_label``, a dict
+    per source)."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        super().__init__()
+        sources = iters if isinstance(iters, list) else [iters]
+        if not sources:
+            raise ValueError("need at least one source iterator")
+        self.iters = sources
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self._slots = [_Slot(src) for src in sources]
+
+    def __del__(self):
+        for slot in getattr(self, "_slots", ()):
+            slot.shutdown()
+
+    @staticmethod
+    def _described(per_iter_descs, renames):
+        if renames is None:
+            return sum(per_iter_descs, [])
+        renamed = []
+        for mapping, descs in zip(renames, per_iter_descs):
+            for d in descs:
+                if isinstance(d, DataDesc):
+                    renamed.append(DataDesc(mapping[d.name], d.shape,
+                                            d.dtype))
+                else:
+                    renamed.append(DataDesc(mapping[d[0]], d[1]))
+        return renamed
+
+    @property
+    def provide_data(self):
+        return self._described([it.provide_data for it in self.iters],
+                               self.rename_data)
+
+    @property
+    def provide_label(self):
+        return self._described([it.provide_label for it in self.iters],
+                               self.rename_label)
+
+    def reset(self):
+        for slot in self._slots:
+            slot.reset()
+
+    def iter_next(self):
+        parts = [slot.take() for slot in self._slots]
+        if parts[0] is None:
+            return False
+        self.current_batch = DataBatch(
+            sum((b.data for b in parts), []),
+            sum((b.label for b in parts), []),
+            parts[0].pad, parts[0].index,
+            provide_data=self.provide_data,
+            provide_label=self.provide_label)
+        for slot in self._slots:
+            slot.release()
+        return True
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        return self.current_batch
 
 
 def _init_data(data, allow_empty, default_name):
@@ -203,3 +389,97 @@ class NDArrayIter(DataIter):
         if self.last_batch_handle == "pad" and overrun > 0:
             return overrun
         return 0
+
+
+class _WrappedArrayIter(DataIter):
+    """CSVIter's and MNISTIter's shell: parse the files once, then serve
+    them through an inner NDArrayIter."""
+
+    def __init__(self, data, label, batch_size, **iter_kwargs):
+        super().__init__(batch_size)
+        self._inner = NDArrayIter(data, label, batch_size, **iter_kwargs)
+        self.provide_data = self._inner.provide_data
+        self.provide_label = self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class CSVIter(_WrappedArrayIter):
+    """Batches of a comma-separated file (reference
+    ``src/io/iter_csv.cc:150``); without ``label_csv`` the labels are 0."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, **kwargs):
+        table = np.loadtxt(data_csv, delimiter=",", dtype=np.float32)
+        table = table.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if tuple(label_shape) == (1,):
+                label = label.reshape(-1)
+        else:
+            label = np.zeros((table.shape[0],), dtype=np.float32)
+        super().__init__(table, label, batch_size,
+                         last_batch_handle="roll_over" if round_batch
+                         else "pad")
+
+
+def _read_idx_file(path):
+    """An MNIST idx file as uint8 numpy: magic 2051 images (N, rows,
+    cols), 2049 labels (N,)."""
+    with open(path, "rb") as fh:
+        magic, count = struct.unpack(">ii", fh.read(8))
+        if magic == 2051:
+            rows, cols = struct.unpack(">ii", fh.read(8))
+            return np.frombuffer(fh.read(), dtype=np.uint8) \
+                .reshape(count, rows, cols)
+        if magic == 2049:
+            return np.frombuffer(fh.read(), dtype=np.uint8).reshape(count)
+        raise MXNetError("bad idx magic %d in %s" % (magic, path))
+
+
+def write_idx_file(path, array):
+    """Write uint8 ``array`` as an idx file: (N, rows, cols) images or
+    (N,) labels, the format ``MNISTIter`` reads."""
+    array = np.ascontiguousarray(array, dtype=np.uint8)
+    with open(path, "wb") as fh:
+        if array.ndim == 3:
+            fh.write(struct.pack(">iiii", 2051, *array.shape))
+        elif array.ndim == 1:
+            fh.write(struct.pack(">ii", 2049, array.shape[0]))
+        else:
+            raise MXNetError("an idx file holds (N, rows, cols) images or "
+                             "(N,) labels, not shape %s" % (array.shape,))
+        fh.write(array.tobytes())
+
+
+class MNISTIter(_WrappedArrayIter):
+    """Batches of MNIST's idx files (reference ``src/io/iter_mnist.cc:259``):
+    images scaled to [0, 1], (N, 1, 28, 28) or with ``flat`` (N, 784);
+    shuffled from ``random.host_rng``."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128, shuffle=True,
+                 flat=False, silent=False, seed=0, input_shape=None, **kwargs):
+        if not os.path.exists(image):
+            raise MXNetError("MNIST file %s not found" % image)
+        pixels = _read_idx_file(image).astype(np.float32) / 255.0
+        digits = _read_idx_file(label).astype(np.float32)
+        if flat:
+            pixels = pixels.reshape(pixels.shape[0], -1)
+        else:
+            pixels = pixels.reshape(pixels.shape[0], 1, 28, 28)
+        super().__init__(pixels, digits, batch_size, shuffle=shuffle)
+
+
+class LibSVMIter(DataIter):
+    """LibSVM text batches; the reference emits them as CSR arrays, and
+    sparse storage is not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("LibSVMIter emits CSR (sparse) batches, and the "
+                         "sparse storage is not ported yet (ROADMAP A.9)")

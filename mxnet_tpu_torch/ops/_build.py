@@ -1,12 +1,17 @@
-"""Build the package's CUDA C++ kernels with ``nvcc`` and load them.
+"""Build the package's native sources and load them.
 
-Each ``csrc/<stem>.cu`` compiles on its own into a shared library with a
-plain ``extern "C"`` launcher, for ``sm_90a``, and is loaded with
-``ctypes``; headers (``csrc/*.cuh``) hold what several sources share.
+Each ``csrc/<stem>.cu`` compiles with ``nvcc`` on its own into a shared
+library with a plain ``extern "C"`` launcher, for ``sm_90a``, and is
+loaded with ``ctypes``; headers (``csrc/*.cuh``) hold what several
+sources share.  A source that calls a CUDA library names it in
+``NVCC_LIBS``.  Host C++ (``_native/csrc/<stem>.cc``: the RecordIO codec
+and the threaded libjpeg image loader) compiles with ``g++`` the same
+way (:func:`load_host_library`), linked with what ``HOST_LIBS`` names.
 The build runs at first use, into ``mxnet_tpu_torch/_build/`` (listed in
 ``.gitignore``), under a name that carries a hash of the source, the
 headers and the flags, so an edited source or header rebuilds and an
-unchanged one is reused.  Nothing here runs at import time.
+unchanged one is reused; a failed build raises ``MXNetError`` with the
+compiler's log.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -22,14 +27,23 @@ from concurrent.futures import ThreadPoolExecutor
 
 from ..base import MXNetError
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load_library",
-           "build_all", "build_info"]
+__all__ = ["CSRC_DIR", "HOST_CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS",
+           "NVCC_LIBS", "CXX_FLAGS", "HOST_LIBS", "load_library",
+           "load_host_library", "build_all", "build_info"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
+HOST_CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_native", "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# CUDA libraries a source links, by stem
+NVCC_LIBS = {"image_nvjpeg": ("-lnvjpeg",)}
+# the reference's native/Makefile flags, so both builds of the loader
+# compute alike
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
+HOST_LIBS = {"recordio": (), "image_loader": ("-ljpeg", "-lpthread")}
 
 _LOCK = threading.Lock()
 _STEM_LOCKS = {}   # stem -> threading.Lock, so two sources build at once
@@ -48,11 +62,35 @@ def _nvcc():
     return found
 
 
-def _compile(stem):
-    src = os.path.join(CSRC_DIR, stem + ".cu")
-    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
-    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+def _cxx():
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise MXNetError("no C++ compiler found (set CXX): the host sources "
+                     "under _native/csrc are built at first use")
+
+
+def _tool_version(path):
+    proc = subprocess.run([path, "--version"], capture_output=True,
+                          text=True)
+    return proc.stdout.splitlines()[0] if proc.stdout else path
+
+
+def _compile(stem, host=False):
+    if host:
+        src = os.path.join(HOST_CSRC_DIR, stem + ".cc")
+        headers, flags = [], CXX_FLAGS
+        libs, tool = HOST_LIBS.get(stem, ()), _cxx
+    else:
+        src = os.path.join(CSRC_DIR, stem + ".cu")
+        headers = [os.path.join(CSRC_DIR, n) for n in
+                   sorted(os.listdir(CSRC_DIR)) if n.endswith(".cuh")]
+        flags, libs, tool = NVCC_FLAGS, NVCC_LIBS.get(stem, ()), _nvcc
+    digest = hashlib.sha256(repr((flags, libs)).encode())
+    if host:   # a library from another toolchain (or machine) rebuilds
+        digest.update(_tool_version(tool()).encode())
+    for path in [src] + headers:
         with open(path, "rb") as f:
             digest.update(f.read())
     digest = digest.hexdigest()[:16]
@@ -64,12 +102,12 @@ def _compile(stem):
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        cmd = [tool(), *flags, "-o", tmp, src, *libs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise MXNetError("nvcc failed on %s (rc %d):\n%s%s"
-                             % (src, proc.returncode, proc.stdout,
-                                proc.stderr))
+            raise MXNetError("%s failed on %s (rc %d):\n%s%s"
+                             % (os.path.basename(cmd[0]), src,
+                                proc.returncode, proc.stdout, proc.stderr))
         os.replace(tmp, out)  # atomic: a concurrent reader sees all or none
     finally:
         if os.path.exists(tmp):
@@ -77,16 +115,25 @@ def _compile(stem):
     return out, time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
-def load_library(stem):
-    """The loaded ``ctypes.CDLL`` for ``csrc/<stem>.cu``, built if needed."""
+def load_library(stem, host=False):
+    """The loaded ``ctypes.CDLL`` for ``csrc/<stem>.cu`` (or, with
+    ``host``, ``_native/csrc/<stem>.cc``), built if needed."""
     with _LOCK:
         stem_lock = _STEM_LOCKS.setdefault(stem, threading.Lock())
     with stem_lock:
         if stem not in _LIBS:
-            path, seconds, log = _compile(stem)
-            _LIBS[stem] = ctypes.CDLL(path)
+            path, seconds, log = _compile(stem, host)
+            try:
+                _LIBS[stem] = ctypes.CDLL(path)
+            except OSError as e:
+                raise MXNetError("cannot load %s: %s" % (path, e)) from e
             _INFO[stem] = {"path": path, "seconds": seconds, "log": log}
         return _LIBS[stem]
+
+
+def load_host_library(stem):
+    """The loaded ``ctypes.CDLL`` for ``_native/csrc/<stem>.cc``."""
+    return load_library(stem, host=True)
 
 
 def build_all(stems):

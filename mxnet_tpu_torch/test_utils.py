@@ -3,12 +3,14 @@ fp64-referenced row check of the flash-attention backward, and the op
 sweep's cases (``op_cases``, ``random_cases``), and ``set_dropout``,
 which turns a zoo model's Dropout off for a parity check.
 
-``get_mnist`` is this package's own copy of the recipe in
-``mxnet_tpu/test_utils.py:396-434`` (numpy only, so the arrays are equal
-bit for bit): ``RandomState(42)``, 10 prototype images, 4096 train and
-1024 test images of prototype plus N(0, 0.3) noise clipped to [0, 1],
-labels as float32.  The real MNIST idx files are not in the repository;
-reading them is not ported.
+``get_mnist`` is this package's own copy of ``mxnet_tpu/test_utils.py:
+411-449`` (numpy only, so the arrays are equal bit for bit): MNIST's
+four idx files under ``path`` where they all are, else the synthetic
+digits: ``RandomState(42)``, 10 prototype images, 4096 train and 1024
+test images of prototype plus N(0, 0.3) noise clipped to [0, 1], labels
+as float32 (``_synthetic_digits`` draws any number of them, the
+``MNISTIter`` files of ``chip_smoke.py`` among them);
+``get_mnist_iterator`` serves them as two ``NDArrayIter``s.
 
 ``sharp_row_check`` holds a backward kernel's dq, dk and dv to an fp64
 reference (``attention_grads_fp64``), row by row, with a limit set by
@@ -18,12 +20,15 @@ and ``tests/test_torch_attention_grad.py`` on the CPU.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from .ops.nn import rnn_param_size
 
-__all__ = ["get_mnist", "attention_grads_fp64", "row_errors",
+__all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
+           "attention_grads_fp64", "row_errors",
            "sharp_row_check", "SHARP_ROW_C", "op_cases", "run_op_case",
            "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
            "LIBM_TOL", "SUM_TOL", "set_dropout"]
@@ -37,15 +42,43 @@ def _synthetic_digits(n, rng, protos):
         np.float32)
 
 
-def get_mnist():
+MNIST_FILES = ("train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+               "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")
+
+
+def get_mnist(path="data"):
     """dict(train_data, train_label, test_data, test_label); images NCHW
-    float32 in [0, 1]."""
+    float32 in [0, 1]: the idx files under ``path`` if all four are
+    there, else the synthetic digits."""
+    import os
+    files = [os.path.join(path, n) for n in MNIST_FILES]
+    if all(os.path.exists(f) for f in files):
+        from .io import _read_idx_file
+        tr_x, tr_y, te_x, te_y = (_read_idx_file(f) for f in files)
+        return {"train_data": tr_x.astype(np.float32)[:, None] / 255.0,
+                "train_label": tr_y.astype(np.float32),
+                "test_data": te_x.astype(np.float32)[:, None] / 255.0,
+                "test_label": te_y.astype(np.float32)}
     rng = np.random.RandomState(42)
     protos = rng.rand(10, 28, 28).astype(np.float32)
     tr_x, tr_y = _synthetic_digits(4096, rng, protos)
     te_x, te_y = _synthetic_digits(1024, rng, protos)
     return {"train_data": tr_x, "train_label": tr_y,
             "test_data": te_x, "test_label": te_y}
+
+
+def get_mnist_iterator(batch_size, flat=False, path="data"):
+    """(train, val) ``NDArrayIter``s over :func:`get_mnist`'s arrays, the
+    training one shuffled."""
+    from .io import NDArrayIter
+    blob = get_mnist(path)
+    tr_x, te_x = blob["train_data"], blob["test_data"]
+    if flat:
+        tr_x = tr_x.reshape(tr_x.shape[0], -1)
+        te_x = te_x.reshape(te_x.shape[0], -1)
+    train = NDArrayIter(tr_x, blob["train_label"], batch_size, shuffle=True)
+    val = NDArrayIter(te_x, blob["test_label"], batch_size)
+    return train, val
 
 
 # Where one key takes nearly all of a query's probability (sm_scale 0.5
@@ -652,3 +685,99 @@ def set_dropout(block, rate, nn=None):
         block._rate = rate
     for child in block._children:
         set_dropout(child, rate, nn)
+
+
+_NOISE_LOCK = threading.Lock()
+_NOISE = {}  # (seed, side) -> an N(0, 8) tile the images take windows of
+
+
+def _noise_tile(seed, side):
+    with _NOISE_LOCK:
+        if (seed, side) not in _NOISE:
+            rng = np.random.default_rng([seed, 1 << 40])
+            _NOISE[(seed, side)] = rng.standard_normal(
+                (side, side, 3), dtype=np.float32) * 8
+        return _NOISE[(seed, side)]
+
+
+def synthetic_image(seed, index, short=256, classes=1000):
+    """(label, HWC uint8 RGB image) number ``index`` of a seeded set that
+    looks like a photograph to a JPEG coder: a smooth field (a 6 x 8 grid
+    of random colours, interpolated) plus N(0, 8) noise (a window of one
+    tile a seed), the shorter side ``short`` and the longer 1 to 1.5 times
+    it (a quarter of them upright).  Each image draws from its own
+    generator, so any subset is the same images."""
+    from .image.image import resize_weights
+    rng = np.random.default_rng([seed, index])
+    label = int(rng.integers(classes))
+    h, w = short, int(round(short * rng.uniform(1.0, 1.5)))
+    if rng.random() < 0.25:
+        h, w = w, h
+    grid = rng.uniform(0, 255, (6, 8, 3))
+    field = (resize_weights(6, h, 1) @ grid.reshape(6, 24)).reshape(h, 8, 3)
+    field = np.matmul(resize_weights(8, w, 1), field)
+    tile = _noise_tile(seed, 2 * short)
+    oy, ox = rng.integers(0, 2 * short - h + 1), rng.integers(
+        0, 2 * short - w + 1)
+    noise = tile[oy:oy + h, ox:ox + w]
+    img = np.clip(np.rint(field + noise), 0, 255).astype(np.uint8)
+    return label, img
+
+
+def pil_jpeg(img, quality=95):
+    """JPEG bytes of an HWC uint8 RGB image through PIL (the encoder of
+    the tests, and of the card's files where its host has no libjpeg)."""
+    import io as _pyio
+    from PIL import Image
+    bio = _pyio.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img)).save(bio, format="JPEG",
+                                                    quality=quality)
+    return bio.getvalue()
+
+
+def write_image_rec(prefix, n, seed=0, short=256, classes=1000, quality=95,
+                    encode=pil_jpeg, threads=1):
+    """Write ``n`` of :func:`synthetic_image`'s images as JPEG records to
+    ``prefix.rec`` and ``prefix.idx`` (header label the image's, id its
+    index), encoding on ``threads`` threads; returns the mean bytes of a
+    JPEG."""
+    from concurrent.futures import ThreadPoolExecutor
+    from . import recordio
+
+    def one(i):
+        label, img = synthetic_image(seed, i, short, classes)
+        return recordio.pack(recordio.IRHeader(0, float(label), i, 0),
+                             encode(img, quality))
+
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    total = 0
+    with ThreadPoolExecutor(max(1, threads)) as pool:
+        for i, blob in enumerate(pool.map(one, range(n))):
+            rec.write_idx(i, blob)
+            total += len(blob) - 24
+    rec.close()
+    return total / max(n, 1)
+
+
+def write_mnist_idx(path, train=60000, test=10000):
+    """MNIST's four idx files under ``path``, of the synthetic digits
+    (:func:`_synthetic_digits`, pixels rounded to uint8) at MNIST's sizes
+    (``RandomState(42)``, as :func:`get_mnist` draws them), and the
+    gzipped pair ``gluon.data.vision.MNIST`` reads; returns ``path``."""
+    import gzip
+    import os
+    from .io import write_idx_file
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.RandomState(42)
+    protos = rng.rand(10, 28, 28).astype(np.float32)
+    parts = (_synthetic_digits(train, rng, protos),
+             _synthetic_digits(test, rng, protos))
+    names = iter(MNIST_FILES)
+    for x, y in parts:
+        for arr in (np.rint(x[:, 0] * 255), y):
+            name = os.path.join(path, next(names))
+            write_idx_file(name, arr.astype(np.uint8))
+            with open(name, "rb") as f, \
+                    gzip.open(name + ".gz", "wb", compresslevel=1) as g:
+                g.write(f.read())
+    return path

@@ -29,7 +29,8 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_lm_cpu_spread.py"),
              os.path.join(REPO, "tools", "torch_mlp_breakdown.py"),
              os.path.join(REPO, "tools", "torch_resnet_breakdown.py"),
-             os.path.join(REPO, "tools", "torch_zoo_chip.py")]
+             os.path.join(REPO, "tools", "torch_zoo_chip.py"),
+             os.path.join(REPO, "tools", "torch_data_chip.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -46,7 +47,12 @@ def test_import_leaves_no_jax_in_a_clean_process():
             "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.gluon.block, "
             "mxnet_tpu_torch.gluon.fused_trainer, mxnet_tpu_torch.stream, "
             "mxnet_tpu_torch.model, mxnet_tpu_torch.callback, "
-            "mxnet_tpu_torch._pickle, mxnet_tpu_torch.ndarray.utils; "
+            "mxnet_tpu_torch._pickle, mxnet_tpu_torch.ndarray.utils, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch.image, mxnet_tpu_torch.image.detection, "
+            "mxnet_tpu_torch.image.native_iter, mxnet_tpu_torch._native, "
+            "mxnet_tpu_torch.ops.image_nvjpeg, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.data.vision; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (sorted(FORBIDDEN),))
     env = dict(os.environ, PYTHONPATH=REPO)
