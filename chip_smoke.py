@@ -246,13 +246,40 @@ before it captures, and those runs launch the kernels too
    over ``MNISTIter`` for one epoch at batch 64 (ms/step, test accuracy
    at least ``LENET_JAX_CPU_ACCURACY`` less 0.02), and a Gluon LeNet fed
    by ``DataLoader(vision.MNIST(...), num_workers=2)`` for 20 steps.
+29. C.7 on the card's host (it has cv2): ``image.imresize`` against
+   ``cv2.resize`` at tests/test_torch_image.py's sizes, interpolations 0-3,
+   uint8 and float32, at that file's bars (nearest equal in uint8, the
+   others within 1; float32 within 1e-4), then the resizing augmenters
+   (``ResizeAug``, ``ForceResizeAug``, ``RandomSizedCropAug``, a resizing
+   ``CenterCropAug``, ``CreateAugmenter(resize=...)``) against themselves
+   with ``cv2.resize`` in place of the port's resize, from one
+   ``random.seed``, within 1.  Fails where cv2 is missing.
+30. The kvstore and several contexts: (a) BASELINE #4, Inception-v3 as
+   ``examples/train_inception_v3.py`` trains it (phase 20a's module, every
+   Dropout rate 0), batch 32, fp32 (TF32 off) and bf16, 3 steps with the
+   update on ``mt.kv.create("device")`` held to the captured step without
+   a store, cuDNN deterministic (bit for bit, or within two runs without
+   a store), each step
+   one push and one pull a parameter, then ms/step (median of 10 after
+   3), img/s and peak memory on the store; the example's own set-up,
+   ``Module`` on ``[gpu(0)]`` with ``fit(kvstore="device")``, one replay
+   and no capture a step after the first; (b) phase 7's MLP through
+   ``Module`` on ``[gpu(0), cpu(0)]`` (workload 3:1) under ``"device"``
+   and ``"local"``, and through Gluon (``split_and_load``,
+   ``Trainer(kvstore="device")``), 20 steps each, held to the same runs on
+   ``[cpu(0), cpu(1)]`` at phase 8's bars; (c) ``push_pull_all`` over
+   Inception-v3's gradient shapes, two copies on ``gpu(0)``, fp32 and
+   bf16: bit for bit with the CPU store's, one reduce a bucket, timed
+   against the per-key push/pull loop.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
 line, phase 19's as one ``{"checkpoint": {...}}`` line, phase 20's as
 one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
 "worst": [...]}}`` line, phases 22-25's as one ``{"rnn": {...}}`` line,
-phases 26-28's as one ``{"data": {...}}`` line, the
+phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
+``{"cv2_resize": {...}}`` line, phase 30's as one ``{"kvstore": {...}}``
+line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -1834,15 +1861,19 @@ def tf32_flags():
 
 
 def resnet_symbol(dtype=torch.float32, model="resnet50_v1", classes=1000,
-                  **model_kw):
+                  dropout=None, **model_kw):
     """``bench.py::_module_train_rate``'s model: the zoo model (cast to
-    ``dtype``) lowered to a Symbol, ``Cast`` to fp32 (fp64 stays fp64),
+    ``dtype``; every Dropout at rate ``dropout`` where given) lowered to a
+    Symbol, ``Cast`` to fp32 (fp64 stays fp64),
     ``SoftmaxOutput(name="softmax")``."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch import sym
+    from mxnet_tpu_torch.test_utils import set_dropout
     with mt.name.NameManager():
         net = mt.gluon.model_zoo.vision.get_model(model, classes=classes,
                                                   **model_kw)
+    if dropout is not None:
+        set_dropout(net, dropout)
     if dtype != torch.float32:
         net.cast(str(dtype).replace("torch.", ""))
     out_dtype = "float64" if dtype == torch.float64 else "float32"
@@ -2707,8 +2738,12 @@ def module_train_state(mod):
     out = {"param:" + n: _host_copy(a._data) for n, a in arg.items()}
     out.update({"aux:" + n: _host_copy(a._data) for n, a in aux.items()})
     names = mod._exec_group.param_names
-    out.update({"momentum:" + names[i]: _host_copy(s._data)
-                for i, s in mod._updater.states.items() if s is not None})
+    if mod._update_on_kvstore:  # the store's Updater, keyed by name
+        states = mod._kvstore._updater.states.items()
+    else:
+        states = ((names[i], s) for i, s in mod._updater.states.items())
+    out.update({"momentum:" + n: _host_copy(s._data)
+                for n, s in states if s is not None})
     return out
 
 
@@ -4688,6 +4723,499 @@ def phase_data(card, gluon_res):
     return res, launches
 
 
+# -- phase 29: the cv2-style resizes against cv2 (ROADMAP C.7) ----------------
+# The sizes, image and bars of tests/test_torch_image.py:77-92: nearest equal
+# for uint8, the other interpolations within 1 of 255 (cv2's fixed-point
+# weights and its rounding of ties), float32 images within 1e-4; the
+# resizing augmenters (tests/test_torch_image.py:194-251) within 1.
+CV2_SIZES = [(10, 7), (60, 40), (90, 61), (13, 29), (45, 11)]
+CV2_UINT8_ATOL = {0: 0, 1: 1, 2: 1, 3: 1}
+CV2_FLOAT_ATOL = 1e-4
+CV2_AUG_ATOL = 1.0
+CV2_AUG_SEEDS = (0, 3, 7)
+
+
+def cv2_imresize(src, w, h, interp=1):
+    """The JAX package's ``imresize`` (``mxnet_tpu/image/image.py:73``):
+    ``cv2.resize`` of the HWC image, a host NDArray of cv2's dtype."""
+    import cv2
+    from mxnet_tpu_torch.image import image as im
+    out = cv2.resize(im._to_np(src), (w, h), interpolation=interp)
+    return im._wrap(out[:, :, None] if out.ndim == 2 else out)
+
+
+def cv2_augmenters(mt):
+    """The resizing augmenters of tests/test_torch_image.py, and
+    ``CreateAugmenter`` with ``resize``."""
+    im = mt.image
+    return {
+        "ResizeAug": lambda: [im.ResizeAug(32, 1)],
+        "ForceResizeAug": lambda: [im.ForceResizeAug((50, 30), 2)],
+        "RandomSizedCropAug": lambda: [im.RandomSizedCropAug(
+            (24, 24), 0.3, (0.75, 1.33), 1)],
+        "CenterCropAug(resize)": lambda: [im.CenterCropAug((80, 50), 0)],
+        "CreateAugmenter(resize=50)": lambda: im.CreateAugmenter(
+            (3, 24, 24), resize=50, rand_crop=True, rand_resize=True,
+            mean=True, std=True, brightness=0.1, contrast=0.1,
+            saturation=0.1, pca_noise=0.1),
+        "CreateAugmenter(resize=30)": lambda: im.CreateAugmenter(
+            (3, 24, 24), resize=30, rand_mirror=True),
+    }
+
+
+def _augment(augs, img, seed):
+    """Three draws of the augmenter list on ``img`` from one seed."""
+    import random
+    random.seed(seed)
+    np.random.seed(seed)
+    outs = []
+    for _ in range(3):
+        x = img
+        for aug in augs:
+            x = aug(x)[0]
+        outs.append(np.asarray(x.asnumpy() if hasattr(x, "asnumpy") else x,
+                               np.float64))
+    return outs
+
+
+def phase_cv2_resize(card):
+    """Phase 29 on the card's host: ``image.imresize`` against
+    ``cv2.resize`` at each size and interpolation, uint8 and float32, then
+    the resizing augmenters against themselves with ``cv2.resize`` in
+    place of the port's resize (the JAX package's resize), from one seed.
+    Fails when cv2 is missing."""
+    import importlib.util
+    from unittest import mock
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.image import image as im
+    if importlib.util.find_spec("cv2") is None:
+        raise AssertionError("phase 29: cv2 is not installed on this host; "
+                             "C.7 cannot be checked")
+    import cv2
+    img = np.random.RandomState(0).randint(0, 256, (40, 60, 3)) \
+        .astype(np.uint8)
+    worst = {"uint8": {}, "float32": {}}
+    bad = []
+    for (w, h), interp in itertools.product(CV2_SIZES, range(4)):
+        for src, kind in ((img, "uint8"), (img.astype(np.float32),
+                                          "float32")):
+            got = mt.image.imresize(src, w, h, interp).asnumpy()
+            want = cv2_imresize(src, w, h, interp).asnumpy()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                bad.append("imresize %s %s interp %d: %s %s against cv2's "
+                           "%s %s" % (kind, (w, h), interp, got.dtype,
+                                      got.shape, want.dtype, want.shape))
+                continue
+            err = float(np.abs(got.astype(np.float64) - want).max())
+            worst[kind][interp] = max(worst[kind].get(interp, 0.0), err)
+            limit = CV2_UINT8_ATOL[interp] if kind == "uint8" \
+                else CV2_FLOAT_ATOL
+            if err > limit:
+                bad.append("imresize %s %s interp %d: max|diff| %g > %g"
+                           % (kind, (w, h), interp, err, limit))
+    augs = {}
+    for name, make in cv2_augmenters(mt).items():
+        err = 0.0
+        for seed in CV2_AUG_SEEDS:
+            src = mt.nd.array(img, ctx=mt.cpu(), dtype=np.uint8)
+            got = _augment(make(), src, seed)
+            with mock.patch.object(im, "imresize", cv2_imresize):
+                want = _augment(make(), src, seed)
+            for a, b in zip(got, want):
+                if a.shape != b.shape:
+                    bad.append("%s seed %d: shape %s against %s"
+                               % (name, seed, a.shape, b.shape))
+                    continue
+                err = max(err, float(np.abs(a - b).max()))
+        augs[name] = err
+        if err > CV2_AUG_ATOL:
+            bad.append("%s: max|diff| %g > %g" % (name, err, CV2_AUG_ATOL))
+    out = dict(cv2=cv2.__version__, sizes=CV2_SIZES,
+               imresize_max_abs_diff=worst, augmenters_max_abs_diff=augs,
+               cases=len(CV2_SIZES) * 4 * 2, seeds=list(CV2_AUG_SEEDS))
+    log("phase 29 on the host of %s: cv2 %s; imresize against cv2.resize at "
+        "%d sizes x 4 interpolations: max|diff| uint8 %s, float32 %s; "
+        "resizing augmenters with cv2.resize in place of the port's, seeds "
+        "%s: %s" % (card, cv2.__version__, len(CV2_SIZES), worst["uint8"],
+                    worst["float32"], list(CV2_AUG_SEEDS), augs))
+    if bad:
+        raise AssertionError("phase 29 (C.7): %s" % "; ".join(bad[:8]))
+    return out
+
+
+# -- phase 30: the kvstore and several contexts (ROADMAP A.7) -----------------
+# (a) BASELINE #4, Inception-v3 data-parallel through a kvstore, at one card:
+# examples/train_inception_v3.py's set-up (phase 20a's module), the update
+# on a store (mt.kv.create("device")) against the captured step without a
+# store, 3 steps from one init, every Dropout rate 0 so that the captured
+# and the eager step draw nothing; then 10 timed steps on the store.
+KV_PARITY_STEPS, KV_WARMUP, KV_TIMED = 3, 3, 10
+KV_FIT_BATCHES = 6
+# (b) the MLP of phase 7 on two devices, 20 steps, held to the same run on
+# two CPU contexts at phase 8's bars (loss 1e-5, weights 1e-4: fp32 sums in
+# cuBLAS's order against the CPU's, through the updates).
+KV_MLP_STEPS, KV_MLP_WORKLOAD = 20, [3, 1]
+KV_MLP_LOSS_TOL, KV_MLP_W_TOL = 1e-5, 1e-4
+KV_BUCKET_TIMING_ITERS = 5
+
+
+def _kv_module(sym, ctxs, batch, dtype, work_load_list=None):
+    """A Module of ``sym`` bound on ``ctxs`` at ``batch`` x 3 x 299 x 299."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataDesc
+    mod = mt.mod.Module(sym, context=ctxs, work_load_list=work_load_list)
+    mod.bind(data_shapes=[DataDesc("data", (batch, 3, INCEPTION_IMAGE,
+                                            INCEPTION_IMAGE), dtype=dtype)],
+             label_shapes=[DataDesc("softmax_label", (batch,),
+                                    dtype="float32")])
+    return mod
+
+
+def _kv_inception_run(sym, init, dtype, kvstore, db, steps):
+    """``steps`` fit steps of Inception-v3 from ``init`` on ``gpu(0)``
+    under ``kvstore``: the module, its train state, and each step's
+    counters."""
+    import mxnet_tpu_torch as mt
+    mod = _kv_module(sym, [mt.gpu(0)], INCEPTION_BATCH, dtype)
+    mod.set_params(*init)
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd", optimizer_params=(
+        ("learning_rate", INCEPTION_LR), ("momentum", RESNET_MOMENTUM),
+        ("wd", RESNET_WD)))
+    counts = []
+    for _ in range(steps):
+        before = mt.profiler.counters()
+        mod._fit_step(db)
+        torch.cuda.synchronize()
+        after = mt.profiler.counters()
+        counts.append({k: after.get(k, 0) - before.get(k, 0) for k in
+                       STEP_COUNTERS + ("kvstore_push", "kvstore_pull")})
+    return mod, module_train_state(mod), counts
+
+
+def kv_inception(card, dtype):
+    """(a) at one dtype: the store run against two runs without a store,
+    then the store's timed steps."""
+    import mxnet_tpu_torch as mt
+    flags = tf32_flags() if dtype == torch.float32 else "bf16"
+    sym = resnet_symbol(dtype, "inceptionv3", dropout=0.0)
+    mod = _kv_module(sym, [mt.gpu(0)], INCEPTION_BATCH, dtype)
+    mt.random.seed(0)
+    mod.init_params(initializer=mt.initializer.Xavier())
+    init = mod.get_params()
+    del mod
+    db = resnet_batch(mt.gpu(0), INCEPTION_BATCH, dtype,
+                      image=INCEPTION_IMAGE)
+    states = {}
+    # cuDNN's fp32 backward is not repeatable by default (two fp32 runs
+    # without a store differ in every weight after 3 steps at lr 0.05), and
+    # one pair of such runs is no bound for another: the parity runs take
+    # its deterministic algorithms, as phase 19 does
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run in ("a", "store", "c"):
+            kv = mt.kv.create("device") if run == "store" else "device"
+            m, states[run], counts = _kv_inception_run(
+                sym, init, dtype, kv, db, KV_PARITY_STEPS)
+            if run == "store":
+                store_mod, store_counts = m, counts
+            else:
+                del m
+                free_card()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    n_params = sum(1 for g in store_mod._exec_group.grad_arrays
+                   if g is not None)
+    per_step = {(c["kvstore_push"], c["kvstore_pull"]) for c in store_counts}
+    if per_step != {(n_params, n_params)} or not store_mod._update_on_kvstore \
+            or store_mod._cached_step is not None:
+        raise AssertionError("phase 30a %s: pushes and pulls a step %s, want "
+                             "%d each, on the store (%s)" % (
+                                 DTYPE_NAME[dtype], sorted(per_step),
+                                 n_params, store_mod._update_on_kvstore))
+    gap = _bit_gap(states["a"], states["store"])
+    spread = _bit_gap(states["a"], states["c"])
+    del states
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed(lambda: store_mod._fit_step(db), KV_WARMUP + KV_TIMED)
+    ms = _median(times[KV_WARMUP:])
+    out = dict(dtype=DTYPE_NAME[dtype], flags=flags, batch=INCEPTION_BATCH,
+               cudnn_deterministic_parity=True,
+               params=n_params, pushes_per_step=n_params,
+               pulls_per_step=n_params, store_vs_no_store_bits_differ=gap[0],
+               store_vs_no_store_max_abs=gap[1], rerun_bits_differ=spread[0],
+               rerun_max_abs=spread[1], bitwise=gap[0] == 0,
+               step_ms_median=ms, img_s=INCEPTION_BATCH / ms * 1e3,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("phase 30a Inception-v3 %s (%s) on %s, batch %d, SGD lr %g through "
+        "mt.kv.create('device') (update on the store, %d pushes and %d pulls "
+        "a step): cuDNN deterministic, against the captured step without a "
+        "store after %d steps "
+        "%d elements differ in their bits (max |diff| %.3g); two runs without "
+        "a store %d (%.3g); ms/step median of %d after %d: %.3f, %.1f img/s, "
+        "peak memory %.2f GB" % (
+            DTYPE_NAME[dtype], flags, card, INCEPTION_BATCH, INCEPTION_LR,
+            n_params, n_params, KV_PARITY_STEPS, gap[0], gap[1], spread[0],
+            spread[1], KV_TIMED, KV_WARMUP, ms, out["img_s"],
+            out["peak_mem_gb"]))
+    if gap[0] and gap[1] > spread[1]:
+        raise AssertionError(
+            "phase 30a %s: the store's run lies %.3g from the run without a "
+            "store, beyond the %.3g between two runs without one"
+            % (DTYPE_NAME[dtype], gap[1], spread[1]))
+    del store_mod
+    free_card()
+    return out
+
+
+def kv_inception_fit(card):
+    """(a) examples/train_inception_v3.py:67-72 through the port: Module on
+    the context list [gpu(0)], ``fit(kvstore="device")`` over an
+    NDArrayIter of seeded images; each step after the first must be one
+    replay and no capture (phase 20a's)."""
+    import mxnet_tpu_torch as mt
+    tf32_flags()
+    rng = np.random.RandomState(0)
+    n = INCEPTION_BATCH * KV_FIT_BATCHES
+    x = rng.rand(n, 3, INCEPTION_IMAGE, INCEPTION_IMAGE).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    it = mt.io.NDArrayIter(x, y, batch_size=INCEPTION_BATCH,
+                           label_name="softmax_label")
+    mod = mt.mod.Module(resnet_symbol(torch.float32, "inceptionv3"),
+                        context=[mt.gpu(0)])
+    steps, last = [], [mt.profiler.counters()]
+
+    def per_batch(param):
+        torch.cuda.synchronize()
+        now = mt.profiler.counters()
+        steps.append({k: now.get(k, 0) - last[0].get(k, 0)
+                      for k in STEP_COUNTERS})
+        last[0] = now
+
+    mt.random.seed(0)
+    mod.fit(it, num_epoch=1, kvstore="device", optimizer="sgd",
+            optimizer_params={"learning_rate": INCEPTION_LR,
+                              "momentum": RESNET_MOMENTUM, "wd": RESNET_WD},
+            initializer=mt.initializer.Xavier(), batch_end_callback=per_batch)
+    timed = steps[1:]
+    want = [dict(graph_captures=0, graph_replays=1, program_calls=1)] \
+        * len(timed)
+    log("phase 30a examples/train_inception_v3.py set-up on %s: Module on "
+        "[gpu(0)], fit(kvstore='device') over %d batches: store %s, counters "
+        "a step %s" % (card, len(steps), mod._kvstore, steps))
+    if len(steps) != KV_FIT_BATCHES or timed != want \
+            or mod._kvstore is not None:
+        raise AssertionError("phase 30a fit: %d steps, counters %s, store %s"
+                             % (len(steps), steps, mod._kvstore))
+    del mod, it
+    free_card()
+    return dict(batches=len(steps), counters_per_step=steps)
+
+
+def _kv_mlp_batches(mt):
+    x, y, _, _ = _mnist_on(mt.cpu())
+    from mxnet_tpu_torch.io import DataBatch
+    return [DataBatch([x[i * MLP_BATCH:(i + 1) * MLP_BATCH]],
+                      [y[i * MLP_BATCH:(i + 1) * MLP_BATCH]])
+            for i in range(KV_MLP_STEPS)]
+
+
+def kv_mlp_module(ctxs, kvstore, batches):
+    """(b) phase 7's MLP through Module on ``ctxs`` (``KV_MLP_WORKLOAD``):
+    each step's loss and the weights after the last, on the host."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import sym
+    from mxnet_tpu_torch.io import DataDesc
+    mod = mt.mod.Module(build_mlp(sym), context=ctxs,
+                        work_load_list=KV_MLP_WORKLOAD)
+    mod.bind([DataDesc("data", (MLP_BATCH, 784))],
+             [DataDesc("softmax_label", (MLP_BATCH,))])
+    mt.random.seed(0)
+    mod.init_params(mt.init.Xavier())
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd", optimizer_params=(
+        ("learning_rate", MLP_LR), ("momentum", MLP_MOMENTUM)))
+    losses = []
+    for db in batches:
+        mod._fit_step(db)
+        prob = torch.cat([o._data.cpu() for o in mod.get_outputs(False)[0]])
+        picked = prob.gather(1, db.label[0]._data.long().view(-1, 1))
+        losses.append(float(-torch.log(picked).mean()))
+    arg, _ = mod.get_params()
+    return dict(losses=losses, weights={n: a._data.clone()
+                                        for n, a in arg.items()},
+                slices=[s.stop - s.start for s in mod._exec_group.slices],
+                on_store=mod._update_on_kvstore)
+
+
+def kv_mlp_gluon(ctxs, batches):
+    """(b) the same MLP's widths through Gluon: ``split_and_load`` over
+    ``ctxs``, one backward over the slices' losses, ``Trainer(kvstore=
+    "device")``."""
+    import mxnet_tpu_torch as mt
+    nn = mt.gluon.nn
+    net = nn.HybridSequential(prefix="kvmlp_")
+    with net.name_scope():
+        net.add(nn.Dense(128, activation="relu", in_units=784),
+                nn.Dense(64, activation="relu", in_units=128),
+                nn.Dense(10, in_units=64))
+    mt.random.seed(0)
+    net.initialize(mt.init.Xavier(), ctx=ctxs)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": MLP_LR, "momentum": MLP_MOMENTUM}, kvstore="device")
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for db in batches:
+        xs = mt.gluon.utils.split_and_load(db.data[0], ctxs)
+        ys = mt.gluon.utils.split_and_load(db.label[0], ctxs)
+        with mt.autograd.record():
+            parts = [loss_fn(net(x), y) for x, y in zip(xs, ys)]
+        mt.autograd.backward(parts)
+        trainer.step(MLP_BATCH)
+        losses.append(float(sum(p._data.detach().double().sum().cpu()
+                                for p in parts) / MLP_BATCH))
+    return dict(losses=losses,
+                weights={n: p.data()._data.detach().cpu().clone()
+                         for n, p in net.collect_params().items()},
+                store=trainer._kvstore.type)
+
+
+def _kv_mlp_gaps(a, b):
+    loss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    w = max(float((a["weights"][n].cpu() - b["weights"][n].cpu()).abs()
+                   .max()) for n in a["weights"])
+    return loss, w
+
+
+def kv_two_devices(card):
+    """(b) ``[gpu(0), cpu(0)]`` against ``[cpu(0), cpu(1)]``: Module under
+    "device" and "local" (workload 3:1), Gluon under "device"."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import scale as sc
+    tf32_flags()
+    register_pl_scale()
+    batches = _kv_mlp_batches(mt)
+    two = [mt.gpu(0), mt.cpu(0)]
+    cpus = [mt.cpu(0), mt.cpu(1)]
+    out, bad = {}, []
+    for kv in ("device", "local"):
+        sc.reset_launch_count()
+        card_run = kv_mlp_module(two, kv, batches)
+        launches = sc.launch_count()
+        cpu_run = kv_mlp_module(cpus, kv, batches)
+        loss, w = _kv_mlp_gaps(card_run, cpu_run)
+        out["module_" + kv] = dict(
+            loss_max_abs_err=loss, weights_max_abs_err=w,
+            slices=card_run["slices"], on_store=card_run["on_store"],
+            scale_launches=launches, first_loss=card_run["losses"][0],
+            last_loss=card_run["losses"][-1])
+        if loss > KV_MLP_LOSS_TOL or w > KV_MLP_W_TOL or \
+                launches != KV_MLP_STEPS or not card_run["on_store"]:
+            bad.append("Module %s: loss %.3g, weights %.3g, %d launches, on "
+                       "the store %s" % (kv, loss, w, launches,
+                                         card_run["on_store"]))
+    card_run, cpu_run = kv_mlp_gluon(two, batches), kv_mlp_gluon(cpus,
+                                                                  batches)
+    loss, w = _kv_mlp_gaps(card_run, cpu_run)
+    out["gluon_device"] = dict(loss_max_abs_err=loss, weights_max_abs_err=w,
+                               first_loss=card_run["losses"][0],
+                               last_loss=card_run["losses"][-1])
+    if loss > KV_MLP_LOSS_TOL or w > KV_MLP_W_TOL:
+        bad.append("Gluon: loss %.3g, weights %.3g" % (loss, w))
+    log("phase 30b MLP (784-128-64-10, pl_scale) on [gpu(0), cpu(0)] "
+        "against [cpu(0), cpu(1)], %d steps, fp32 (TF32 off), on %s: %s"
+        % (KV_MLP_STEPS, card, out))
+    if bad:
+        raise AssertionError("phase 30b: %s" % "; ".join(bad))
+    return out
+
+
+def kv_bucketed_round(card, dtype):
+    """(c) ``push_pull_all`` over Inception-v3's gradient shapes, two copies
+    on ``gpu(0)``, against the CPU store's on the same inputs (bit for
+    bit), one reduce a bucket; its ms against the per-key loop."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.kvstore import _plan_buckets
+    from mxnet_tpu_torch.base import dtype_name
+    sym = resnet_symbol(dtype, "inceptionv3")
+    args, _, _ = sym.infer_shape(data=(INCEPTION_BATCH, 3, INCEPTION_IMAGE,
+                                       INCEPTION_IMAGE),
+                                 softmax_label=(INCEPTION_BATCH,))
+    shapes = [tuple(s) for n, s in zip(sym.list_arguments(), args)
+              if n not in ("data", "softmax_label")]
+    dev = mt.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(30)
+    copies = [[torch.randn(s, generator=gen, device=dev).to(dtype)
+               for _ in range(2)] for s in shapes]
+    keys = list(range(len(shapes)))
+
+    def store(ctx, vals):
+        kv = mt.kv.create("device")
+        for k, s in zip(keys, shapes):
+            kv.init(k, mt.nd.zeros(s, ctx=ctx, dtype=dtype))
+        return kv, [[mt.nd.NDArray(t, ctx) for t in v] for v in vals]
+
+    kv, vals = store(mt.gpu(0), copies)
+    before = mt.profiler.counters()
+    got = kv.push_pull_all(keys, vals)
+    torch.cuda.synchronize()
+    after = mt.profiler.counters()
+    buckets = after.get("kvstore_bucket_reduce", 0) \
+        - before.get("kvstore_bucket_reduce", 0)
+    nbytes = [c[0].numel() * c[0].element_size() for c in copies]
+    plan = _plan_buckets([((dtype_name(dtype), 2, mt.gpu(0)), b)
+                          for b in nbytes])
+    kv_cpu, vals_cpu = store(mt.cpu(), [[t.cpu() for t in v]
+                                        for v in copies])
+    want = kv_cpu.push_pull_all(keys, vals_cpu)
+    differ = sum(int((g._data.cpu() != w._data).sum())
+                 for g, w in zip(got, want))
+    outs = [mt.nd.zeros(s, ctx=mt.gpu(0), dtype=dtype) for s in shapes]
+
+    def per_key():
+        for k, v, o in zip(keys, vals, outs):
+            kv.push(k, v)
+            kv.pull(k, out=o)
+
+    bucketed_ms = cuda_ms(lambda: kv.push_pull_all(keys, vals, outs=outs),
+                          iters=KV_BUCKET_TIMING_ITERS, warmup=1)
+    per_key_ms = cuda_ms(per_key, iters=KV_BUCKET_TIMING_ITERS, warmup=1)
+    total = sum(nbytes)
+    res = dict(dtype=DTYPE_NAME[dtype], keys=len(keys), bytes=total,
+               buckets=buckets, planned_buckets=len(plan),
+               elements_differ_from_cpu=differ, bucketed_ms=bucketed_ms,
+               per_key_ms=per_key_ms,
+               bound_ms=3 * total / HBM_BPS * 1e3)
+    log("phase 30c push_pull_all over Inception-v3's %d gradients (%s, %d "
+        "bytes a copy, 2 copies on gpu(0)) on %s: %d bucket reduces (plan "
+        "%d), %d elements differ from the CPU store's; %.3f ms with the "
+        "broadcast into outs against %.3f ms for the per-key push/pull loop "
+        "(bound to read two copies and write one: %.3f ms)"
+        % (len(keys), DTYPE_NAME[dtype], total, card, buckets, len(plan),
+           differ, bucketed_ms, per_key_ms, res["bound_ms"]))
+    if differ or buckets != len(plan):
+        raise AssertionError("phase 30c %s: %d elements differ, %d bucket "
+                             "reduces for %d buckets" % (
+                                 DTYPE_NAME[dtype], differ, buckets,
+                                 len(plan)))
+    del kv, vals, copies, got, outs
+    free_card()
+    return res
+
+
+def phase_kvstore(card):
+    """Phase 30: (a) BASELINE #4 through the store and the example's
+    ``fit``, (b) two devices, (c) the bucketed round."""
+    out = {"card": card}
+    out["inception"] = {DTYPE_NAME[dt]: kv_inception(card, dt)
+                        for dt in (torch.float32, torch.bfloat16)}
+    out["inception_fit"] = kv_inception_fit(card)
+    out["two_devices"] = kv_two_devices(card)
+    out["bucketed_round"] = {DTYPE_NAME[dt]: kv_bucketed_round(card, dt)
+                             for dt in (torch.float32, torch.bfloat16)}
+    return out
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4729,6 +5257,8 @@ def main():
     ops = phase_op_sweep(card)
     rnn = phase_rnn(card)
     data, resize_launches = phase_data(card, gluon)
+    cv2_resize = phase_cv2_resize(card)
+    kvstore = phase_kvstore(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -4826,6 +5356,10 @@ def main():
             "source": sc.KERNEL_SOURCE,
             "replaces": "tests/test_pallas_register.py:25",
             "launches": scale_launches[dt],
+            "kvstore_mlp_launches": kvstore["two_devices"][
+                "module_device"]["scale_launches"]
+            + kvstore["two_devices"]["module_local"]["scale_launches"]
+            if dt == torch.float32 else 0,
             "max_abs_err": scale_kern[dt]["max_abs_err"],
             "ms": scale_kern[dt]["ms"],
             "plain_ms": scale_kern[dt]["plain_ms"],
@@ -4872,6 +5406,8 @@ def main():
     print(json.dumps({"ops": ops}))
     print(json.dumps({"rnn": rnn}))
     print(json.dumps({"data": data}))
+    print(json.dumps({"cv2_resize": cv2_resize}))
+    print(json.dumps({"kvstore": kvstore}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,12 +28,15 @@ steps in one memory pool) and ``gluon.rnn``.  The data path: ``recordio``,
 the rest of ``io`` (``CSVIter``, ``MNISTIter``, ``ResizeIter``,
 ``PrefetchingIter``), ``image`` (decode, augmenters, ``ImageIter``,
 ``ImageDetIter``, ``ImageRecordIter``: libjpeg on host threads, or
-nvJPEG on a card) and ``gluon.data``.
+nvJPEG on a card) and ``gluon.data``.  Several contexts in one process:
+``kvstore`` (``kv``), ``Module`` on a context list with its executor
+group, and Gluon's ``Trainer`` and ``split_and_load`` over several
+contexts.
 """
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context
+from .context import Context, cpu, gpu, num_gpus, current_context
 from . import ops, parallel, models
 from . import autograd, random, ndarray, symbol, executor, rtc
 from . import capture, profiler
@@ -41,15 +44,19 @@ from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
 from . import stream, model, callback, rnn
 from . import recordio, image
+from . import kvstore
+from . import kvstore as kv
 from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from . import initializer as init
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
+           "current_context",
            "ops", "parallel", "models", "autograd", "random", "ndarray",
            "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
            "capture", "profiler",
            "lr_scheduler",
            "test_utils", "io", "metric", "gluon", "module", "mod",
-           "stream", "model", "callback", "rnn", "recordio", "image"]
+           "stream", "model", "callback", "rnn", "recordio", "image",
+           "kvstore", "kv"]

@@ -27,6 +27,15 @@ the raw 2-byte words (:class:`HostArray`) that torch views as bfloat16.
 It refuses every other global but the safe builtins and numpy, as the
 JAX package's ``_RestrictedUnpickler`` does (``mxnet_tpu/dist_ps.py:213-237``):
 :class:`UnpicklingRefused`.
+
+Optimizers (``Updater.get_states(dump_optimizer=True)``).  The JAX
+package pickles its optimizer as ``mxnet_tpu.optimizer.<Name>`` built
+with ``NEWOBJ`` and filled from its ``__dict__`` (``BUILD``).  Both
+packages' optimizers keep the same attributes, so the emitter writes one
+of this package's twelve rules (:data:`OPTIMIZERS`) the same way, under
+the JAX package's class name, and the reader maps those twelve names to
+this package's classes of the same name.  Any other optimizer class is
+neither written nor read.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ from .ndarray.ndarray import NDArray, _nd_unpickle
 from .ndarray.utils import host_bytes
 
 __all__ = ["dumps", "loads", "UnpicklingRefused", "HostArray", "BFLOAT16",
-           "SAFE_BUILTINS"]
+           "SAFE_BUILTINS", "OPTIMIZERS"]
 
 SAFE_BUILTINS = frozenset({
     "dict", "list", "tuple", "set", "frozenset", "str", "int", "float",
@@ -51,6 +60,19 @@ SAFE_BUILTINS = frozenset({
 })
 
 _ND_UNPICKLE = ("mxnet_tpu.ndarray.ndarray", "_nd_unpickle")
+_OPTIMIZER_MODULE = "mxnet_tpu.optimizer"
+# the rules whose pickled optimizer both packages read
+OPTIMIZERS = frozenset({
+    "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad", "RMSProp",
+    "AdaDelta", "Ftrl", "Adamax", "Nadam", "Signum",
+})
+
+
+def _optimizer_class(name):
+    """This package's optimizer class ``name`` (one of :data:`OPTIMIZERS`),
+    or None."""
+    from . import optimizer  # imports this module
+    return getattr(optimizer, name) if name in OPTIMIZERS else None
 
 
 class UnpicklingRefused(MXNetError, pickle.UnpicklingError):
@@ -135,6 +157,8 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) in _TABLE:
             return _TABLE[(module, name)]
+        if module == _OPTIMIZER_MODULE and _optimizer_class(name):
+            return _optimizer_class(name)
         if module.split(".", 1)[0] == "numpy":
             return super().find_class(module, name)
         if module == "builtins" and name in SAFE_BUILTINS:
@@ -218,6 +242,11 @@ def _emit(out, obj):
             out.append(b"u")  # SETITEMS
     elif isinstance(obj, NDArray):
         _emit_array(out, obj)
+    elif _optimizer_class(type(obj).__name__) is type(obj):
+        _global(out, _OPTIMIZER_MODULE, type(obj).__name__)
+        out.append(b")\x81")  # EMPTY_TUPLE NEWOBJ: cls.__new__(cls)
+        _emit(out, dict(vars(obj)))
+        out.append(b"b")  # BUILD: its __dict__
     else:
         raise TypeError("cannot write %s into a state pickle"
                         % type(obj).__name__)
@@ -225,7 +254,8 @@ def _emit(out, obj):
 
 def dumps(obj):
     """``obj`` (dicts, lists, tuples, None, bools, ints, floats, strings,
-    bytes and NDArrays) as a pickle that both packages read."""
+    bytes, NDArrays and the optimizers of :data:`OPTIMIZERS`) as a pickle
+    that both packages read."""
     out = [b"\x80\x04"]  # PROTO 4
     _emit(out, obj)
     out.append(b".")

@@ -1,8 +1,9 @@
 """Device contexts over ``torch.device``.
 
 Counterpart of ``mxnet_tpu/context.py`` (``Context``, ``cpu()``, ``gpu()``,
-``current_context()``).  A :class:`Context` names a device and resolves
-to a ``torch.device`` (``torch_device``); ``with ctx:`` makes it the
+``current_context()``, ``num_gpus()``).  A :class:`Context` names a device
+and resolves to a ``torch.device`` (``torch_device``); every ``cpu(i)``
+is the one host device.  ``with ctx:`` makes it the
 default for the block, as MXNet tests scope their devices.  Outside such
 a block the default is the first CUDA card.  Where there is none,
 resolving the default raises :class:`MXNetError`: the package never
@@ -17,8 +18,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "as_context",
-           "as_device"]
+__all__ = ["Context", "cpu", "gpu", "num_gpus", "current_context",
+           "as_context", "as_device"]
 
 
 def _check_gpu(device_id):
@@ -84,6 +85,15 @@ def gpu(device_id=0):
     """The ``device_id``-th CUDA card; raises if it is not there."""
     _check_gpu(device_id)
     return Context("gpu", device_id)
+
+
+def num_gpus():
+    """The number of CUDA cards (``mxnet_tpu/context.py:131``); 0 without
+    CUDA.  Never raises."""
+    try:
+        return torch.cuda.device_count() if torch.cuda.is_available() else 0
+    except RuntimeError:
+        return 0
 
 
 def current_context():

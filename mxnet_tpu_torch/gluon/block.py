@@ -289,12 +289,14 @@ class HybridBlock(Block):
             try:
                 if self._active:
                     return self._call_cached_op(x, *args)
-                params = {k: p.data() for k, p in self._reg_params.items()}
+                params = {k: p.data(x.context)
+                          for k, p in self._reg_params.items()}
             except DeferredInitializationError:
                 self._finish_deferred(x, *args)
                 if self._active:
                     return self._call_cached_op(x, *args)
-                params = {k: p.data() for k, p in self._reg_params.items()}
+                params = {k: p.data(x.context)
+                          for k, p in self._reg_params.items()}
             return self.hybrid_forward(nd, x, *args, **params)
         if not isinstance(x, Symbol):
             raise ValueError("HybridBlock input must be NDArray or Symbol, "
@@ -411,9 +413,9 @@ class _CachedOp:
         train = autograd.is_training()
         symbol, out_fmt = self._graph(flat_in, in_fmt, train)
         names = [n for n in symbol.list_arguments() if n in self._params]
-        used = [self._params[n].data() for n in names]
-        aux_names = symbol.list_auxiliary_states()
         ctx = flat_in[0].context
+        used = [self._params[n].data(ctx) for n in names]
+        aux_names = symbol.list_auxiliary_states()
         graph = capture.graph_for(flat_in[0]._data.device)
         if graph is not None:
             outs = self._replay(graph, symbol, train, flat_in, names, used,

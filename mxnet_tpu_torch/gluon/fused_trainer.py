@@ -7,9 +7,10 @@ step makes the optimizer's state, update counts, learning rates and
 weight decays exactly as that loop does, then updates every parameter
 and its state with one ``Optimizer.fused_update`` call over lists of
 tensors (PyTorch's multi-tensor ops), in place.  The two paths agree bit
-for bit.  The reference's ZeRO plan (ROADMAP A.8), its guardian, chaos
-and overlap hooks (A.10, A.7) and its telemetry spans (A.11) are not
-ported.
+for bit.  With a kvstore the gradients first go through one bucketed
+``push_pull_all`` round (reference ``:538-569``).  The reference's ZeRO
+plan (ROADMAP A.8), its guardian, chaos and overlap hooks (A.10) and its
+telemetry spans (A.11) are not ported.
 
 On the card the fused step is one captured program (``capture``),
 replayed once a step over the Parameters' weights, gradients and states
@@ -85,6 +86,13 @@ def run_fused_step(trainer, slots):
     (``optimizer.TracedHyper``), else one eager call."""
     global _fused_updates
     opt, updater = trainer._optimizer, trainer._updater
+    if trainer._kvstore is not None:
+        grads = [param.grad() for _, param in slots]
+        reduced = trainer._kvstore.push_pull_all(
+            [slot for slot, _ in slots], [[g] for g in grads])
+        for g, r in zip(grads, reduced):
+            if r is not g:
+                g._set_data(r._data)
     for slot, param in slots:
         updater.state_for(slot, param.data())
         opt._update_count(slot)

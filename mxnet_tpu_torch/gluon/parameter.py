@@ -5,7 +5,16 @@ initialization (a shape dim of 0 is filled in from the first input),
 ``grad_req``, ``initialize``, ``data``/``grad``, ``cast`` and ``var``,
 the stale-gradient flag ``_fresh_grad`` that backward sets and
 ``Trainer.step`` clears, and the prefixed registry ``ParameterDict``.
-As in the JAX package a Parameter owns one NDArray on one context.
+As in the JAX package a Parameter owns one NDArray, on the first of its
+contexts, whatever list of contexts it is initialized on
+(``mxnet_tpu/gluon/parameter.py:194-217``): ``list_data`` and
+``list_grad`` give that one buffer once a context, ``list_ctx`` the
+list.  ``data(ctx)`` is the buffer for any listed context on the
+buffer's device (every ``cpu(i)`` is the one host device); for a listed
+context on another device it is the buffer copied there, recorded
+inside ``autograd.record()``, so a forward there sends its gradient back
+into the one gradient buffer.  A Parameter without a gradient (a moving
+statistic, written where it lives) refuses a context on another device.
 ``cast`` gives the NDArray a new tensor of the new dtype (an in-place
 copy would keep the old one).  ``ParameterDict.save``/``load``
 (``:369-400``) write and read ``nd.save`` files; ``set_data`` copies a
@@ -166,14 +175,44 @@ class Parameter:
         return self._data if what == "data" else self._grad
 
     def data(self, ctx=None):
-        return self._check_and_get("data")
+        """The value: the one buffer, or its recorded copy on a listed
+        context on another device."""
+        data = self._check_and_get("data")
+        if ctx is None or ctx.torch_device == data._data.device:
+            return data
+        if ctx not in (self._ctx_list or ()):
+            raise MXNetError("Parameter %s was not initialized on %s (its "
+                             "contexts: %s)" % (self.name, ctx,
+                                                self._ctx_list))
+        if self._grad_req == "null":
+            raise MXNetError(
+                "Parameter %s has no gradient and lives on %s: a forward on "
+                "%s would write its moving statistics into a copy; run this "
+                "block on %s" % (self.name, data.context, ctx, data.context))
+        return data.copyto(ctx)
+
+    def list_data(self):
+        """The buffer, once for each context of the Parameter."""
+        return [self._check_and_get("data")] * len(self.list_ctx())
 
     def grad(self, ctx=None):
+        """The gradient buffer (one, whichever listed context is asked)."""
         g = self._check_and_get("grad")
         if g is None:
             raise RuntimeError("Cannot get gradient array for Parameter %s "
                                "because grad_req='null'" % self.name)
         return g
+
+    def list_grad(self):
+        """The gradient buffer, once for each context of the Parameter."""
+        return [self.grad()] * len(self.list_ctx())
+
+    def list_ctx(self):
+        """The contexts the Parameter was initialized on."""
+        if self._data is None and not self._deferred_init:
+            raise RuntimeError("Parameter %s has not been initialized"
+                               % self.name)
+        return list(self._ctx_list or [current_context()])
 
     def set_data(self, data):
         """Set the value (finishing a deferred or missing init from its

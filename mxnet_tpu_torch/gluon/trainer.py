@@ -1,6 +1,6 @@
 """Gluon ``Trainer``: one optimizer step over a set of Parameters.
 
-Counterpart of ``mxnet_tpu/gluon/trainer.py:45-263`` on one context.
+Counterpart of ``mxnet_tpu/gluon/trainer.py:45-263``.
 Each Parameter takes one integer slot, which indexes the Updater's state
 and the optimizer's update counts alike.  ``step(batch_size)`` scales the
 gradients by ``rescale_grad / batch_size``, skips or refuses the
@@ -11,10 +11,13 @@ allows it and the optimizer ``supports_fused()``, else one ``Updater``
 call per Parameter (``_loop_step``), the bit-for-bit oracle of the fused
 path.
 
-Every Parameter must live on one context; a kvstore over one context is
-the identity, so the specs ``None``, ``"device"`` and ``"local"`` are
-taken and nothing is reduced.  Several contexts, another kvstore or a
-kvstore instance raise ``MXNetError`` (ROADMAP A.7).
+The kvstore (``kvstore``: None, a name or a ``KVStore``, reference
+``:73-82``) is made at the first step, each trainable slot its key;
+each step sends the gradients through it before the update (``:218-237``):
+the loop pushes and pulls each slot's, the fused step makes one bucketed
+``push_pull_all`` round.  A Parameter keeps one buffer whatever its
+contexts (``parameter``), so each key has one copy and the round hands
+the gradients back as they are, with no copy and no program.
 
 ``save_states``/``load_states`` (reference ``:265-310``) write and read
 the JAX package's versioned states file: the Updater's states and the
@@ -23,17 +26,15 @@ step continues where the saved run stood.
 """
 from __future__ import annotations
 
-from ..base import MXNetError
 from .. import _pickle
 from .. import capture
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..stream import open_stream
 from . import fused_trainer as _fused
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
-
-_ONE_CONTEXT_KVSTORES = (None, "device", "local")
 
 
 def _flatten_params(params):
@@ -61,13 +62,12 @@ class Trainer:
         self._scale = hyper.get("rescale_grad", 1.0)
         self._optimizer = self._make_optimizer(optimizer, hyper)
         self._updater = opt.get_updater(self._optimizer)
-        if not (kvstore is None or isinstance(kvstore, str)) \
-                or kvstore not in _ONE_CONTEXT_KVSTORES:
-            raise MXNetError(
-                "kvstore %r: a kvstore that reduces over several contexts "
-                "or workers is not ported yet (ROADMAP A.7); on one context "
-                "use None, 'device' or 'local'" % (kvstore,))
-        self._contexts_checked = False
+        if not (kvstore is None or isinstance(kvstore, (str, kvs.KVStore))):
+            raise TypeError("kvstore must be None, a name or a KVStore, not "
+                            "%s" % type(kvstore).__name__)
+        self._kvstore_spec = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
         self._programs = capture.StepCache("Trainer.step")
 
     def _make_optimizer(self, optimizer, hyper):
@@ -80,16 +80,17 @@ class Trainer:
             return optimizer
         return opt.create(optimizer, param_dict=slots, **hyper)
 
-    def _check_contexts(self):
-        """At the first step, once every Parameter is initialized: each
-        must live on one context."""
-        for param in self._params:
-            if len(param._ctx_list or ()) > 1:
-                raise MXNetError(
-                    "Parameter %s is on several contexts %s: reducing its "
-                    "gradient over them is not ported yet (ROADMAP A.7)"
-                    % (param.name, param._ctx_list))
-        self._contexts_checked = True
+    def _init_kvstore(self):
+        """At the first step: make the store and give it each trainable
+        slot's value."""
+        spec = self._kvstore_spec
+        if spec:
+            store = kvs.create(spec) if isinstance(spec, str) else spec
+            for slot, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    store.init(slot, param.data())
+            self._kvstore = store
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -103,8 +104,8 @@ class Trainer:
         normalised by ``batch_size`` (reference ``trainer.py:148``).  A
         stale gradient raises ``UserWarning`` before anything is updated,
         unless ``ignore_stale_grad``, which skips those Parameters."""
-        if not self._contexts_checked:
-            self._check_contexts()
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = float(self._scale) / batch_size
         slots = []
         for slot, param in enumerate(self._params):
@@ -133,10 +134,14 @@ class Trainer:
             param._fresh_grad = False
 
     def _loop_step(self, slots):
-        """One ``Updater`` call per Parameter."""
+        """One store round and one ``Updater`` call per Parameter."""
         for slot, param in slots:
+            grad = param.grad()
+            if self._kvstore is not None:
+                self._kvstore.push(slot, [grad])
+                self._kvstore.pull(slot, out=[grad])
             _fused._count_loop_update()
-            self._updater(slot, param.grad(), param.data())
+            self._updater(slot, grad, param.data())
 
     def save_states(self, fname):
         """Write the optimizer's states and update counts to ``fname``: a

@@ -3,8 +3,8 @@
 
 Counterpart of ``mxnet_tpu/gluon/utils.py`` (``split_data``:18,
 ``split_and_load``:44, ``clip_global_norm``:88).  ``split_and_load``
-takes a list of contexts as the reference does; one context loads the
-whole batch there, and several raise ``MXNetError`` (ROADMAP A.7).
+loads the whole batch on one context, or ``split_data``'s slices on
+several, one a context, as the reference does.
 ``clip_global_norm`` takes the 2-norm over all the arrays in fp32 and
 scales them in place when it exceeds ``max_norm``, in a few device ops
 and one read of the norm; arrays that are not all finite are left as
@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError
 from .. import ndarray as nd
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm"]
@@ -42,14 +41,15 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """The batch ``data`` (an NDArray or array-like) loaded on the one
-    context of ``ctx_list``, as a list of one NDArray."""
-    if len(ctx_list) != 1:
-        raise MXNetError("split_and_load over %d contexts: several contexts "
-                         "are not ported yet (ROADMAP A.7)" % len(ctx_list))
+    """The batch ``data`` (an NDArray or array-like) split into
+    ``len(ctx_list)`` slices along ``batch_axis``, slice i loaded on
+    ``ctx_list[i]``."""
     if not isinstance(data, nd.NDArray):
         data = nd.array(data, ctx=ctx_list[0])
-    return [data.as_in_context(ctx_list[0])]
+    if len(ctx_list) == 1:
+        return [data.as_in_context(ctx_list[0])]
+    slices = split_data(data, len(ctx_list), batch_axis, even_split)
+    return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
 
 
 def clip_global_norm(arrays, max_norm):

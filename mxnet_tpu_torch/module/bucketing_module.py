@@ -40,12 +40,13 @@ class BucketingModule(BaseModule):
         super().__init__(logger=logger)
         if default_bucket_key is None:
             raise ValueError("default_bucket_key is required")
-        if work_load_list is not None or state_names:
-            raise MXNetError("BucketingModule: work_load_list and "
-                             "state_names are not ported")
+        if state_names:
+            raise MXNetError("BucketingModule: state_names are not ported "
+                             "(ROADMAP A.6)")
         self._sym_gen = sym_gen
         self._default_bucket_key = default_bucket_key
         self._module_kwargs = dict(logger=logger, context=context,
+                                   work_load_list=work_load_list,
                                    fixed_param_names=fixed_param_names)
         self._by_key = {}
         self._active_key = None
@@ -180,7 +181,8 @@ class BucketingModule(BaseModule):
         self._active_key = bucket_key
         mod = self._active
         if left is not mod:
-            left._exec_group.execs[0]._outputs = None
+            for ex in left._exec_group.execs:
+                ex._outputs = None
         if self.params_initialized and mod is not self._leader:
             leader = self._leader
             mod._arg_params, mod._aux_params = (leader._arg_params,
@@ -213,10 +215,12 @@ class BucketingModule(BaseModule):
         self.optimizer_initialized = True
 
     def _lend_optimizer(self, mod, owner=None):
-        """Point ``mod`` at the optimizer and updater of ``owner`` (the
-        leader's by default)."""
+        """Point ``mod`` at the optimizer, updater and store of ``owner``
+        (the leader's by default)."""
         owner = owner or self._leader
         mod._optimizer, mod._updater = owner._optimizer, owner._updater
+        mod._kvstore = owner._kvstore
+        mod._update_on_kvstore = owner._update_on_kvstore
         mod._cached_step, mod._cached_step_unusable = None, False
         mod.optimizer_initialized = True
 

@@ -26,9 +26,19 @@ states :105-120): ``prefix-symbol.json``, ``prefix-NNNN.params`` and
 load_optimizer_states=True)`` installs the states at
 ``init_optimizer``.
 
+Several contexts (``init_optimizer`` :356, ``update`` :520-535): the
+executor group binds one executor a context, each on its slice of the
+batch (``work_load_list``), and ``init_optimizer`` picks the store and
+where the update runs by ``model._create_kvstore``'s rules.  On the
+store, ``update`` pushes the gradients and pulls the weights, and the
+optimizer states are saved and loaded through it; else it sums the
+gradients through the store (where there is one) and runs the local
+updater on every context's copy.  ``_fit_step``'s one-call
+``CachedTrainStep`` takes one executor and no store, so one context
+with ``"local"`` or ``"device"`` keeps it.
+
 :func:`params_from_jax` carries the JAX package's ``get_params()`` over
-as numpy arrays.  One context only (the kvstore slice is not ported);
-monitors are not ported yet.
+as numpy arrays.  Monitors are not ported yet.
 """
 from __future__ import annotations
 
@@ -44,7 +54,8 @@ from .. import capture
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
-from ..model import load_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from ..stream import open_stream
 from ..initializer import Uniform, InitDesc
 from ..io import DataDesc
@@ -62,19 +73,25 @@ def _as_descs(shapes):
 
 
 class Module(BaseModule):
-    """A symbol with its data, label and parameter names, bound on one
-    context (default: the current context, ``gpu(0)``; with no card
-    that raises)."""
+    """A symbol with its data, label and parameter names, bound on a
+    context or a list of them (default: the current context, ``gpu(0)``;
+    with no card that raises), the batch split over them by
+    ``work_load_list``."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None):
+                 context=None, work_load_list=None, fixed_param_names=None):
         super().__init__(logger=logger)
         ctxs = context if context is not None \
             else ctx_mod.current_context()
         if isinstance(ctxs, ctx_mod.Context):
             ctxs = [ctxs]
         self._context = [ctx_mod.as_context(c) for c in ctxs]
+        self._work_load_list = list(work_load_list
+                                    or [1] * len(self._context))
+        if len(self._work_load_list) != len(self._context):
+            raise ValueError("work_load_list must have one entry per "
+                             "context")
         self._symbol = symbol
         args = symbol.list_arguments()
         self._data_names = list(data_names or [])
@@ -87,7 +104,8 @@ class Module(BaseModule):
         _check_input_names(symbol, self._data_names, "data")
         self._arg_params = self._aux_params = None
         self._params_dirty = False
-        self._optimizer = self._updater = None
+        self._optimizer = self._updater = self._kvstore = None
+        self._update_on_kvstore = False
         self._preload_opt_states = None
         self._cached_step, self._cached_step_unusable = None, False
         self._exec_group = self._data_shapes = self._label_shapes = None
@@ -122,16 +140,25 @@ class Module(BaseModule):
             logging.info('Saved optimizer state to "%s"', states_file)
 
     def save_optimizer_states(self, fname):
+        """Write the optimizer states (the store's where the update runs
+        there)."""
         if not self.optimizer_initialized:
             raise AssertionError("optimizer not initialized")
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open_stream(fname, "wb") as fh:
             fh.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
-        """Install the states of ``fname``; a captured step that held the
-        old ones captures again at its next step."""
+        """Install the states of ``fname`` (into the store where the update
+        runs there); a captured step that held the old ones captures again
+        at its next step."""
         if not self.optimizer_initialized:
             raise AssertionError("optimizer not initialized")
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open_stream(fname, "rb") as fh:
             self._updater.set_states(fh.read())
 
@@ -274,7 +301,8 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, self.for_training,
             self.inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=self._grad_req, shared_group=shared_group)
+            grad_req=self._grad_req, shared_group=shared_group,
+            workload=self._work_load_list)
 
     def _shape_key(self):
         return tuple((d.name, tuple(d.shape), str(d.dtype))
@@ -327,28 +355,43 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Make the optimizer (``rescale_grad`` defaults to 1 / batch) and
-        its Updater.  One context takes no kvstore: ``"local"`` and
-        ``"device"`` mean none, a distributed one raises."""
+        """Make the store (``kvstore``: None, a name or a ``KVStore``; see
+        ``model._create_kvstore``), the optimizer (``rescale_grad``
+        defaults to 1 / batch) and its Updater, on the store where the
+        update runs there."""
         self._require_ready()
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if kvstore is not None and not (isinstance(kvstore, str) and kvstore
-                                        in ("local", "device")):
-            raise MXNetError("kvstore %r: the kvstore slice is not ported "
-                             "yet" % (kvstore,))
+        if self._params_dirty:
+            self.get_params()
+        group = self._exec_group
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
         if isinstance(optimizer, str):
+            n = group.num_device
+            idx2name = {}
+            for i, name in enumerate(group.param_names):
+                if update_on_kvstore:
+                    idx2name[i] = name
+                else:
+                    idx2name.update((i * n + k, name) for k in range(n))
             kwargs = dict(optimizer_params)
-            kwargs.setdefault("rescale_grad",
-                              1.0 / self._exec_group.batch_size)
-            optimizer = opt.create(
-                optimizer, sym=self._symbol, param_idx2name=dict(
-                    enumerate(self._exec_group.param_names)), **kwargs)
+            kwargs.setdefault("rescale_grad", 1.0 / group.batch_size)
+            optimizer = opt.create(optimizer, sym=self._symbol,
+                                   param_idx2name=idx2name, **kwargs)
         elif not isinstance(optimizer, opt.Optimizer):
             raise TypeError("optimizer must be a name or an Optimizer")
-        self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._optimizer, self._kvstore = optimizer, kvstore
+        self._update_on_kvstore = update_on_kvstore
+        if kvstore:
+            _initialize_kvstore(kvstore, group.param_arrays, self._arg_params,
+                                self._param_names, update_on_kvstore)
+        if update_on_kvstore:
+            self._updater = None
+            kvstore.set_optimizer(optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self._cached_step, self._cached_step_unusable = None, False
         self.optimizer_initialized = True
         if self._preload_opt_states:
@@ -371,16 +414,21 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """One optimizer update of every parameter that has a gradient."""
+        """One optimizer update of every parameter that has a gradient: on
+        the store (push the gradients, pull the weights), or with the
+        local updater on every context's copy after the store's sum."""
         if not self.optimizer_initialized:
             raise AssertionError("init_optimizer must run before update")
         self._require_ready()
         self._params_dirty = True
         group = self._exec_group
-        for slot, (weights, grads) in enumerate(zip(group.param_arrays,
-                                                    group.grad_arrays)):
-            if grads is not None:
-                self._updater(slot, grads[0], weights[0])
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
+                                      self._kvstore, group.param_names)
+        else:
+            _update_params(group.param_arrays, group.grad_arrays,
+                           self._updater, group.num_device, self._kvstore,
+                           group.param_names)
 
     def _fit_step(self, data_batch):
         """Forward, backward and update: in one call through the cached
@@ -398,7 +446,9 @@ class Module(BaseModule):
 
     def _get_cached_step(self):
         if self._cached_step_unusable or not fused_step_enabled() \
-                or not self.optimizer_initialized or self.inputs_need_grad:
+                or not self.optimizer_initialized or self.inputs_need_grad \
+                or self._updater is None or self._kvstore is not None \
+                or len(self._exec_group.execs) != 1:
             return None
         ex = self._exec_group.execs[0]
         if any(r not in ("write", "null") for r in ex.grad_req.values()):
@@ -430,8 +480,8 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def prepare(self, data_batch):
-        """Nothing to prepare on one context (the reference's hook for
-        sparse row pulls)."""
+        """Nothing to prepare (the reference's hook for sparse row
+        pulls)."""
 
 
 def params_from_jax(arg_params, aux_params, symbol, ctx=None,

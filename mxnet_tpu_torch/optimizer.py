@@ -402,6 +402,7 @@ class SGD(Optimizer):
                  multi_precision=False, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update  # kept, as a dumped optimizer holds it
         self.multi_precision = multi_precision
 
     def create_state(self, index, weight):
@@ -1138,13 +1139,20 @@ class Updater:
 
     def get_states(self, dump_optimizer=False):
         """The states as a pickle that either package's ``set_states``
-        reads.  ``dump_optimizer`` (the optimizer pickled beside them, for
-        the kvstore's server, ROADMAP A.7) raises: a pickled optimizer
-        names this package's classes, which no restricted reader takes."""
-        if dump_optimizer:
-            raise MXNetError("Updater.get_states(dump_optimizer=True) is not "
-                             "ported (ROADMAP A.7)")
-        return _pickle.dumps(self.states)
+        reads; with ``dump_optimizer`` the pair ``(states, optimizer)``
+        (``mxnet_tpu/optimizer.py:719``).  The optimizer is written under
+        the JAX package's class of its name (``_pickle``), so either
+        package reads the pair; one of another class raises
+        :class:`MXNetError`."""
+        if not dump_optimizer:
+            return _pickle.dumps(self.states)
+        name = type(self.optimizer).__name__
+        if _pickle._optimizer_class(name) is not type(self.optimizer):
+            raise MXNetError(
+                "get_states(dump_optimizer=True): %s is not one of the rules "
+                "whose pickle both packages read (%s)"
+                % (name, ", ".join(sorted(_pickle.OPTIMIZERS))))
+        return _pickle.dumps((self.states, self.optimizer))
 
 
 def get_updater(optimizer):

@@ -13,7 +13,12 @@ port bumps:
   replayed by ``capture``;
 - the hand-written kernels' launches: ``flash_attn_fwd_launches``,
   ``flash_attn_bwd_launches`` (``ops.attention``) and ``scale_launches``
-  (``ops.scale``).
+  (``ops.scale``);
+- the kvstore's, named as the JAX package names them (``kvstore``):
+  ``kvstore_push``, ``kvstore_pull``, ``kvstore_bucket_reduce``,
+  ``kvstore_reduce_scatter``, ``collective_chunk_programs`` and
+  ``collective_gather_home``; a sum of several copies and a copy pulled
+  also count in ``program_calls``.
 
 A captured graph runs no Python when it replays, so ``capture`` records
 what each counter moved while the graph was captured and adds that again

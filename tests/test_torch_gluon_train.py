@@ -713,23 +713,37 @@ def test_learning_rate_and_scheduler_through_trainer(fused_env):
         assert trainer.learning_rate == 0.1
 
 
-def test_trainer_refusals():
-    """What is not ported raises MXNetError naming its ROADMAP item."""
-    with mt.cpu():
-        net = mt.gluon.nn.Dense(2, in_units=3)
-        net.initialize()
-        params = net.collect_params()
-        for kv in ("dist_sync", "nccl", object()):
-            with pytest.raises(MXNetError, match="A.7"):
-                mt.gluon.Trainer(params, "sgd", kvstore=kv)
-        two = mt.gluon.nn.Dense(2, in_units=3)
-        two.initialize(ctx=[mt.cpu(0), mt.cpu(1)])
-        trainer = mt.gluon.Trainer(two.collect_params(), "sgd")
-        with mt.autograd.record():
-            loss = two(mt.nd.array(np.ones((1, 3), np.float32))).sum()
-        loss.backward()
-        with pytest.raises(MXNetError, match="A.7"):
-            trainer.step(1)
+def test_trainer_refusals(monkeypatch):
+    """What the JAX package refuses, this package refuses: the kvstore is
+    made at the first step, where ``"nccl"`` raises as the reference's
+    ``create`` does, and ``"dist_sync"`` under a launcher (``DMLC_ROLE``)
+    raises naming A.10 (the distributed store).  A Dense initialized on
+    ``[cpu(0), cpu(1)]`` steps and matches the reference."""
+    def stepped(pkg, kvstore, ctx=None):
+        with pkg.cpu():
+            net = pkg.gluon.nn.Dense(2, in_units=3)
+            net.initialize(pkg.init.Constant(0.5), ctx=ctx)
+            trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                        {"learning_rate": 0.1},
+                                        kvstore=kvstore)
+            with pkg.autograd.record():
+                x = np.arange(6, dtype=np.float32).reshape(2, 3)
+                loss = net(pkg.nd.array(x)).sum()
+            loss.backward()
+            trainer.step(2)
+            return [p.data().asnumpy()
+                    for p in net.collect_params().values()]
+
+    for pkg in (mt, mx):
+        with pytest.raises(pkg.base.MXNetError, match="unknown kvstore"):
+            stepped(pkg, "nccl")
+    monkeypatch.setenv("DMLC_ROLE", "worker")
+    with pytest.raises(MXNetError, match="A.10"):
+        stepped(mt, "dist_sync")
+    monkeypatch.delenv("DMLC_ROLE")
+    got = stepped(mt, "device", [mt.cpu(0), mt.cpu(1)])
+    want = stepped(mx, "device", [mx.cpu(0), mx.cpu(1)])
+    assert _max_rel(got, want) <= TOL["float32"]
 
 
 @pytest.fixture
@@ -756,7 +770,8 @@ def test_gluon_entry_points_without_device_raise(no_cuda):
 # -- utils --------------------------------------------------------------------
 def test_split_and_load():
     """``split_data`` and ``clip_global_norm`` as in ``tests/test_gluon.py``
-    and against the JAX package; ``split_and_load`` over one context."""
+    and against the JAX package; ``split_and_load`` over one context and
+    over two."""
     x = np.random.RandomState(8).randn(8, 3).astype("float32")
     res = []
     for pkg in (mt, mx):
@@ -781,8 +796,12 @@ def test_split_and_load():
         np.testing.assert_array_equal(a, b)
     assert _rel(port[2], ref[2]) <= TOL["float32"]
     assert _max_rel(port[3], ref[3]) <= TOL["float32"]
-    with pytest.raises(MXNetError, match="A.7"):
-        mt.gluon.utils.split_and_load(x, [mt.cpu(0), mt.cpu(1)])
+    port, ref = [pkg.gluon.utils.split_and_load(x, [pkg.cpu(0), pkg.cpu(1)])
+                 for pkg in (mt, mx)]
+    assert [str(a.context) for a in port] == [str(b.context) for b in ref] \
+        == ["cpu(0)", "cpu(1)"]
+    for a, b in zip(port, ref):
+        np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
 
 
 def test_clip_global_norm_leaves_nonfinite_and_small_unscaled():

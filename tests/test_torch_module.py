@@ -276,10 +276,13 @@ def test_fit_loop_score_and_predict_match_jax():
                                        err_msg=k)
 
 
-def test_default_context_and_refusals():
+def test_default_context_and_refusals(monkeypatch):
     """A Module without a context takes gpu(0) (with no card that raises,
-    no move to the CPU); several contexts and a distributed kvstore raise,
-    naming the slice that is not ported."""
+    no move to the CPU); two contexts bind two executors, each on its half
+    of the batch; ``kvstore="dist_sync"`` without a launcher is a local
+    store on which the update runs, as in the JAX package, and with
+    ``DMLC_ROLE`` set it raises naming A.10 (the distributed store); an
+    unknown optimizer raises."""
     s = _small_net(mt)
     if torch.cuda.is_available():
         assert mt.mod.Module(s)._context == [mt.gpu(0)]
@@ -287,13 +290,27 @@ def test_default_context_and_refusals():
         with pytest.raises(MXNetError):
             mt.mod.Module(s)
     mod = mt.mod.Module(s, context=[mt.cpu(0), mt.cpu(1)])
-    with pytest.raises(MXNetError, match="kvstore"):
-        mod.bind([("data", (8, 3, 8, 8))], [("softmax_label", (8,))])
+    mod.bind([("data", (8, 3, 8, 8))], [("softmax_label", (8,))])
+    execs = mod._exec_group.execs
+    assert [e._ctx for e in execs] == [mt.cpu(0), mt.cpu(1)]
+    assert [e.arg_dict["data"].shape[0] for e in execs] == [4, 4]
+    monkeypatch.delenv("DMLC_ROLE", raising=False)
+    stores = []
+    for pkg in (mt, mx):
+        one = pkg.mod.Module(_small_net(pkg), context=pkg.cpu())
+        one.bind([("data", (8, 3, 8, 8))], [("softmax_label", (8,))])
+        one.init_params(pkg.init.Xavier())
+        one.init_optimizer(kvstore="dist_sync")
+        stores.append((one._kvstore.type, one._update_on_kvstore,
+                       one._updater is None))
+    assert stores[0] == stores[1] == ("dist_sync", True, True)
     mod = mt.mod.Module(s, context=mt.cpu())
     mod.bind([("data", (8, 3, 8, 8))], [("softmax_label", (8,))])
     mod.init_params(mt.init.Xavier())
-    with pytest.raises(MXNetError, match="kvstore"):
+    monkeypatch.setenv("DMLC_ROLE", "worker")
+    with pytest.raises(MXNetError, match="A.10"):
         mod.init_optimizer(kvstore="dist_sync")
+    monkeypatch.delenv("DMLC_ROLE")
     with pytest.raises(MXNetError):
         mod.init_optimizer(optimizer="no_such_optimizer")
     mod.init_optimizer(optimizer="adam")  # ported since the Gluon slice

@@ -609,11 +609,48 @@ def test_loaded_states_land_on_cpu_and_move_to_the_weight():
 
 
 def test_dump_optimizer_raises():
+    """``get_states(dump_optimizer=True)``: the port's dump reads back in
+    the port (the optimizer's class and hyper-parameters with the states)
+    and in the JAX package; the JAX package's dump reads in the port, its
+    optimizer mapped to the port's class of the same name.  What still
+    raises: dumping an optimizer class neither package registers, and
+    reading a pickle that names one."""
+    class MyRule(mt.optimizer.SGD):
+        pass
+
+    with pytest.raises(MXNetError, match="MyRule"):
+        mt.optimizer.get_updater(MyRule()).get_states(dump_optimizer=True)
+    # (states, MyRule()) as the JAX package would pickle it
+    unknown = b"\x80\x04}cmxnet_tpu.optimizer\nMyRule\n)\x81}b\x86."
+    with pytest.raises(_pickle.UnpicklingRefused, match="MyRule"):
+        mt.optimizer.get_updater(mt.optimizer.SGD()).set_states(unknown)
     upd = mt.optimizer.get_updater(mt.optimizer.SGD())
-    with pytest.raises(MXNetError, match="A.7"):
-        upd.get_states(dump_optimizer=True)
     upd.set_states(_pickle.dumps(({0: None}, None)))
     assert upd.states == {0: None}
+    for name, kwargs in (("sgd", dict(learning_rate=0.1, momentum=0.9)),
+                         ("adam", dict(learning_rate=0.01, wd=1e-4))):
+        ref = _updater_after_steps(mx, name, kwargs, "float32")
+        port = _updater_after_steps(mt, name, kwargs, "float32")
+        for src, blob in (("port", port.get_states(dump_optimizer=True)),
+                          ("ref", ref.get_states(dump_optimizer=True))):
+            back = mt.optimizer.get_updater(mt.optimizer.Test())
+            back.set_states(blob)
+            want = port if src == "port" else ref
+            assert type(back.optimizer).__name__ \
+                == type(want.optimizer).__name__
+            assert type(back.optimizer).__module__ == "mxnet_tpu_torch." \
+                "optimizer"
+            for key in ("lr", "wd", "num_update", "_index_update_count"):
+                assert getattr(back.optimizer, key) \
+                    == getattr(want.optimizer, key), key
+            for k in want.states:
+                _same_state_tree(back.states[k], want.states[k])
+        in_ref = mx.optimizer.get_updater(mx.optimizer.Test())
+        in_ref.set_states(port.get_states(dump_optimizer=True))
+        assert type(in_ref.optimizer) is type(ref.optimizer)
+        assert in_ref.optimizer.num_update == ref.optimizer.num_update
+        for k in ref.states:
+            _same_state_tree(in_ref.states[k], port.states[k])
 
 
 def test_state_pickle_refuses_other_globals():
