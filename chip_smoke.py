@@ -271,6 +271,26 @@ before it captures, and those runs launch the kernels too
    Inception-v3's gradient shapes, two copies on ``gpu(0)``, fp32 and
    bf16: bit for bit with the CPU store's, one reduce a bucket, timed
    against the per-key push/pull loop.
+31. The op long tail (BASELINE #5): (a) the greedy-NMS kernel
+   (``ops/csrc/nms.cu``) against its plain loop on the card, mask for
+   mask, at example/ssd's SSD-300 head (8,732 anchors, batch 32, 21
+   classes; ``nms_topk`` 400 and -1), at Proposal's pre-NMS 6000 and at
+   ragged sizes (fp64, and past shared memory), with ms, the plain
+   loop's ms and the bound; with the kernel's count then set to 0,
+   (b) ``MultiBoxTarget`` and ``MultiBoxDetection`` at the SSD-300 head on
+   the card against ``cpu()`` (classes, masks and row order equal, values
+   within ``SSD_OP_TOL``), then both as one captured program whose replay
+   equals the eager run bit for bit, eager and captured ms; (c)
+   ``examples/train_ssd_toy.py``'s ``ToySSD`` at the example's settings,
+   eager as the example runs and hybridized (forward and
+   ``MultiBoxPrior`` replayed), each to a mean IoU of at least
+   ``TOY_SSD_MIN_IOU``, then 3 steps card against CPU in fp64 at
+   ``ZOO_PARITY_TOL``; the kernel's launches on (b) and (c) read; (d)
+   ``Custom`` ops eager against the CPU with their gradients, a
+   hybridized block holding one (run eagerly: one ``host_op_programs`` a
+   call, no capture) and ``examples/numpy_ops_softmax.py``'s net through
+   ``Module.fit``.  The op sweep of phase 21 holds the long tail's ops
+   (spatial, linalg, SSD, R-CNN, contrib) card against CPU.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
@@ -279,7 +299,7 @@ one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
 "worst": [...]}}`` line, phases 22-25's as one ``{"rnn": {...}}`` line,
 phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
 ``{"cv2_resize": {...}}`` line, phase 30's as one ``{"kvstore": {...}}``
-line, the
+line, phase 31's as one ``{"long_tail": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -503,10 +523,11 @@ def kernel_stems():
     import os
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    from mxnet_tpu_torch.ops import nms as nm
     from mxnet_tpu_torch.ops import scale as sc
     sources = (list(att.KERNEL_SOURCES.values())
-               + list(att.BACKWARD_SOURCES.values()) + [sc.KERNEL_SOURCE,
-                                                        nj.KERNEL_SOURCE])
+               + list(att.BACKWARD_SOURCES.values())
+               + [sc.KERNEL_SOURCE, nj.KERNEL_SOURCE, nm.KERNEL_SOURCE])
     return sorted({os.path.splitext(os.path.basename(src))[0]
                    for src in sources})
 
@@ -5216,6 +5237,717 @@ def phase_kvstore(card):
     return out
 
 
+# -- phase 31: the op long tail (ROADMAP A.9): SSD, NMS and Custom ops --------
+# BASELINE #5 is example/ssd; the repo has its toy (examples/train_ssd_toy.py)
+# and no SSD network, so the SSD ops are also driven at the head shapes of
+# MXNet's example/ssd/symbol/symbol_factory.py (vgg16_reduced, data_shape
+# 300): six feature maps, each with its anchor sizes, ratios and step, 8,732
+# anchors in all; batch 32 and VOC's 21 classes; MultiBoxTarget and
+# MultiBoxDetection at the example's settings; labels padded to 64 rows.
+SSD300_MAPS = (38, 19, 10, 5, 3, 1)
+SSD300_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+                (0.71, 0.79), (0.88, 0.961))
+SSD300_RATIOS = ((1.0, 2.0, 0.5),) + ((1.0, 2.0, 0.5, 3.0, 1.0 / 3.0),) * 3 \
+    + ((1.0, 2.0, 0.5),) * 2
+SSD300_STEPS = tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300))
+SSD300_ANCHORS = 8732
+SSD300_BATCH, SSD300_CLASSES, SSD300_LABEL_ROWS = 32, 21, 64
+SSD300_TARGET = dict(overlap_threshold=0.5, ignore_label=-1.0,
+                     negative_mining_ratio=3.0, negative_mining_thresh=0.5,
+                     minimum_negative_samples=0,
+                     variances=(0.1, 0.1, 0.2, 0.2))
+SSD300_DETECT = dict(threshold=0.01, nms_threshold=0.45,
+                     force_suppress=False, variances=(0.1, 0.1, 0.2, 0.2))
+SSD300_NMS_TOPK = (400, -1)
+# card against cpu(): the ops' values (decode, offsets) within 1e-6; the
+# classes, masks and row order equal
+SSD_OP_TOL = 1e-6
+# Proposal at its default rpn_pre_nms_top_n (6000) on a Faster R-CNN VGG-16
+# feature map (a 600 x 800 image at stride 16, 9 anchors a cell)
+PROPOSAL_NMS = dict(shape=(2, 18, 38, 50), im_info=(600.0, 800.0, 1.0),
+                    pre_n=6000, threshold=0.7, min_size=16,
+                    scales=(8.0, 16.0, 32.0), ratios=(0.5, 1.0, 2.0),
+                    stride=16)
+# ragged kernel cases: (n, dtype, force_suppress, trip); fp64 at 8,732 and
+# fp32 at 12,000 take the device-memory path (over 227 KB of shared memory)
+NMS_RAGGED = ((1, torch.float32, False, 1), (7, torch.float32, True, 7),
+              (1000, torch.float32, False, 500),
+              (1025, torch.float32, True, 1025),
+              (3001, torch.float64, False, 3001),
+              (SSD300_ANCHORS, torch.float64, False, SSD300_ANCHORS),
+              (12000, torch.float32, False, 12000))
+# per IoU: 4 max/min, 6 subtractions, 6 clamps, 2 products, an add, a
+# divide, the compare (nms.iou_row) -- fp32 work off the tensor cores
+NMS_IOU_OPS = 21
+NMS_TIMING_ITERS = 10
+# examples/train_ssd_toy.py's settings
+TOY_SSD = dict(n_train=256, img=32, epochs=4, batch=16, lr=0.01, n_val=64,
+               sizes=(0.4, 0.6), ratios=(1.0, 2.0, 0.5), num_cls=1,
+               overlap=0.5, threshold=0.01, nms_threshold=0.45)
+TOY_SSD_MIN_IOU = 0.35
+TOY_SSD_PARITY_STEPS = 3
+
+
+def _ssd_example():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "train_ssd_toy.py")
+    spec = importlib.util.spec_from_file_location("train_ssd_toy_example",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ssd300_anchors(pkg, ctx, dtype="float32"):
+    """The SSD-300 head's anchors (1, 8732, 4): MultiBoxPrior on each map,
+    concatenated."""
+    nd = pkg.nd
+    parts = [nd.contrib.MultiBoxPrior(
+        nd.zeros((1, 1, m, m), ctx=ctx, dtype=dtype), sizes=s, ratios=r,
+        steps=(st, st), offsets=(0.5, 0.5))
+        for m, s, r, st in zip(SSD300_MAPS, SSD300_SIZES, SSD300_RATIOS,
+                               SSD300_STEPS)]
+    return nd.concatenate(parts, axis=1)
+
+
+def ssd300_inputs(seed=31, dwdh=False):
+    """Seeded host inputs at the head's shapes: labels (32, 64, 5) with
+    1-20 VOC boxes an image, class predictions (32, 21, 8732), softmax
+    probabilities and box offsets (32, 4 * 8732).  Without ``dwdh`` the
+    width and height offsets are 0, so the decode is exact arithmetic on
+    every device (exp(0) = 1) and the card can be held to the CPU row for
+    row: with them, each device's exp rounds its own way, and a box whose
+    IoU lies an ulp from the threshold may be kept on one and not the
+    other."""
+    rng = np.random.RandomState(seed)
+    b, c, a = SSD300_BATCH, SSD300_CLASSES, SSD300_ANCHORS
+    label = np.full((b, SSD300_LABEL_ROWS, 5), -1.0, np.float32)
+    for i in range(b):
+        n = rng.randint(1, 21)
+        xy = rng.uniform(0.0, 0.8, (n, 2))
+        wh = rng.uniform(0.05, 0.5, (n, 2))
+        label[i, :n, 0] = rng.randint(0, c - 1, n)
+        label[i, :n, 1:3] = xy
+        label[i, :n, 3:5] = np.minimum(xy + wh, 1.0)
+    cls_pred = rng.randn(b, c, a).astype(np.float32)
+    logits = 2.0 * rng.randn(b, c, a)
+    prob = np.exp(logits - logits.max(axis=1, keepdims=True))
+    prob = (prob / prob.sum(axis=1, keepdims=True)).astype(np.float32)
+    loc = 0.1 * rng.randn(b, a, 4)
+    if not dwdh:
+        loc[..., 2:] = 0.0
+    return dict(label=label, cls_pred=cls_pred, cls_prob=prob,
+                loc_pred=loc.reshape(b, -1).astype(np.float32))
+
+
+def nms_bound_ms(boxes, classes, kept, force):
+    """(bound ms, "bytes" or "operations", pairs): the sorted boxes, the
+    class ids and the mask read once and the mask written once over HBM,
+    or NMS_IOU_OPS fp32 operations for each IoU this run's data needs at
+    the least: every (kept box, later kept box of its class) pair, which
+    the walk cannot skip."""
+    b, n = classes.shape
+    elem = boxes.element_size()
+    t_bytes = (b * n * 5 * elem + 2 * b * n) / HBM_BPS
+    pairs = 0
+    cls = classes.cpu().numpy()
+    keep = kept.cpu().numpy()
+    for i in range(b):
+        c = cls[i][keep[i]]
+        if force:
+            pairs += len(c) * (len(c) - 1) // 2
+        else:
+            _, counts = np.unique(c, return_counts=True)
+            pairs += int((counts * (counts - 1) // 2).sum())
+    t_ops = pairs * NMS_IOU_OPS / PEAK_FLOPS[torch.float32]
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, pairs
+
+
+def nms_cases(dev):
+    """The kernel's inputs: SSD-300 detection at both nms_topk, Proposal at
+    its pre-NMS 6000, and the ragged cases."""
+    from mxnet_tpu_torch.ops import rcnn, ssd
+    import mxnet_tpu_torch as mt
+    inp = ssd300_inputs(dwdh=True)
+    anchors = ssd300_anchors(mt, mt.gpu(0))._data.to(dev)
+    dets = ssd.detection_candidates(
+        torch.tensor(inp["cls_prob"], device=dev),
+        torch.tensor(inp["loc_pred"], device=dev), anchors, True,
+        SSD300_DETECT["threshold"], 0, SSD300_DETECT["variances"])
+    cases = []
+    for topk in SSD300_NMS_TOPK:
+        cases.append(dict(
+            name="ssd300 nms_topk %d" % topk, boxes=dets[..., 2:6],
+            classes=dets[..., 0], alive=dets[..., 0] >= 0,
+            trip=ssd.nms_trip(topk, SSD300_ANCHORS),
+            threshold=SSD300_DETECT["nms_threshold"], force=False))
+    p = PROPOSAL_NMS
+    rng = np.random.RandomState(32)
+    n, a2, h, w = p["shape"]
+    boxes, scores = rcnn.proposal_candidates(
+        torch.tensor(rng.rand(n, a2, h, w), dtype=torch.float32, device=dev),
+        torch.tensor(0.1 * rng.randn(n, 2 * a2, h, w), dtype=torch.float32,
+                     device=dev),
+        torch.tensor([p["im_info"]] * n, dtype=torch.float32, device=dev),
+        p["pre_n"], p["min_size"], p["scales"], p["ratios"], p["stride"])
+    cases.append(dict(name="proposal pre_nms_top_n %d" % p["pre_n"],
+                      boxes=boxes, classes=torch.zeros_like(scores),
+                      alive=scores > -math.inf, trip=p["pre_n"],
+                      threshold=p["threshold"], force=True))
+    for n_box, dt, force, trip in NMS_RAGGED:
+        xy = rng.uniform(0, 0.8, (2, n_box, 2))
+        wh = rng.uniform(0.02, 0.4, (2, n_box, 2))
+        cases.append(dict(
+            name="ragged n %d %s%s trip %d" % (
+                n_box, DTYPE_NAME.get(dt, "fp64"), " force" if force else "",
+                trip),
+            boxes=torch.tensor(np.concatenate([xy, xy + wh], -1), dtype=dt,
+                               device=dev),
+            classes=torch.tensor(rng.randint(0, 4, (2, n_box)), dtype=dt,
+                                 device=dev),
+            alive=torch.tensor(rng.rand(2, n_box) < 0.9, device=dev),
+            trip=trip, threshold=0.5, force=force))
+    return cases
+
+
+def nms_kernel_check(card):
+    """31 (a): the NMS kernel against its plain version on the card, mask
+    for mask; ms, the plain version's ms and the bound at the main
+    shapes."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import nms as nm
+    dev = mt.gpu(0).torch_device
+    rows, bad = {}, []
+    for c in nms_cases(dev):
+        args = (c["boxes"], c["classes"], c["alive"], c["trip"],
+                c["threshold"], c["force"])
+        got = nm.nms(*args)
+        want = nm.nms_reference(*args)
+        torch.cuda.synchronize()
+        again = nm.nms(*args)
+        differ = int((got != want).sum())
+        row = dict(shape=list(c["boxes"].shape), trip=c["trip"],
+                   kept=int(got.sum()), alive_in=int(c["alive"].sum()),
+                   masks_differ=differ, repeat_equal=bool(torch.equal(
+                       got, again)))
+        if differ or not row["repeat_equal"]:
+            bad.append(c["name"])
+        if not c["name"].startswith("ragged"):
+            row["ms"] = cuda_ms(lambda: nm.nms(*args),
+                                iters=NMS_TIMING_ITERS, warmup=2)
+            row["plain_ms"] = cuda_ms(lambda: nm.nms_reference(*args),
+                                      iters=1, warmup=1)
+            row["bound_ms"], row["bound_by"], row["pairs"] = nms_bound_ms(
+                c["boxes"], c["classes"], got, c["force"])
+            # the longest image's walk: its kept boxes, one barrier each
+            row["walk_steps"] = int(got[:, :c["trip"]].sum(dim=1).max())
+        rows[c["name"]] = row
+        log("phase 31 (a) nms %s on %s: %s" % (c["name"], card, row))
+    if bad:
+        raise AssertionError("phase 31 (a): the NMS kernel's masks differ "
+                             "from the plain version's: %s" % bad)
+    nm.reset_launch_count()
+    return rows
+
+
+def _ssd_arrays(mt, ctx, inp):
+    return {k: mt.nd.array(v, ctx=ctx) for k, v in inp.items()}
+
+
+def ssd300_ops(card):
+    """31 (b): MultiBoxTarget and MultiBoxDetection at the SSD-300 head's
+    shapes on the card against cpu(); then both captured as one program,
+    its replays bit for bit with the eager run; eager and captured ms."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import capture
+    from mxnet_tpu_torch.ops import registry
+    inp = ssd300_inputs()
+    res, bad = {}, []
+    anchors = {c: ssd300_anchors(mt, c) for c in (mt.gpu(0), mt.cpu())}
+    arrs = {c: _ssd_arrays(mt, c, inp) for c in anchors}
+    res["anchors"] = list(anchors[mt.cpu()].shape)
+    res["anchors_equal"] = bool(torch.equal(
+        anchors[mt.gpu(0)]._data.cpu(), anchors[mt.cpu()]._data))
+    out = {}
+    for c in anchors:
+        a = arrs[c]
+        tgt = mt.nd.contrib.MultiBoxTarget(anchors[c], a["label"],
+                                           a["cls_pred"], **SSD300_TARGET)
+        dets = [mt.nd.contrib.MultiBoxDetection(
+            a["cls_prob"], a["loc_pred"], anchors[c], nms_topk=k,
+            **SSD300_DETECT) for k in SSD300_NMS_TOPK]
+        out[c] = [t._data.cpu() for t in tgt] + [d._data.cpu() for d in dets]
+    g, h = out[mt.gpu(0)], out[mt.cpu()]
+    res["target"] = dict(
+        loc_target_max_abs_err=float((g[0] - h[0]).abs().max()),
+        loc_mask_equal=bool(torch.equal(g[1], h[1])),
+        cls_target_equal=bool(torch.equal(g[2], h[2])),
+        positives=int((h[2] > 0).sum()), negatives=int((h[2] == 0).sum()))
+    if not (res["target"]["loc_mask_equal"] and res["target"]["cls_target_equal"]
+            and res["target"]["loc_target_max_abs_err"] <= SSD_OP_TOL):
+        bad.append("MultiBoxTarget %s" % res["target"])
+    for k, gd, hd in zip(SSD300_NMS_TOPK, g[3:], h[3:]):
+        row = dict(class_order_equal=bool(torch.equal(gd[..., 0], hd[..., 0])),
+                   score_box_max_abs_err=float((gd[..., 1:] - hd[..., 1:])
+                                               .abs().max()),
+                   kept=int((hd[..., 0] >= 0).sum()))
+        res["detection_topk_%d" % k] = row
+        if not (row["class_order_equal"]
+                and row["score_box_max_abs_err"] <= SSD_OP_TOL):
+            bad.append("MultiBoxDetection nms_topk %d %s" % (k, row))
+    # one captured program: target, then detection at nms_topk 400
+    dev = mt.gpu(0).torch_device
+    a = arrs[mt.gpu(0)]
+    xs = [anchors[mt.gpu(0)]._data, a["label"]._data, a["cls_pred"]._data,
+          a["cls_prob"]._data, a["loc_pred"]._data]
+    target = registry.get_op("_contrib_MultiBoxTarget")
+    detect = registry.get_op("_contrib_MultiBoxDetection")
+
+    def stage(anc, lbl, cp, prob, loc):
+        return list(target.apply((anc, lbl, cp), SSD300_TARGET)) + list(
+            detect.apply((prob, loc, anc), dict(SSD300_DETECT, nms_topk=400)))
+
+    with torch.no_grad():
+        eager = [t.clone() for t in stage(*xs)]
+    before = counter_snapshot()
+    prog = capture.Program("ssd300 target+detection", capture.CudaGraph, dev,
+                           [stage], xs, [])
+    captures = counter_delta(before)["graph_captures"]
+    replayed = prog.replay(0, xs)
+    res["captured_equal_eager"] = all(torch.equal(r, e)
+                                      for r, e in zip(replayed, eager))
+    if not res["captured_equal_eager"]:
+        bad.append("the captured program's replay differs from eager")
+    before = counter_snapshot()
+    times = {"captured": [], "eager": []}
+    for _ in range(5):
+        times["captured"].append(_host_ms(lambda: (prog.replay(0, xs),
+                                                   torch.cuda.synchronize())))
+        with torch.no_grad():
+            times["eager"].append(_host_ms(lambda: (stage(*xs),
+                                                    torch.cuda.synchronize())))
+    replays = counter_delta(before)
+    res["captures_at_capture"] = captures
+    res["timed_counters"] = replays
+    res["ms"] = {k: _median(v) for k, v in times.items()}
+    if replays["graph_captures"] != 0 or replays["graph_replays"] != 5:
+        bad.append("timed replays counted %s" % replays)
+    log("phase 31 (b) SSD-300 head ops (batch %d, %d anchors, %d classes) "
+        "on %s against cpu(): %s" % (SSD300_BATCH, SSD300_ANCHORS,
+                                     SSD300_CLASSES, card, res))
+    if bad:
+        raise AssertionError("phase 31 (b): %s" % "; ".join(bad))
+    del prog, arrs, anchors
+    free_card()
+    return res
+
+
+def toy_ssd_net(pkg, prefix="toyssd_"):
+    """``examples/train_ssd_toy.py``'s ``ToySSD`` with ``pkg``'s Gluon
+    (either package), the reshape written with 0 for the batch so that it
+    also traces as a Symbol."""
+    gluon, cfg = pkg.gluon, TOY_SSD
+    n_anchor = len(cfg["sizes"]) + len(cfg["ratios"]) - 1
+    num_cls = cfg["num_cls"]
+
+    class ToySSD(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.backbone = gluon.nn.HybridSequential(prefix="")
+                for ch in (16, 32, 32):
+                    self.backbone.add(gluon.nn.Conv2D(
+                        ch, 3, padding=1, activation="relu"))
+                    self.backbone.add(gluon.nn.MaxPool2D(2))
+                self.cls_head = gluon.nn.Conv2D(n_anchor * (num_cls + 1), 3,
+                                                padding=1)
+                self.loc_head = gluon.nn.Conv2D(n_anchor * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            feat = self.backbone(x)
+            anchors = F.contrib.MultiBoxPrior(feat, sizes=cfg["sizes"],
+                                              ratios=cfg["ratios"])
+            cls = F.transpose(self.cls_head(feat), axes=(0, 2, 3, 1))
+            cls = F.reshape(cls, shape=(0, -1, num_cls + 1))
+            cls = F.transpose(cls, axes=(0, 2, 1))
+            loc = F.reshape(F.transpose(self.loc_head(feat),
+                                        axes=(0, 2, 3, 1)), shape=(0, -1))
+            return anchors, cls, loc
+
+    return ToySSD(prefix=prefix)
+
+
+def toy_ssd_losses(pkg):
+    gluon = pkg.gluon
+    return (gluon.loss.SoftmaxCrossEntropyLoss(axis=1),
+            gluon.loss.HuberLoss())
+
+
+def toy_ssd_step(pkg, net, trainer, loss_fns, x, y):
+    """One step of the example's loop: forward, MultiBoxTarget under
+    ``record()``, the two losses, backward, ``Trainer.step``; returns the
+    summed loss (an NDArray, one per image) and the targets."""
+    nd = pkg.nd
+    with pkg.autograd.record():
+        anchors, cls_preds, loc_preds = net(x)
+        targets = nd.contrib.MultiBoxTarget(
+            anchors, y, cls_preds, overlap_threshold=TOY_SSD["overlap"])
+        loc_t, loc_m, cls_t = targets
+        loss = loss_fns[0](cls_preds, cls_t) + loss_fns[1](loc_preds * loc_m,
+                                                           loc_t)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss, targets
+
+
+def toy_ssd_miou(pkg, net, ctx, dtype="float32"):
+    """The example's evaluation: MultiBoxDetection on its 64 validation
+    images, the mean IoU of each image's top detection with its box."""
+    ex = _ssd_example()
+    val_x, val_y = ex.synthetic_detection_set(
+        TOY_SSD["n_val"], rng=np.random.RandomState(99))
+    nd = pkg.nd
+    anchors, cls_preds, loc_preds = net(nd.array(val_x, ctx=ctx, dtype=dtype))
+    dets = nd.contrib.MultiBoxDetection(
+        nd.softmax(cls_preds, axis=1), loc_preds, anchors,
+        threshold=TOY_SSD["threshold"],
+        nms_threshold=TOY_SSD["nms_threshold"]).asnumpy()
+    ious = []
+    for det, lab in zip(dets, val_y):
+        valid = det[det[:, 0] >= 0]
+        if not len(valid):
+            ious.append(0.0)
+            continue
+        bx, gt = valid[np.argmax(valid[:, 1])][2:6], lab[0, 1:5]
+        iw = max(min(bx[2], gt[2]) - max(bx[0], gt[0]), 0)
+        ih = max(min(bx[3], gt[3]) - max(bx[1], gt[1]), 0)
+        inter = iw * ih
+        union = ((bx[2] - bx[0]) * (bx[3] - bx[1])
+                 + (gt[2] - gt[0]) * (gt[3] - gt[1]) - inter)
+        ious.append(inter / union if union > 0 else 0.0)
+    return float(np.mean(ious))
+
+
+def toy_ssd_train(pkg, ctx, hybridize=False, dtype="float32", epochs=None,
+                  steps=None, batch=None, seed=0, params_file=None):
+    """The example's training at its settings on ``ctx``: the mean loss of
+    each epoch, the counters of each step, the net and its trainer.
+    ``steps`` stops early (the parity runs); ``params_file`` loads the
+    initial weights instead of the seeded Xavier draw."""
+    cfg = TOY_SSD
+    ex = _ssd_example()
+    train_x, train_y = ex.synthetic_detection_set(cfg["n_train"])
+    bs = batch or cfg["batch"]
+    net = toy_ssd_net(pkg)
+    pkg.random.seed(seed)
+    if params_file is None:
+        net.collect_params().initialize(pkg.init.Xavier(), ctx=ctx)
+    else:
+        net.load_params(params_file, ctx=ctx)
+    if dtype != "float32":
+        net.cast(dtype)
+    if hybridize:
+        net.hybridize()
+    trainer = pkg.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": cfg["lr"]})
+    loss_fns = toy_ssd_losses(pkg)
+    epoch_losses, step_counts, step_losses, targets = [], [], [], []
+    done = 0
+    for _ in range(epochs or cfg["epochs"]):
+        total, n = 0.0, 0
+        for i in range(0, cfg["n_train"], bs):
+            x = pkg.nd.array(train_x[i:i + bs], ctx=ctx, dtype=dtype)
+            y = pkg.nd.array(train_y[i:i + bs], ctx=ctx, dtype=dtype)
+            before = counter_snapshot() if pkg.__name__ == "mxnet_tpu_torch" \
+                else None
+            loss, tgt = toy_ssd_step(pkg, net, trainer, loss_fns, x, y)
+            if before is not None:
+                step_counts.append(counter_delta(before))
+            value = loss.asnumpy().astype(np.float64)
+            step_losses.append(value)
+            targets.append([t.asnumpy() for t in tgt])
+            total += float(value.mean())
+            n += 1
+            done += 1
+            if steps is not None and done == steps:
+                break
+        epoch_losses.append(total / n)
+        if steps is not None and done == steps:
+            break
+    return dict(net=net, trainer=trainer, epoch_losses=epoch_losses,
+                step_counts=step_counts, step_losses=step_losses,
+                targets=targets)
+
+
+def _toy_state(net):
+    ps = net.collect_params().items()
+    return ({n: p.data()._data.detach().cpu().clone() for n, p in ps},
+            {n: p.grad()._data.detach().cpu().clone() for n, p in ps
+             if p.grad_req != "null"})
+
+
+def toy_ssd_run(card):
+    """31 (c): the toy SSD at the example's settings, eager as the example
+    runs, then hybridized (its forward and MultiBoxPrior one captured
+    program), then 3 steps card against CPU in fp64."""
+    import mxnet_tpu_torch as mt
+    res, bad = {}, []
+    for mode in ("eager", "hybridized"):
+        t0 = time.perf_counter()
+        run = toy_ssd_train(mt, mt.gpu(0), hybridize=(mode == "hybridized"))
+        seconds = time.perf_counter() - t0
+        miou = toy_ssd_miou(mt, run["net"], mt.gpu(0))
+        counts = run["step_counts"]
+        row = dict(epoch_losses=run["epoch_losses"], mean_iou=miou,
+                   seconds=seconds, steps=len(counts),
+                   counters_first_step=counts[0],
+                   counters_later_steps=sorted({tuple(sorted(c.items()))
+                                                for c in counts[1:]}))
+        res[mode] = row
+        log("phase 31 (c) toy SSD (examples/train_ssd_toy.py: %d images at "
+            "%d x %d, %d epochs at batch %d, Adam lr %g) %s on %s: losses "
+            "%s, mean IoU of the top detection %.4f (bar %.2f), %.1f s, "
+            "counters: first step %s, later steps %s"
+            % (TOY_SSD["n_train"], TOY_SSD["img"], TOY_SSD["img"],
+               TOY_SSD["epochs"], TOY_SSD["batch"], TOY_SSD["lr"], mode,
+               card, ["%.4f" % v for v in run["epoch_losses"]], miou,
+               TOY_SSD_MIN_IOU, seconds, counts[0],
+               row["counters_later_steps"]))
+        if not miou >= TOY_SSD_MIN_IOU or not all(
+                math.isfinite(v) for v in run["epoch_losses"]):
+            bad.append("%s: mean IoU %.4f, losses %s"
+                       % (mode, miou, run["epoch_losses"]))
+        # a hybridized step: the forward and the backward graph and the
+        # fused update replay, nothing captures after the first step
+        want = dict(graph_captures=0, graph_replays=3, program_calls=3) \
+            if mode == "hybridized" else dict(graph_captures=0,
+                                              graph_replays=1,
+                                              program_calls=1)
+        if any(c != want for c in counts[1:]):
+            bad.append("%s step counters %s, want %s"
+                       % (mode, row["counters_later_steps"], want))
+        del run
+        free_card()
+    # fp64, card against CPU, from one init
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        init = toy_ssd_net(mt)
+        mt.random.seed(0)
+        init.collect_params().initialize(mt.init.Xavier(), ctx=mt.cpu())
+        init(mt.nd.zeros((1, 1, TOY_SSD["img"], TOY_SSD["img"]),
+                         ctx=mt.cpu()))
+        path = os.path.join(tmp, "toyssd.params")
+        init.save_params(path)
+        runs = {c: toy_ssd_train(mt, c, dtype="float64",
+                                 steps=TOY_SSD_PARITY_STEPS,
+                                 params_file=path)
+                for c in (mt.gpu(0), mt.cpu())}
+    g, h = runs[mt.gpu(0)], runs[mt.cpu()]
+    (gp, gg), (hp, hg) = _toy_state(g["net"]), _toy_state(h["net"])
+    diffs = dict(
+        logits=max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                   for a, b in zip(g["step_losses"], h["step_losses"])),
+        grads=max(float((gg[n] - hg[n]).abs().max()
+                        / max(float(hg[n].abs().max()), 1e-30)) for n in hg),
+        params=max(float((gp[n] - hp[n]).abs().max()
+                         / max(1.0, float(hp[n].abs().max()))) for n in hp))
+    # MultiBoxTarget's masks and classes equal; its offsets (a log each)
+    # within SSD_OP_TOL
+    targets_equal = all(np.array_equal(ta[k], tb[k]) for ta, tb in zip(
+        g["targets"], h["targets"]) for k in (1, 2))
+    loc_err = max(float(np.abs(ta[0] - tb[0]).max())
+                  for ta, tb in zip(g["targets"], h["targets"]))
+    res["fp64_card_vs_cpu"] = dict(diffs, targets_equal=targets_equal,
+                                   loc_target_max_abs_err=loc_err,
+                                   steps=TOY_SSD_PARITY_STEPS)
+    log("phase 31 (c) toy SSD fp64 %d steps card against CPU on %s: %s "
+        "(limits %s)" % (TOY_SSD_PARITY_STEPS, card,
+                         res["fp64_card_vs_cpu"], ZOO_PARITY_TOL))
+    if not targets_equal or not loc_err <= SSD_OP_TOL or any(
+            not diffs[k] <= ZOO_PARITY_TOL[k] for k in diffs):
+        bad.append("fp64 parity %s" % res["fp64_card_vs_cpu"])
+    if bad:
+        raise AssertionError("phase 31 (c): %s" % "; ".join(bad))
+    del runs
+    free_card()
+    return res
+
+
+def register_custom_ops(mt):
+    """``tests/test_custom_op.py``'s sigmoid and two-input numpy softmax,
+    and ``examples/numpy_ops_softmax.py``'s softmax, as ``chip_sigmoid``,
+    ``chip_numpy_softmax`` (both registered with ``mt.operator``)."""
+    op = mt.operator
+
+    class Sigmoid(op.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            y = 1.0 / (1.0 + np.exp(-in_data[0].asnumpy()))
+            self.assign(out_data[0], req[0], y)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0].asnumpy()
+            self.assign(in_grad[0], req[0],
+                        out_grad[0].asnumpy() * y * (1.0 - y))
+
+    @op.register("chip_sigmoid")
+    class SigmoidProp(op.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=True)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+    class NumpySoftmax(op.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0], e / e.sum(axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lbl = in_data[1].asnumpy().ravel().astype(np.int64)
+            y = out_data[0].asnumpy().copy()
+            y[np.arange(lbl.shape[0]), lbl] -= 1.0
+            self.assign(in_grad[0], req[0], y)
+
+    @op.register("chip_numpy_softmax")
+    class NumpySoftmaxProp(op.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+
+def _custom_eager(mt, ctx, x, label):
+    """The sigmoid's output and gradient, and the softmax's output and data
+    gradient, on ``ctx``."""
+    nd = mt.nd
+    out = {}
+    a = nd.array(x, ctx=ctx)
+    a.attach_grad()
+    with mt.autograd.record():
+        y = nd.Custom(a, op_type="chip_sigmoid")
+        s = y.sum()
+    s.backward()
+    out["sigmoid"], out["sigmoid_grad"] = y.asnumpy(), a.grad.asnumpy()
+    d = nd.array(x, ctx=ctx)
+    d.attach_grad()
+    with mt.autograd.record():
+        p = nd.Custom(d, nd.array(label, ctx=ctx), op_type="chip_numpy_softmax")
+    p.backward()
+    out["softmax"], out["softmax_grad"] = p.asnumpy(), d.grad.asnumpy()
+    return out
+
+
+def custom_run(card):
+    """31 (d): Custom ops on the card: eager against the CPU with their
+    gradients; a hybridized block holding one runs eagerly (one
+    ``host_op_programs`` a call, no capture); the numpy softmax head of
+    ``examples/numpy_ops_softmax.py`` through ``Module.fit``."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import profiler
+    register_custom_ops(mt)
+    rng = np.random.RandomState(34)
+    x = rng.randn(16, 10).astype(np.float32)
+    label = rng.randint(0, 10, 16).astype(np.float32)
+    g, h = _custom_eager(mt, mt.gpu(0), x, label), \
+        _custom_eager(mt, mt.cpu(), x, label)
+    res = {k: float(np.abs(g[k] - h[k]).max()) for k in g}
+    bad = [k for k, v in res.items() if not v <= 1e-6]
+
+    class Head(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.dense = mt.gluon.nn.Dense(10, in_units=10)
+
+        def hybrid_forward(self, F, x):
+            return F.Custom(self.dense(x), op_type="chip_sigmoid")
+
+    with mt.name.NameManager():
+        net = Head(prefix="customhead_")
+    net.initialize(mt.init.Xavier(), ctx=mt.gpu(0))
+    net.hybridize()
+    xs = mt.nd.array(x, ctx=mt.gpu(0))
+    calls = []
+    for _ in range(3):
+        before = counter_snapshot()
+        host_before = profiler.counter("host_op_programs")
+        with mt.autograd.record():
+            out = net(xs)
+        out.backward()
+        torch.cuda.synchronize()
+        calls.append(dict(counter_delta(before), host_op_programs=profiler
+                          .counter("host_op_programs") - host_before))
+    res["hybridized_calls"] = calls
+    want = dict(graph_captures=0, graph_replays=0, program_calls=0,
+                host_op_programs=1)
+    if any(c != want for c in calls):
+        bad.append("hybridized block counters %s, want %s each"
+                   % (calls, want))
+    # examples/numpy_ops_softmax.py's net, its head the numpy softmax
+    S = mt.sym
+    data, lab = S.Variable("data"), S.Variable("softmax_label")
+    hid = S.Activation(S.FullyConnected(data, num_hidden=128, name="fc1"),
+                       act_type="relu")
+    net_sym = S.Custom(S.FullyConnected(hid, num_hidden=10, name="fc2"), lab,
+                       op_type="chip_numpy_softmax", name="softmax")
+    train, val = mt.test_utils.get_mnist_iterator(64, flat=True)
+    mod = mt.mod.Module(net_sym, context=mt.gpu(0))
+    host_before = profiler.counter("host_op_programs")
+    mt.random.seed(0)
+    mod.fit(train, eval_data=val, eval_metric="acc", optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1},
+            initializer=mt.init.Xavier(), num_epoch=1)
+    res["module_fit_host_op_programs"] = profiler.counter(
+        "host_op_programs") - host_before
+    acc = mod.score(val, "acc")[0][1]
+    res["module_fit_val_accuracy"] = acc
+    if not acc > 0.5 or res["module_fit_host_op_programs"] < 1:
+        bad.append("Module.fit: accuracy %.4f, host_op_programs %d"
+                   % (acc, res["module_fit_host_op_programs"]))
+    log("phase 31 (d) Custom ops on %s: %s" % (card, res))
+    if bad:
+        raise AssertionError("phase 31 (d): %s" % "; ".join(bad))
+    return res
+
+
+def phase_long_tail(card):
+    """Phase 31: (a) the NMS kernel against its plain version, then, with
+    the kernel's count set to 0, (b) the SSD-300 head ops and (c) the toy
+    SSD, the slice's path, then (d) Custom ops."""
+    from mxnet_tpu_torch.ops import nms as nm
+    t0 = time.perf_counter()
+    res, seconds = {"card": card}, {}
+
+    def part(key, fn):
+        t = time.perf_counter()
+        res[key] = fn(card)
+        seconds[key] = time.perf_counter() - t
+
+    part("nms_kernel", nms_kernel_check)
+    nm.reset_launch_count()
+    part("ssd300_ops", ssd300_ops)
+    part("toy_ssd", toy_ssd_run)
+    res["nms_launches"] = nm.launch_count()
+    part("custom", custom_run)
+    res["seconds"] = dict(seconds, total=time.perf_counter() - t0)
+    log("phase 31: %s s; nms launches on the path %d"
+        % ({k: round(v, 1) for k, v in res["seconds"].items()},
+           res["nms_launches"]))
+    if res["nms_launches"] < 1:
+        raise AssertionError("phase 31: the SSD path launched no NMS kernel")
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -5259,6 +5991,7 @@ def main():
     data, resize_launches = phase_data(card, gluon)
     cv2_resize = phase_cv2_resize(card)
     kvstore = phase_kvstore(card)
+    long_tail = phase_long_tail(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -5385,6 +6118,30 @@ def main():
         "library_ms": rk["library_ms"],
         "shape": rk["shape"],
     })
+    nk = long_tail["nms_kernel"]["ssd300 nms_topk -1"]
+    from mxnet_tpu_torch.ops import nms as nm
+    entries.append({
+        "name": "nms[fp32]",
+        "route": "cuda",
+        "design": "simt, one block of 1024 an image, boxes in shared memory, "
+                  "one barrier a kept box",
+        "source": nm.KERNEL_SOURCE,
+        "replaces": "mxnet_tpu/ops/ssd.py:237, mxnet_tpu/ops/rcnn.py:91 "
+                    "(lax.fori_loop; no Pallas kernel)",
+        "launches": long_tail["nms_launches"],
+        "max_abs_err": float(nk["masks_differ"]),
+        "ms": nk["ms"],
+        "plain_ms": nk["plain_ms"],
+        "bound_ms": nk["bound_ms"],
+        "bound_by": nk["bound_by"],
+        "library_ms": None,
+        "shape": nk["shape"],
+        "walk_steps": nk["walk_steps"],
+        "other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "shape")}
+                         for k, v in long_tail["nms_kernel"].items()
+                         if "ms" in v and k != "ssd300 nms_topk -1"},
+    })
     log(card)
     print(json.dumps({"resnet50": {
         "card": card, "parity": parity, "train": resnet,
@@ -5408,6 +6165,7 @@ def main():
     print(json.dumps({"data": data}))
     print(json.dumps({"cv2_resize": cv2_resize}))
     print(json.dumps({"kvstore": kvstore}))
+    print(json.dumps({"long_tail": long_tail}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

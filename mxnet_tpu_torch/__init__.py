@@ -31,7 +31,11 @@ the rest of ``io`` (``CSVIter``, ``MNISTIter``, ``ResizeIter``,
 nvJPEG on a card) and ``gluon.data``.  Several contexts in one process:
 ``kvstore`` (``kv``), ``Module`` on a context list with its executor
 group, and Gluon's ``Trainer`` and ``split_and_load`` over several
-contexts.
+contexts.  The op long tail: the SSD trio (``nd.contrib``/
+``sym.contrib``), with greedy NMS as a hand-written kernel (``ops.nms``),
+the R-CNN and spatial ops, CTC (and ``gluon.loss.CTCLoss``), ``nd.linalg``,
+fft, quantization and count sketch, ``Custom`` ops (``operator``) and the
+tensor bridge ``torch``.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
 from . import stream, model, callback, rnn
 from . import recordio, image
-from . import kvstore
+from . import kvstore, operator
 from . import kvstore as kv
 from . import module as mod
 from . import ndarray as nd
@@ -59,4 +63,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "lr_scheduler",
            "test_utils", "io", "metric", "gluon", "module", "mod",
            "stream", "model", "callback", "rnn", "recordio", "image",
-           "kvstore", "kv"]
+           "kvstore", "kv", "operator", "torch"]
+
+# last: ``mxnet_tpu_torch.torch`` is the tensor bridge (the JAX package's
+# name for it), and from here on ``torch`` in this file is the bridge
+from . import torch_bridge as torch  # noqa: E402,F401

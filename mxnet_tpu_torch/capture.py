@@ -54,8 +54,10 @@ graph, all in one memory pool.
   while one captures, so the garbage collector runs before a capture
   and waits during it.
 
-On the CPU every entry point stays eager.  On the card the only eager
-route is :func:`eager`, the oracle of the tests and of ``chip_smoke.py``.
+On the CPU every entry point stays eager.  On the card the eager routes
+are :func:`eager`, the oracle of the tests and of ``chip_smoke.py``, and
+a program whose Symbol holds a host callback (``Custom``), which
+:func:`graph_for` runs eagerly and counts in ``host_op_programs``.
 :func:`stand_in` lets a test drive the capture plumbing on the CPU with a
 graph class of its own.
 """
@@ -72,7 +74,8 @@ import torch
 from .base import MXNetError
 from . import profiler
 
-__all__ = ["eager", "stand_in", "graph_for", "Program", "StepCache",
+__all__ = ["eager", "stand_in", "graph_for", "holds_host_op", "Program",
+           "StepCache",
            "MemoryPool", "WARMUP_RUNS", "MAX_PROGRAMS"]
 
 WARMUP_RUNS = 3
@@ -110,14 +113,28 @@ def stand_in(graph_class):
         _MODE.stand_in = prev
 
 
-def graph_for(device):
+def graph_for(device, host_op=False):
     """The graph class an entry point on ``device`` captures with, or None
-    where it runs eagerly (the CPU, or inside :func:`eager`)."""
+    where it runs eagerly (the CPU, or inside :func:`eager`).  A program
+    that holds a host callback (``host_op``: a ``Custom`` node, whose user
+    code syncs with the card) runs eagerly where it would have been
+    captured, and counts one ``host_op_programs``: decided before any
+    capture is tried, never by a capture that failed."""
     if _MODE.eager:
         return None
     if _MODE.stand_in is not None:
-        return _MODE.stand_in
-    return CudaGraph if torch.device(device).type == "cuda" else None
+        cls = _MODE.stand_in
+    else:
+        cls = CudaGraph if torch.device(device).type == "cuda" else None
+    if cls is not None and host_op:
+        profiler.bump("host_op_programs")
+        return None
+    return cls
+
+
+def holds_host_op(nodes):
+    """Whether any of the graph ``nodes`` runs a host-callback op."""
+    return any(n.op is not None and n.op.host_callback for n in nodes)
 
 
 class CudaGraph:

@@ -385,7 +385,9 @@ class _CachedOp:
     again before the backward of its last recorded call (a shared-weight
     net, an unrolled cell) takes the next slot: the k-th such call has a
     program of its own, as each call has its own ``jax.vjp`` in the JAX
-    package, and the next recording reuses them."""
+    package, and the next recording reuses them.  A graph that holds a
+    ``Custom`` op (user code on the host) runs eagerly on the card too,
+    counted in ``host_op_programs`` (``capture.graph_for``)."""
 
     def __init__(self, block):
         self._block = block
@@ -394,6 +396,7 @@ class _CachedOp:
         self._programs = []  # slot -> capture.StepCache
         self._pending = set()  # (signature, slot) of calls held (_Claim)
         self._draws = {}  # id(Symbol) -> whether an op of it draws
+        self._host_ops = {}  # id(Symbol) -> whether it holds a Custom op
 
     def _graph(self, flat_in, in_fmt, train):
         key = (repr(in_fmt), train, tuple(
@@ -416,7 +419,11 @@ class _CachedOp:
         ctx = flat_in[0].context
         used = [self._params[n].data(ctx) for n in names]
         aux_names = symbol.list_auxiliary_states()
-        graph = capture.graph_for(flat_in[0]._data.device)
+        host_op = self._host_ops.get(id(symbol))
+        if host_op is None:
+            host_op = self._host_ops[id(symbol)] = capture.holds_host_op(
+                _topo(symbol._outputs))
+        graph = capture.graph_for(flat_in[0]._data.device, host_op)
         if graph is not None:
             outs = self._replay(graph, symbol, train, flat_in, names, used,
                                 aux_names, ctx)

@@ -3,14 +3,13 @@
 Counterpart of ``mxnet_tpu/gluon/loss.py`` (``Loss``:49, ``L2Loss``:82,
 ``L1Loss``:97, ``HuberLoss``:104, ``HingeLoss``:119, ``SquaredHingeLoss``
 :131, ``SigmoidBinaryCrossEntropyLoss``:138, ``SoftmaxCrossEntropyLoss``
-:162, ``KLDivLoss``:188), the same formulas through the same ops, so each
-loss runs imperatively (``F = nd``) and hybridized (``F = sym``, traced
-into the block's cached graph).  Pointwise losses share a
+:162, ``KLDivLoss``:188, ``CTCLoss``:182), the same formulas through the
+same ops, so each loss runs imperatively (``F = nd``) and hybridized
+(``F = sym``, traced into the block's cached graph).  Pointwise losses share a
 ``_PointwiseLoss`` template: subclasses give the per-element residual;
 label reshaping (``reshape_like``, which a Symbol takes where it has no
 ``shape``), sample weighting and the mean over the non-batch axes live
-in one place.  ``CTCLoss`` needs the contrib CTC op, which is not ported
-yet (ROADMAP A.9).
+in one place.
 """
 from __future__ import annotations
 
@@ -18,7 +17,8 @@ from .block import HybridBlock
 
 __all__ = ["Loss", "L1Loss", "L2Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss"]
+           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "CTCLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -183,3 +183,36 @@ class KLDivLoss(Loss):
             else F.log_softmax(pred, axis=self._axis)
         div = label * (F.log(label + 1e-12) - logp)
         return self._finish(F, div, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist Temporal Classification through the
+    ``_contrib_CTCLoss`` op.  pred in ``layout`` NTC or TNC, label in
+    ``label_layout`` NT or TN; optional ``pred_lengths`` and
+    ``label_lengths`` (the op's ``use_data_lengths``/
+    ``use_label_lengths``)."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError("pred layout must be 'NTC' or 'TNC'")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError("label layout must be 'NT' or 'TN'")
+        self._layout, self._label_layout = layout, label_layout
+        super().__init__(weight, label_layout.index("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":  # the op takes time first
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        operands, flags = [pred, label], {}
+        if pred_lengths is not None:
+            operands.append(pred_lengths)
+            flags["use_data_lengths"] = True
+        if label_lengths is not None:
+            operands.append(label_lengths)
+            flags["use_label_lengths"] = True
+        loss = F.contrib.CTCLoss(*operands, **flags)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

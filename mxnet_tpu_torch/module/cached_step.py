@@ -19,7 +19,8 @@ once a step over the executor's arguments and moving statistics and the
 optimizer's states, in place, with the hyper-parameters in a device
 tensor (``optimizer.TracedHyper``) that the host fills before each
 replay, so a learning-rate schedule never recaptures.  On the CPU, and
-inside ``capture.eager()``, it runs eagerly.  Its programs capture into
+inside ``capture.eager()``, and where its Symbol holds a ``Custom`` op
+(``capture.graph_for``), it runs eagerly.  Its programs capture into
 the ``pool`` it is given (``capture.MemoryPool``, one for all the steps
 of a ``Module`` or a ``BucketingModule``), and :meth:`capture` captures
 the step without taking it.  ``MXNET_MODULE_FUSED_STEP=0`` turns the
@@ -68,6 +69,7 @@ class CachedTrainStep:
         self._draws = self._opt.draws_random or any(
             n.op is not None and n.op.needs_rng
             for n in _topo(executor._symbol._outputs))
+        self._host_op = capture.holds_host_op(_topo(executor._symbol._outputs))
 
     def _ensure_states(self):
         """Optimizer state through the Updater, as the two-call path makes
@@ -86,7 +88,7 @@ class CachedTrainStep:
         self._ensure_states()
         lrs, wds, counts = self._hyper()
         states = self._states()
-        graph = capture.graph_for(ex._ctx.torch_device)
+        graph = capture.graph_for(ex._ctx.torch_device, self._host_op)
         if graph is None:
             profiler.bump("program_calls")
             outs = self._step(states, dict(lrs=lrs, wds=wds, counts=counts))
@@ -100,7 +102,8 @@ class CachedTrainStep:
         """Capture the step's program without taking a step (the buffers,
         the update counts and the generators are left as they were);
         nothing where the step runs eagerly."""
-        graph = capture.graph_for(self._exec._ctx.torch_device)
+        graph = None if self._host_op else capture.graph_for(
+            self._exec._ctx.torch_device)
         if graph is None:
             return
         self._ensure_states()

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py:21-86``: one function per
 registered op, made from the registry at import, and ``save``/``load``
-(``utils``), and ``nd.random``.  Public
+(``utils``), ``nd.random``, ``nd.contrib`` (the ``_contrib_*`` ops under
+their stripped names) and ``nd.linalg``.  Public
 (non-underscore) ops land in this namespace; every op lands in
 ``mxnet_tpu_torch.ndarray._internal``.  Kernels registered later by
 ``rtc.register`` are added the same way.
@@ -69,9 +70,17 @@ for _name, _op in OP_REGISTRY.items():
         setattr(_this, _name, _fn)
 sys.modules[__name__ + "._internal"] = _internal
 
+# nd.contrib: the _contrib_* ops under their stripped names
+contrib = types.ModuleType(__name__ + ".contrib")
+for _name, _op in OP_REGISTRY.items():
+    if _name.startswith("_contrib_"):
+        setattr(contrib, _name[len("_contrib_"):], _make_op_func(_name, _op))
+sys.modules[__name__ + ".contrib"] = contrib
+
 from . import random  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
            "concatenate", "arange", "eye", "moveaxis", "onehot_encode",
            "waitall", "params_from_jax", "save", "load", "save_to_bytes",
-           "load_from_bytes", "random"]
+           "load_from_bytes", "random", "contrib", "linalg"]

@@ -1,8 +1,8 @@
 """Shape, layout, product, indexing, ordering and creation ops.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:24-485`` without its linalg
-block (``:208-262``), ``cast_storage`` (``:415``) and ``sparse_retain``,
-which wait for the sparse and linalg modules: ``Reshape`` (MXNet's
+Counterpart of ``mxnet_tpu/ops/matrix.py:24-485`` without
+``cast_storage`` (``:415``) and ``sparse_retain``, which wait for the
+sparse module: ``Reshape`` (MXNet's
 codes: 0 copy, -1 infer, -2 copy the rest, -3 merge two, -4 split one,
 and ``reverse``), ``Flatten``, ``expand_dims``, ``transpose``,
 ``SwapAxis``, ``reshape_like``, ``Concat``, ``stack``,
@@ -16,7 +16,10 @@ outside any kernel); ``take``, ``batch_take``, ``pick``, ``Embedding``,
 ``_ones``, ``_full``, ``_arange``, ``_eye``, ``zeros_like``,
 ``ones_like``, ``diag``; and ``_slice_assign``/``_crop_assign``,
 ``_crop_assign_scalar``, ``_NoGradient``, ``_CrossDeviceCopy``,
-``IdentityAttachKLSparseReg`` and ``_internal_getitem``.
+``IdentityAttachKLSparseReg`` and ``_internal_getitem``; and the ten
+``_linalg_*`` ops with their ``linalg_*`` aliases (``:208-250``:
+``gemm``, ``gemm2``, ``potrf``, ``potri``, ``trsm``, ``trmm``,
+``sumlogdiag``, ``syrk``, ``syevd``, ``gelqf``) in ``torch.linalg``.
 
 Tie order is the JAX package's: ``sort``/``argsort`` are stable
 ascending, and a descending one is the flip of the ascending one;
@@ -521,3 +524,85 @@ def _identity_attach_kl_sparse_reg(data, sparseness_target=0.1,
     """Identity forward; the backward adds the gradient of a KL penalty
     that drives the mean activations toward ``sparseness_target``."""
     return data.clone()
+
+
+# --- linalg (MXNet's la_op; torch.linalg in place of LAPACK/XLA) -------------
+def _t(x, flag):
+    return x.transpose(-1, -2) if flag else x
+
+
+@register("_linalg_gemm2", aliases=["linalg_gemm2"])
+def _linalg_gemm2(a, b, transpose_a=False, transpose_b=False, alpha=1.0,
+                  axis=-2, **kw):
+    return alpha * torch.matmul(_t(a, transpose_a), _t(b, transpose_b))
+
+
+@register("_linalg_gemm", aliases=["linalg_gemm"])
+def _linalg_gemm(a, b, c, transpose_a=False, transpose_b=False, alpha=1.0,
+                 beta=1.0, **kw):
+    return (alpha * torch.matmul(_t(a, transpose_a), _t(b, transpose_b))
+            + beta * c)
+
+
+@register("_linalg_potrf", aliases=["linalg_potrf"])
+def _linalg_potrf(a, **kw):
+    """The lower Cholesky factor."""
+    return torch.linalg.cholesky(a)
+
+
+@register("_linalg_potri", aliases=["linalg_potri"])
+def _linalg_potri(a, **kw):
+    """inv(L L^T) from the Cholesky factor L."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device) \
+        .expand(a.shape)
+    linv = torch.linalg.solve_triangular(a, eye, upper=False)
+    return torch.matmul(linv.transpose(-1, -2), linv)
+
+
+@register("_linalg_trsm", aliases=["linalg_trsm"])
+def _linalg_trsm(a, b, transpose=False, rightside=False, alpha=1.0,
+                 lower=True, **kw):
+    """X with op(A) X = alpha B, or X op(A) = alpha B with ``rightside``;
+    op(A) is A or, with ``transpose``, A^T; only A's ``lower`` (or upper)
+    triangle is read."""
+    a_op = _t(a, transpose)
+    upper = lower if transpose else not lower
+    return torch.linalg.solve_triangular(a_op, alpha * b, upper=upper,
+                                         left=not rightside)
+
+
+@register("_linalg_trmm", aliases=["linalg_trmm"])
+def _linalg_trmm(a, b, transpose=False, rightside=False, alpha=1.0,
+                 lower=True, **kw):
+    """alpha op(A) B, or alpha B op(A) with ``rightside``; as in the JAX
+    package the whole of A is used, whatever ``lower`` says."""
+    at = _t(a, transpose)
+    return alpha * (torch.matmul(b, at) if rightside else torch.matmul(at, b))
+
+
+@register("_linalg_sumlogdiag", aliases=["linalg_sumlogdiag"])
+def _linalg_sumlogdiag(a, **kw):
+    return torch.log(torch.diagonal(a, dim1=-2, dim2=-1)).sum(dim=-1)
+
+
+@register("_linalg_syrk", aliases=["linalg_syrk"])
+def _linalg_syrk(a, transpose=False, alpha=1.0, **kw):
+    return alpha * (torch.matmul(a.transpose(-1, -2), a) if transpose
+                    else torch.matmul(a, a.transpose(-1, -2)))
+
+
+@register("_linalg_syevd", aliases=["linalg_syevd"], num_outputs=2)
+def _linalg_syevd(a, **kw):
+    """(U, lambda) with A = U^T diag(lambda) U, the eigenvalues ascending;
+    each row of U is unique only up to its sign."""
+    w, v = torch.linalg.eigh(a)
+    return v.transpose(-1, -2), w
+
+
+@register("_linalg_gelqf", aliases=["linalg_gelqf"], num_outputs=2)
+def _linalg_gelqf(a, **kw):
+    """(L, Q) with A = L Q, L lower triangular and Q's rows orthonormal
+    (the JAX package's output order); unique only up to the signs of Q's
+    rows and L's columns."""
+    q, r = torch.linalg.qr(a.transpose(-1, -2))
+    return r.transpose(-1, -2), q.transpose(-1, -2)

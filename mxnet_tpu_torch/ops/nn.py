@@ -8,9 +8,11 @@ Counterpart of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``:39,
 ``Dropout`` (:284-302), ``SoftmaxOutput``:363 with its semantic backward
 ``_softmax_output_bwd``:314, the regression and SVM heads,
 ``softmax_cross_entropy`` and ``MakeLoss`` (:377-448), the sequence ops
-(:450-500), ``Crop``:666 and the fused ``RNN`` (:491-607).  The ops of
-the long tail (the grid and sampler ops, ``ROIPooling``,
-``Correlation``) are not here.
+(:450-500), ``Crop``:666, the fused ``RNN`` (:491-607) and the spatial ops
+``GridGenerator``:611, ``BilinearSampler``:653,
+``SpatialTransformer``:658, ``ROIPooling``:682 and ``Correlation``:722
+(the sampler is the JAX package's gather, the corners at -1 and 1 and
+zeros outside, not ``F.grid_sample``).
 
 The JAX package leaves these products and windows to XLA, outside any
 Pallas kernel, so here they are ``torch.matmul`` and
@@ -531,6 +533,119 @@ def _crop_op(*args, offset=(0, 0), h_w=(0, 0), center_crop=False,
     else:
         oy, ox = int(offset[0]), int(offset[1])
     return data[:, :, oy:oy + th, ox:ox + tw]
+
+
+# --- Spatial and geometry ops ---------------------------------------------------
+@register("GridGenerator")
+def _grid_generator(data, transform_type="affine", target_shape=(0, 0), **kw):
+    """Affine: theta (N, 6) -> the sampling grid (N, 2, H, W) of (x, y) in
+    [-1, 1]; "warp": the flow field itself."""
+    h, w = int(target_shape[0]), int(target_shape[1])
+    if transform_type != "affine":
+        return data
+    n = data.shape[0]
+    theta = data.reshape(n, 2, 3)
+    f64 = torch.float64
+    ys = torch.linspace(-1, 1, h, dtype=f64, device=data.device)
+    xs = torch.linspace(-1, 1, w, dtype=f64, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    grid = torch.stack([gx, gy, torch.ones_like(gx)]).reshape(3, -1)
+    return torch.matmul(theta, grid.to(data.dtype)).reshape(n, 2, h, w)
+
+
+def _bilinear_sample(data, grid):
+    """data (N, C, H, W) at grid (N, 2, Ho, Wo) of (x, y) in [-1, 1], the
+    corners at -1 and 1; a neighbour outside the image counts as 0."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1) * (w - 1) / 2
+    gy = (grid[:, 1] + 1) * (h - 1) / 2
+    x0, y0 = gx.floor(), gy.floor()
+    x1, y1 = x0 + 1, y0 + 1
+    wx1, wy1 = gx - x0, gy - y0
+    wx0, wy0 = 1 - wx1, 1 - wy1
+    batch = torch.arange(n, device=data.device).reshape(n, 1, 1)
+
+    def gather(yy, xx):
+        yi = yy.clamp(0, h - 1).long()
+        xi = xx.clamp(0, w - 1).long()
+        valid = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
+        vals = data[batch, :, yi, xi].permute(0, 3, 1, 2)  # (N, C, Ho, Wo)
+        return vals * valid[:, None].to(data.dtype)
+
+    return (gather(y0, x0) * (wy0 * wx0)[:, None]
+            + gather(y0, x1) * (wy0 * wx1)[:, None]
+            + gather(y1, x0) * (wy1 * wx0)[:, None]
+            + gather(y1, x1) * (wy1 * wx1)[:, None])
+
+
+@register("BilinearSampler")
+def _bilinear_sampler(data, grid, cudnn_off=False, **kw):
+    return _bilinear_sample(data, grid)
+
+
+@register("SpatialTransformer")
+def _spatial_transformer(data, loc, target_shape=(0, 0),
+                         transform_type="affine", sampler_type="bilinear",
+                         cudnn_off=False, **kw):
+    return _bilinear_sample(data, _grid_generator(loc, transform_type,
+                                                  target_shape))
+
+
+@register("ROIPooling", nondiff_inputs=(1,))
+def _roi_pooling(data, rois, pooled_size=(1, 1), spatial_scale=1.0, **kw):
+    """ROI max pooling: data (N, C, H, W), rois (R, 5) [batch, x0, y0, x1,
+    y1] -> (R, C, ph, pw); each bin the max of its cells (0 if empty), a
+    max over rows of a max over columns."""
+    h, w = data.shape[2], data.shape[3]
+    ph, pw = int(pooled_size[0]), int(pooled_size[1])
+    dt, dev = data.dtype, data.device
+    x1 = torch.round(rois[:, 1] * spatial_scale)
+    y1 = torch.round(rois[:, 2] * spatial_scale)
+    x2 = torch.round(rois[:, 3] * spatial_scale)
+    y2 = torch.round(rois[:, 4] * spatial_scale)
+    bh = (y2 - y1 + 1).clamp(min=1.0) / ph
+    bw = (x2 - x1 + 1).clamp(min=1.0) / pw
+
+    def masks(lo, hi, size, n_bins, step):
+        """(R, bins, size): the cells of each bin along one axis."""
+        i = torch.arange(n_bins, dtype=dt, device=dev)[None, :]
+        start = lo[:, None] + torch.floor(i * step[:, None])
+        stop = lo[:, None] + torch.ceil((i + 1) * step[:, None])
+        pos = torch.arange(size, dtype=dt, device=dev)[None, None, :]
+        return ((pos >= start[..., None])
+                & (pos < torch.maximum(stop, start + 1)[..., None])
+                & (pos <= hi[:, None, None]))
+
+    ymask, xmask = masks(y1, y2, h, ph, bh), masks(x1, x2, w, pw, bw)
+    img = data[rois[:, 0].long()]                                 # (R,C,H,W)
+    neg = torch.full((), -math.inf, dtype=dt, device=dev)
+    cols = torch.where(xmask[:, None, None], img[:, :, :, None, :],
+                       neg).amax(dim=-1)                          # (R,C,H,pw)
+    v = torch.where(ymask[:, None, :, :, None], cols[:, :, None], neg) \
+        .amax(dim=3)                                              # (R,C,ph,pw)
+    return torch.where(torch.isfinite(v), v, torch.zeros((), dtype=dt,
+                                                          device=dev))
+
+
+@register("Correlation")
+def _correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                 stride2=1, pad_size=0, is_multiply=True, **kw):
+    """The channel mean of data1 times (or minus) data2 shifted by each
+    displacement in [-d, d]^2 (step stride2), one output channel each;
+    kernel_size and stride1 are taken and not used, as in the JAX
+    package."""
+    pad = int(pad_size)
+    d1 = F.pad(data1, (pad, pad, pad, pad))
+    d2 = F.pad(data2, (pad, pad, pad, pad))
+    md, s2 = int(max_displacement), int(stride2)
+    outs = []
+    for dy in range(-md, md + 1, s2):
+        for dx in range(-md, md + 1, s2):
+            shifted = torch.roll(d2, (-dy, -dx), (2, 3))
+            outs.append((d1 * shifted).mean(dim=1) if is_multiply
+                        else (d1 - shifted).abs().mean(dim=1))
+    hh, ww = d1.shape[2], d1.shape[3]
+    return torch.stack(outs, dim=1)[:, :, pad:hh - pad, pad:ww - pad]
 
 
 # --- Fused RNN ---------------------------------------------------------------

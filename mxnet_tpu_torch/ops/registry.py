@@ -113,12 +113,15 @@ class Op:
     no_inputs : a creation op (``_zeros``, ``_arange``, the ``_random_*``
         draws): it takes no tensor and makes its output on the device its
         ``ctx`` attr names, or where its generator lives.
+    host_callback : the op runs the user's Python on the host and syncs
+        with the card (``Custom``), so a program holding it cannot be
+        captured as a CUDA graph and runs eagerly (``capture.graph_for``).
     """
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
                  nondiff_inputs=(), aux_updates=None, takes_mode=False,
                  needs_rng=False, custom_vjp=None, attr_defaults=None,
-                 no_inputs=False):
+                 no_inputs=False, host_callback=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -130,6 +133,7 @@ class Op:
         self.custom_vjp = custom_vjp
         self.attr_defaults = dict(attr_defaults or {})
         self.no_inputs = no_inputs
+        self.host_callback = host_callback
 
     def n_outputs(self, attrs):
         if callable(self.num_outputs):

@@ -12,8 +12,12 @@ port bumps:
 - ``graph_captures`` and ``graph_replays``: CUDA graphs captured and
   replayed by ``capture``;
 - the hand-written kernels' launches: ``flash_attn_fwd_launches``,
-  ``flash_attn_bwd_launches`` (``ops.attention``) and ``scale_launches``
-  (``ops.scale``);
+  ``flash_attn_bwd_launches`` (``ops.attention``), ``scale_launches``
+  (``ops.scale``), ``resize_rgb_chw_launches`` (``ops.image_nvjpeg``) and
+  ``nms_launches`` (``ops.nms``);
+- ``host_op_programs``: calls of a hybridized block or a Module step
+  that ran eagerly on the card because their graph holds a ``Custom``
+  op (``capture.graph_for``);
 - the kvstore's, named as the JAX package names them (``kvstore``):
   ``kvstore_push``, ``kvstore_pull``, ``kvstore_bucket_reduce``,
   ``kvstore_reduce_scatter``, ``collective_chunk_programs`` and

@@ -5,7 +5,8 @@ functions take Symbols positionally or by input name
 (``sym.FullyConnected(data=d, ...)``) and create variable nodes for the
 parameter inputs left out (``fc1_weight``, ``fc1_bias``), which
 ``simple_bind`` then sizes from the data shape.  ``sym.random`` makes
-sampling nodes.
+sampling nodes; ``sym.contrib`` holds the ``_contrib_*`` ops under their
+stripped names.
 """
 from __future__ import annotations
 
@@ -73,7 +74,14 @@ for _name, _op in OP_REGISTRY.items():
         setattr(_this, _name, _fn)
 sys.modules[__name__ + "._internal"] = _internal
 
+# sym.contrib: the _contrib_* ops under their stripped names
+contrib = types.ModuleType(__name__ + ".contrib")
+for _name, _op in OP_REGISTRY.items():
+    if _name.startswith("_contrib_"):
+        setattr(contrib, _name[len("_contrib_"):], _make_sym_func(_name, _op))
+sys.modules[__name__ + ".contrib"] = contrib
+
 from . import random  # noqa: E402,F401
 
 __all__ = ["Symbol", "SymNode", "var", "Variable", "Group", "load",
-           "load_json", "zeros", "ones", "arange", "random"]
+           "load_json", "zeros", "ones", "arange", "random", "contrib"]

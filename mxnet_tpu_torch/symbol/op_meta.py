@@ -1,8 +1,9 @@
 """Per-op metadata for symbolic composition.
 
-Counterpart of ``mxnet_tpu/symbol/op_meta.py:22-176`` for the ops this
-package registers (the ``ROIPooling`` and sampler-grid entries wait for
-their ops).  Forward shapes come from running each op on
+Counterpart of ``mxnet_tpu/symbol/op_meta.py:22-176``, with MXNet's input
+names for the long tail's ops (the JAX package names their first input
+only) and ``Custom``'s from its prop.  Forward shapes come from running
+each op on
 ``meta`` tensors; this module supplies what that cannot derive: (1)
 canonical input/aux names, so ``sym.FullyConnected(data=d, ...)``
 creates ``fc1_weight``/``fc1_bias`` variables, and (2) data -> parameter
@@ -31,6 +32,26 @@ HINTS = {
 _LABELLED = ("SoftmaxOutput", "Softmax", "LinearRegressionOutput",
              "LogisticRegressionOutput", "MAERegressionOutput", "SVMOutput",
              "softmax_cross_entropy")
+
+
+# the inputs of the long tail's ops, by name (MXNet's)
+_NAMED = {
+    "ROIPooling": ("data", "rois"), "SpatialTransformer": ("data", "loc"),
+    "BilinearSampler": ("data", "grid"), "Correlation": ("data1", "data2"),
+    "_contrib_MultiBoxTarget": ("anchor", "label", "cls_pred"),
+    "_contrib_MultiBoxDetection": ("cls_prob", "loc_pred", "anchor"),
+    "_contrib_Proposal": ("cls_prob", "bbox_pred", "im_info"),
+    "_contrib_MultiProposal": ("cls_prob", "bbox_pred", "im_info"),
+    "_contrib_PSROIPooling": ("data", "rois"),
+    "_contrib_quantize": ("data", "min_range", "max_range"),
+    "_contrib_dequantize": ("data", "min_range", "max_range"),
+    "_contrib_count_sketch": ("data", "h", "s"),
+}
+for _op in ("gemm2", "trsm", "trmm"):
+    _NAMED["_linalg_" + _op] = _NAMED["linalg_" + _op] = ("A", "B")
+for _op in ("potrf", "potri", "sumlogdiag", "syrk", "syevd", "gelqf"):
+    _NAMED["_linalg_" + _op] = _NAMED["linalg_" + _op] = ("A",)
+_NAMED["_linalg_gemm"] = _NAMED["linalg_gemm"] = ("A", "B", "C")
 
 
 def op_input_names(op, attrs):
@@ -81,6 +102,23 @@ def op_input_names(op, attrs):
     if name == "Crop":
         n = int(a.get("num_args", 1))
         return ["data"] + (["crop_like"] if n > 1 else []), []
+    if name in _NAMED:
+        return list(_NAMED[name]), []
+    if name == "_contrib_DeformableConvolution":
+        return (["data", "offset", "weight"]
+                + ([] if a.get("no_bias", False) else ["bias"])), []
+    if name == "_contrib_DeformablePSROIPooling":
+        return ["data", "rois"] + ([] if a.get("no_trans", False)
+                                   else ["trans"]), []
+    if name in ("_contrib_CTCLoss", "CTCLoss", "ctc_loss"):
+        return (["data", "label"]
+                + (["data_lengths"] if a.get("use_data_lengths") else [])
+                + (["label_lengths"] if a.get("use_label_lengths") else [])), []
+    if name == "Custom":
+        from ..ops.custom import instantiate
+        prop = instantiate(a)
+        return (list(prop.list_arguments()),
+                list(prop.list_auxiliary_states()))
     if getattr(op, "no_inputs", False):
         return [], []
     return ["data"], []
@@ -152,6 +190,13 @@ def infer_param_shapes(node, in_structs):
         out[1] = meta(dshape)
     elif name in ("SVMOutput", "softmax_cross_entropy"):
         out[1] = meta((dshape[0],))
+    elif name == "_contrib_DeformableConvolution":
+        kernel = tuple(a.get("kernel", (3, 3)))
+        g = int(a.get("num_group", 1))
+        nf = int(a.get("num_filter", 1))
+        out[2] = meta((nf, dshape[1] // g) + kernel)
+        if len(in_structs) > 3:
+            out[3] = meta((nf,))
     else:
         return None
     return out

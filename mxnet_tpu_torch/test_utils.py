@@ -31,7 +31,8 @@ __all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
            "attention_grads_fp64", "row_errors",
            "sharp_row_check", "SHARP_ROW_C", "op_cases", "run_op_case",
            "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
-           "LIBM_TOL", "SUM_TOL", "set_dropout"]
+           "LIBM_TOL", "SUM_TOL", "LINALG_TOL", "canonical_signs",
+           "set_dropout"]
 
 
 def _synthetic_digits(n, rng, protos):
@@ -161,8 +162,8 @@ def sharp_row_check(got, plain, exact, scales, rtol, c=SHARP_ROW_C):
 
 
 # --- the op sweep ------------------------------------------------------------
-# One or more seeded cases for every op of the elemwise, reduce, matrix and
-# nn modules: the same inputs go through two runs (the JAX package and this
+# One or more seeded cases for every op of the elemwise, reduce, matrix, nn,
+# ssd, rcnn and contrib modules: the same inputs go through two runs (the JAX package and this
 # one on the CPU in tests/test_torch_ops_breadth.py; this package on the
 # card and on the CPU in chip_smoke.py's op sweep), forward and, for the
 # inputs in "diff", the gradient under a seeded head gradient.  Each case
@@ -213,18 +214,20 @@ _LIBM = ("gamma", "gammaln", "erfinv", "arccosh", "arcsinh", "arctanh",
 
 
 def _case(op, inputs, attrs=None, diff=(), tol=None, bf16=False, train=True,
-          tag="", seeded=None):
+          tag="", seeded=None, canon=None):
     return dict(op=op, inputs=[np.asarray(a, np.float32) for a in inputs],
                 attrs=dict(attrs or {}), diff=tuple(diff), seeded=seeded,
                 tol=dict(tol or FP32_TOL), bf16=bf16, train=train,
-                name=op + (("[%s]" % tag) if tag else ""))
+                canon=canon, name=op + (("[%s]" % tag) if tag else ""))
 
 
 def op_cases(seed=0):
     """The sweep's cases (see above), each a dict with ``op``, ``inputs``
     (float32 numpy arrays), ``attrs``, ``diff`` (input positions whose
     gradient is compared), ``seeded`` (the outputs given a head gradient,
-    None: all), ``tol``, ``bf16``, ``train`` and ``name``."""
+    None: all), ``tol``, ``bf16``, ``train``, ``canon`` (outputs unique
+    only up to sign: how ``run_op_case`` makes them canonical) and
+    ``name``."""
     rng = np.random.RandomState(seed)
 
     def u(lo, hi, *shape):
@@ -571,7 +574,193 @@ def op_cases(seed=0):
                       mode, layers, "s" if layers > 1 else "",
                       " bidirectional" if bi else "",
                       " states" if states else "")))
+    _long_tail_cases(add, u, signed, rng)
     return cases
+
+
+# A gradient through a factorisation (Cholesky, a triangular solve) sums
+# products of inverses: two libraries' orders differ by more than an fp32
+# sum's few ulps
+LINALG_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _boxes(rng, n, lo=0.0, hi=0.7, size=(0.05, 0.3)):
+    """(n, 4) corner boxes inside [0, 1]."""
+    xy = rng.uniform(lo, hi, (n, 2))
+    wh = rng.uniform(size[0], size[1], (n, 2))
+    return np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+
+
+def _long_tail_cases(add, u, signed, rng):
+    """The cases of the spatial (nn), linalg (matrix), SSD, R-CNN and
+    contrib ops."""
+    img = u(-1, 1, 2, 3, 6, 6)
+    theta = np.tile(np.array([0.9, 0.1, 0.05, -0.1, 1.1, 0.02]), (2, 1)) \
+        + u(-0.05, 0.05, 2, 6)
+    add(_case("GridGenerator", [theta], {"transform_type": "affine",
+                                         "target_shape": (5, 4)}, diff=[0]))
+    add(_case("GridGenerator", [u(-1, 1, 2, 2, 3, 3)],
+              {"transform_type": "warp"}, diff=[0], tag="warp"))
+    add(_case("BilinearSampler", [img, u(-1.1, 1.1, 2, 2, 4, 3)],
+              diff=[0, 1]))
+    add(_case("SpatialTransformer", [img, theta],
+              {"target_shape": (4, 5), "transform_type": "affine",
+               "sampler_type": "bilinear"}, diff=[0, 1]))
+    rois = np.array([[0, 1, 1, 6, 5], [1, 0, 2, 7, 7], [0, 2, 3, 4, 4]])
+    add(_case("ROIPooling", [u(-1, 1, 2, 3, 8, 8), rois],
+              {"pooled_size": (2, 3), "spatial_scale": 1.0}, diff=[0]))
+    add(_case("ROIPooling", [u(-1, 1, 2, 3, 8, 8),
+                             rois * np.array([1, 2, 2, 2, 2])],
+              {"pooled_size": (3, 2), "spatial_scale": 0.5}, diff=[0],
+              tag="scale 0.5"))
+    a, b = u(-1, 1, 2, 3, 6, 6), u(-1, 1, 2, 3, 6, 6)
+    add(_case("Correlation", [a, b], {"max_displacement": 2, "pad_size": 2},
+              diff=[0, 1]))
+    add(_case("Correlation", [a, b], {"max_displacement": 2, "stride2": 2,
+                                      "pad_size": 1, "is_multiply": False},
+              diff=[0, 1], tag="abs stride 2"))
+    # linalg
+    m = u(-1, 1, 2, 4, 4)
+    spd = m @ m.transpose(0, 2, 1) + 4 * np.eye(4, dtype=np.float32)
+    low = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    add(_case("_linalg_gemm", [u(-1, 1, 2, 3, 4), u(-1, 1, 2, 5, 4),
+                               u(-1, 1, 2, 3, 5)],
+              {"transpose_b": True, "alpha": 2.0, "beta": 0.5},
+              diff=[0, 1, 2]))
+    add(_case("_linalg_gemm2", [u(-1, 1, 2, 4, 3), u(-1, 1, 2, 4, 5)],
+              {"transpose_a": True, "alpha": 0.5}, diff=[0, 1]))
+    add(_case("_linalg_potrf", [spd], diff=[0], tol=LINALG_TOL))
+    add(_case("_linalg_potri", [low], diff=[0], tol=LINALG_TOL))
+    for kw in ({}, {"transpose": True}, {"rightside": True},
+               {"rightside": True, "transpose": True, "lower": False}):
+        tri = low if kw.get("lower", True) else low.transpose(0, 2, 1)
+        rhs = u(-1, 1, 2, 3, 4) if kw.get("rightside") else u(-1, 1, 2, 4, 3)
+        add(_case("_linalg_trsm", [tri, rhs], dict(kw, alpha=1.5),
+                  diff=[0, 1], tol=LINALG_TOL,
+                  tag=" ".join(sorted(kw)) or "left"))
+    add(_case("_linalg_trmm", [low, u(-1, 1, 2, 4, 3)], {"alpha": 2.0},
+              diff=[0, 1]))
+    add(_case("_linalg_trmm", [low, u(-1, 1, 2, 3, 4)],
+              {"rightside": True, "transpose": True}, diff=[0, 1],
+              tag="rightside transpose"))
+    add(_case("_linalg_sumlogdiag", [spd], diff=[0]))
+    add(_case("_linalg_syrk", [u(-1, 1, 2, 3, 4)], {"alpha": 0.5},
+              diff=[0]))
+    add(_case("_linalg_syrk", [u(-1, 1, 2, 3, 4)], {"transpose": True},
+              diff=[0], tag="transpose"))
+    # eigenvectors and the LQ factors are unique up to sign: the outputs
+    # are compared with their signs made canonical ("canon"), the gradient
+    # only through the eigenvalues, which are sign-free
+    add(_case("_linalg_syevd", [spd], diff=[0], seeded=[1], tol=LINALG_TOL,
+              canon="syevd"))
+    add(_case("_linalg_gelqf", [u(-1, 1, 2, 3, 5)], tol=LINALG_TOL,
+              canon="gelqf"))
+    # SSD
+    add(_case("_contrib_MultiBoxPrior", [np.zeros((1, 2, 4, 5))],
+              {"sizes": (0.3, 0.5), "ratios": (1.0, 2.0, 0.5)}))
+    add(_case("_contrib_MultiBoxPrior", [np.zeros((1, 2, 3, 3))],
+              {"sizes": (0.9,), "ratios": (1.0, 3.0), "clip": True,
+               "steps": (0.3, 0.25), "offsets": (0.0, 0.5)},
+              tag="clip steps offsets"))
+    anchors = np.stack([_boxes(rng, 40, size=(0.1, 0.4))])
+    label = np.full((3, 4, 5), -1.0)
+    for i, n in enumerate((1, 3, 4)):
+        label[i, :n, 0] = rng.randint(0, 3, n)
+        label[i, :n, 1:] = _boxes(rng, n, size=(0.15, 0.35))
+    cls_pred = u(0, 1, 3, 4, 40)
+    add(_case("_contrib_MultiBoxTarget", [anchors, label, cls_pred],
+              {"overlap_threshold": 0.4}))
+    add(_case("_contrib_MultiBoxTarget", [anchors, label, cls_pred],
+              {"overlap_threshold": 0.5, "negative_mining_ratio": 3.0,
+               "negative_mining_thresh": 0.3}, tag="mining"))
+    prob = u(0.01, 1, 3, 4, 40)
+    prob = prob / prob.sum(axis=1, keepdims=True)
+    loc = signed(0, 0.3, 3, 160)
+    for kw, tag in (({}, ""), ({"nms_topk": 10}, "topk 10"),
+                    ({"force_suppress": True, "nms_threshold": 0.3,
+                      "threshold": 0.2}, "force")):
+        add(_case("_contrib_MultiBoxDetection", [prob, loc, anchors], kw,
+                  tag=tag))
+    # R-CNN
+    cls = u(0, 1, 2, 6, 4, 4)
+    bbox = signed(0, 0.1, 2, 12, 4, 4)
+    info = np.array([[64, 64, 1.0], [60, 50, 0.8]])
+    add(_case("_contrib_Proposal", [cls, bbox, info],
+              {"rpn_pre_nms_top_n": 30, "rpn_post_nms_top_n": 10,
+               "feature_stride": 16, "scales": (8,), "threshold": 0.5,
+               "ratios": (0.5, 1, 2)}))
+    add(_case("_contrib_MultiProposal", [cls, bbox, info],
+              {"rpn_pre_nms_top_n": 40, "rpn_post_nms_top_n": 20,
+               "feature_stride": 16, "scales": (8,), "ratios": (0.5, 1, 2),
+               "rpn_min_size": 8, "output_score": True}, tag="scores"))
+    ps_data = u(-1, 1, 2, 8, 8, 8)
+    ps_rois = np.array([[0, 0, 0, 28, 28], [1, 4, 2, 20, 30],
+                        [0, 10, 6, 14, 12]])
+    add(_case("_contrib_PSROIPooling", [ps_data, ps_rois],
+              {"spatial_scale": 0.25, "output_dim": 2, "pooled_size": 2,
+               "group_size": 2}, diff=[0]))
+    add(_case("_contrib_DeformablePSROIPooling",
+              [ps_data, ps_rois, signed(0, 1, 3, 4, 2, 2)],
+              {"spatial_scale": 0.25, "output_dim": 2, "pooled_size": 2,
+               "group_size": 2, "trans_std": 0.1}, diff=[0, 2]))
+    add(_case("_contrib_DeformablePSROIPooling", [ps_data, ps_rois],
+              {"spatial_scale": 0.25, "output_dim": 2, "pooled_size": 2,
+               "group_size": 2, "no_trans": True}, diff=[0],
+              tag="no trans"))
+    add(_case("_contrib_DeformableConvolution",
+              [u(-1, 1, 2, 4, 7, 7), signed(0, 0.7, 2, 36, 5, 5),
+               u(-1, 1, 6, 2, 3, 3), u(-1, 1, 6)],
+              {"kernel": (3, 3), "num_filter": 6, "num_group": 2,
+               "num_deformable_group": 2}, diff=[0, 1, 2, 3], tol=SUM_TOL))
+    add(_case("_contrib_DeformableConvolution",
+              [u(-1, 1, 1, 3, 8, 8), signed(0, 1.5, 1, 18, 4, 4),
+               u(-1, 1, 4, 3, 3, 3)],
+              {"kernel": (3, 3), "num_filter": 4, "no_bias": True,
+               "stride": (2, 2), "pad": (1, 1)}, diff=[0, 1, 2],
+              tol=SUM_TOL, tag="stride pad"))
+    # contrib
+    act = u(-2, 2, 10, 2, 6)
+    add(_case("_contrib_CTCLoss", [act, np.array([[1, 2, 0, 0],
+                                                  [1, 2, 3, 0]])], diff=[0]))
+    add(_case("_contrib_CTCLoss", [act, np.array([[1, 1, 3, -1],
+                                                  [2, -1, -1, -1]])],
+              {"blank_label": "last"}, diff=[0], tag="blank last"))
+    add(_case("_contrib_CTCLoss", [act, np.array([[1, 2, 2, 4],
+                                                  [3, 1, 0, 0]]),
+                                   np.array([7, 10]), np.array([3, 2])],
+              {"use_data_lengths": True, "use_label_lengths": True},
+              diff=[0], tag="lengths"))
+    # the first row cannot align in 2 steps: the loss is about 1e30 in
+    # both packages, and its gradient is rounding noise (not compared)
+    add(_case("_contrib_CTCLoss", [act[:2], np.array([[1, 1, 2, 0],
+                                                      [1, 0, 0, 0]])],
+              tag="infeasible"))
+    x = u(-0.5, 1.5, 4, 5)
+    add(_case("_contrib_quantize", [x, np.array([0.0]), np.array([1.0])]))
+    add(_case("_contrib_quantize", [x, np.array([-1.0]), np.array([2.0])],
+              {"out_type": "int8"}, tag="int8"))
+    add(_case("_contrib_dequantize", [np.round(u(-127, 127, 4, 5)),
+                                      np.array([-1.0]), np.array([2.0])]))
+    add(_case("_contrib_fft", [u(-1, 1, 3, 8)], diff=[0]))
+    add(_case("_contrib_ifft", [u(-1, 1, 3, 16)], diff=[0]))
+    add(_case("_contrib_count_sketch",
+              [u(-1, 1, 4, 32), rng.randint(0, 16, (1, 32)),
+               rng.choice([-1.0, 1.0], (1, 32))], {"out_dim": 16},
+              diff=[0]))
+
+
+def canonical_signs(kind, outs):
+    """Outputs unique up to sign, with their signs made canonical:
+    ``syevd``'s rows of U so that each row's largest entry is positive;
+    ``gelqf``'s L columns and Q rows so that L's diagonal is positive."""
+    if kind == "syevd":
+        u = outs[0]
+        pick = np.take_along_axis(u, np.abs(u).argmax(-1)[..., None], -1)
+        return [u * np.sign(pick)] + outs[1:]
+    if kind == "gelqf":
+        sign = np.sign(np.diagonal(outs[0], axis1=-2, axis2=-1))
+        return [outs[0] * sign[..., None, :], outs[1] * sign[..., :, None]]
+    return outs
 
 
 def run_op_case(pkg, case, ctx, dtype="float32", head_seed=1):
@@ -598,7 +787,8 @@ def run_op_case(pkg, case, ctx, dtype="float32", head_seed=1):
 
     def host(x):
         return np.asarray(x.astype("float64").asnumpy(), np.float64)
-    return [host(o) for o in outs], [host(nds[i].grad) for i in diff]
+    return (canonical_signs(case["canon"], [host(o) for o in outs]),
+            [host(nds[i].grad) for i in diff])
 
 
 def random_cases():

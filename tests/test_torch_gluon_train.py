@@ -198,7 +198,29 @@ def test_bce_loss():
 
 
 def test_ctc_loss_is_not_ported():
-    assert not hasattr(mt.gluon.loss, "CTCLoss")
+    """Named when ``CTCLoss`` was missing here; it is ported now: its
+    value and its gradient in the prediction, imperative and hybridized,
+    against the JAX package's (fp32 throughout: the op's log-softmax and
+    recursion are fp32 in both packages)."""
+    rng = np.random.RandomState(3)
+    pred = rng.randn(2, 10, 6).astype("float32")
+    label = np.array([[1, 2, 0, 0], [1, 2, 3, 0]], np.float32)
+    res = []
+    for pkg, hybridize in ((mt, False), (mt, True), (mx, False)):
+        blk = pkg.gluon.loss.CTCLoss()
+        if hybridize:
+            blk.hybridize()
+        with pkg.cpu():
+            p = pkg.nd.array(pred)
+            p.attach_grad()
+            with pkg.autograd.record():
+                loss = blk(p, pkg.nd.array(label))
+            loss.backward()
+            res.append((loss.asnumpy(), p.grad.asnumpy()))
+    for val, grad in res[:2]:
+        assert val.shape == (2,)
+        assert _rel(val, res[2][0]) <= TOL["float32"]
+        assert _rel(grad, res[2][1]) <= TOL["float32"]
 
 
 # the ops the losses use, in nd and through a bound Symbol, with gradients:

@@ -161,33 +161,19 @@ def test_unsupported_device_raises():
         context.as_device("meta")
 
 
-# The JAX package's op names this package does not register: the long tail
-# that waits for modules of its own (ROADMAP A.9).
-A9_OPS = {
-    "_linalg_gelqf", "_linalg_gemm", "_linalg_gemm2", "_linalg_potrf",
-    "_linalg_potri", "_linalg_sumlogdiag", "_linalg_syevd", "_linalg_syrk",
-    "_linalg_trmm", "_linalg_trsm", "linalg_gelqf", "linalg_gemm",
-    "linalg_gemm2", "linalg_potrf", "linalg_potri", "linalg_sumlogdiag",
-    "linalg_syevd", "linalg_syrk", "linalg_trmm", "linalg_trsm",
-    "_contrib_CTCLoss", "_contrib_DeformableConvolution",
-    "_contrib_DeformablePSROIPooling", "_contrib_MultiBoxDetection",
-    "_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
-    "_contrib_MultiProposal", "_contrib_PSROIPooling", "_contrib_Proposal",
-    "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
-    "_contrib_ifft", "_contrib_quantize",
-    "CTCLoss", "ctc_loss", "BilinearSampler", "GridGenerator",
-    "SpatialTransformer", "ROIPooling", "Correlation", "Custom",
-    "cast_storage", "_sparse_cast_storage", "sparse_retain",
-    "_sparse_retain",
-}
+# The JAX package's op names this package does not register: sparse
+# storage, which waits for a module of its own (ROADMAP A.9).
+A9_OPS = {"cast_storage", "_sparse_cast_storage", "sparse_retain",
+          "_sparse_retain"}
 
 
 def test_missing_op_names_are_the_long_tail():
-    """Every op name of the JAX package is registered here but the 46 of
-    A.9, and this package registers no name the JAX package lacks."""
+    """Every op name of the JAX package is registered here but the 4 of
+    sparse storage (A.9), and this package registers no name the JAX
+    package lacks."""
     from mxnet_tpu.ops import registry as ref
     from mxnet_tpu_torch.ops import registry as port
-    assert len(A9_OPS) == 46
+    assert len(A9_OPS) == 4
     theirs, ours = set(ref.list_ops()), set(port.list_ops())
     assert theirs - ours == A9_OPS
     assert ours <= theirs
