@@ -271,12 +271,14 @@ before it captures, and those runs launch the kernels too
    Inception-v3's gradient shapes, two copies on ``gpu(0)``, fp32 and
    bf16: bit for bit with the CPU store's, one reduce a bucket, timed
    against the per-key push/pull loop.
-31. The op long tail (BASELINE #5): (a) the greedy-NMS kernel
-   (``ops/csrc/nms.cu``) against its plain loop on the card, mask for
+31. The op long tail (BASELINE #5): (a) the greedy-NMS kernels
+   (``ops/csrc/nms.cu``) against their plain loop on the card, mask for
    mask, at example/ssd's SSD-300 head (8,732 anchors, batch 32, 21
    classes; ``nms_topk`` 400 and -1), at Proposal's pre-NMS 6000 and at
-   ragged sizes (fp64, and past shared memory), with ms, the plain
-   loop's ms and the bound; with the kernel's count then set to 0,
+   ragged sizes (the 64-box tile edges, fp64, force, up to 12,000 boxes),
+   with ms, the plain loop's ms and the bound, the longest image's kept
+   boxes, and the pairs the mask kernel visits, its scratch bytes and the
+   walk's steps; with the kernels' count then set to 0,
    (b) ``MultiBoxTarget`` and ``MultiBoxDetection`` at the SSD-300 head on
    the card against ``cpu()`` (classes, masks and row order equal, values
    within ``SSD_OP_TOL``), then both as one captured program whose replay
@@ -285,7 +287,7 @@ before it captures, and those runs launch the kernels too
    eager as the example runs and hybridized (forward and
    ``MultiBoxPrior`` replayed), each to a mean IoU of at least
    ``TOY_SSD_MIN_IOU``, then 3 steps card against CPU in fp64 at
-   ``ZOO_PARITY_TOL``; the kernel's launches on (b) and (c) read; (d)
+   ``ZOO_PARITY_TOL``; the kernels' launches on (b) and (c) read; (d)
    ``Custom`` ops eager against the CPU with their gradients, a
    hybridized block holding one (run eagerly: one ``host_op_programs`` a
    call, no capture) and ``examples/numpy_ops_softmax.py``'s net through
@@ -5268,14 +5270,23 @@ PROPOSAL_NMS = dict(shape=(2, 18, 38, 50), im_info=(600.0, 800.0, 1.0),
                     pre_n=6000, threshold=0.7, min_size=16,
                     scales=(8.0, 16.0, 32.0), ratios=(0.5, 1.0, 2.0),
                     stride=16)
-# ragged kernel cases: (n, dtype, force_suppress, trip); fp64 at 8,732 and
-# fp32 at 12,000 take the device-memory path (over 227 KB of shared memory)
+# ragged kernel cases: (n, dtype, force_suppress, trip); the tile edges (n
+# 63, 64, 65 and 129, trips no multiple of 64), then sizes up to 12,000
+# (fp64 at 8,732 and fp32 at 12,000 past what a block's shared memory holds
+# of the boxes)
 NMS_RAGGED = ((1, torch.float32, False, 1), (7, torch.float32, True, 7),
+              (63, torch.float32, False, 63), (64, torch.float64, True, 61),
+              (65, torch.float32, True, 65), (65, torch.float64, False, 33),
+              (129, torch.float32, False, 100),
+              (129, torch.float64, True, 129),
+              (129, torch.float32, True, 77),
               (1000, torch.float32, False, 500),
               (1025, torch.float32, True, 1025),
               (3001, torch.float64, False, 3001),
               (SSD300_ANCHORS, torch.float64, False, SSD300_ANCHORS),
               (12000, torch.float32, False, 12000))
+NMS_ODD_CLASSES = (0.0, -0.0, 64.0, 128.0, -64.0, 1.0, 65.0, 0.5, 2.0 ** 31,
+                   1e10, math.nan, 3.0)
 # per IoU: 4 max/min, 6 subtractions, 6 clamps, 2 products, an add, a
 # divide, the compare (nms.iou_row) -- fp32 work off the tensor cores
 NMS_IOU_OPS = 21
@@ -5365,6 +5376,34 @@ def nms_bound_ms(boxes, classes, kept, force):
     return 1e3 * max(t_bytes, t_ops), by, pairs
 
 
+def nms_mask_pairs(classes, trip, force):
+    """The pairs (i, j), i < trip and i < j, that ``mask_kernel`` visits
+    in this run's images: every one with force; class-aware, those whose
+    class buckets (``test_utils.nms_class_buckets``) agree, and every one
+    of a row in bucket 64."""
+    from mxnet_tpu_torch.test_utils import nms_class_buckets
+    b, n = classes.shape
+    rows = np.arange(trip)
+    if force:
+        return b * int((n - 1 - rows).sum())
+    pairs = 0
+    for key in nms_class_buckets(classes).cpu().numpy():
+        for k in np.unique(key[:trip]):
+            pos = np.flatnonzero(key == k)
+            later = (n - 1 - pos if k == 64
+                     else len(pos) - 1 - np.arange(len(pos)))
+            pairs += int(later[pos < trip].sum())
+    return pairs
+
+
+def nms_tile_steps(n, trip):
+    """``walk_kernel``'s steps, one barrier each: a tile up to ``trip``,
+    and one more where a column tile follows (``steps`` in ``nms.cu``;
+    ``test_utils.nms_tiled`` returns the same count)."""
+    words, tiles = -(-n // 64), -(-trip // 64)
+    return min(tiles + 1, words)
+
+
 def nms_cases(dev):
     """The kernel's inputs: SSD-300 detection at both nms_topk, Proposal at
     its pre-NMS 6000, and the ragged cases."""
@@ -5409,11 +5448,23 @@ def nms_cases(dev):
                                  device=dev),
             alive=torch.tensor(rng.rand(2, n_box) < 0.9, device=dev),
             trip=trip, threshold=0.5, force=force))
+    # classes that share the mask kernel's class buckets (c & 63) or fall
+    # in its bucket of the rest (fractional, beyond 2**31, NaN)
+    xy = rng.uniform(0, 0.8, (2, 300, 2))
+    wh = rng.uniform(0.02, 0.4, (2, 300, 2))
+    cases.append(dict(
+        name="ragged n 300 fp32 odd classes trip 250",
+        boxes=torch.tensor(np.concatenate([xy, xy + wh], -1),
+                           dtype=torch.float32, device=dev),
+        classes=torch.tensor(rng.choice(NMS_ODD_CLASSES, (2, 300)),
+                             dtype=torch.float32, device=dev),
+        alive=torch.tensor(rng.rand(2, 300) < 0.9, device=dev),
+        trip=250, threshold=0.5, force=False))
     return cases
 
 
 def nms_kernel_check(card):
-    """31 (a): the NMS kernel against its plain version on the card, mask
+    """31 (a): the NMS kernels against their plain version on the card, mask
     for mask; ms, the plain version's ms and the bound at the main
     shapes."""
     import mxnet_tpu_torch as mt
@@ -5441,12 +5492,21 @@ def nms_kernel_check(card):
                                       iters=1, warmup=1)
             row["bound_ms"], row["bound_by"], row["pairs"] = nms_bound_ms(
                 c["boxes"], c["classes"], got, c["force"])
-            # the longest image's walk: its kept boxes, one barrier each
+            # the longest image's kept boxes: a walk of one barrier a kept
+            # box (the earlier one-block kernel) takes that many steps
             row["walk_steps"] = int(got[:, :c["trip"]].sum(dim=1).max())
+            # the design's work, from this run's shapes and class ids: the
+            # pairs mask_kernel visits, its scratch and the walk's steps
+            b, n = c["alive"].shape
+            row["mask_pairs"] = nms_mask_pairs(c["classes"], c["trip"],
+                                               c["force"])
+            row["scratch_bytes"] = 8 * math.prod(
+                nm.scratch_shape(b, n, c["trip"]))
+            row["tile_steps"] = nms_tile_steps(n, c["trip"])
         rows[c["name"]] = row
         log("phase 31 (a) nms %s on %s: %s" % (c["name"], card, row))
     if bad:
-        raise AssertionError("phase 31 (a): the NMS kernel's masks differ "
+        raise AssertionError("phase 31 (a): the NMS kernels' masks differ "
                              "from the plain version's: %s" % bad)
     nm.reset_launch_count()
     return rows
@@ -5921,9 +5981,9 @@ def custom_run(card):
 
 
 def phase_long_tail(card):
-    """Phase 31: (a) the NMS kernel against its plain version, then, with
-    the kernel's count set to 0, (b) the SSD-300 head ops and (c) the toy
-    SSD, the slice's path, then (d) Custom ops."""
+    """Phase 31: (a) the NMS kernels against their plain version, then,
+    with the kernels' count set to 0, (b) the SSD-300 head ops and (c) the
+    toy SSD, the slice's path, then (d) Custom ops."""
     from mxnet_tpu_torch.ops import nms as nm
     t0 = time.perf_counter()
     res, seconds = {"card": card}, {}
@@ -6123,8 +6183,12 @@ def main():
     entries.append({
         "name": "nms[fp32]",
         "route": "cuda",
-        "design": "simt, one block of 1024 an image, boxes in shared memory, "
-                  "one barrier a kept box",
+        "design": "two launches: suppression bits over 64-box tiles "
+                  "across the card (a block of 64 a row tile and two column "
+                  "tiles of the upper triangle, columns by class bucket); "
+                  "then a block of 1024 an image walks one barrier a tile "
+                  "(one warp resolves a tile in rounds, 31 OR the kept rows "
+                  "on from words loaded a step ahead)",
         "source": nm.KERNEL_SOURCE,
         "replaces": "mxnet_tpu/ops/ssd.py:237, mxnet_tpu/ops/rcnn.py:91 "
                     "(lax.fori_loop; no Pallas kernel)",

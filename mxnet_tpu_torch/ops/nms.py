@@ -1,4 +1,4 @@
-"""Greedy non-maximum suppression: the CUDA kernel's wrapper and its plain
+"""Greedy non-maximum suppression: the CUDA kernels' wrapper and their plain
 version.
 
 Counterpart of the greedy NMS loops of the JAX package, which are
@@ -7,11 +7,23 @@ Counterpart of the greedy NMS loops of the JAX package, which are
 ``MultiBoxDetection``) and ``mxnet_tpu/ops/rcnn.py:91-99`` (class-agnostic,
 under ``Proposal`` and ``MultiProposal``).  In PyTorch each step of that loop
 is about ten launches, and a call takes up to one step a box (8,732 at
-SSD-300's anchors, 6,000 at Proposal's default), so the walk is a kernel:
-``csrc/nms.cu`` (CUDA C++ for ``sm_90a``, built by ``_build.load_library``
-at its first launch).  :func:`nms_reference` is the loop itself; a CPU or
-``meta`` tensor goes through it, a CUDA tensor launches the kernel or
-raises.  Launches count under ``COUNTER``.
+SSD-300's anchors, 6,000 at Proposal's default), so the walk is two kernels
+in ``csrc/nms.cu`` (CUDA C++ for ``sm_90a``, built by
+``_build.load_library`` at its first launch): ``mask_kernel`` writes, over
+the whole card, one ``uint64`` of suppression bits for each box i < trip
+and each 64-box column tile at or after its own (bit r of word u: box
+64u + r dies if i is kept), into a scratch of :func:`scratch_shape`; then
+``walk_kernel``, one block an image, walks the tiles in order with one
+barrier a tile.  A call is two launches (one, the walk, when trip is 0),
+each counted under ``COUNTER``; no value comes back to the host, so a
+call can be captured.  The scratch grows as n x trip an image: 8 *
+B * ceil(n / 64) * trip bytes, 306 MB at SSD-300's 32 x 8,732 boxes with
+``nms_topk`` -1, and inside a captured program it is held in the graph's
+pool.  The walk keeps a word a tile in shared memory, so an image holds
+at most 360,448 boxes (the wrapper raises past that, or past 65,535
+images).  :func:`nms_reference` is the loop itself; a CPU or ``meta``
+tensor goes through it, a CUDA tensor launches the kernels or raises.  ``test_utils.nms_tiled`` is the kernels'
+decomposition in plain PyTorch, held to both loops by the CPU tests.
 
 Both take the boxes sorted by score, (B, n, 4) corners, their class ids
 (B, n), the alive mask (B, n) and the trip count, and return the alive
@@ -30,11 +42,18 @@ from .. import profiler
 from . import _build
 
 __all__ = ["nms", "nms_reference", "iou_row", "launch_count",
-           "reset_launch_count", "KERNEL_SOURCE", "COUNTER"]
+           "reset_launch_count", "scratch_shape", "TILE", "KERNEL_SOURCE",
+           "COUNTER"]
 
 KERNEL_SOURCE = "mxnet_tpu_torch/ops/csrc/nms.cu"
 COUNTER = "nms_launches"
+TILE = 64            # boxes a suppression word
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+# walk_kernel keeps a word a tile in shared memory, at most 44 KB beside its
+# own 2,080 bytes (a block's 48 KB without opting in): n <= 360,448, whose
+# scratch is some 16 GB an image
+_MAX_WORDS = 44 * 1024 // 8
+_MAX_BATCH = 65535   # mask_kernel's grid y
 
 
 def launch_count():
@@ -46,11 +65,28 @@ def reset_launch_count():
     profiler.reset_counters(COUNTER)
 
 
+def _words(n):
+    return -(-int(n) // TILE)
+
+
+def scratch_shape(batch, n, trip):
+    """(B, column tiles, trip) ``int64``: word (u, i) holds box i's
+    suppression bits for boxes 64u to 64u + 63."""
+    return (int(batch), _words(n), int(trip))
+
+
+def _check_limits(batch, n):
+    if _words(n) > _MAX_WORDS or batch > _MAX_BATCH:
+        raise MXNetError("nms: (%d, %d) boxes exceed the kernels' limits "
+                         "(n <= %d, B <= %d)"
+                         % (batch, n, _MAX_WORDS * TILE, _MAX_BATCH))
+
+
 def _kernel():
     fn = _build.load_library("nms").nms_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_double, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_double, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -100,7 +136,7 @@ def nms(boxes, classes, alive, trip, threshold, force_suppress=False):
     ``boxes`` (B, n, 4) with class ids ``classes`` (B, n) and the mask
     ``alive`` (B, n, bool), over the first ``trip`` boxes.  On the CPU (or
     ``meta``) it runs :func:`nms_reference`; on CUDA it launches the
-    kernel."""
+    kernels on a scratch of :func:`scratch_shape`."""
     if boxes.device.type in ("cpu", "meta"):
         return nms_reference(boxes, classes, alive, trip, threshold,
                              force_suppress)
@@ -122,14 +158,18 @@ def nms(boxes, classes, alive, trip, threshold, force_suppress=False):
     if batch == 0 or n == 0:
         return out
     trip = max(0, min(int(trip), n))
+    _check_limits(batch, n)
+    scratch = torch.empty(scratch_shape(batch, n, trip), dtype=torch.int64,
+                          device=boxes.device)
     fn = _kernel()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = fn(boxes.data_ptr(), classes.data_ptr(), alive.data_ptr(),
-                 out.data_ptr(), batch, n, trip, float(threshold),
-                 int(bool(force_suppress)), _DTYPE_CODE[boxes.dtype], stream)
+                 out.data_ptr(), scratch.data_ptr(), batch, n, trip,
+                 float(threshold), int(bool(force_suppress)),
+                 _DTYPE_CODE[boxes.dtype], stream)
     if err != 0:
         raise MXNetError("nms: kernel launch failed with cudaError_t %d at "
                          "(%d, %d) %s" % (err, batch, n, boxes.dtype))
-    profiler.bump(COUNTER)
+    profiler.bump(COUNTER, 2 if trip else 1)
     return out

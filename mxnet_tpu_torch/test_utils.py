@@ -1,7 +1,9 @@
 """Test helpers: the synthetic-digits stand-in for MNIST, the
 fp64-referenced row check of the flash-attention backward, and the op
 sweep's cases (``op_cases``, ``random_cases``), and ``set_dropout``,
-which turns a zoo model's Dropout off for a parity check.
+which turns a zoo model's Dropout off for a parity check; ``nms_tiled``,
+the greedy-NMS kernels' decomposition in plain PyTorch, and
+``nms_class_buckets``, their class buckets.
 
 ``get_mnist`` is this package's own copy of ``mxnet_tpu/test_utils.py:
 411-449`` (numpy only, so the arrays are equal bit for bit): MNIST's
@@ -32,7 +34,7 @@ __all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
            "sharp_row_check", "SHARP_ROW_C", "op_cases", "run_op_case",
            "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
            "LIBM_TOL", "SUM_TOL", "LINALG_TOL", "canonical_signs",
-           "set_dropout"]
+           "set_dropout", "nms_tiled", "nms_class_buckets"]
 
 
 def _synthetic_digits(n, rng, protos):
@@ -875,6 +877,110 @@ def set_dropout(block, rate, nn=None):
         block._rate = rate
     for child in block._children:
         set_dropout(child, rate, nn)
+
+
+def nms_class_buckets(classes):
+    """``nms.cu``'s class_key of each class id: an integral class below
+    2**31 in magnitude goes to bucket int(c) & 63, any other (NaN,
+    fractional, huge) to 64; ``int64``, on the ids' device."""
+    c = classes.double()
+    inside = (c < 2.0 ** 31) & (c > -2.0 ** 31)
+    v = torch.where(inside, c, torch.zeros_like(c)).to(torch.int64)
+    return torch.where(inside & (v.double() == c), v & 63,
+                       torch.full_like(v, 64))
+
+
+def nms_tiled(boxes, classes, alive, trip, threshold, force_suppress=False):
+    """The NMS kernels of ``ops/csrc/nms.cu`` in plain PyTorch, step for
+    step: (the alive mask after suppression, the scratch words (B, column
+    tiles, trip) as ``int64``, the walk's steps).
+
+    ``mask_kernel``: bit r of word (u, i) is box 64u + r's death if box i
+    is kept: after i; of its class (any with ``force_suppress``), looked
+    for among the columns of i's class bucket (every column where i's
+    bucket is 64); and, where both boxes have positive extents and overlap
+    strictly in x and y, an IoU (``nms.iou_row``) above ``threshold``,
+    elsewhere ``0 > threshold``.  ``walk_kernel``: at step t, tile t-1's
+    kept boxes' words of tile t go into removed word t, then tile t's
+    candidates (alive, before ``trip``, not removed) are resolved in rounds
+    from their diagonal words: those no open candidate suppresses are
+    kept, those the kept suppress removed; and tile t-1's kept boxes'
+    words of tiles t+1 on go into those tiles' removed words.
+    """
+    from .ops import nms as nm
+    boxes, classes = nm._widen(boxes, classes)
+    batch, n = alive.shape
+    trip = max(0, min(int(trip), n))
+    tile = nm.TILE
+    words_n, tiles = -(-n // tile), -(-trip // tile)
+    a, g = boxes[:, :trip, None, :], boxes[:, None, :, :]
+    ax0, ay0, ax1, ay1 = a.unbind(-1)
+    gx0, gy0, gx1, gy1 = g.unbind(-1)
+    maybe = ((ax1 > ax0) & (ay1 > ay0) & (gx1 > gx0) & (gy1 > gy0)
+             & (ax1 > gx0) & (gx1 > ax0) & (ay1 > gy0) & (gy1 > ay0))
+    kill = torch.where(maybe, nm.iou_row(a, g) > threshold,
+                       torch.tensor(0.0 > threshold))
+    if not force_suppress:
+        bucket = nms_class_buckets(classes)
+        visited = ((bucket[:, :trip, None] == bucket[:, None, :])
+                   | (bucket[:, :trip, None] == 64))
+        kill &= visited & (classes[:, :trip, None] == classes[:, None, :])
+    kill &= torch.arange(n)[None, :] > torch.arange(trip)[:, None]
+    bits = torch.zeros((batch, trip, words_n * tile), dtype=torch.int64)
+    bits[..., :n] = kill.long()
+    bits = bits.view(batch, trip, words_n, tile)
+    words = torch.zeros((batch, trip, words_n), dtype=torch.int64)
+    for r in range(tile):
+        words |= bits[..., r] << r
+    words = words.transpose(1, 2).contiguous()
+    assert tuple(words.shape) == nm.scratch_shape(batch, n, trip)
+
+    full = (1 << tile) - 1
+    out = torch.zeros_like(alive)
+    steps = min(tiles + 1, words_n)
+    for b in range(batch):
+        m = [[w & full for w in col] for col in words[b].tolist()]
+        live = alive[b].tolist()
+        removed = [0] * words_n
+        kept_prev, ahead = 0, [0] * tile
+        for t in range(steps):
+            rem = removed[t]
+            for r in range(tile):
+                if (kept_prev >> r) & 1:
+                    rem |= ahead[r]
+            keep = 0
+            if t < tiles:
+                left = min(trip - t * tile, tile)
+                diag = [m[t][t * tile + r] if r < left else 0
+                        for r in range(tile)]
+                open_ = sum(1 << r for r in range(left)
+                            if live[t * tile + r]) & ~rem
+                while open_:
+                    suppressed = 0
+                    for r in range(tile):
+                        if (open_ >> r) & 1:
+                            suppressed |= diag[r]
+                    kept_now = open_ & ~suppressed
+                    removed_now = 0
+                    for r in range(tile):
+                        if (kept_now >> r) & 1:
+                            removed_now |= diag[r]
+                    keep |= kept_now
+                    rem |= removed_now
+                    open_ &= ~kept_now & ~removed_now
+            for u in range(t + 1, words_n):
+                for r in range(tile):
+                    if (kept_prev >> r) & 1:
+                        removed[u] |= m[u][(t - 1) * tile + r]
+            removed[t] = rem
+            ahead = [m[t + 1][t * tile + r]
+                     if t + 1 < words_n and t * tile + r < trip else 0
+                     for r in range(tile)]
+            kept_prev = keep
+        out[b] = torch.tensor(
+            [live[j] and not (removed[j // tile] >> (j % tile)) & 1
+             for j in range(n)], dtype=torch.bool)
+    return out, words, steps
 
 
 _NOISE_LOCK = threading.Lock()
