@@ -225,14 +225,21 @@ before it captures, and those runs launch the kernels too
    cores), a ``.rec`` of 2,048 seeded JPEGs as MXNet stores ImageNet
    (shorter side 256, quality 95; ``test_utils.synthetic_image``),
    encoded with libjpeg where it builds, else PIL; the resize kernel
-   (``ops.image_nvjpeg.resize_rgb_chw``) bit for bit against its plain
-   version (``RESIZE_CASES``) and timed beside it and ``F.interpolate``;
+   (``ops.image_nvjpeg``, one launch a round) bit for bit against its
+   plain version, each of ``RESIZE_CASES`` alone and all in one ragged
+   round with a failed record's hole, with and without the mean and the
+   scale, and timed on a round of 32 (``RESIZE_ROUND``, past the L2
+   cache) beside its bound, the plain version and ``F.interpolate``;
    ``ImageRecordIter`` (batch 32 at 224 x 224, shuffle, mirror) on the
    card, whose decoder is nvJPEG: img/s at ``preprocess_threads`` 1, 4,
    8 and the core count, the copy of a batch to the card from pageable
    and from pinned memory, the batch on the card equal to the host's bit
-   for bit, and the decoded pixels against the images before encoding
-   (``LIBJPEG_ERR`` x ``NVJPEG_MARGIN``).
+   for bit, the decoded pixels against the images before encoding
+   (``LIBJPEG_ERR`` x ``NVJPEG_MARGIN``), ``mean_rgb`` and ``scale`` in
+   the kernel bit for bit with numpy's on the same batch, and
+   ``allow_corrupt`` over a file with ``CORRUPT_RECORDS`` not JPEGs
+   (labels, order, pads and failures those of the CPU loader).  Phases
+   26-28 launch the resize kernel once a round of the loader.
 27. BASELINE #2 from that file: ResNet-50 through Gluon as
    ``examples/train_imagenet.py`` trains it (``hybridize``,
    ``SoftmaxCrossEntropyLoss``, ``Trainer("sgd")`` lr 0.1, momentum 0.9,
@@ -4257,12 +4264,21 @@ DATA_STEP_THREADS = 4        # examples/train_imagenet.py's preprocess_threads
 LIBJPEG_ERR = {"mean": 3.3841, "rms": 4.4581}
 NVJPEG_MARGIN = 1.25
 # The resize kernel against its plain version: both make image_loader.cc's
-# roundings one by one in fp32, so bit for bit.
+# roundings and numpy's mean and scale one by one in fp32, so bit for bit.
 RESIZE_ATOL = 0.0
 RESIZE_CASES = [((256, 341), (224, 224), 3, False),
                 ((256, 341), (224, 224), 3, True),
                 ((341, 256), (224, 224), 3, True),
                 ((37, 50), (64, 48), 4, False), ((1, 1), (5, 3), 3, True)]
+# MXNet's ImageNet mean and the scale of its standard deviation, for the
+# kernel's mean and scale and the iterator that passes them
+DATA_MEAN_RGB, DATA_SCALE = (123.68, 116.779, 103.939), 1 / 58.393
+# The timed round: the main path's batch of sources at the .rec's size.
+RESIZE_ROUND = (DATA_BATCH,) + RESIZE_CASES[1][:3]
+L2_BYTES = 50 * 2 ** 20
+# phase 26's allow_corrupt file: failures in a round's middle and at its
+# ends, each batch topped up, the last one short
+CORRUPT_IMAGES, CORRUPT_RECORDS = 80, (0, 5, 31, 40, 63, 79)
 # phase 28: examples/train_mnist.py's LeNet, one epoch over MNIST's sizes
 LENET_BATCH, LENET_LR, LENET_MOMENTUM = 64, 0.1, 0.9
 MNIST_TRAIN, MNIST_TEST = 60000, 10000
@@ -4294,50 +4310,111 @@ def jpeg_probe():
     return probe
 
 
+def _round_sources(gen, shape, n):
+    return [torch.randint(0, 256, shape + (3,), generator=gen,
+                          dtype=torch.uint8).cuda() for _ in range(n)]
+
+
 def resize_kernel_check(card):
-    """The resize kernel (``ops.image_nvjpeg.resize_rgb_chw``) against its
-    plain version on the card at RESIZE_CASES, and its time beside the
-    plain version's and ``F.interpolate``'s at the main path's shape."""
+    """The resize kernel (``ops.image_nvjpeg``) against its plain version
+    on the card: each of RESIZE_CASES alone (a round of one image), then
+    all their sources in one ragged round at each case's output shape,
+    with a failed record's hole, with and without the mean and the scale,
+    bit for bit; then its time on the main path's round (RESIZE_ROUND,
+    rotating over enough buffers to pass the L2 cache) beside its bound,
+    the plain version's and ``F.interpolate``'s on the float batch, and
+    the time of a round of one image."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     gen = torch.Generator().manual_seed(7)
-    worst = 0.0
-    for (sh, sw), (dh, dw), c, mirror in RESIZE_CASES:
-        src = torch.randint(0, 256, (sh, sw, 3), generator=gen,
-                            dtype=torch.uint8).cuda()
-        got = nj.resize_rgb_chw(src, dh, dw, c, mirror)
-        want = nj.resize_rgb_chw_reference(src, dh, dw, c, mirror)
+    worst, rounds = 0.0, 0
+
+    def held(got, want, what):
+        nonlocal worst
         err = (got - want).abs().max().item()
         worst = max(worst, err)
         if not err <= RESIZE_ATOL:
             raise AssertionError("resize_rgb_chw disagrees with its plain "
-                                 "version at %s: %g" % ((sh, sw, dh, dw, c,
-                                                         mirror), err))
-    (sh, sw), (dh, dw), c, _ = RESIZE_CASES[0]
-    src = torch.randint(0, 256, (sh, sw, 3), generator=gen,
-                        dtype=torch.uint8).cuda()
-    as_float = src.permute(2, 0, 1)[None].float().contiguous()
+                                 "version at %s: %g" % (what, err))
+    srcs, mirrors = [], []
+    for (sh, sw), (dh, dw), c, mirror in RESIZE_CASES:
+        src = _round_sources(gen, (sh, sw), 1)[0]
+        held(nj.resize_rgb_chw(src, dh, dw, c, mirror),
+             nj.resize_rgb_chw_reference(src, dh, dw, c, mirror),
+             (sh, sw, dh, dw, c, mirror))
+        srcs.append(src)
+        mirrors.append(mirror)
+    srcs.insert(2, None)
+    mirrors.insert(2, True)
+    for (dh, dw, c), with_mean in itertools.product(
+            sorted({(dh, dw, c) for _, (dh, dw), c, _ in RESIZE_CASES}),
+            (False, True)):
+        mean = scale = None
+        if with_mean:   # of length c, or of length 1
+            mean = np.float32(DATA_MEAN_RGB) / np.float32(255.0) if c == 3 \
+                else np.float32([0.5])
+            scale = DATA_SCALE
+        held(nj.resize_rgb_chw_batch(srcs, dh, dw, c, mirrors, mean, scale),
+             nj.resize_rgb_chw_batch_reference(srcs, dh, dw, c, mirrors,
+                                               mean, scale),
+             ("ragged round", dh, dw, c, with_mean))
+        rounds += 1
+    div_mismatches = nj.div255_mismatches("cuda")
+    if div_mismatches:
+        raise AssertionError("the kernel's division by 255 differs from a "
+                             "true division on %d floats in [0, 256]"
+                             % div_mismatches)
+    n, (sh, sw), (dh, dw), c = RESIZE_ROUND
+    nbytes = n * (sh * sw * 3 + c * dh * dw * 4)
+    sets = []     # (table, out, sources), past twice the L2 cache
+    while len(sets) * nbytes < 2 * L2_BYTES:
+        sources = _round_sources(gen, (sh, sw), n)
+        table = torch.from_numpy(nj.round_table(
+            sources, dh, dw, [i % 2 == 0 for i in range(n)]).view(
+                np.uint8)).cuda()
+        sets.append((table, torch.empty((n, c, dh, dw), device="cuda"),
+                     sources))
+    turn = itertools.count()
+
+    def one_round():
+        table, out, _ = sets[next(turn) % len(sets)]
+        nj.launch_round(table, n, out, c)
+    first = sets[0][2]
+    as_float = [torch.stack(s).permute(0, 3, 1, 2).float().contiguous()
+                for s in (first, sets[1][2])]
+    single_table = sets[0][0][:nj.DESC.itemsize]
+    single_out = torch.empty((1, c, dh, dw), device="cuda")
     res = dict(
-        max_abs_err=worst,
-        ms=cuda_ms(lambda: nj.resize_rgb_chw(src, dh, dw, c, True), 200),
-        plain_ms=cuda_ms(lambda: nj.resize_rgb_chw_reference(
-            src, dh, dw, c, True), 50),
+        max_abs_err=worst, cases=len(RESIZE_CASES), ragged_rounds=rounds,
+        div255_mismatches=div_mismatches,
+        ms=cuda_ms(one_round, 200),
+        plain_ms=cuda_ms(lambda: nj.resize_rgb_chw_batch_reference(
+            first, dh, dw, c, [i % 2 == 0 for i in range(n)]), 3, 1),
         library_ms=cuda_ms(lambda: F.interpolate(
-            as_float, size=(dh, dw), mode="bilinear", align_corners=False),
-            200))
-    nbytes = sh * sw * 3 + c * dh * dw * 4
-    flops = c * dh * dw * 10          # 6 multiplies, 3 adds, 1 divide
+            as_float[next(turn) % 2], size=(dh, dw), mode="bilinear",
+            align_corners=False), 50),
+        single_image_ms=cuda_ms(lambda: nj.launch_round(
+            single_table, 1, single_out, c), 200),
+        buffer_sets=len(sets))
+    flops = n * c * dh * dw * 10          # 6 multiplies, 3 adds, 1 divide
     bound = {"bytes": nbytes / HBM_BPS * 1e3,
              "operations": flops / PEAK_FLOPS[torch.float32] * 1e3}
     res["bound_by"] = max(bound, key=bound.get)
     res["bound_ms"] = bound[res["bound_by"]]
-    res["shape"] = [sh, sw, dh, dw, c]
-    log("phase 26 resize_rgb_chw on %s: %d cases bit for bit against the "
-        "plain version (max |err| %g); %dx%d -> %dx%d x %d: kernel %.4f ms, "
-        "plain %.4f, F.interpolate (float input) %.4f, bound %.5f ms (%s)"
-        % (card, len(RESIZE_CASES), worst, sh, sw, dh, dw, c, res["ms"],
-           res["plain_ms"], res["library_ms"], res["bound_ms"],
-           res["bound_by"]))
+    res["ms_per_image"] = res["ms"] / n
+    res["shape"] = [n, sh, sw, dh, dw, c]
+    log("phase 26 resize_rgb_chw on %s: %d cases alone and %d ragged rounds "
+        "(a hole, with and without mean and scale) bit for bit against the "
+        "plain version (max |err| %g), its division by 255 a true one on "
+        "every float in [0, 256]; a round of %d x %dx%d -> %dx%d x %d, "
+        "mirror every other, over %d buffer sets: kernel %.5f ms (%.6f an "
+        "image), bound %.5f ms (%s, %.1f%%), plain %.3f, F.interpolate "
+        "(float batch) %.5f; a round of one image %.5f ms"
+        % (card, len(RESIZE_CASES), rounds, worst, n, sh, sw, dh, dw, c,
+           len(sets), res["ms"], res["ms_per_image"], res["bound_ms"],
+           res["bound_by"], 100 * res["bound_ms"] / res["ms"],
+           res["plain_ms"], res["library_ms"], res["single_image_ms"]))
+    del sets, as_float
     return res
 
 
@@ -4384,6 +4461,21 @@ def copy_times(batch, reps=20):
                 bytes=host.numel() * host.element_size())
 
 
+def _pixel_errors(errs, factor=1.0):
+    """Mean, rms and max of ``errs`` (|card - images| x 255), held to
+    LIBJPEG_ERR x NVJPEG_MARGIN x ``factor``."""
+    err = torch.stack(errs)
+    res = {"mean": err.mean().item(), "rms": err.pow(2).mean().sqrt().item(),
+           "max": err.max().item(), "libjpeg": LIBJPEG_ERR,
+           "margin": NVJPEG_MARGIN, "factor": factor}
+    bad = [k for k in LIBJPEG_ERR if not res[k] <= LIBJPEG_ERR[k]
+           * NVJPEG_MARGIN * factor]
+    if bad:
+        raise AssertionError("nvJPEG's pixels lie further from the images "
+                             "than libjpeg's with the margin: %s" % res)
+    return res
+
+
 def nvjpeg_pixel_check(rec, n=32):
     """The card's decode of the first ``n`` records (no shuffle, no mirror)
     against the images before encoding, each resized by the plain formula:
@@ -4399,15 +4491,100 @@ def nvjpeg_pixel_check(rec, n=32):
         want = nj.resize_rgb_chw_reference(torch.from_numpy(img),
                                            *DATA_SHAPE[1:])
         errs.append((got[i] - want).abs() * 255)
-    err = torch.stack(errs)
-    res = {"mean": err.mean().item(), "rms": err.pow(2).mean().sqrt().item(),
-           "max": err.max().item(), "libjpeg": LIBJPEG_ERR,
-           "margin": NVJPEG_MARGIN}
-    bad = [k for k in LIBJPEG_ERR if not res[k] <= LIBJPEG_ERR[k]
-           * NVJPEG_MARGIN]
-    if bad:
-        raise AssertionError("nvJPEG's pixels lie further from the images "
-                             "than libjpeg's with the margin: %s" % res)
+    return _pixel_errors(errs)
+
+
+def mean_scale_check(rec, n=32):
+    """``ImageRecordIter`` on the card with ``mean_rgb`` and ``scale`` (the
+    kernel applies them): bit for bit the same iterator without them
+    followed by the CPU route's numpy ``-=`` and ``*=``, and, against the
+    images before encoding through the plain version with the mean and
+    the scale, within LIBJPEG_ERR x NVJPEG_MARGIN x the scale."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    kw = dict(path_imgrec=rec, data_shape=DATA_SHAPE, batch_size=n)
+    got = mt.image.ImageRecordIter(mean_rgb=DATA_MEAN_RGB, scale=DATA_SCALE,
+                                   **kw).next().data[0]._data
+    host = mt.image.ImageRecordIter(**kw).next().data[0].asnumpy()
+    mean = np.asarray(DATA_MEAN_RGB, np.float32) / 255.0
+    host -= mean.reshape(1, -1, 1, 1)
+    host *= np.float32(DATA_SCALE)
+    if not np.array_equal(got.numpy(), host):
+        raise AssertionError("the kernel's mean and scale differ from "
+                             "numpy's on the same batch: max |err| %g"
+                             % np.abs(got.numpy() - host).max())
+    imgs = [torch.from_numpy(mt.test_utils.synthetic_image(
+        0, i, DATA_SHORT)[1]) for i in range(n)]
+    want = nj.resize_rgb_chw_batch_reference(imgs, *DATA_SHAPE[1:],
+                                             DATA_SHAPE[0], None, mean,
+                                             DATA_SCALE)
+    res = _pixel_errors([(got[i] - want[i]).abs() * 255 for i in range(n)],
+                        DATA_SCALE)
+    res["bitwise_with_numpy"] = True
+    return res
+
+
+def corrupt_loader_check(tmp, encode):
+    """``allow_corrupt`` on the card: a .rec of CORRUPT_IMAGES images whose
+    CORRUPT_RECORDS are not JPEGs, read without shuffle.  Each batch's
+    labels, order and ``pad`` and the count of failures are
+    ``test_utils.loader_batches``'s, which tests/test_torch_resize_batch.py
+    holds to the CPU loader and the JAX package's (and the CPU loader's
+    here, where libjpeg builds); the tail is zeros; the pixels lie within
+    LIBJPEG_ERR x NVJPEG_MARGIN of the images."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    prefix = os.path.join(tmp, "corrupt")
+    mt.test_utils.write_image_rec(
+        prefix, CORRUPT_IMAGES, seed=0, short=DATA_SHORT,
+        quality=DATA_QUALITY, encode=encode, threads=os.cpu_count(),
+        corrupt=CORRUPT_RECORDS)
+    want = mt.test_utils.loader_batches(CORRUPT_IMAGES, DATA_BATCH,
+                                        CORRUPT_RECORDS)
+    kw = dict(path_imgrec=prefix + ".rec", data_shape=DATA_SHAPE,
+              batch_size=DATA_BATCH, allow_corrupt=True)
+    its = {"card": mt.image.ImageRecordIter(**kw)}
+    try:
+        its["cpu"] = mt.image.ImageRecordIter(ctx=mt.cpu(), **kw)
+    except MXNetError:
+        pass     # no libjpeg on this host: the model stands for it
+    errs = []
+    for records, pad in want:
+        labels = np.float32([mt.test_utils.synthetic_image(
+            0, i, DATA_SHORT)[0] for i in records] + [0] * pad)
+        for name, it in its.items():
+            b = it.next()
+            if b.pad != pad or not np.array_equal(b.label[0].asnumpy(),
+                                                  labels):
+                raise AssertionError(
+                    "allow_corrupt on %s: pad %d labels %s, want pad %d "
+                    "labels %s" % (name, b.pad, b.label[0].asnumpy(), pad,
+                                   labels))
+            if name != "card":
+                continue
+            data = b.data[0]._data
+            if pad and data[DATA_BATCH - pad:].abs().max().item() != 0:
+                raise AssertionError("allow_corrupt on the card: the tail "
+                                     "is not zero")
+            for j, i in enumerate(records):
+                img = mt.test_utils.synthetic_image(0, i, DATA_SHORT)[1]
+                errs.append((data[j] - nj.resize_rgb_chw_reference(
+                    torch.from_numpy(img), *DATA_SHAPE[1:])).abs() * 255)
+    for name, it in its.items():
+        try:
+            it.next()
+            raise AssertionError("allow_corrupt on %s: a batch past the "
+                                 "data" % name)
+        except StopIteration:
+            pass
+        if it.num_failed != len(CORRUPT_RECORDS):
+            raise AssertionError("allow_corrupt on %s: num_failed %d, want "
+                                 "%d" % (name, it.num_failed,
+                                         len(CORRUPT_RECORDS)))
+    res = _pixel_errors(errs)
+    res.update(batches=len(want), pads=[p for _, p in want],
+               num_failed=len(CORRUPT_RECORDS), held_to=sorted(its))
     return res
 
 
@@ -4430,7 +4607,7 @@ def phase_data_loader(card, tmp):
     rec = prefix + ".rec"
     res["rec_bytes"] = os.path.getsize(rec)
     res["resize_kernel"] = resize_kernel_check(card)
-    profiler.reset_counters(nj.COUNTER)
+    profiler.reset_counters(nj.COUNTER, nj.ROUNDS_COUNTER)
     rates = {}
     for threads in sorted({1, 4, 8, os.cpu_count()}):
         rates[threads], res["decoder"] = _read_rate(rec, threads)
@@ -4446,6 +4623,8 @@ def phase_data_loader(card, tmp):
         raise AssertionError("the batch on the card differs from the host's")
     res["copy"] = copy_times(batch)
     res["pixels"] = nvjpeg_pixel_check(rec)
+    res["mean_scale"] = mean_scale_check(rec)
+    res["allow_corrupt"] = corrupt_loader_check(tmp, encode)
     log("phase 26 probe on %s: %s; decoder %s, files encoded with %s"
         % (card, res["probe"], res["decoder"], res["encoder"]))
     log("phase 26 .rec of %d images (shorter side %d, quality %d): %d bytes, "
@@ -4461,6 +4640,17 @@ def phase_data_loader(card, tmp):
            {k: round(v, 1) for k, v in rates.items()}, res["copy"]["bytes"],
            res["copy"]["pageable_ms"], res["copy"]["pinned_ms"],
            res["copy"]["stage_into_pinned_ms"], res["pixels"]))
+    log("phase 26 on %s: mean_rgb %s and scale %.6f in the kernel bit for "
+        "bit with numpy's on the same batch, pixels (x 255) %s; "
+        "allow_corrupt (%d of %d records not JPEGs) labels, order, pads %s "
+        "and num_failed as %s, tails zero, pixels %s"
+        % (card, DATA_MEAN_RGB, DATA_SCALE, res["mean_scale"],
+           len(CORRUPT_RECORDS), CORRUPT_IMAGES,
+           res["allow_corrupt"]["pads"],
+           " and ".join(["test_utils.loader_batches"]
+                        + [k + " loader" for k in
+                           res["allow_corrupt"]["held_to"] if k != "card"]),
+           {k: res["allow_corrupt"][k] for k in ("mean", "rms", "max")}))
     return res, rec
 
 
@@ -4727,19 +4917,22 @@ def phase_data(card, gluon_res):
         res["resnet50"] = [data_gluon_resnet(card, rec, dt, gluon_res)
                            for dt in (torch.float32, torch.bfloat16)]
         res["module_fit"] = data_module_fit(card, rec)
-        launches = profiler.counter(nj.COUNTER)
         res["lenet"] = phase_data_lenet(card, tmp)
+    launches = profiler.counter(nj.COUNTER)
+    rounds = profiler.counter(nj.ROUNDS_COUNTER)
     res["card"] = card
     res["seconds"] = time.perf_counter() - t0
     res["resize_launches"] = launches
+    res["loader_rounds"] = rounds
     res["other_kernel_launches"] = {k: profiler.counter(k) - before[k]
                                     for k in others}
-    log("phases 26-28: %.1f s; resize_rgb_chw launches %d; the other hand "
-        "kernels' %s" % (res["seconds"], launches,
-                         res["other_kernel_launches"]))
-    if launches == 0:
-        raise AssertionError("the card's loader never launched its resize "
-                             "kernel")
+    log("phases 26-28: %.1f s; resize_rgb_chw launches %d in the loader's "
+        "%d rounds; the other hand kernels' %s"
+        % (res["seconds"], launches, rounds, res["other_kernel_launches"]))
+    if launches == 0 or launches != rounds:
+        raise AssertionError("the card's loader launched its resize kernel "
+                             "%d times in %d rounds, not once a round"
+                             % (launches, rounds))
     if any(res["other_kernel_launches"].values()):
         raise AssertionError("a model kernel ran on the data paths: %s"
                              % res["other_kernel_launches"])
@@ -6165,13 +6358,20 @@ def main():
     entries.append({
         "name": "resize_rgb_chw[fp32]",
         "route": "cuda",
-        "design": "simt, one thread an output pixel, nvJPEG's RGB in",
+        "design": "simt, one launch a round over every image it decoded "
+                  "(grid y an image, from a table of ragged sources; failed "
+                  "records compacted, the data's tail blank); a thread 4 "
+                  "pixels of a row in every channel, 16-byte stores; "
+                  "nvJPEG's RGB in, the mean and the scale in the kernel",
         "source": nj.KERNEL_SOURCE,
         "replaces": "native/image_loader.cc:86 (host C++ resize_to_chw; "
                     "no Pallas kernel)",
         "launches": resize_launches,
+        "loader_rounds": data["loader_rounds"],
         "max_abs_err": rk["max_abs_err"],
         "ms": rk["ms"],
+        "ms_per_image": rk["ms_per_image"],
+        "single_image_ms": rk["single_image_ms"],
         "plain_ms": rk["plain_ms"],
         "bound_ms": rk["bound_ms"],
         "bound_by": rk["bound_by"],

@@ -12,12 +12,17 @@ The decoder follows ``ctx`` (by default the current context, so the
 card):
 
 - ``cpu()``: libjpeg on host threads, ``_native/csrc/image_loader.cc``,
-  the package's copy of the JAX package's loader: the same batches, bit
-  for bit, from the same file and seed;
+  the package's copy of the JAX package's loader, then the mean and the
+  scale in numpy: the same batches, bit for bit, from the same file and
+  seed;
 - ``gpu(i)``: nvJPEG on card i (``ops/csrc/image_nvjpeg.cu``): the host
   threads read the records and run nvJPEG's Huffman stage, the card the
-  rest and the resize (``ops.image_nvjpeg.resize_rgb_chw``); the same
-  records, order and mirror draws as the host loader, pixels within
+  rest; then one launch a round of the resize kernel
+  (``ops.image_nvjpeg``) writes every image the round decoded, less the
+  mean and times the scale, into the batch on the card, failed records
+  compacted out there, and the batch is copied once, from the card into
+  its pinned host buffer.  The same records, order and mirror draws as
+  the host loader, the same arithmetic after the decode, pixels within
   nvJPEG's decode of libjpeg's.
 
 A decoder that cannot be built or loaded raises ``MXNetError`` naming
@@ -47,12 +52,13 @@ _FLOATS = ctypes.POINTER(ctypes.c_float)
 
 
 class _HostLoader:
-    """libjpeg on host threads (``mx_imgloader_*``)."""
+    """libjpeg on host threads (``mx_imgloader_*``), then the mean and the
+    scale in numpy (the JAX package's order)."""
 
     decoder = "libjpeg"
 
     def __init__(self, path, batch_size, shape, threads, shuffle, seed,
-                 mirror, ctx):
+                 mirror, mean, scale, ctx):
         try:
             self._lib = _native.image_lib()
         except MXNetError as e:
@@ -65,6 +71,8 @@ class _HostLoader:
             mirror)
         if not self._h:
             raise IOError("cannot open record file %s" % path)
+        self._mean = None if mean is None else mean.reshape(1, -1, 1, 1)
+        self._scale = scale
 
     def num_samples(self):
         return self._lib.mx_imgloader_num_samples(self._h)
@@ -76,7 +84,14 @@ class _HostLoader:
         self._lib.mx_imgloader_reset(self._h)
 
     def next(self, data, labels):
-        n = self._lib.mx_imgloader_next(self._h, data, labels)
+        n = self._lib.mx_imgloader_next(
+            self._h, ctypes.cast(data.data_ptr(), _FLOATS),
+            ctypes.cast(labels.data_ptr(), _FLOATS))
+        arr = data.numpy()
+        if self._mean is not None:
+            arr -= self._mean
+        if self._scale is not None:
+            arr *= np.float32(self._scale)
         return n, self._lib.mx_imgloader_last_failed(self._h)
 
     def close(self):
@@ -86,12 +101,13 @@ class _HostLoader:
 
 
 class _CardLoader:
-    """nvJPEG on one card (``mx_nvjpeg_*``)."""
+    """nvJPEG on one card (``mx_nvjpeg_*``); the mean and the scale in the
+    resize kernel."""
 
     decoder = "nvjpeg"
 
     def __init__(self, path, batch_size, shape, threads, shuffle, seed,
-                 mirror, ctx):
+                 mirror, mean, scale, ctx):
         try:
             self._lib = image_nvjpeg.loader_lib()
         except MXNetError as e:
@@ -99,17 +115,21 @@ class _CardLoader:
                              "(ops/csrc/image_nvjpeg.cu), which could not be "
                              "built or loaded: %s" % (ctx, e)) from e
         c, h, w = shape
+        if mean is not None:
+            mean = image_nvjpeg.channel_mean(mean, c)
         err = ctypes.create_string_buffer(512)
         self._h = self._lib.mx_nvjpeg_create(
             str(path).encode(), batch_size, h, w, c, threads, shuffle, seed,
-            mirror, ctx.device_id, err, len(err))
+            mirror, None if mean is None else mean.ctypes.data,
+            0.0 if scale is None else float(np.float32(scale)),
+            int(scale is not None), ctx.device_id, err, len(err))
         if not self._h:
             msg = err.value.decode(errors="replace")
             if msg.startswith(("cannot open", "no records")):
                 raise IOError(msg)
             raise MXNetError("ImageRecordIter: nvJPEG on %s failed: %s"
                              % (ctx, msg))
-        self._launches = 0
+        self._launches = self._rounds = 0
 
     def num_samples(self):
         return self._lib.mx_nvjpeg_num_samples(self._h)
@@ -121,10 +141,14 @@ class _CardLoader:
         self._lib.mx_nvjpeg_reset(self._h)
 
     def next(self, data, labels):
-        n = self._lib.mx_nvjpeg_next(self._h, data, labels)
+        n = self._lib.mx_nvjpeg_next(
+            self._h, ctypes.cast(data.data_ptr(), _FLOATS),
+            ctypes.cast(labels.data_ptr(), _FLOATS))
         launches = self._lib.mx_nvjpeg_launches(self._h)
+        rounds = self._lib.mx_nvjpeg_rounds(self._h)
         profiler.bump(image_nvjpeg.COUNTER, launches - self._launches)
-        self._launches = launches
+        profiler.bump(image_nvjpeg.ROUNDS_COUNTER, rounds - self._rounds)
+        self._launches, self._rounds = launches, rounds
         if n < 0:
             raise MXNetError("ImageRecordIter: nvJPEG decode failed: %s"
                              % self._lib.mx_nvjpeg_error(self._h).decode(
@@ -152,17 +176,17 @@ class ImageRecordIter(_io.DataIter):
         self.data_shape = tuple(int(d) for d in data_shape)
         self._allow_corrupt = bool(allow_corrupt)
         loader = _HostLoader if ctx.device_type == "cpu" else _CardLoader
+        mean = None if mean_rgb is None else \
+            np.asarray(mean_rgb, np.float32) / 255.0
         self._loader = loader(path_imgrec, batch_size, self.data_shape,
                               int(preprocess_threads), int(bool(shuffle)),
-                              int(seed), int(bool(rand_mirror)), ctx)
+                              int(seed), int(bool(rand_mirror)), mean, scale,
+                              ctx)
         self.decoder = self._loader.decoder
         # the card's batches go to the card: each is written straight into
         # a pinned buffer of its own (torch's caching host allocator), which
         # the batch owns, so none is overwritten while a copy reads it
         self._pinned = self.decoder == "nvjpeg"
-        self._mean = None if mean_rgb is None else \
-            (np.asarray(mean_rgb, np.float32) / 255.0).reshape(1, -1, 1, 1)
-        self._scale = scale
         self.provide_data = [_io.DataDesc(data_name,
                                           (batch_size,) + self.data_shape)]
         self.provide_label = [_io.DataDesc(label_name, (batch_size,))]
@@ -184,20 +208,13 @@ class ImageRecordIter(_io.DataIter):
         data = torch.empty((self.batch_size,) + self.data_shape,
                            dtype=torch.float32, pin_memory=self._pinned)
         labels = torch.empty((self.batch_size,), dtype=torch.float32)
-        n, fresh = self._loader.next(
-            ctypes.cast(data.data_ptr(), _FLOATS),
-            ctypes.cast(labels.data_ptr(), _FLOATS))
+        n, fresh = self._loader.next(data, labels)
         if fresh and not self._allow_corrupt:
             raise IOError(
                 "%d record(s) failed to decode (corrupt or non-JPEG "
                 "payload); pass allow_corrupt=True to skip them" % fresh)
         if n == 0:
             raise StopIteration
-        arr = data.numpy()
-        if self._mean is not None:
-            arr -= self._mean
-        if self._scale is not None:
-            arr *= np.float32(self._scale)
         return _io.DataBatch([nd.NDArray(data, cpu())],
                              [nd.NDArray(labels, cpu())],
                              pad=self.batch_size - n)

@@ -2,17 +2,22 @@
 
 ``csrc/image_nvjpeg.cu`` (CUDA C++ for ``sm_90a``, linked with the CUDA
 toolkit's nvJPEG, built by ``_build.load_library`` at first use) holds
-the record loader that ``image.ImageRecordIter`` runs on a card (its
-decode on nvJPEG, one batch prefetched) and the hand-written kernel
-``resize_rgb_chw``: the bilinear resize and mirror of
+the record loader that ``image.ImageRecordIter`` runs on a card and the
+hand-written kernel ``resize_round``: the bilinear resize and mirror of
 ``_native/csrc/image_loader.cc`` (``resize_to_chw``, host C++ in the JAX
 package: no Pallas kernel) from interleaved uint8 RGB to float32 CHW in
-[0, 1], with the host loop's roundings one by one, so that from the same
-pixels the card and the host give the same bits.
-:func:`resize_rgb_chw_reference` is its plain version; a CPU tensor goes
-through it, a CUDA tensor launches the kernel or raises.  The loader's
-launches count under ``COUNTER`` (:func:`loader_launches` is the
-loader's own tally, which the iterator adds to it after each batch).
+[0, 1], then the iterator's mean and scale, with the host's roundings
+one by one, so that from the same pixels the card and the host give the
+same bits.  One launch takes a whole round of ragged images: the
+loader's round (every record a batch decoded at once, those that failed
+compacted out, the tail of the data's last batch written as blank
+images) and :func:`resize_rgb_chw_batch`'s list, built by the same
+rules (:func:`round_slots`, :func:`channel_mean`).
+:func:`resize_rgb_chw_reference` and :func:`resize_rgb_chw_batch_reference`
+are the plain versions; CPU tensors go through them, CUDA tensors launch
+the kernel or raise.  Launches count under ``COUNTER`` (the loader's
+under it too, with its rounds under ``ROUNDS_COUNTER``: the iterator adds
+:func:`loader_lib`'s tallies after each batch).
 """
 from __future__ import annotations
 
@@ -26,11 +31,23 @@ from ..base import MXNetError
 from .. import profiler
 from . import _build
 
-__all__ = ["resize_rgb_chw", "resize_rgb_chw_reference", "loader_lib",
-           "KERNEL_SOURCE", "COUNTER"]
+__all__ = ["resize_rgb_chw", "resize_rgb_chw_reference",
+           "resize_rgb_chw_batch", "resize_rgb_chw_batch_reference",
+           "round_slots", "round_table", "channel_mean", "launch_round",
+           "div255_mismatches", "loader_lib", "DESC", "KERNEL_SOURCE", "COUNTER",
+           "ROUNDS_COUNTER"]
 
 KERNEL_SOURCE = "mxnet_tpu_torch/ops/csrc/image_nvjpeg.cu"
 COUNTER = "resize_rgb_chw_launches"
+ROUNDS_COUNTER = "nvjpeg_rounds"
+
+# One image of a round, as csrc/image_nvjpeg.cu's ``Desc``: the source's
+# address (0: a blank image), sw / dw and sh / dh in fp32, the source's
+# size, the mirror flag and the output image it writes.
+DESC = np.dtype([("src", "<u8"), ("sx", "<f4"), ("sy", "<f4"),
+                 ("sw", "<i4"), ("sh", "<i4"), ("flip", "<i4"),
+                 ("slot", "<i4")])
+MAX_ROUND = 65535   # images a launch (the grid's second dimension)
 
 _lock = threading.Lock()
 _bound = []
@@ -38,8 +55,9 @@ _bound = []
 _p = ctypes.c_void_p
 _SIGNATURES = {
     "mx_nvjpeg_create": (_p, [ctypes.c_char_p] + [ctypes.c_int] * 6
-                         + [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_char_p, ctypes.c_int]),
+                         + [ctypes.c_uint, ctypes.c_int, _p, ctypes.c_float,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+                            ctypes.c_int]),
     "mx_nvjpeg_num_samples": (ctypes.c_int64, [_p]),
     "mx_nvjpeg_next": (ctypes.c_int, [_p, ctypes.POINTER(ctypes.c_float),
                                       ctypes.POINTER(ctypes.c_float)]),
@@ -48,9 +66,13 @@ _SIGNATURES = {
     "mx_nvjpeg_failures": (ctypes.c_long, [_p]),
     "mx_nvjpeg_last_failed": (ctypes.c_int, [_p]),
     "mx_nvjpeg_launches": (ctypes.c_long, [_p]),
+    "mx_nvjpeg_rounds": (ctypes.c_long, [_p]),
     "mx_nvjpeg_error": (ctypes.c_char_p, [_p]),
-    "mx_resize_rgb_chw": (ctypes.c_int, [_p, ctypes.c_int, ctypes.c_int, _p]
-                          + [ctypes.c_int] * 4 + [_p]),
+    "mx_resize_rgb_chw": (ctypes.c_int, [_p, ctypes.c_int, _p]
+                          + [ctypes.c_int] * 3
+                          + [_p, ctypes.c_float, ctypes.c_int, _p]),
+    "mx_div255_mismatches": (ctypes.c_int, [ctypes.c_uint32, ctypes.c_uint32,
+                                            _p, _p]),
 }
 
 
@@ -65,6 +87,56 @@ def loader_lib():
                 fn.restype, fn.argtypes = res, args
             _bound.append(lib)
         return _bound[0]
+
+
+def channel_mean(mean, channels):
+    """``mean`` (the values a pixel loses after the division by 255: the
+    iterator's ``mean_rgb / 255``) as ``channels`` float32 values, one a
+    plane: flattened and broadcast as numpy broadcasts it in shape
+    (1, -1, 1, 1) against a (batch, channels, h, w) batch, so it raises
+    ``ValueError`` where numpy's ``-=`` would."""
+    flat = np.asarray(mean, np.float32).reshape(-1)
+    return np.broadcast_to(flat, (channels,)).copy()
+
+
+def round_slots(decoded):
+    """The loader's compaction: for each record of a round, whether it
+    decoded in, the output image it goes to (the k-th that decoded to the
+    k-th; the loader adds the slots its earlier rounds filled), None for
+    one that failed."""
+    slots, k = [], 0
+    for ok in decoded:
+        slots.append(k if ok else None)
+        k += bool(ok)
+    return slots
+
+
+def _mirrors(mirrors, n):
+    mirrors = [False] * n if mirrors is None else [bool(m) for m in mirrors]
+    if len(mirrors) != n:
+        raise MXNetError("resize_rgb_chw_batch: %d mirror flags for %d "
+                         "images" % (len(mirrors), n))
+    return mirrors
+
+
+def round_table(srcs, dh, dw, mirrors=None):
+    """The kernel's table for one round of ``len(srcs)`` images (a DESC
+    row each): the sources that are not None to the slots
+    :func:`round_slots` gives them, then a blank row for every slot
+    past them, as the loader's last round of the data writes its tail."""
+    mirrors = _mirrors(mirrors, len(srcs))
+    table = np.zeros(len(srcs), DESC)
+    slots = round_slots([s is not None for s in srcs])
+    for src, flip, slot in zip(srcs, mirrors, slots):
+        if slot is None:
+            continue
+        sh, sw = src.shape[:2]
+        table[slot] = (src.data_ptr(), np.float32(sw) / np.float32(dw),
+                       np.float32(sh) / np.float32(dh), sw, sh, flip, slot)
+    n_decoded = sum(s is not None for s in slots)
+    for slot in range(n_decoded, len(srcs)):
+        table[slot] = (0, 1.0, 1.0, 1, 1, 0, slot)
+    return table
 
 
 def resize_rgb_chw_reference(src, dh, dw, channels=3, mirror=False):
@@ -100,29 +172,109 @@ def resize_rgb_chw_reference(src, dh, dw, channels=3, mirror=False):
     return out.permute(2, 0, 1).contiguous()
 
 
-def resize_rgb_chw(src, dh, dw, channels=3, mirror=False):
-    """``src`` (sh, sw, 3) uint8 RGB -> (channels, dh, dw) float32 in
-    [0, 1]: on CUDA one launch of the hand-written kernel, on the CPU
-    :func:`resize_rgb_chw_reference`."""
-    if src.device.type == "cpu":
-        return resize_rgb_chw_reference(src, dh, dw, channels, mirror)
-    if src.device.type != "cuda":
-        raise MXNetError("resize_rgb_chw: unsupported device %s"
-                         % src.device)
-    if src.dtype != torch.uint8 or src.dim() != 3 or src.shape[2] != 3 \
-            or not src.is_contiguous():
-        raise MXNetError("resize_rgb_chw: the source must be a contiguous "
-                         "(h, w, 3) uint8 tensor, not %s %s"
-                         % (tuple(src.shape), src.dtype))
-    out = torch.empty((channels, dh, dw), dtype=torch.float32,
-                      device=src.device)
+def resize_rgb_chw_batch_reference(srcs, dh, dw, channels=3, mirrors=None,
+                                   mean=None, scale=None):
+    """Plain version of a round: each source that is not None through
+    :func:`resize_rgb_chw_reference` into the slot :func:`round_slots`
+    gives it, zeros past them, then the whole batch less ``mean``
+    (:func:`channel_mean`) and times ``scale`` in float32, the order of
+    ``ImageRecordIter``'s numpy ``-=`` and ``*=``; (len(srcs), channels,
+    dh, dw)."""
+    mirrors = _mirrors(mirrors, len(srcs))
+    dev = next((s.device for s in srcs if s is not None),
+               torch.device("cpu"))
+    out = torch.zeros((len(srcs), channels, dh, dw), dtype=torch.float32,
+                      device=dev)
+    slots = round_slots([s is not None for s in srcs])
+    for src, flip, slot in zip(srcs, mirrors, slots):
+        if slot is not None:
+            out[slot] = resize_rgb_chw_reference(src, dh, dw, channels, flip)
+    if mean is not None:
+        out -= torch.from_numpy(channel_mean(mean, channels)).to(
+            dev).view(1, -1, 1, 1)
+    if scale is not None:
+        out *= torch.tensor(np.float32(scale), device=dev)
+    return out
+
+
+def launch_round(table, n, out, channels, mean=None, scale=None):
+    """One launch of the kernel: ``n`` rows of ``table`` (DESC rows as a
+    uint8 tensor on the card) into ``out`` (batch, channels, dh, dw)
+    float32 on the card, less ``mean`` (``channels`` float32 values on the
+    card) and times ``scale``, on the current stream."""
+    dh, dw = out.shape[-2:]
     fn = loader_lib().mx_resize_rgb_chw
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), src.shape[1], src.shape[0], out.data_ptr(),
-                 dw, dh, channels, int(bool(mirror)), stream)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(table.data_ptr(), n, out.data_ptr(), dw, dh, channels,
+                 None if mean is None else mean.data_ptr(),
+                 0.0 if scale is None else float(np.float32(scale)),
+                 int(scale is not None), stream)
     if err != 0:
         raise MXNetError("resize_rgb_chw: kernel launch failed with "
                          "cudaError_t %d" % err)
     profiler.bump(COUNTER)
+
+
+def div255_mismatches(device):
+    """How many floats in [0, 256] the kernel divides by 255 otherwise
+    than a true division does (its ``div255``, a multiply and one
+    correction, against ``__fdiv_rn``), every one of them tried on
+    ``device``, a CUDA device; the kernel's bits rest on this being 0."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    hi = int(np.float32(256.0).view(np.uint32))
+    with torch.cuda.device(count.device):
+        err = loader_lib().mx_div255_mismatches(
+            0, hi, count.data_ptr(),
+            torch.cuda.current_stream(count.device).cuda_stream)
+    if err != 0:
+        raise MXNetError("div255 check: launch failed with cudaError_t %d"
+                         % err)
+    return int(count.item())
+
+
+def resize_rgb_chw_batch(srcs, dh, dw, channels=3, mirrors=None, mean=None,
+                         scale=None):
+    """A round of ragged ``srcs`` ((h, w, 3) uint8 RGB; None for a record
+    that failed to decode) -> (len(srcs), channels, dh, dw) float32: the
+    decoded images compacted to the front, blank images after them, each
+    less ``mean`` and times ``scale`` where given.  On CUDA one launch of
+    the hand-written kernel, on the CPU
+    :func:`resize_rgb_chw_batch_reference`."""
+    devices = {s.device for s in srcs if s is not None}
+    if not devices or devices == {torch.device("cpu")}:
+        return resize_rgb_chw_batch_reference(srcs, dh, dw, channels,
+                                              mirrors, mean, scale)
+    if len(devices) > 1:
+        raise MXNetError("resize_rgb_chw_batch: sources on several devices "
+                         "%s" % sorted(map(str, devices)))
+    dev = devices.pop()
+    if dev.type != "cuda":
+        raise MXNetError("resize_rgb_chw: unsupported device %s" % dev)
+    if len(srcs) > MAX_ROUND:
+        raise MXNetError("resize_rgb_chw_batch: %d images; a round takes at "
+                         "most %d" % (len(srcs), MAX_ROUND))
+    for src in srcs:
+        if src is not None and (src.dtype != torch.uint8 or src.dim() != 3
+                                or src.shape[2] != 3
+                                or not src.is_contiguous()):
+            raise MXNetError("resize_rgb_chw: a source must be a contiguous "
+                             "(h, w, 3) uint8 tensor, not %s %s"
+                             % (tuple(src.shape), src.dtype))
+    table = torch.from_numpy(round_table(srcs, dh, dw, mirrors).view(
+        np.uint8)).pin_memory().to(dev, non_blocking=True)
+    mean_t = None if mean is None else torch.from_numpy(
+        channel_mean(mean, channels)).to(dev)
+    out = torch.empty((len(srcs), channels, dh, dw), dtype=torch.float32,
+                      device=dev)
+    launch_round(table, len(srcs), out, channels, mean_t, scale)
     return out
+
+
+def resize_rgb_chw(src, dh, dw, channels=3, mirror=False):
+    """``src`` (sh, sw, 3) uint8 RGB -> (channels, dh, dw) float32 in
+    [0, 1]: on CUDA a round of one image (:func:`resize_rgb_chw_batch`),
+    on the CPU :func:`resize_rgb_chw_reference`."""
+    if src.device.type == "cpu":
+        return resize_rgb_chw_reference(src, dh, dw, channels, mirror)
+    return resize_rgb_chw_batch([src], dh, dw, channels, [mirror])[0]

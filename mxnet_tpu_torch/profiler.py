@@ -13,8 +13,9 @@ port bumps:
   replayed by ``capture``;
 - the hand-written kernels' launches: ``flash_attn_fwd_launches``,
   ``flash_attn_bwd_launches`` (``ops.attention``), ``scale_launches``
-  (``ops.scale``), ``resize_rgb_chw_launches`` (``ops.image_nvjpeg``) and
-  ``nms_launches`` (``ops.nms``);
+  (``ops.scale``), ``resize_rgb_chw_launches`` (``ops.image_nvjpeg``;
+  the card's image loader launches it once a round of decodes, which
+  ``nvjpeg_rounds`` counts) and ``nms_launches`` (``ops.nms``);
 - ``host_op_programs``: calls of a hybridized block or a Module step
   that ran eagerly on the card because their graph holds a ``Custom``
   op (``capture.graph_for``);

@@ -34,7 +34,8 @@ __all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
            "sharp_row_check", "SHARP_ROW_C", "op_cases", "run_op_case",
            "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
            "LIBM_TOL", "SUM_TOL", "LINALG_TOL", "canonical_signs",
-           "set_dropout", "nms_tiled", "nms_class_buckets"]
+           "set_dropout", "nms_tiled", "nms_class_buckets",
+           "CORRUPT_PAYLOAD", "loader_batches"]
 
 
 def _synthetic_digits(n, rng, protos):
@@ -1031,19 +1032,24 @@ def pil_jpeg(img, quality=95):
     return bio.getvalue()
 
 
+CORRUPT_PAYLOAD = b"\x89PNG not a jpeg" * 10
+
+
 def write_image_rec(prefix, n, seed=0, short=256, classes=1000, quality=95,
-                    encode=pil_jpeg, threads=1):
+                    encode=pil_jpeg, threads=1, corrupt=()):
     """Write ``n`` of :func:`synthetic_image`'s images as JPEG records to
     ``prefix.rec`` and ``prefix.idx`` (header label the image's, id its
-    index), encoding on ``threads`` threads; returns the mean bytes of a
-    JPEG."""
+    index), encoding on ``threads`` threads; the records at the indices in
+    ``corrupt`` carry ``CORRUPT_PAYLOAD`` (not a JPEG) instead.  Returns
+    the mean bytes of a record's payload."""
     from concurrent.futures import ThreadPoolExecutor
     from . import recordio
 
     def one(i):
         label, img = synthetic_image(seed, i, short, classes)
+        payload = CORRUPT_PAYLOAD if i in corrupt else encode(img, quality)
         return recordio.pack(recordio.IRHeader(0, float(label), i, 0),
-                             encode(img, quality))
+                             payload)
 
     rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
     total = 0
@@ -1053,6 +1059,16 @@ def write_image_rec(prefix, n, seed=0, short=256, classes=1000, quality=95,
             total += len(blob) - 24
     rec.close()
     return total / max(n, 1)
+
+
+def loader_batches(n, batch, corrupt=()):
+    """The records of each batch ``ImageRecordIter`` gives without shuffle
+    over ``n`` records, the ones at the indices in ``corrupt`` dropped
+    (``allow_corrupt=True``) and the records after them topping up:
+    ``[(record indices, pad), ...]``."""
+    kept = [i for i in range(n) if i not in corrupt]
+    return [(kept[i:i + batch], batch - len(kept[i:i + batch]))
+            for i in range(0, len(kept), batch)]
 
 
 def write_mnist_idx(path, train=60000, test=10000):

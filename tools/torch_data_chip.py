@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Phases 26-28 of ``chip_smoke.py`` alone, on one CUDA card: the JPEG
-probe, a ``.rec`` of 2,048 seeded JPEGs, the resize kernel against its
-plain version, ``ImageRecordIter`` (nvJPEG on the card) by thread count,
-the copy of a batch to the card, ResNet-50 through Gluon and through
-``Module.fit`` fed from the file, and LeNet through ``Module.fit`` over
-``MNISTIter`` and through Gluon over ``DataLoader``.  It builds only the
+probe, a ``.rec`` of 2,048 seeded JPEGs, the resize kernel's rounds
+against their plain version and timed, ``ImageRecordIter`` (nvJPEG on the
+card) by thread count, the copy of a batch to the card, ``mean_rgb`` and
+``scale`` on the card, ``allow_corrupt`` over corrupt records, ResNet-50
+through Gluon and through ``Module.fit`` fed from the file, and LeNet
+through ``Module.fit`` over ``MNISTIter`` and through Gluon over
+``DataLoader``.  It builds only the
 loader's source (``ops/csrc/image_nvjpeg.cu``) and prints the
 ``{"data": ...}`` line that ``chip_smoke.py`` prints, without phase 16's
 figure beside phase 27's.  Run from the repository root on the card:
