@@ -300,6 +300,29 @@ before it captures, and those runs launch the kernels too
    call, no capture) and ``examples/numpy_ops_softmax.py``'s net through
    ``Module.fit``.  The op sweep of phase 21 holds the long tail's ops
    (spatial, linalg, SSD, R-CNN, contrib) card against CPU.
+32. Sparse storage: (a) the CSR kernels (``ops/csrc/csr_dot.cu``:
+   ``csr_dot``, ``csr_t_dot`` and the transposition by a stable radix
+   sort) against their plain versions in fp32 and fp64, relative to each
+   output's sum of |terms| (``CSR_TOL``), a second call bit for bit, on
+   empty rows, nnz 0, a full row, the first and last columns and the
+   path's shape (8192 rows of 16 zipf ids at K 1,000,001, N 1, 2, 8, 64),
+   the transposition equal to a stable argsort; the path's shape timed
+   (CUDA events, mean of 200) beside the plain versions, cuSPARSE
+   (``torch.sparse.mm``) and the bound; with the kernels' counts then set
+   to 0, (b) ``examples/sparse_linear_classification.py``'s model at
+   avazu-app's 1,000,001 features through ``Module``, batch 8192, SGD lr
+   0.5, 3 epochs of 65,536 synthetic LibSVM lines read by
+   ``LibSVMIter`` (``rescale_grad`` 1: ``SPARSE_OPT``), without a store
+   and with ``kv.create("local")`` and
+   ``row_sparse_pull`` (the loss must fall, accuracy above 0.5, no dense
+   view built, peak memory under 1 GB, one ``csr_dot`` and one
+   ``csr_t_dot`` a step; ms/step, samples/s, busy share), then 3 fp64
+   steps card against ``cpu()`` (``SPARSE_PARITY_TOL``); (c)
+   ``examples/factorization_machine.py``'s FM through ``_fit_step`` at its
+   settings (last loss below half the first, accuracy above 0.8, every
+   step eager: ``sparse_eager_steps``); (d) ``nd.save`` of both sparse
+   types on the card byte for byte the CPU's, and a pickled CSR restored
+   dense with its tag.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
@@ -308,7 +331,8 @@ one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
 "worst": [...]}}`` line, phases 22-25's as one ``{"rnn": {...}}`` line,
 phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
 ``{"cv2_resize": {...}}`` line, phase 30's as one ``{"kvstore": {...}}``
-line, phase 31's as one ``{"long_tail": {...}}`` line, the
+line, phase 31's as one ``{"long_tail": {...}}`` line, phase 32's as
+one ``{"sparse": {...}, "sparse_kernels": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -534,9 +558,11 @@ def kernel_stems():
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import nms as nm
     from mxnet_tpu_torch.ops import scale as sc
+    from mxnet_tpu_torch.ops import sparse_dot as sd
     sources = (list(att.KERNEL_SOURCES.values())
                + list(att.BACKWARD_SOURCES.values())
-               + [sc.KERNEL_SOURCE, nj.KERNEL_SOURCE, nm.KERNEL_SOURCE])
+               + [sc.KERNEL_SOURCE, nj.KERNEL_SOURCE, nm.KERNEL_SOURCE,
+                  sd.KERNEL_SOURCE])
     return sorted({os.path.splitext(os.path.basename(src))[0]
                    for src in sources})
 
@@ -3686,9 +3712,9 @@ def ptb_fit(mod, batches, like, metric, on_card):
     return rec
 
 
-def device_profile(fn, steps):
+def device_profile(fn, steps, top=5):
     """``fn`` under ``torch.profiler``: (device ms a step, wall ms a step,
-    the five device operations that took longest, ms a step each)."""
+    the ``top`` device operations that took longest, ms a step each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3706,8 +3732,8 @@ def device_profile(fn, steps):
     device = sum(ops.values())
     if device == 0:
         raise AssertionError("torch.profiler recorded no device time")
-    top = sorted(ops.items(), key=lambda kv: -kv[1])[:5]
-    return device, wall, [[n[:90], ms] for n, ms in top]
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
+    return device, wall, [[n[:90], ms] for n, ms in ranked]
 
 
 def _private_pools(mod):
@@ -6201,6 +6227,590 @@ def phase_long_tail(card):
     return res
 
 
+# -- phase 32: sparse storage --------------------------------------------------
+# examples/sparse_linear_classification.py's model (the reference's
+# example/sparse/linear_classification) at avazu-app's 1,000,001 features
+# and the example's batch 8192.  avazu-app is not in the repository, so the
+# data is synthetic LibSVM at its width, written as the example writes it,
+# with 16 ids a line (this repository's choice).
+SPARSE_DIM = 1000001
+SPARSE_BATCH = 8192
+SPARSE_ROWS = 65536
+SPARSE_NNZ = 16
+SPARSE_EPOCHS = 3
+# the example's lr, 0.5.  Its loss is already a batch mean (MakeLoss of
+# mean), and Module's default rescale_grad of 1 / batch would make a step
+# 1 / 8192 of that at this batch: 24 steps then leave the prediction to
+# the initial draw (on the CPU, seeds 0-2 give accuracy 0.27, 0.57 and
+# 0.83, the loss 0.0007 lower).  So the gradient is taken as it is.
+SPARSE_OPT = (("learning_rate", 0.5), ("rescale_grad", 1.0))
+SPARSE_POS_WEIGHT = 2.0
+SPARSE_PARITY_STEPS = 3
+# fp64 card against CPU: the products add in the same order on both routes;
+# what differs is the card's log/exp against the CPU's, a few ulps
+SPARSE_PARITY_TOL = 1e-10
+SPARSE_PEAK_LIMIT = 1 << 30     # a dense batch would be 32.8 GB
+# examples/factorization_machine.py at its own settings; the bars of
+# tests/test_examples.py:218-227
+FM = dict(dim=200, factor=8, batch=64, lr=0.05, epochs=8, rows=2048)
+# a kernel against its plain version, relative to each output's sum of
+# |terms|: the same roundings in the same order (csr_dot), or in row order
+# by tiles of 32 (csr_t_dot), so the gap is the tiles' order and the plain
+# version's own atomics on the card (index_add_ adds in any order)
+CSR_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+CSR_TIMING_ITERS = 200
+CSR_ORDER_MODEL_NNZ = 5000      # cases checked against t_dot_tiles_reference
+CSR_PATH_N = 2                  # the linear model's classes
+
+
+def sparse_linear_symbol(mt, dim, dtype=None,
+                         positive_cls_weight=SPARSE_POS_WEIGHT):
+    """``examples/sparse_linear_classification.py``'s ``linear_model``
+    (:51-71) through ``mt.sym``: a CSR ``data``, a (dim, 2) row_sparse
+    weight (``Normal(0.01)``), a bias, the class-weighted cross-entropy
+    through ``MakeLoss`` and ``BlockGrad(softmax)``; ``dtype`` types the
+    parameters."""
+    S = mt.sym
+    typed = {} if dtype is None else {"dtype": dtype}
+    x = S.Variable("data", stype="csr")
+    weight = S.Variable("weight", shape=(dim, 2),
+                        init=mt.initializer.Normal(sigma=0.01),
+                        stype="row_sparse", **typed)
+    bias = S.Variable("bias", shape=(2,), **typed)
+    pred = S.broadcast_add(S.dot(x, weight), bias)
+    y = S.Variable("softmax_label")
+    logp = S.log_softmax(pred, axis=-1)
+    onehot = S.one_hot(y, depth=2)
+    cls_w = 1.0 + (positive_cls_weight - 1.0) * y
+    nll = -S.sum(logp * onehot, axis=-1) * cls_w
+    loss = S.MakeLoss(S.mean(nll), name="weighted_ce")
+    return S.Group([loss, S.BlockGrad(S.softmax(pred), name="prob")])
+
+
+def fm_symbol(mt, dim, factor):
+    """``examples/factorization_machine.py``'s ``fm_model`` through
+    ``mt.sym``; its ``x * x`` reads the CSR's dense view."""
+    S = mt.sym
+    x = S.Variable("data", stype="csr")
+    w = S.Variable("w", shape=(dim, 1),
+                   init=mt.initializer.Normal(sigma=0.01))
+    v = S.Variable("v", shape=(dim, factor),
+                   init=mt.initializer.Normal(sigma=0.05))
+    w0 = S.Variable("w0", shape=(1,), init=mt.initializer.Zero())
+    linear = S.dot(x, w)
+    vx = S.dot(x, v)
+    x2 = x * x
+    v2 = v * v
+    inter = 0.5 * (S.sum(vx * vx, axis=1, keepdims=True)
+                   - S.sum(S.dot(x2, v2), axis=1, keepdims=True))
+    score = S.broadcast_add(linear + inter, S.Reshape(w0, shape=(1, 1)))
+    label = S.Variable("softmax_label")
+    z = S.Reshape(score, shape=(-1,))
+    loss = S.mean(S.relu(z) - z * label + S.log(1 + S.exp(-S.abs(z))))
+    return S.Group([S.MakeLoss(loss, name="logloss"),
+                    S.BlockGrad(S.sigmoid(z), name="prob")])
+
+
+def sparse_module(mt, sym, ctx, provide_data, provide_label, optimizer,
+                  optimizer_params, kv=None, params=None, seed=0):
+    """A bound, initialized ``Module`` as the examples make it (``params``:
+    (arg, aux) dicts to set instead of the initializer's draws)."""
+    mt.random.seed(seed)
+    mod = mt.mod.Module(sym, data_names=["data"],
+                        label_names=["softmax_label"], context=ctx)
+    mod.bind(data_shapes=provide_data, label_shapes=provide_label)
+    if params is None:
+        mod.init_params()
+    else:
+        mod.set_params(*params)
+    mod.init_optimizer(kvstore=kv, optimizer=optimizer,
+                       optimizer_params=optimizer_params)
+    return mod
+
+
+def sparse_linear_step(mod, batch, kv=None):
+    """The example's step (:108-118): with a store, pull the weight rows
+    the batch's CSR touches; forward, backward, update; the loss."""
+    if kv is not None:
+        slot = mod._exec_group.param_names.index("weight")
+        kv.row_sparse_pull("weight", mod._exec_group.param_arrays[slot],
+                           row_ids=[batch.data[0].indices], priority=-slot)
+    mod.forward_backward(batch)
+    mod.update()
+    return float(mod.get_outputs()[0].asnumpy().sum())
+
+
+def sparse_accuracy(mod, it, binary):
+    """Held-in accuracy as the examples score it."""
+    it.reset()
+    correct = total = 0
+    for batch in it:
+        mod.forward(batch, is_train=False)
+        prob = mod.get_outputs()[1].asnumpy()
+        y = batch.label[0].asnumpy()
+        pred = prob > 0.5 if binary else prob.argmax(axis=1)
+        correct += int((pred == y).sum())
+        total += len(y)
+    return correct / max(total, 1)
+
+
+def sparse_batch_as(mt, batch, dtype):
+    """``batch`` with its CSR and labels in ``dtype``, on the host."""
+    from mxnet_tpu_torch.ndarray.sparse import CSRNDArray
+    csr = batch.data[0]._parts()
+    return mt.io.DataBatch(
+        [CSRNDArray(csr.to("cpu", dtype), mt.cpu())],
+        [mt.nd.array(batch.label[0], ctx=mt.cpu(), dtype=dtype)],
+        pad=batch.pad)
+
+
+def sparse_linear_parity(mt, ctx, batches, init, kv_kind):
+    """``SPARSE_PARITY_STEPS`` fp64 steps of the linear model on ``ctx``
+    from ``init`` (numpy weight, bias): the losses and the parameters."""
+    dim = init["weight"].shape[0]
+    descs = ([mt.io.DataDesc("data", (SPARSE_BATCH, dim), np.float64)],
+             [mt.io.DataDesc("softmax_label", (SPARSE_BATCH,), np.float64)])
+    params = ({k: mt.nd.array(v, ctx=mt.cpu(), dtype=np.float64)
+               for k, v in init.items()}, {})
+    kv = mt.kv.create(kv_kind) if kv_kind else None
+    mod = sparse_module(mt, sparse_linear_symbol(mt, dim, dtype="float64"),
+                        ctx, *descs, "sgd", SPARSE_OPT, kv=kv, params=params)
+    losses = [sparse_linear_step(mod, b, kv) for b in batches]
+    arg, _ = mod.get_params()
+    return losses, {k: v.asnumpy() for k, v in arg.items()}
+
+
+def write_sparse_data(tmp, mt):
+    """The avazu-width LibSVM file and the FM's, in ``tmp``."""
+    path = os.path.join(tmp, "avazu_width.libsvm")
+    mt.test_utils.synthetic_libsvm(path, n=SPARSE_ROWS, dim=SPARSE_DIM,
+                                   nnz=SPARSE_NNZ)
+    fm_path = os.path.join(tmp, "fm.libsvm")
+    mt.test_utils.synthetic_fm_libsvm(fm_path, n=FM["rows"], dim=FM["dim"])
+    return path, fm_path
+
+
+def _csr_case_parts(rng, m, k, lengths, cols=None):
+    """Host (indptr, indices) of ``m`` rows of ``lengths`` sorted distinct
+    ids below ``k`` (each row ``cols`` where given)."""
+    rows = []
+    for n in lengths:
+        if cols is not None:
+            rows.append(np.asarray(cols, np.int64))
+        else:
+            rows.append(np.sort(rng.choice(k, size=int(n), replace=False)))
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    idx = np.concatenate(rows) if rows else np.zeros(0)
+    return indptr.astype(np.int64), idx.astype(np.int64)
+
+
+def path_csr_parts(rng, m=SPARSE_BATCH, k=SPARSE_DIM, nnz=SPARSE_NNZ):
+    """(indptr, indices) of ``m`` lines as the synthetic data draws them."""
+    rows = [np.unique(rng.zipf(1.5, nnz * 2) % k)[:nnz] for _ in range(m)]
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    return indptr.astype(np.int64), np.concatenate(rows).astype(np.int64)
+
+
+def csr_kernel_cases(rng):
+    """(name, m, k, (indptr, indices), widths N): the ragged edges and the
+    path's shape, K 1,000,001 at N 1, 2, 8 and 64."""
+    half = rng.randint(0, 9, 257)
+    half[::2] = 0
+    return [
+        ("empty rows", 257, 1000, _csr_case_parts(rng, 257, 1000, half),
+         (2, 40)),
+        ("nnz 0", 33, 100, _csr_case_parts(rng, 33, 100, [0] * 33), (2, 40)),
+        ("one full row", 5, 4099,
+         _csr_case_parts(rng, 5, 4099, [0, 0, 4099, 0, 0]), (2, 40)),
+        ("first and last column", 64, SPARSE_DIM,
+         _csr_case_parts(rng, 64, SPARSE_DIM, [2] * 64,
+                         cols=[0, SPARSE_DIM - 1]), (2, 40)),
+        ("path", SPARSE_BATCH, SPARSE_DIM, path_csr_parts(rng), (1, 2, 8, 64)),
+    ]
+
+
+def csr_on(parts, m, k, dtype, dev, gen):
+    from mxnet_tpu_torch.ops.sparse_dot import CSR
+    indptr, indices = parts
+    values = torch.randn(len(indices), generator=gen, dtype=torch.float64,
+                         device=dev).to(dtype)
+    return CSR(values, torch.from_numpy(indices).to(dev),
+               torch.from_numpy(indptr).to(dev), (m, k))
+
+
+def csr_errors(got, plain, scale):
+    """(largest error relative to the sum of |terms|, largest absolute
+    error); an output whose terms sum to 0 must be 0 on both."""
+    diff = (got.double() - plain.double()).abs()
+    empty = scale == 0
+    if bool((diff[empty] != 0).any()):
+        return float("inf"), float(diff.max())
+    rel = diff[~empty] / scale[~empty].double()
+    return (float(rel.max()) if rel.numel() else 0.0,
+            float(diff.max()) if diff.numel() else 0.0)
+
+
+def csr_bound_ms(kind, csr, n, itemsize):
+    """Least time for one call on ``csr``'s data: the bytes it must move
+    (the parts read once, the rows of the dense operand that its entries
+    name read once, the output written once) at 3.35 TB/s against 2
+    operations an entry and column at 67 TFLOP/s.  B's gradient
+    (``csr_t_dot``) has one bound, A^T . G, and the transposition that it
+    builds on the way is held to that same bound."""
+    m, k = csr.shape
+    parts = (m + 1) * 8 + csr.nnz * (8 + itemsize)
+    if kind == "csr_dot":
+        named = int(torch.unique(csr.indices).numel())    # rows of B read
+        nbytes = parts + named * n * itemsize + m * n * itemsize
+    else:   # csr_t_dot, csr_transpose: A^T . G
+        named = int((csr.indptr.diff() > 0).sum())        # rows of G read
+        nbytes = parts + named * n * itemsize + k * n * itemsize
+    ops = 2.0 * csr.nnz * n
+    t_bytes = 1e3 * nbytes / HBM_BPS
+    t_ops = 1e3 * ops / PEAK_FLOPS[torch.float32]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def other_dtype_refusals(dev):
+    """A bf16 and an fp16 CSR on the card: ``dot`` raises ``MXNetError``
+    and builds no dense view (for each, whether both held)."""
+    from mxnet_tpu_torch import MXNetError, profiler
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    out = {}
+    for dt in (torch.bfloat16, torch.float16):
+        csr = sd.CSR(torch.ones(2, dtype=dt, device=dev),
+                     torch.tensor([0, SPARSE_DIM - 1], device=dev),
+                     torch.tensor([0, 1, 2], device=dev), (2, SPARSE_DIM))
+        before = profiler.counter(sd.DENSIFY_COUNTER)
+        try:
+            sd.dot(csr, torch.ones((SPARSE_DIM, 2), dtype=dt, device=dev))
+            raised = False
+        except MXNetError:
+            raised = True
+        out[DTYPE_NAME.get(dt, str(dt))] = raised and csr._dense is None \
+            and profiler.counter(sd.DENSIFY_COUNTER) == before
+    return out
+
+
+def csr_kernel_check(card):
+    """32 (a): ``csr_dot``, ``csr_t_dot`` and the transposition against
+    their plain versions in fp32 and fp64 on every case, a second call
+    equal bit for bit; then the path's shape timed beside the plain
+    versions and cuSPARSE (``torch.sparse.mm`` on a
+    ``torch.sparse_csr_tensor`` of the same parts)."""
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    from mxnet_tpu_torch.ops.sparse_dot import CSR
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(32)
+    gen = torch.Generator(dev).manual_seed(32)
+    rows, bad, worst = [], [], {}
+    for name, m, k, parts, widths in csr_kernel_cases(rng):
+        for dt in (torch.float32, torch.float64):
+            csr = csr_on(parts, m, k, dt, dev, gen)
+            # csr_t_dot's order, bit for bit, where the model's loop is short
+            order_model = csr.nnz <= CSR_ORDER_MODEL_NNZ
+            mine = sd.transpose_parts(csr)
+            plain_t = sd.transpose_parts_reference(csr)
+            if not all(torch.equal(a, b) for a, b in zip(mine, plain_t)):
+                bad.append("%s %s: the transposition differs" % (name, dt))
+            absolute = CSR(csr.values.abs(), csr.indices, csr.indptr,
+                           csr.shape)
+            for n in widths:
+                for kind, fn, ref, rows_in in (
+                        ("csr_dot", sd.csr_dot, sd.csr_dot_reference, k),
+                        ("csr_t_dot", sd.csr_t_dot, sd.csr_t_dot_reference,
+                         m)):
+                    b = torch.randn((rows_in, n), generator=gen,
+                                    dtype=torch.float64, device=dev).to(dt)
+                    got = fn(csr, b)
+                    again = fn(csr, b)
+                    torch.cuda.synchronize()
+                    plain = ref(csr, b)
+                    scale = ref(absolute, b.abs())
+                    rel, err = csr_errors(got, plain, scale)
+                    same_order = None
+                    if kind == "csr_t_dot" and order_model:
+                        same_order = bool(torch.equal(
+                            got, sd.t_dot_tiles_reference(csr, b)))
+                        if not same_order:
+                            bad.append("%s csr_t_dot %s N %d: not the tiles' "
+                                       "order" % (name, dt, n))
+                    key = (kind, DTYPE_NAME.get(dt, "fp64"))
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    rows.append(dict(case=name, kind=kind,
+                                     dtype=str(dt).replace("torch.", ""),
+                                     m=m, k=k, n=n, nnz=csr.nnz,
+                                     rel_err=rel, max_abs_err=err,
+                                     tiles_order=same_order,
+                                     bitwise_again=bool(torch.equal(got,
+                                                                    again))))
+                    if rel > CSR_TOL[dt] or not torch.equal(got, again):
+                        bad.append("%s %s %s N %d: rel %.3g (limit %g), "
+                                   "again %s" % (name, kind, dt, n, rel,
+                                                 CSR_TOL[dt],
+                                                 torch.equal(got, again)))
+    log("phase 32 (a) csr kernels on %s: %d checks, worst relative error %s"
+        % (card, len(rows), {"%s %s" % k: v for k, v in worst.items()}))
+    refused = other_dtype_refusals(dev)
+    log("phase 32 (a) a CSR of another dtype on %s: %s" % (card, refused))
+    if not all(refused.values()):
+        bad.append("a CSR of another dtype on the card: %s" % refused)
+    if bad:
+        raise AssertionError("phase 32 (a): %s" % "; ".join(bad[:8]))
+    # the path's shape, fp32, N 2: ms against plain, cuSPARSE and the bound
+    parts = path_csr_parts(np.random.RandomState(33))
+    csr = csr_on(parts, SPARSE_BATCH, SPARSE_DIM, torch.float32, dev, gen)
+    b = torch.randn((SPARSE_DIM, CSR_PATH_N), generator=gen, device=dev)
+    g = torch.randn((SPARSE_BATCH, CSR_PATH_N), generator=gen, device=dev)
+    lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.values,
+                                  size=csr.shape)
+    def library_t():
+        return torch.sparse.mm(lib.t(), g)
+
+    timing = {}
+    for kind, mine, plain, library in (
+            ("csr_dot", lambda: sd.csr_dot(csr, b),
+             lambda: sd.csr_dot_reference(csr, b),
+             lambda: torch.sparse.mm(lib, b)),
+            ("csr_t_dot", lambda: sd.csr_t_dot(csr, g),
+             lambda: sd.csr_t_dot_reference(csr, g), library_t),
+            ("csr_transpose", lambda: sd.transpose_parts(csr),
+             lambda: sd.transpose_parts_reference(csr),
+             lambda: lib.to_sparse_csc())):
+        try:
+            library()
+            lib_ms = cuda_ms(library, CSR_TIMING_ITERS, 10)
+        except (RuntimeError, NotImplementedError) as e:
+            log("phase 32 (a) %s: no library call (%s)" % (kind, e))
+            lib_ms = None
+        bound, by = csr_bound_ms(kind, csr, CSR_PATH_N, 4)
+        timing[kind] = dict(
+            ms=cuda_ms(mine, CSR_TIMING_ITERS, 10),
+            plain_ms=cuda_ms(plain, CSR_TIMING_ITERS, 10),
+            library_ms=lib_ms, bound_ms=bound, bound_by=by,
+            shape=[SPARSE_BATCH, SPARSE_DIM, CSR_PATH_N], nnz=csr.nnz,
+            max_abs_err=max((r["max_abs_err"] for r in rows
+                             if r["case"] == "path" and r["n"] == CSR_PATH_N
+                             and r["dtype"] == "float32"
+                             and r["kind"] == kind), default=0.0))
+        log("phase 32 (a) %s on %s, (%d x %d, nnz %d) . N %d fp32: %.5f ms "
+            "(bound %.5f by %s), plain %.5f, library %s"
+            % (kind, card, SPARSE_BATCH, SPARSE_DIM, csr.nnz, CSR_PATH_N,
+               timing[kind]["ms"], bound, by, timing[kind]["plain_ms"],
+               lib_ms))
+    # where B's gradient (the transposition included, as in every call)
+    # spends its device time, operation by operation
+    calls = 20
+    device, wall, ops = device_profile(
+        lambda: [sd.csr_t_dot(csr, g) for _ in range(calls)], calls, top=20)
+    plain_device, _, plain_ops = device_profile(
+        lambda: [sd.csr_t_dot_reference(csr, g) for _ in range(calls)],
+        calls, top=20)
+    timing["csr_t_dot"].update(device_ms=device, wall_ms=wall,
+                               device_ops=ops, plain_device_ms=plain_device,
+                               plain_device_ops=plain_ops)
+    log("phase 32 (a) B's gradient on %s under the profiler: %.5f device "
+        "ms, %.5f wall ms a call; %s; the plain version %.5f device ms a "
+        "call; %s" % (card, device, wall, ops, plain_device, plain_ops))
+    return dict(card=card, checks=rows, worst={"%s %s" % k: v
+                                               for k, v in worst.items()},
+                timing=timing)
+
+
+def sparse_linear_train(mt, card, path, kv_kind):
+    """32 (b): the linear model through ``Module`` at avazu-app's width,
+    ``SPARSE_EPOCHS`` epochs of the example's loop, with the kernels'
+    counts, ``sparse_densify`` and the peak memory read over the steps."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    free_card()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(SPARSE_DIM,),
+                          batch_size=SPARSE_BATCH)
+    kv = mt.kv.create(kv_kind) if kv_kind else None
+    mod = sparse_module(mt, sparse_linear_symbol(mt, SPARSE_DIM),
+                        mt.gpu(0), it.provide_data, it.provide_label, "sgd",
+                        SPARSE_OPT, kv=kv)
+    names = list(sd.COUNTERS.values()) + [sd.DENSIFY_COUNTER]
+    profiler.reset_counters(*names)
+    epochs, step_ms = [], []
+    for _ in range(SPARSE_EPOCHS):
+        it.reset()
+        losses = []
+        for batch in it:
+            t0 = time.perf_counter()
+            losses.append(sparse_linear_step(mod, batch, kv))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        epochs.append(sum(losses) / len(losses))
+    counts = {n: profiler.counter(n) for n in names}
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = len(step_ms)
+    it.reset()
+    batches = [b for b, _ in zip(it, range(3))]
+
+    def window():
+        for b in batches:
+            sparse_linear_step(mod, b, kv)
+    device, wall, top = device_profile(window, len(batches))
+    acc = sparse_accuracy(mod, it, binary=False)
+    ms = float(np.median(step_ms[1:]))
+    res = dict(store=kv_kind, epoch_losses=epochs, accuracy=acc, steps=steps,
+               ms_per_step=ms, step_ms=step_ms,
+               samples_per_s=SPARSE_BATCH / ms * 1e3,
+               busy=device / wall, device_ms=device, wall_ms=wall,
+               top_device_ops=top, peak_bytes=peak, counts=counts)
+    log("phase 32 (b) linear model at %d features on %s, batch %d, %s: "
+        "epoch losses %s, accuracy %.4f, %.3f ms/step (median of %d), "
+        "%.0f samples/s, busy %.1f%%, peak %.1f MB above the phase's start; "
+        "counts %s" % (SPARSE_DIM, card, SPARSE_BATCH,
+                       "store %s" % kv_kind if kv_kind else "no store",
+                       ["%.5f" % v for v in epochs], acc, ms, steps - 1,
+                       res["samples_per_s"], 100 * res["busy"], peak / 1e6,
+                       counts))
+    bad = []
+    if not epochs[-1] < epochs[0] or not acc > 0.5:
+        bad.append("loss %s, accuracy %.4f" % (epochs, acc))
+    if counts[sd.DENSIFY_COUNTER]:
+        bad.append("%d dense views built" % counts[sd.DENSIFY_COUNTER])
+    if peak >= SPARSE_PEAK_LIMIT:
+        bad.append("peak %d bytes" % peak)
+    want = {sd.COUNTERS["csr_dot"]: steps, sd.COUNTERS["csr_t_dot"]: steps}
+    if any(counts[k] != v for k, v in want.items()):
+        bad.append("launches %s, want %s" % (counts, want))
+    if bad:
+        raise AssertionError("phase 32 (b): %s" % "; ".join(bad))
+    return res
+
+
+def sparse_linear_card_vs_cpu(mt, card, path):
+    """32 (b): ``SPARSE_PARITY_STEPS`` fp64 steps on the card and on the
+    ``cpu()`` route from one init, with and without a store."""
+    it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(SPARSE_DIM,),
+                          batch_size=SPARSE_BATCH)
+    batches = [sparse_batch_as(mt, b, torch.float64)
+               for b, _ in zip(it, range(SPARSE_PARITY_STEPS))]
+    rng = np.random.RandomState(320)
+    init = {"weight": rng.normal(0, 0.01, (SPARSE_DIM, 2)),
+            "bias": np.zeros(2)}
+    res = {}
+    for kv_kind in (None, "local"):
+        card_run = sparse_linear_parity(mt, mt.gpu(0), batches, init,
+                                        kv_kind)
+        cpu_run = sparse_linear_parity(mt, mt.cpu(), batches, init, kv_kind)
+        gaps = dict(loss=float(np.max(np.abs(np.subtract(card_run[0],
+                                                         cpu_run[0])))))
+        for k in init:
+            gaps[k] = float(np.max(np.abs(card_run[1][k] - cpu_run[1][k])))
+        res[kv_kind or "no store"] = gaps
+    log("phase 32 (b) fp64 card against cpu() on %s, %d steps at batch %d: "
+        "%s (limit %g)" % (card, SPARSE_PARITY_STEPS, SPARSE_BATCH, res,
+                           SPARSE_PARITY_TOL))
+    worst = max(v for g in res.values() for v in g.values())
+    if not worst <= SPARSE_PARITY_TOL:
+        raise AssertionError("phase 32 (b) card against CPU: %s" % res)
+    return res
+
+
+def fm_train(mt, card, path):
+    """32 (c): the FM through ``Module._fit_step`` at the example's
+    settings; each step eager (``sparse_eager_steps``)."""
+    from mxnet_tpu_torch import profiler
+    it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(FM["dim"],),
+                          batch_size=FM["batch"])
+    mod = sparse_module(mt, fm_symbol(mt, FM["dim"], FM["factor"]),
+                        mt.gpu(0), it.provide_data, it.provide_label,
+                        "adam", (("learning_rate", FM["lr"]),))
+    profiler.reset_counters("sparse_eager_steps", "graph_replays")
+    t0 = time.perf_counter()
+    epochs, steps = [], 0
+    for _ in range(FM["epochs"]):
+        it.reset()
+        tot = nb = 0
+        for batch in it:
+            mod._fit_step(batch)
+            tot += float(mod.get_outputs()[0].asnumpy())
+            nb += 1
+        epochs.append(tot / nb)
+        steps += nb
+    seconds = time.perf_counter() - t0
+    eager = profiler.counter("sparse_eager_steps")
+    replays = profiler.counter("graph_replays")
+    acc = sparse_accuracy(mod, it, binary=True)
+    log("phase 32 (c) FM (%d features, factor %d) on %s, batch %d, Adam lr "
+        "%g: losses %.4f -> %.4f, accuracy %.4f, %d steps in %.2f s (%.3f "
+        "ms/step), eager %d, replays %d"
+        % (FM["dim"], FM["factor"], card, FM["batch"], FM["lr"], epochs[0],
+           epochs[-1], acc, steps, seconds, 1e3 * seconds / steps, eager,
+           replays))
+    if not epochs[-1] < 0.5 * epochs[0] or not acc > 0.8 \
+            or eager != steps or replays:
+        raise AssertionError("phase 32 (c) FM: losses %s, accuracy %.4f, "
+                             "eager steps %d of %d, replays %d"
+                             % (epochs, acc, eager, steps, replays))
+    return dict(epoch_losses=epochs, accuracy=acc, steps=steps,
+                seconds=seconds, eager_steps=eager)
+
+
+def sparse_files_check(mt, card):
+    """32 (d): ``nd.save`` of a CSR and a row_sparse array on the card, the
+    same bytes as on the CPU; a pickled CSR restored dense with its tag."""
+    import pickle
+    rng = np.random.RandomState(34)
+    dense = rng.rand(6, 9).astype(np.float32)
+    dense[dense < 0.6] = 0
+
+    def arrays(ctx):
+        return {"csr": mt.nd.csr_matrix(dense, ctx=ctx),
+                "rsp": mt.nd.row_sparse_array((dense[[1, 4]], [1, 4]),
+                                              shape=(6, 9), ctx=ctx)}
+    on_card = mt.nd.save_to_bytes(arrays(mt.gpu(0)))
+    on_cpu = mt.nd.save_to_bytes(arrays(mt.cpu()))
+    back = pickle.loads(pickle.dumps(arrays(mt.gpu(0))["csr"]))
+    ok = dict(save_bytes_equal=on_card == on_cpu, save_bytes=len(on_card),
+              pickle_stype=back.stype, pickle_context=str(back.context),
+              pickle_equal=bool(np.array_equal(back.asnumpy(), dense)))
+    log("phase 32 (d) sparse files on %s: %s" % (card, ok))
+    if not (ok["save_bytes_equal"] and ok["pickle_equal"]
+            and back.stype == "csr" and back.context == mt.gpu(0)):
+        raise AssertionError("phase 32 (d): %s" % ok)
+    return ok
+
+
+def phase_sparse(card):
+    """Phase 32: (a) the CSR kernels against their plain versions, then,
+    with their counts set to 0, (b) the linear model at avazu-app's width
+    (the slice's path), its fp64 steps card against CPU, (c) the FM, (d)
+    the sparse files."""
+    import tempfile
+    import mxnet_tpu_torch as mt
+    t0 = time.perf_counter()
+    res, seconds = {"card": card}, {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        res[key] = fn(*args)
+        seconds[key] = time.perf_counter() - t
+
+    part("kernels", csr_kernel_check, card)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        part("data", lambda: dict(zip(("path", "fm_path"),
+                                      write_sparse_data(tmp, mt))))
+        path = res["data"]["path"]
+        part("linear", sparse_linear_train, mt, card, path, None)
+        part("linear_kv", sparse_linear_train, mt, card, path, "local")
+        part("card_vs_cpu", sparse_linear_card_vs_cpu, mt, card, path)
+        part("fm", fm_train, mt, card, res["data"]["fm_path"])
+    part("files", sparse_files_check, mt, card)
+    del res["data"]
+    res["seconds"] = dict(seconds, total=time.perf_counter() - t0)
+    log("phase 32: %s s" % {k: round(v, 1) for k, v in
+                            res["seconds"].items()})
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -6245,6 +6855,7 @@ def main():
     cv2_resize = phase_cv2_resize(card)
     kvstore = phase_kvstore(card)
     long_tail = phase_long_tail(card)
+    sparse = phase_sparse(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -6406,6 +7017,43 @@ def main():
                          for k, v in long_tail["nms_kernel"].items()
                          if "ms" in v and k != "ssd300 nms_topk -1"},
     })
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    for kind, design in (
+            ("csr_dot", "simt, a group of lanes a row (one an output column, "
+             "up to 32), the row's entries summed in stored order, "
+             "products and sums rounded apart"),
+            ("csr_t_dot", "simt, a warp a tile of 32 column-sorted "
+             "entries, each run of a column summed in row order; a second "
+             "kernel adds a run's partial sums over the tiles it crosses "
+             "in tile order; the output zeroed first; one call with the "
+             "transposition, whose time ms includes"),
+            ("csr_transpose", "one call: a warp a row (rows, sort keys), "
+             "then a stable LSD radix sort by column, digits of up to 10 "
+             "bits (2 passes at 1,000,001 columns), a histogram, a "
+             "prefix over the blocks and a match_any scatter a pass, 2048 "
+             "entries a block; held to the gradient's bound")):
+        t = sparse["kernels"]["timing"][kind]
+        launches = sum(sparse[run]["counts"][sd.COUNTERS[kind]]
+                       for run in ("linear", "linear_kv"))
+        entries.append({
+            "name": "%s[fp32]" % kind,
+            "route": "cuda",
+            "design": design,
+            "source": sd.KERNEL_SOURCE,
+            "replaces": "mxnet_tpu/ops/matrix.py:189 (jnp.tensordot on a "
+                        "CSR's dense backing; no Pallas kernel)",
+            "launches": launches,
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": t["shape"],
+            "nnz": t["nnz"],
+            **{k: t[k] for k in ("device_ms", "device_ops",
+                                 "plain_device_ms") if k in t},
+        })
     log(card)
     print(json.dumps({"resnet50": {
         "card": card, "parity": parity, "train": resnet,
@@ -6430,6 +7078,11 @@ def main():
     print(json.dumps({"cv2_resize": cv2_resize}))
     print(json.dumps({"kvstore": kvstore}))
     print(json.dumps({"long_tail": long_tail}))
+    print(json.dumps({"sparse": {k: v for k, v in sparse.items()
+                                 if k != "kernels"},
+                      "sparse_kernels": {k: v for k, v in
+                                         sparse["kernels"].items()
+                                         if k != "checks"}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

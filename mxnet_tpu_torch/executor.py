@@ -10,6 +10,15 @@ written into the existing ``grad_dict`` NDArrays in place (``add``
 accumulates), so an optimizer that holds them sees every step's values;
 aux states (moving statistics) are written back the same way.  There is
 no jit, graph capture or ``group2ctx`` path.
+
+A variable whose ``__storage_type__`` is ``csr`` (``sym.var(stype=
+"csr")``) binds an empty CSR, never a dense array of its shape: at
+avazu-app's width one dense batch is 32.8 GB.  The JAX executor ignores
+the attribute and binds dense zeros, which XLA's static shapes want.  A
+CSR argument runs through the graph as its parts (``ops.sparse_dot.CSR``):
+``dot`` takes them as its left operand, any other op reads the dense
+view (counted in ``sparse_densify``; ``Op.operand`` decides, here and in
+``ndarray.invoke``), as does an argument that takes a gradient.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from .base import MXNetError
 from .context import as_context
 from . import random as _random
 from .ndarray import NDArray, zeros as nd_zeros
+from .ndarray import sparse as _sparse
 from .symbol.symbol import _topo
 
 __all__ = ["Executor"]
@@ -35,7 +45,8 @@ def _run_graph(symbol, arg_vals, aux_vals, train_mode, gen):
             env[(id(node), 0)] = (aux_vals if node.is_aux
                                   else arg_vals)[node.name]
             continue
-        ins = [env[(id(s), oi)] for s, oi in node.inputs]
+        ins = [node.op.operand(i, env[(id(s), oi)])
+               for i, (s, oi) in enumerate(node.inputs)]
         attrs = node.attrs
         if node.op.no_inputs and attrs.get("ctx") is None:
             attrs = dict(attrs, ctx=gen.device)
@@ -48,6 +59,15 @@ def _run_graph(symbol, arg_vals, aux_vals, train_mode, gen):
             if src is not None and src.op is None and src.is_aux:
                 new_aux[src.name] = outs[out_idx]
     return [env[(id(n), oi)] for n, oi in symbol._outputs], new_aux
+
+
+def arg_zeros(stype, meta, ctx):
+    """The zeros a variable binds: an empty CSR for ``stype`` ``csr``, else
+    a dense array of ``meta``'s shape and dtype."""
+    if stype == "csr":
+        return _sparse.zeros("csr", tuple(meta.shape), ctx=ctx,
+                             dtype=meta.dtype)
+    return nd_zeros(tuple(meta.shape), ctx=ctx, dtype=meta.dtype)
 
 
 class Executor:
@@ -119,15 +139,15 @@ class Executor:
             if k not in self.arg_dict:
                 raise MXNetError("unknown argument %s" % k)
             self.arg_dict[k]._set_data(
-                v._data if isinstance(v, NDArray)
+                _sparse.raw(v) if isinstance(v, NDArray)
                 else torch.from_numpy(np.array(v)))
-        arg_vals = {n: a._data for n, a in self.arg_dict.items()}
+        arg_vals = {n: _sparse.raw(a) for n, a in self.arg_dict.items()}
         aux_vals = {n: a._data for n, a in self.aux_dict.items()}
         gen = _random.generator(self._ctx)
         self._train = None
         if is_train and self._grad_names:
-            leaves = {n: arg_vals[n].detach().requires_grad_(True)
-                      for n in self._grad_names}
+            leaves = {n: self.arg_dict[n]._data.detach()
+                      .requires_grad_(True) for n in self._grad_names}
             arg_vals.update(leaves)
             with torch.enable_grad():
                 outs, new_aux = _run_graph(self._symbol, arg_vals, aux_vals,
@@ -222,7 +242,9 @@ class Executor:
         if unknown:
             raise MXNetError("simple_bind could not infer shapes for %s; "
                              "pass their shapes as kwargs" % unknown)
-        arg_dict = {n: nd_zeros(tuple(s.shape), ctx=ctx, dtype=s.dtype)
+        stypes = {n.name: n.attrs.get("__storage_type__")
+                  for n in symbol._arg_nodes()}
+        arg_dict = {n: arg_zeros(stypes[n], s, ctx)
                     for n, s in zip(arg_names, a)}
         aux_dict = {n: nd_zeros(tuple(s.shape), ctx=ctx, dtype=s.dtype)
                     for n, s in zip(symbol.list_auxiliary_states(), x)}

@@ -12,8 +12,10 @@ package's order.  As in MXNet the batches are staged in host memory
 (NDArrays on ``cpu()``): the executor copies each into its bound arrays
 on the card, a Gluon loop with ``split_and_load`` or ``as_in_context``.
 ``PrefetchingIter`` fills the next batch of each source on a thread of
-its own.  ``LibSVMIter`` emits CSR batches, and sparse storage is not
-ported: it raises (ROADMAP A.9).  The JAX package's batch-wait telemetry
+its own.  ``LibSVMIter`` (``:603-657``) parses its file into CSR parts
+on the host, never into a dense matrix, and emits CSR batches
+(``ndarray.sparse.CSRNDArray`` on ``cpu()``), which the executor copies
+to its bound CSR on the card as three copies.  The JAX package's batch-wait telemetry
 (``_timed_batch``) waits for the telemetry port (A.11).
 """
 from __future__ import annotations
@@ -23,12 +25,15 @@ import struct
 import threading
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import cpu
 from . import ndarray as nd
 from . import random as _random
 from .ndarray import NDArray
+from .ndarray.sparse import CSRNDArray
+from .ops.sparse_dot import CSR
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
            "PrefetchingIter", "NDArrayIter", "CSVIter", "MNISTIter",
@@ -476,10 +481,113 @@ class MNISTIter(_WrappedArrayIter):
         super().__init__(pixels, digits, batch_size, shuffle=shuffle)
 
 
-class LibSVMIter(DataIter):
-    """LibSVM text batches; the reference emits them as CSR arrays, and
-    sparse storage is not ported yet."""
+def _read_libsvm(path):
+    """A LibSVM file's lines (reference ``src/io/iter_libsvm.cc:200``;
+    ``label idx:val ...``, ids 0-based) as (labels, rows, ids, values,
+    count of lines): the entries in file order, the last value of an id
+    repeated in a line, values through ``float``."""
+    labels, rows, ids, values = [], [], [], []
+    with open(path) as fh:
+        for line in fh:
+            cells = line.split()
+            if not cells:
+                continue
+            row = {}
+            for tok in cells[1:]:
+                idx, _, val = tok.partition(":")
+                row[int(idx)] = float(val)
+            rows.extend([len(labels)] * len(row))
+            ids.extend(row)
+            values.extend(row.values())
+            labels.append(float(cells[0]))
+    return (np.asarray(labels, np.float32), np.asarray(rows, np.int64),
+            np.asarray(ids, np.int64), np.asarray(values, np.float32),
+            len(labels))
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("LibSVMIter emits CSR (sparse) batches, and the "
-                         "sparse storage is not ported yet (ROADMAP A.9)")
+
+def _in_width(ids, dim, path):
+    """The ids below ``dim``, a negative one counted from the end as the
+    JAX package's dense write counts it."""
+    if ids.size and ids.min() < -dim:
+        raise MXNetError("%s: feature id %d is out of range for width %d"
+                         % (path, ids.min(), dim))
+    keep = ids < dim
+    return np.where(ids < 0, ids + dim, ids), keep
+
+
+def _parse_libsvm_csr(path, dim):
+    """(labels, canonical CSR parts (values, ids, row pointers)): ids at
+    or past ``dim`` dropped, zeros dropped, ids sorted in each row."""
+    labels, rows, ids, values, n = _read_libsvm(path)
+    ids, keep = _in_width(ids, dim, path)
+    rows, ids, values = rows[keep], ids[keep], values[keep]
+    # the last write of a (line, column) wins; np.unique sorts the keys
+    flat = rows * max(dim, 1) + ids
+    _, last = np.unique(flat[::-1], return_index=True)
+    sel = flat.size - 1 - last
+    sel = sel[values[sel] != 0]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows[sel], minlength=n), out=indptr[1:])
+    return labels, (values[sel], ids[sel], indptr)
+
+
+def _parse_libsvm_dense(path, dim=None):
+    """A (label) LibSVM file as the JAX package's ``_parse_libsvm`` gives
+    it, a dense float32 matrix (width ``dim``, else the largest id + 1)."""
+    labels, rows, ids, values, n = _read_libsvm(path)
+    if dim is None:
+        dim = int(ids.max()) + 1 if ids.size else 0
+    ids, keep = _in_width(ids, dim, path)
+    dense = np.zeros((n, dim), np.float32)
+    dense[rows[keep], ids[keep]] = values[keep]
+    return dense, labels
+
+
+class LibSVMIter(DataIter):
+    """Batches of a LibSVM file as CSR arrays (reference
+    ``src/io/iter_libsvm.cc:200``): ``data_shape`` is the feature width
+    (its product), the labels are each line's first value, or the rows
+    of ``label_libsvm`` shaped ``label_shape``.  ``round_batch`` True
+    carries the tail into the next epoch (``roll_over``), False wraps it
+    and reports the pad (``pad``), with the JAX package's batches, pads
+    and order.  Each batch is canonical: zeros dropped, ids sorted."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 **kwargs):
+        super().__init__(batch_size)
+        self._dim = int(np.prod(data_shape))
+        labels, self._parts = _parse_libsvm_csr(data_libsvm, self._dim)
+        if label_libsvm is not None:
+            lab_dim = int(np.prod(label_shape)) if label_shape else None
+            labels, _ = _parse_libsvm_dense(label_libsvm, lab_dim)
+            if label_shape:
+                labels = labels.reshape((-1,) + tuple(label_shape))
+        self._inner = NDArrayIter(
+            np.arange(self._parts[2].size - 1, dtype=np.int64), labels,
+            batch_size, last_batch_handle="roll_over" if round_batch
+            else "pad")
+        self.provide_data = [DataDesc("data", (batch_size, self._dim),
+                                      np.float32)]
+        self.provide_label = self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def _csr_rows(self, rows):
+        """The CSR of the file's ``rows``, on the host."""
+        values, ids, indptr = self._parts
+        starts = indptr[rows]
+        lengths = indptr[rows + 1] - starts
+        bptr = np.zeros(rows.size + 1, np.int64)
+        np.cumsum(lengths, out=bptr[1:])
+        take = np.repeat(starts - bptr[:-1], lengths) + np.arange(bptr[-1])
+        return CSRNDArray(CSR(torch.from_numpy(values[take]),
+                              torch.from_numpy(ids[take]),
+                              torch.from_numpy(bptr),
+                              (rows.size, self._dim)), cpu())
+
+    def next(self):
+        batch = self._inner.next()
+        batch.data = [self._csr_rows(batch.data[0].asnumpy())]
+        return batch

@@ -352,8 +352,13 @@ class KVStore:
         return outs
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        """Pull only the rows ``row_ids`` of each key: the other rows of
-        the outputs become zeros (dense-backed, as in the reference)."""
+        """Pull only the rows ``row_ids`` of each key (reference
+        ``kvstore.py:227``; the JAX package's ``:424-446``): the other rows
+        of each output become zeros, written into the output's own tensor
+        in place (dense-backed, as in the reference).  Each output is
+        tagged ``row_sparse``, and a ``RowSparseNDArray`` output keeps
+        ``row_ids`` and their rows as its indices and values."""
+        from .ndarray.sparse import RowSparseNDArray
         if out is None or row_ids is None:
             raise MXNetError("row_sparse_pull needs out and row_ids")
         keys, outs = _key_list(key, out)
@@ -362,10 +367,16 @@ class KVStore:
         for k, o, rid in zip(keys, outs, row_ids):
             src = self._store[self._checked_key(k)]._data
             rows = rid._data.to(src.device).long()
-            sparse = torch.zeros_like(src)
-            sparse[rows] = src[rows]
+            picked = src.index_select(0, rows)
             for dst in (o if isinstance(o, (list, tuple)) else [o]):
-                dst._set_data(sparse.to(dst._data.dtype))
+                t = dst._data
+                at = rows.to(t.device)
+                with torch.no_grad():
+                    t.zero_()
+                    t[at] = picked.to(t.device, t.dtype)
+                dst._stype = "row_sparse"
+                if isinstance(dst, RowSparseNDArray):
+                    dst._seed_sparse(at, t.index_select(0, at))
 
     # -- the update on the store -------------------------------------------
     def set_updater(self, updater):

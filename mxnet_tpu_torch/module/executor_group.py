@@ -16,15 +16,18 @@ labels beside its outputs.  ``get_params`` gives the mean of the
 contexts' copies, as the reference does (after an update the weights
 are one value; BatchNorm's moving statistics are each context's own).
 Bound with a ``shared_group``, each executor holds the donor's
-parameter, gradient and auxiliary NDArrays of its context.
+parameter, gradient and auxiliary NDArrays of its context.  A CSR batch
+(``io.LibSVMIter``) reaches the bound CSR argument as its parts: three
+copies, each context's rows sliced from the parts, no dense matrix.
 """
 from __future__ import annotations
 
 import torch
 
 from ..context import cpu
-from ..executor import Executor
+from ..executor import Executor, arg_zeros
 from .. import ndarray as nd
+from ..ndarray import sparse as _sparse
 
 __all__ = ["DataParallelExecutorGroup", "_split_input_slice"]
 
@@ -136,10 +139,11 @@ class DataParallelExecutorGroup:
                     and have._data.dtype == meta.dtype:
                 mine[name] = have
                 return True
-            mine[name] = nd.zeros(tuple(meta.shape), ctx=ctx,
-                                  dtype=meta.dtype)
+            mine[name] = arg_zeros(stypes.get(name), meta, ctx)
             return False
 
+        stypes = {n.name: n.attrs.get("__storage_type__")
+                  for n in self.symbol._arg_nodes()}
         arg_dict, grad_dict, aux_dict = {}, {}, {}
         shared = True
         for name, meta in zip(self.arg_names, args):
@@ -179,7 +183,7 @@ class DataParallelExecutorGroup:
     # -- execution ---------------------------------------------------------
     def _load(self, arrays, sources):
         for dsts, src in zip(arrays, sources):
-            raw = src._data if isinstance(src, nd.NDArray) \
+            raw = _sparse.raw(src) if isinstance(src, nd.NDArray) \
                 else nd.array(src, ctx=cpu())._data
             if len(dsts) == 1:
                 dsts[0]._set_data(raw)

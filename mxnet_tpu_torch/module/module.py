@@ -50,9 +50,10 @@ from collections import OrderedDict
 import numpy as np
 
 from ..base import MXNetError, dtype_name
-from .. import capture
+from .. import capture, profiler
 from .. import context as ctx_mod
 from .. import ndarray as nd
+from ..ndarray.sparse import from_reference
 from .. import optimizer as opt
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
                      _update_params_on_kvstore, load_checkpoint)
@@ -436,6 +437,8 @@ class Module(BaseModule):
         self._maybe_reshape(data_batch)
         step = self._get_cached_step()
         if step is None:
+            if self._holds_csr():
+                profiler.bump("sparse_eager_steps")
             super()._fit_step(data_batch)
             return
         feed = dict(zip(self._data_names, data_batch.data))
@@ -444,11 +447,20 @@ class Module(BaseModule):
         step.run(feed)
         self._params_dirty = True
 
+    def _holds_csr(self):
+        return any(a.stype == "csr"
+                   for a in self._exec_group.execs[0].arg_dict.values())
+
     def _get_cached_step(self):
+        """The one-call step, or None where the two-call path runs: a
+        store, several contexts, inputs that take gradients, an optimizer
+        without a fused update, or a CSR argument (its nnz changes from
+        batch to batch, so no captured program holds it yet; each such
+        ``_fit_step`` counts in ``sparse_eager_steps``)."""
         if self._cached_step_unusable or not fused_step_enabled() \
                 or not self.optimizer_initialized or self.inputs_need_grad \
                 or self._updater is None or self._kvstore is not None \
-                or len(self._exec_group.execs) != 1:
+                or len(self._exec_group.execs) != 1 or self._holds_csr():
             return None
         ex = self._exec_group.execs[0]
         if any(r not in ("write", "null") for r in ex.grad_req.values()):
@@ -489,7 +501,9 @@ def params_from_jax(arg_params, aux_params, symbol, ctx=None,
     """The JAX package's ``Module.get_params()`` dicts, given as numpy
     arrays (``{n: v.asnumpy()}``; bfloat16 as ``ml_dtypes.bfloat16``),
     as NDArrays on ``ctx`` (default: the current context) for
-    ``Module.set_params``.
+    ``Module.set_params``.  A value may also be the JAX package's NDArray
+    itself: its storage tag is kept, and a CSR keeps its parts
+    (``ndarray.sparse.from_reference``).
 
     Every name must be a parameter argument or an aux state of
     ``symbol``, and every aux state must be given.  Each array's shape
@@ -516,19 +530,25 @@ def params_from_jax(arg_params, aux_params, symbol, ctx=None,
     for values in (arg_params, aux_params):
         converted = {}
         for name, value in values.items():
-            value = np.asarray(value)
-            # numpy cannot hand torch a bfloat16 array: via float32, exact
-            is_bf16 = value.dtype.name == "bfloat16"
+            if hasattr(value, "asnumpy"):   # the JAX package's NDArray
+                arr = from_reference(value, ctx)
+                got = (tuple(arr.shape), dtype_name(arr.dtype))
+            else:
+                value = np.asarray(value)
+                # numpy cannot hand torch a bfloat16 array: via float32,
+                # exact
+                is_bf16 = value.dtype.name == "bfloat16"
+                got = (value.shape, "bfloat16" if is_bf16
+                       else value.dtype.name)
+                arr = nd.array(value.astype(np.float32) if is_bf16
+                               else value, ctx=ctx, dtype=got[1])
             meta = want[name]
-            got = (value.shape, "bfloat16" if is_bf16 else value.dtype.name)
             if meta is not None and got != (tuple(meta.shape),
                                             dtype_name(meta.dtype)):
                 raise MXNetError(
                     "params_from_jax: %s is %s %s, the symbol binds it as "
                     "%s %s" % (name, got[1], got[0], dtype_name(meta.dtype),
                                tuple(meta.shape)))
-            converted[name] = nd.array(
-                value.astype(np.float32) if is_bf16 else value, ctx=ctx,
-                dtype=got[1])
+            converted[name] = arr
         result.append(converted)
     return result[0], result[1]

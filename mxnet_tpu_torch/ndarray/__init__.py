@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ndarray/__init__.py:21-86``: one function per
 registered op, made from the registry at import, and ``save``/``load``
 (``utils``), ``nd.random``, ``nd.contrib`` (the ``_contrib_*`` ops under
-their stripped names) and ``nd.linalg``.  Public
+their stripped names), ``nd.linalg`` and ``nd.sparse`` (with
+``nd.csr_matrix`` and ``nd.row_sparse_array``).  Public
 (non-underscore) ops land in this namespace; every op lands in
 ``mxnet_tpu_torch.ndarray._internal``.  Kernels registered later by
 ``rtc.register`` are added the same way.
@@ -79,8 +80,11 @@ sys.modules[__name__ + ".contrib"] = contrib
 
 from . import random  # noqa: E402,F401
 from . import linalg  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401
+from .sparse import csr_matrix, row_sparse_array  # noqa: E402
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "invoke",
            "concatenate", "arange", "eye", "moveaxis", "onehot_encode",
            "waitall", "params_from_jax", "save", "load", "save_to_bytes",
-           "load_from_bytes", "random", "contrib", "linalg"]
+           "load_from_bytes", "random", "contrib", "linalg", "sparse",
+           "csr_matrix", "row_sparse_array"]

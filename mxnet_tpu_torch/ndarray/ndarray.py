@@ -20,7 +20,15 @@ the JAX package it is held to.
 
 ``invoke`` runs a registered op on NDArrays (reference
 ``Imperative::Invoke``); inside ``autograd.record()`` it runs under
-torch's grad mode so that ``backward`` can differentiate it.
+torch's grad mode so that ``backward`` can differentiate it.  A CSR
+input reaches an op that takes one (the registry's ``csr_inputs``:
+``dot``'s left operand) as its parts, and any other op as its dense view
+(``ndarray.sparse``).
+
+``stype`` is the storage tag: ``default`` here, ``row_sparse`` or
+``csr`` on the arrays of ``ndarray.sparse``, and on a dense array that
+``kvstore.row_sparse_pull`` wrote or a pickle restored, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -46,21 +54,23 @@ def _owned(t, sources):
     if t.device.type == "meta":
         return t
     ptr = t.untyped_storage().data_ptr()
-    if any(x.untyped_storage().data_ptr() == ptr for x in sources):
+    if any(isinstance(x, torch.Tensor)
+           and x.untyped_storage().data_ptr() == ptr for x in sources):
         return t.clone()
     return t
 
 
 class NDArray:
     """A mutable n-dimensional array on a device context."""
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_marked",
-                 "_fresh_grad", "name", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_stype", "_grad", "_grad_req",
+                 "_marked", "_fresh_grad", "name", "__weakref__")
     # numpy scalar priority, so  np_scalar * NDArray  dispatches to us
     __array_priority__ = 1000.0
 
-    def __init__(self, data, ctx):
+    def __init__(self, data, ctx, stype="default"):
         self._data = data
         self._ctx = ctx
+        self._stype = stype
         self._grad = None
         self._grad_req = "null"
         self._marked = False
@@ -90,6 +100,11 @@ class NDArray:
         return self._ctx
 
     ctx = context
+
+    @property
+    def stype(self):
+        """The storage tag: ``default``, ``row_sparse`` or ``csr``."""
+        return self._stype
 
     @property
     def grad(self):
@@ -158,11 +173,14 @@ class NDArray:
             self.asnumpy(), "x".join(str(s) for s in self.shape), self._ctx)
 
     def __reduce__(self):
-        """A plain pickle of this package: the tensor on the host and the
-        context, restored there.  Optimizer-state files use the form that
-        both packages read instead (``_pickle.dumps``)."""
+        """A plain pickle of this package: the tensor on the host, the
+        context and the storage tag, restored there as a dense array with
+        the tag (a sparse array too, as the JAX package restores it).
+        Optimizer-state files use the form that both packages read
+        instead (``_pickle.dumps``)."""
         return (_nd_rebuild, (self._data.detach().cpu(),
-                              self._ctx.device_type, self._ctx.device_id))
+                              self._ctx.device_type, self._ctx.device_id,
+                              self._stype))
 
     # -- conversion / copy -------------------------------------------------
     def _derive(self, fn):
@@ -201,8 +219,21 @@ class NDArray:
             return self
         return self.copyto(context)
 
+    def tostype(self, stype):
+        """A copy in storage ``stype`` (``ndarray.sparse.cast_storage``)."""
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
+
+    def _operand(self):
+        """What an op reads of this array: its tensor (a CSR its parts,
+        which ``Op.operand`` turns into the dense view where the op takes
+        no CSR)."""
+        return self._data
+
     # -- autograd ----------------------------------------------------------
-    def attach_grad(self, grad_req="write"):
+    def attach_grad(self, grad_req="write", stype=None):
+        """A dense gradient buffer, whatever ``stype`` asks, as in the
+        JAX package."""
         ag.mark_variables([self], [NDArray(torch.zeros_like(self._data),
                                            self._ctx)], grad_req)
 
@@ -451,9 +482,9 @@ class NDArray:
             self._data[key] = v  # casts to this array's dtype
 
 
-def _nd_rebuild(tensor, device_type, device_id):
+def _nd_rebuild(tensor, device_type, device_id, stype="default"):
     ctx = Context(device_type, device_id)
-    return NDArray(tensor.to(ctx.torch_device), ctx)
+    return NDArray(tensor.to(ctx.torch_device), ctx, stype)
 
 
 def _nd_unpickle(npy, dev_type, dev_id, stype):
@@ -462,9 +493,8 @@ def _nd_unpickle(npy, dev_type, dev_id, stype):
     to this function: on ``cpu(0)`` whatever context the file names (an
     optimizer state moves to its weight's context at its next update).
     ``npy`` is a numpy array, or a ``_pickle.HostArray`` of raw bfloat16
-    words."""
-    if stype != "default":
-        raise MXNetError("sparse NDArray load not supported yet")
+    words.  A sparse array comes back dense with its storage tag, as the
+    JAX package's ``_nd_unpickle`` gives it."""
     bf16 = getattr(npy, "bfloat16", False)
     host = np.array(npy, dtype=np.int16 if bf16 else None, order="C")
     try:
@@ -473,7 +503,7 @@ def _nd_unpickle(npy, dev_type, dev_id, stype):
         raise MXNetError("cannot load an NDArray of dtype %s" % host.dtype) \
             from e
     return NDArray(tensor.view(torch.bfloat16) if bf16 else tensor,
-                   Context("cpu", 0))
+                   Context("cpu", 0), stype)
 
 
 def invoke(op, inputs, attrs, out=None):
@@ -491,7 +521,7 @@ def invoke(op, inputs, attrs, out=None):
     attrs.pop("name", None)
     if op.no_inputs:  # a creation op makes its output on the context
         attrs["ctx"] = ctx.torch_device
-    tin = [x._data for x in inputs]
+    tin = [op.operand(i, x._operand()) for i, x in enumerate(inputs)]
     rng = _random.generator(ctx) if op.needs_rng else None
     train = ag.is_training()
     diff_idx = [i for i in range(len(inputs)) if i not in op.nondiff_inputs]
@@ -539,7 +569,9 @@ def array(source_array, ctx=None, dtype=None):
     return NDArray(src.to(ctx.torch_device, torch_dtype(dtype)), ctx)
 
 
-def zeros(shape, ctx=None, dtype=None):
+def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
+    """Dense zeros; ``stype`` is accepted and not read, as in the JAX
+    package (``nd.sparse.zeros`` makes a sparse array)."""
     ctx = as_context(ctx)
     return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
                                device=ctx.torch_device), ctx)
@@ -607,19 +639,26 @@ def params_from_jax(np_params, executor):
     """The JAX package's ``{name: np.ndarray}`` (``exe.arg_dict[n].asnumpy()``)
     as NDArrays on ``executor``'s context, after checking each name,
     shape and dtype against ``executor.arg_dict``.  Copy them in with
-    ``executor.copy_params_from``."""
+    ``executor.copy_params_from``.  A value may also be the JAX package's
+    NDArray itself: its storage tag is kept, and a CSR keeps its parts
+    (``sparse.from_reference``)."""
+    from .sparse import from_reference
     out = {}
     for name, value in np_params.items():
         if name not in executor.arg_dict:
             raise MXNetError("params_from_jax: %r is not an argument of the "
                              "executor (%s)" % (name, executor.arg_names))
         dst = executor.arg_dict[name]
-        value = np.asarray(value)
-        if tuple(value.shape) != dst.shape:
+        if hasattr(value, "asnumpy"):
+            arr = from_reference(value, executor._ctx)
+        else:
+            value = np.asarray(value)
+            arr = array(value, ctx=executor._ctx, dtype=value.dtype)
+        if arr.shape != dst.shape:
             raise MXNetError("params_from_jax: %s has shape %s, the executor "
-                             "wants %s" % (name, value.shape, dst.shape))
-        if value.dtype != dst.dtype:
+                             "wants %s" % (name, arr.shape, dst.shape))
+        if arr.dtype != dst.dtype:
             raise MXNetError("params_from_jax: %s has dtype %s, the executor "
-                             "wants %s" % (name, value.dtype, dst.dtype))
-        out[name] = array(value, ctx=executor._ctx, dtype=value.dtype)
+                             "wants %s" % (name, arr.dtype, dst.dtype))
+        out[name] = arr
     return out

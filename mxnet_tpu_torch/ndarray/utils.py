@@ -18,7 +18,9 @@ Legacy records also load (reference LegacyLoad, ndarray.cc:892-937):
   V0     := uint32 ndim | uint32 dim[ndim] | context | type_flag | raw data
 
 Every array is written with the context ``cpu(0)`` and its data
-C-contiguous, copied to the host once.  bfloat16 (type code 7), which
+C-contiguous, copied to the host once; a sparse array as its dense
+record (stype 0), as the JAX package writes it, and a sparse record
+raises on load in both packages.  bfloat16 (type code 7), which
 numpy lacks, goes to and from the file as its raw 2-byte words through
 torch.  :func:`load` returns arrays on ``cpu(0)``, as the reference does;
 ``Module.set_params`` and ``Parameter.set_data`` copy them to their own
@@ -68,6 +70,8 @@ def _read_shape(mv, off):
 def _save_one(buf, arr):
     if not isinstance(arr, NDArray):
         raise TypeError("save takes NDArrays, got %s" % type(arr).__name__)
+    if arr.stype != "default":   # the dense record, as the JAX package
+        arr = arr.tostype("default")
     code = DTYPE_TO_CODE.get(arr._data.dtype)
     if code is None:
         raise MXNetError("cannot save an NDArray of dtype %s"

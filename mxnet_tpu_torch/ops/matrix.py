@@ -1,8 +1,6 @@
 """Shape, layout, product, indexing, ordering and creation ops.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py:24-485`` without
-``cast_storage`` (``:415``) and ``sparse_retain``, which wait for the
-sparse module: ``Reshape`` (MXNet's
+Counterpart of ``mxnet_tpu/ops/matrix.py:24-485``: ``Reshape`` (MXNet's
 codes: 0 copy, -1 infer, -2 copy the rest, -3 merge two, -4 split one,
 and ``reverse``), ``Flatten``, ``expand_dims``, ``transpose``,
 ``SwapAxis``, ``reshape_like``, ``Concat``, ``stack``,
@@ -10,7 +8,10 @@ and ``reverse``), ``Flatten``, ``expand_dims``, ``transpose``,
 ``slice_like``, ``reverse``/``flip``, ``tile``, ``repeat``,
 ``Pad``/``pad``; ``dot`` and ``batch_dot`` (``torch.tensordot`` and
 ``torch.matmul``: the JAX package leaves them to XLA's ``dot_general``,
-outside any kernel); ``take``, ``batch_take``, ``pick``, ``Embedding``,
+outside any kernel; ``dot`` of a CSR left operand goes to
+``sparse_dot.dot``, the ``csr_dot`` kernels); the storage ops
+``cast_storage`` (the dense values, which ``ndarray.sparse.cast_storage``
+tags) and ``sparse_retain`` (the rows named, the others zero); ``take``, ``batch_take``, ``pick``, ``Embedding``,
 ``one_hot``, ``gather_nd``, ``scatter_nd``, ``_scatter_set_nd``;
 ``sort``, ``argsort``, ``topk``; the creation ops ``_zeros``,
 ``_ones``, ``_full``, ``_arange``, ``_eye``, ``zeros_like``,
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import torch_dtype
+from . import sparse_dot
 from .elemwise import _block_grad_bwd
 from .registry import op_device as _op_device, register
 
@@ -269,9 +271,11 @@ def _pad(x, mode="constant", pad_width=(), constant_value=0.0, **kw):
     return x
 
 
-@register("dot", aliases=["_sparse_dot"])
+@register("dot", aliases=["_sparse_dot"], csr_inputs=(0,))
 def _dot(a, b, transpose_a=False, transpose_b=False, forward_stype=None,
          **kw):
+    if isinstance(a, sparse_dot.CSR):
+        return sparse_dot.dot(a, b, transpose_a, transpose_b)
     if transpose_a and a.ndim > 1:
         a = torch.swapaxes(a, -1, -2)
     if transpose_b and b.ndim > 1:
@@ -287,6 +291,19 @@ def _batch_dot(a, b, transpose_a=False, transpose_b=False, **kw):
     if transpose_b:
         b = torch.swapaxes(b, -1, -2)
     return torch.matmul(a, b)
+
+
+@register("cast_storage", aliases=["_sparse_cast_storage"])
+def _cast_storage(x, stype=None, **kw):
+    return x
+
+
+@register("sparse_retain", aliases=["_sparse_retain"], nondiff_inputs=(1,))
+def _sparse_retain(data, indices, **kw):
+    keep = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    keep[indices.to(torch.int64)] = True
+    return torch.where(keep.reshape((-1,) + (1,) * (data.dim() - 1)), data,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
 
 
 def _index(indices):

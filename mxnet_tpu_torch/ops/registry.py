@@ -19,6 +19,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import as_device
+from .sparse_dot import CSR
 
 __all__ = ["Op", "register", "get_op", "list_ops", "OP_REGISTRY",
            "parse_attr_string", "attr_to_string", "op_device"]
@@ -116,12 +117,15 @@ class Op:
     host_callback : the op runs the user's Python on the host and syncs
         with the card (``Custom``), so a program holding it cannot be
         captured as a CUDA graph and runs eagerly (``capture.graph_for``).
+    csr_inputs : input positions that take a CSR as its parts
+        (``ops.sparse_dot.CSR``); a CSR anywhere else reaches the op as
+        its dense view.
     """
 
     def __init__(self, name, fn, num_outputs=1, num_visible_outputs=None,
                  nondiff_inputs=(), aux_updates=None, takes_mode=False,
                  needs_rng=False, custom_vjp=None, attr_defaults=None,
-                 no_inputs=False, host_callback=False):
+                 no_inputs=False, host_callback=False, csr_inputs=()):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -134,6 +138,7 @@ class Op:
         self.attr_defaults = dict(attr_defaults or {})
         self.no_inputs = no_inputs
         self.host_callback = host_callback
+        self.csr_inputs = tuple(csr_inputs)
 
     def n_outputs(self, attrs):
         if callable(self.num_outputs):
@@ -146,6 +151,14 @@ class Op:
         if callable(self.num_visible_outputs):
             return self.num_visible_outputs(attrs)
         return self.num_visible_outputs
+
+    def operand(self, i, v):
+        """What input ``i`` reads of ``v``: a CSR as its parts where ``i``
+        is one of ``csr_inputs``, else as its dense view (built once and
+        counted); a tensor as it is."""
+        if isinstance(v, CSR) and i not in self.csr_inputs:
+            return v.dense()
+        return v
 
     def apply(self, inputs, attrs, train_mode=False, rng=None):
         """Run the function; always returns a tuple of tensors."""

@@ -381,11 +381,12 @@ class Symbol:
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
-        init=None, **kwargs):
+        init=None, stype=None, **kwargs):
     """Create a variable symbol (reference ``mx.sym.var`` / ``Variable``).
-    ``lr_mult``, ``wd_mult`` and ``init`` become the attrs ``__lr_mult__``,
-    ``__wd_mult__`` and ``__init__`` that the optimizer and the
-    initializer read."""
+    ``lr_mult``, ``wd_mult``, ``init`` and ``stype`` become the attrs
+    ``__lr_mult__``, ``__wd_mult__``, ``__init__`` and
+    ``__storage_type__`` that the optimizer, the initializer and the
+    executor read."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attrs = dict(attr or {})
@@ -400,6 +401,8 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
     if init is not None:
         attrs["__init__"] = init.dumps() if hasattr(init, "dumps") \
             else str(init)
+    if stype is not None:
+        attrs["__storage_type__"] = stype
     attrs.update({k: attr_to_string(v) for k, v in kwargs.items()})
     return Symbol([(SymNode(None, name, attrs, []), 0)])
 

@@ -3,7 +3,10 @@ fp64-referenced row check of the flash-attention backward, and the op
 sweep's cases (``op_cases``, ``random_cases``), and ``set_dropout``,
 which turns a zoo model's Dropout off for a parity check; ``nms_tiled``,
 the greedy-NMS kernels' decomposition in plain PyTorch, and
-``nms_class_buckets``, their class buckets.
+``nms_class_buckets``, their class buckets; ``rand_ndarray`` and
+``rand_sparse_ndarray`` (``mxnet_tpu/test_utils.py:122-163``, the same
+draws from ``random.host_rng()``), and the sparse examples' LibSVM
+writers, ``synthetic_libsvm`` and ``synthetic_fm_libsvm``.
 
 ``get_mnist`` is this package's own copy of ``mxnet_tpu/test_utils.py:
 411-449`` (numpy only, so the arrays are equal bit for bit): MNIST's
@@ -35,7 +38,8 @@ __all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
            "random_cases", "moment_errors", "FP32_TOL", "BF16_TOL",
            "LIBM_TOL", "SUM_TOL", "LINALG_TOL", "canonical_signs",
            "set_dropout", "nms_tiled", "nms_class_buckets",
-           "CORRUPT_PAYLOAD", "loader_batches"]
+           "CORRUPT_PAYLOAD", "loader_batches", "rand_ndarray",
+           "rand_sparse_ndarray", "synthetic_libsvm", "synthetic_fm_libsvm"]
 
 
 def _synthetic_digits(n, rng, protos):
@@ -406,6 +410,8 @@ def op_cases(seed=0):
     add(_case("batch_take", [src, np.array([0, 2, 1, 1, 0])], diff=[0]))
     add(_case("pick", [src, np.array([0, 2, 1, 1, 0])], {"axis": 1},
               diff=[0]))
+    add(_case("sparse_retain", [src, np.array([0, 3, 3])], diff=[0]))
+    add(_case("cast_storage", [src], {"stype": "default"}, diff=[0]))
     add(_case("Embedding", [np.array([[1, 1], [4, 0]]), u(-1, 1, 5, 3)],
               {"input_dim": 5, "output_dim": 3}, diff=[1]))
     add(_case("one_hot", [np.array([0, 3, 1, 4])],
@@ -1093,3 +1099,93 @@ def write_mnist_idx(path, train=60000, test=10000):
                     gzip.open(name + ".gz", "wb", compresslevel=1) as g:
                 g.write(f.read())
     return path
+
+
+def rand_ndarray(shape, stype="default", density=None, dtype=None,
+                 ctx=None):
+    """A random NDArray of storage ``stype`` (``mxnet_tpu/test_utils.py:
+    122``): dense uniform in [-1, 1), or :func:`rand_sparse_ndarray`."""
+    from . import ndarray as nd
+    from .random import host_rng
+    if stype == "default":
+        return nd.array(host_rng().uniform(-1, 1, shape), ctx=ctx,
+                        dtype=dtype or np.float32)
+    arr, _ = rand_sparse_ndarray(shape, stype, density=density, dtype=dtype,
+                                 ctx=ctx)
+    return arr
+
+
+def rand_sparse_ndarray(shape, stype, density=None, dtype=None,
+                        data_init=None, rsp_indices=None, ctx=None):
+    """A random sparse NDArray and its dense numpy twin, drawn as
+    ``mxnet_tpu/test_utils.py:132-163`` draws them (row_sparse: rows kept
+    with probability ``density``, values uniform in [-1, 1); csr: uniform
+    in [0, 1), zeroed with probability 1 - ``density``)."""
+    from .ndarray import sparse as sp
+    from .random import host_rng
+    density = 0.5 if density is None else density
+    dtype = dtype or np.float32
+    if stype == "row_sparse":
+        if rsp_indices is not None:
+            indices = np.asarray(rsp_indices)
+        else:
+            indices = np.nonzero(host_rng().random(shape[0]) < density)[0]
+        dense = np.zeros(shape, dtype=dtype)
+        if len(indices):
+            vals = host_rng().uniform(-1, 1, (len(indices),) + shape[1:])
+            if data_init is not None:
+                vals[:] = data_init
+            dense[indices] = vals
+            arr = sp.row_sparse_array((dense[indices], indices), shape=shape,
+                                      ctx=ctx, dtype=dtype)
+        else:
+            arr = sp.zeros("row_sparse", shape, ctx=ctx, dtype=dtype)
+        return arr, dense
+    if stype == "csr":
+        rng = host_rng()
+        dense = rng.uniform(0, 1, shape).astype(dtype)
+        dense[rng.random(shape) >= density] = 0
+        return sp.csr_matrix(dense, shape=shape, ctx=ctx, dtype=dtype), dense
+    raise ValueError("unknown stype %s" % stype)
+
+
+def synthetic_libsvm(path, n=2048, dim=1000, nnz=None, density=0.02, seed=7):
+    """``examples/sparse_linear_classification.py``'s data: a sparse
+    hyperplane over ``dim`` features, ``nnz`` (default ``dim * density``)
+    ids a line drawn as ``rng.zipf(1.5) % dim`` and made unique (the
+    first ``nnz`` of them sorted, so a few weight rows are hot), values
+    uniform in [0, 1), label 1 where the line's dot with the hyperplane
+    is positive; the same draws and text as the example."""
+    rng = np.random.RandomState(seed)
+    w_true = np.zeros(dim)
+    support = rng.choice(dim, size=dim // 10, replace=False)
+    w_true[support] = rng.randn(len(support))
+    nnz = max(1, int(dim * density)) if nnz is None else nnz
+    with open(path, "w") as fh:
+        for _ in range(n):
+            ids = np.unique(rng.zipf(1.5, nnz * 2) % dim)[:nnz]
+            vals = rng.rand(len(ids)).astype(np.float32)
+            y = int(np.dot(w_true[ids], vals) > 0)
+            row = " ".join("%d:%.4f" % (i, v) for i, v in zip(ids, vals))
+            fh.write("%d %s\n" % (y, row))
+
+
+def synthetic_fm_libsvm(path, n=2048, dim=200, nnz=12, seed=3):
+    """``examples/factorization_machine.py``'s data: ``nnz`` distinct ids
+    a line, the label the sign of a planted pairwise interaction; the
+    same draws and text as the example."""
+    rng = np.random.RandomState(seed)
+    v_true = rng.randn(dim, 4) * 0.6
+    with open(path, "w") as fh:
+        for _ in range(n):
+            ids = rng.choice(dim, size=nnz, replace=False)
+            vals = rng.rand(nnz).astype(np.float32)
+            x = np.zeros(dim, np.float32)
+            x[ids] = vals
+            vx = v_true.T @ x
+            score = 0.5 * float((vx ** 2).sum() - ((v_true ** 2).T @
+                                                   (x ** 2)).sum())
+            y = int(score > 0.15)
+            row = " ".join("%d:%.4f" % (i, v)
+                           for i, v in zip(sorted(ids), x[sorted(ids)]))
+            fh.write("%d %s\n" % (y, row))

@@ -3,8 +3,9 @@ CPU, case for case with ``tests/test_io.py`` (``NDArrayIter``'s modes,
 ``ResizeIter``, ``CSVIter``, the ``provide_*`` semantics) and beyond it:
 ``PrefetchingIter`` over one and two sources with renames, ``MNISTIter``
 over idx files written to ``tmp_path`` (batches, shuffle order after one
-seed, ``flat``), ``test_utils.get_mnist(path)``, and ``LibSVMIter``,
-which raises naming ROADMAP A.9.  Every batch is equal bit for bit.
+seed, ``flat``), ``test_utils.get_mnist(path)``, and ``LibSVMIter``'s
+CSR batches (``tests/test_torch_sparse_train.py`` holds its modes).
+Every batch is equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -239,7 +240,29 @@ def test_batches_live_on_the_host(tmp_path):
 
 
 def test_libsvm_iter_raises_naming_a9(tmp_path):
+    """``tests/test_io.py::test_libsvm_iter`` in both packages (A.9 is
+    ported): CSR batches with the JAX package's values, parts and
+    labels, then ``StopIteration``."""
     f = tmp_path / "train.libsvm"
-    f.write_text("1 0:1.5 3:2.0\n0 1:0.5\n")
-    with pytest.raises(MXNetError, match="A.9"):
-        mt.io.LibSVMIter(data_libsvm=str(f), data_shape=(4,), batch_size=2)
+    f.write_text("1 0:1.5 3:2.0\n0 1:0.5\n1 2:3.0 3:1.0\n0 0:2.5\n")
+    got = {}
+    for pkg in (mt, mx):
+        it = pkg.io.LibSVMIter(data_libsvm=str(f), data_shape=(4,),
+                               batch_size=2)
+        rows = []
+        for _ in range(2):
+            b = it.next()
+            d = b.data[0]
+            assert d.stype == "csr"
+            rows.append([d.asnumpy(), d.data.asnumpy(), d.indices.asnumpy(),
+                         d.indptr.asnumpy(), b.label[0].asnumpy(), b.pad])
+        with pytest.raises(StopIteration):
+            it.next()
+        got[pkg] = rows
+    for mine, theirs in zip(got[mt], got[mx]):
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[mt][0][0],
+                                  [[1.5, 0, 0, 2.0], [0, 0.5, 0, 0]])
+    np.testing.assert_array_equal(got[mt][1][0],
+                                  [[0, 0, 3.0, 1.0], [2.5, 0, 0, 0]])

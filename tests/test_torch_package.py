@@ -30,7 +30,8 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_mlp_breakdown.py"),
              os.path.join(REPO, "tools", "torch_resnet_breakdown.py"),
              os.path.join(REPO, "tools", "torch_zoo_chip.py"),
-             os.path.join(REPO, "tools", "torch_data_chip.py")]
+             os.path.join(REPO, "tools", "torch_data_chip.py"),
+             os.path.join(REPO, "tools", "torch_sparse_chip.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -161,19 +162,17 @@ def test_unsupported_device_raises():
         context.as_device("meta")
 
 
-# The JAX package's op names this package does not register: sparse
-# storage, which waits for a module of its own (ROADMAP A.9).
+# The op names of sparse storage (ROADMAP A.9), the last the port took.
 A9_OPS = {"cast_storage", "_sparse_cast_storage", "sparse_retain",
           "_sparse_retain"}
 
 
 def test_missing_op_names_are_the_long_tail():
-    """Every op name of the JAX package is registered here but the 4 of
-    sparse storage (A.9), and this package registers no name the JAX
-    package lacks."""
+    """The port registers every op name of the JAX package, those of
+    sparse storage (A.9) among them, and no name the JAX package
+    lacks."""
     from mxnet_tpu.ops import registry as ref
     from mxnet_tpu_torch.ops import registry as port
-    assert len(A9_OPS) == 4
     theirs, ours = set(ref.list_ops()), set(port.list_ops())
-    assert theirs - ours == A9_OPS
-    assert ours <= theirs
+    assert A9_OPS <= ours
+    assert ours == theirs

@@ -693,7 +693,7 @@ def test_ndarray_plain_pickle_keeps_dtype_and_context():
 def test_reference_ndarray_pickle_reads_in_the_port():
     """A plain pickle of the JAX package's NDArrays (numpy's protocol 3-4
     and protocol-5 reductions, bfloat16 through ``ml_dtypes``) reads as
-    the port's NDArrays on ``cpu(0)``."""
+    the port's NDArrays on ``cpu(0)``, a sparse-tagged one with its tag."""
     rng = np.random.RandomState(9)
     for dt in DTYPES:
         v = _values(rng, (3, 2), dt)
@@ -702,10 +702,15 @@ def test_reference_ndarray_pickle_reads_in_the_port():
             got = _pickle.loads(pickle.dumps({"x": [ref]}, protocol=proto))
             assert got["x"][0].context == mt.cpu()
             assert np.array_equal(bits(got["x"][0]), bits(ref))
+    # a sparse-tagged array reads as the JAX package restores it: dense,
+    # with its tag (ROADMAP C.8)
     sparse = mx.nd.array(np.ones(2), ctx=mx.cpu())
     sparse._stype = "csr"
-    with pytest.raises(MXNetError, match="sparse"):
-        _pickle.loads(pickle.dumps(sparse))
+    got = _pickle.loads(pickle.dumps(sparse))
+    back = pickle.loads(pickle.dumps(sparse))
+    assert got.stype == back.stype == "csr"
+    assert got.context == mt.cpu()
+    assert np.array_equal(got.asnumpy(), back.asnumpy())
 
 
 def test_save_load_leaves_no_jax_in_a_fresh_process(tmp_path):
