@@ -57,7 +57,9 @@ Phases, each fatal on failure:
    init on the CPU (through the plain version), fp32, TF32 off.
 Every training step of the port replays captured CUDA graphs on the
 card (``mxnet_tpu_torch.capture``): Module's step one graph, the LM steps
-one, a Gluon step three (forward, backward, update).  ``capture.eager()``
+one, a Gluon step three (forward, backward, update); a bound Executor's
+``forward`` one, ``backward`` one (the second stage of its training
+forward's program), ``forward_backward`` one.  ``capture.eager()``
 runs them eagerly, the oracle of phase 17 and the "eager" figures of
 phases 10, 11, 14 and 16.  A captured step warms up ``WARMUP_RUNS`` times
 before it captures, and those runs launch the kernels too
@@ -308,21 +310,35 @@ before it captures, and those runs launch the kernels too
    path's shape (8192 rows of 16 zipf ids at K 1,000,001, N 1, 2, 8, 64),
    the transposition equal to a stable argsort; the path's shape timed
    (CUDA events, mean of 200) beside the plain versions, cuSPARSE
-   (``torch.sparse.mm``) and the bound; with the kernels' counts then set
+   (``torch.sparse.mm``) and the bound; ``csr_dot`` bit for bit against
+   its plain version on the CPU over rows of 0, 1, 15, 16, 17, 33 and 100
+   entries at N 1, 2, 8, 33, every kernel over capacity-padded parts bit
+   for bit against unpadded ones, and ``csr_dot`` timed at the FM's
+   shapes too; with the kernels' counts then set
    to 0, (b) ``examples/sparse_linear_classification.py``'s model at
    avazu-app's 1,000,001 features through ``Module``, batch 8192, SGD lr
    0.5, 3 epochs of 65,536 synthetic LibSVM lines read by
    ``LibSVMIter`` (``rescale_grad`` 1: ``SPARSE_OPT``), without a store
    and with ``kv.create("local")`` and
    ``row_sparse_pull`` (the loss must fall, accuracy above 0.5, no dense
-   view built, peak memory under 1 GB, one ``csr_dot`` and one
-   ``csr_t_dot`` a step; ms/step, samples/s, busy share), then 3 fp64
-   steps card against ``cpu()`` (``SPARSE_PARITY_TOL``); (c)
-   ``examples/factorization_machine.py``'s FM through ``_fit_step`` at its
-   settings (last loss below half the first, accuracy above 0.8, every
-   step eager: ``sparse_eager_steps``); (d) ``nd.save`` of both sparse
-   types on the card byte for byte the CPU's, and a pickled CSR restored
-   dense with its tag.
+   view built, peak memory under 1 GB, each step one replay of the
+   executor's captured ``forward_backward``, one capture in all, so one
+   ``csr_dot`` and one ``csr_t_dot`` a step and ``WARMUP_RUNS`` more; the
+   first 24 steps bit for bit those under ``capture.eager()``; ms/step,
+   samples/s, busy share), then 3 fp64 steps card against ``cpu()``
+   (``SPARSE_PARITY_TOL``); (c) ``examples/factorization_machine.py``'s FM
+   through ``_fit_step`` at its settings (last loss below half the first,
+   accuracy above 0.8, one replay a step and one capture,
+   ``sparse_eager_steps`` 0, 24 steps bit for bit the eager ones); (d)
+   ``nd.save`` of both sparse types on the card byte for byte the CPU's,
+   and a pickled CSR restored dense with its tag.
+33. The Executor's programs (ROADMAP A.1): ``forward``, ``forward`` then
+   ``backward`` and ``forward_backward`` (ones or given output
+   gradients) in turns, captured against ``capture.eager()``: the MNIST
+   MLP bit for bit with ``grad_req`` write and add, ResNet-50 at batch 2
+   in fp64 to ``RESNET_PARITY_TOL``, one replay a forward and a backward;
+   then ResNet-50 and Inception-v3 at batch 32 in fp32 timed through
+   their executors, captured and eager, with each mode's peak memory.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
@@ -332,7 +348,8 @@ one ``{"zoo": {...}}`` line, phase 21's as one ``{"ops": {"held": n,
 phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
 ``{"cv2_resize": {...}}`` line, phase 30's as one ``{"kvstore": {...}}``
 line, phase 31's as one ``{"long_tail": {...}}`` line, phase 32's as
-one ``{"sparse": {...}, "sparse_kernels": {...}}`` line, the
+one ``{"sparse": {...}, "sparse_kernels": {...}}`` line, phase 33's as
+one ``{"executor": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -1687,10 +1704,10 @@ def param_names(exe):
     return [n for n in exe.arg_names if n not in ("data", "softmax_label")]
 
 
-def bind_mlp(ctx, dtype=torch.float32):
+def bind_mlp(ctx, dtype=torch.float32, grad_req="write"):
     from mxnet_tpu_torch import sym
     return build_mlp(sym).simple_bind(
-        ctx, grad_req="write", type_dict={"data": dtype},
+        ctx, grad_req=grad_req, type_dict={"data": dtype},
         data=(MLP_BATCH, 784), softmax_label=(MLP_BATCH,))
 
 
@@ -1773,20 +1790,26 @@ def phase_registration():
     ex = sym.sum(sym.pl_scale(sym.Variable("d"), alpha=5.0)).simple_bind(
         gpu, grad_req="write", d=(2, 3))
     ex.arg_dict["d"][:] = 1.0
+    # the executor's programs: each captures with WARMUP_RUNS warm-ups
+    # (which launch the kernel), then each replay launches it once
+    warm = mt.capture.WARMUP_RUNS
     sc.reset_launch_count()
     out = ex.forward(is_train=True)[0]
-    if sc.launch_count() != 1:
-        raise AssertionError("bound forward launched %d times"
-                             % sc.launch_count())
+    first = sc.launch_count()
+    ex.forward(is_train=True)
+    if first != 1 + warm or sc.launch_count() != 2 + warm:
+        raise AssertionError("bound forward launched %d times, then %d"
+                             % (first, sc.launch_count() - first))
     ex.backward()
     ex.forward(is_train=False)
     grad = ex.grad_dict["d"].asnumpy()
-    if sc.launch_count() != 2 or float(out.asnumpy()) != 30.0 \
+    if sc.launch_count() != 3 + 2 * warm or float(out.asnumpy()) != 30.0 \
             or not (grad == 5.0).all():
         raise AssertionError("bound pl_scale: launches %d, out %s, grad %s"
                              % (sc.launch_count(), out.asnumpy(), grad))
     log("registration: nd.pl_scale and sym.pl_scale on %s launch once per "
-        "forward; d/dx sum(5x) = %s" % (gpu, grad.ravel().tolist()))
+        "forward (and %d times in a capture's warm-ups); d/dx sum(5x) = %s"
+        % (gpu, warm, grad.ravel().tolist()))
 
 
 def _mnist_on(ctx):
@@ -1828,11 +1851,14 @@ def phase_mlp():
     if acc < JAX_CPU_ACCURACY - 0.02:
         raise AssertionError("MLP test accuracy %.4f below %.4f - 0.02"
                              % (acc, JAX_CPU_ACCURACY))
-    want = MLP_STEPS + MLP_EVAL_BATCHES
+    # the training forward's program and the eval forward's each capture
+    # once, their warm-ups launching the kernel WARMUP_RUNS times
+    warm = mt.capture.WARMUP_RUNS
+    want = MLP_STEPS + MLP_EVAL_BATCHES + 2 * warm
     if launches_fp32 != want:
         raise AssertionError("scale launched %d times, expected train "
-                             "forwards + eval batches = %d"
-                             % (launches_fp32, want))
+                             "forwards + eval batches + 2 captures' "
+                             "warm-ups = %d" % (launches_fp32, want))
     bf16 = bind_mlp(gpu, torch.bfloat16)
     bf16.copy_params_from({n: exe.arg_dict[n] for n in param_names(exe)})
     sc.reset_launch_count()
@@ -1840,7 +1866,8 @@ def phase_mlp():
     launches_bf16 = sc.launch_count()
     log("MLP bf16 scoring of the trained weights: test accuracy %.4f, "
         "scale launches %d" % (acc_bf16, launches_bf16))
-    if launches_bf16 != MLP_EVAL_BATCHES or acc_bf16 < JAX_CPU_ACCURACY - 0.02:
+    if launches_bf16 != MLP_EVAL_BATCHES + warm \
+            or acc_bf16 < JAX_CPU_ACCURACY - 0.02:
         raise AssertionError("bf16 MLP scoring: accuracy %.4f, launches %d"
                              % (acc_bf16, launches_bf16))
     return {torch.float32: launches_fp32, torch.bfloat16: launches_bf16}
@@ -2163,24 +2190,39 @@ def phase_resnet_train(dtype):
             raise AssertionError("ResNet-50 %s steps: counters %s, want %s"
                                  % (mode, counts, want))
         if mode == "eager":
-            fwd = _timed(lambda: mod.forward(db, is_train=False),
-                         RESNET_WARMUP)
+            # inference: the executor's eval forward, eager, then captured
+            # (one replay a call after its capture)
+            with step_mode("eager"):
+                _timed(lambda: mod.forward(db, is_train=False),
+                       RESNET_WARMUP)
+                fwd_eager = _timed(lambda: mod.forward(db, is_train=False),
+                                   RESNET_STEPS)
+            _timed(lambda: mod.forward(db, is_train=False), RESNET_WARMUP)
+            fwd_counts = counter_snapshot()
             fwd = _timed(lambda: mod.forward(db, is_train=False),
                          RESNET_STEPS)
+            fwd_counts = counter_delta(fwd_counts)
+            if fwd_counts != dict(graph_captures=0,
+                                  graph_replays=RESNET_STEPS,
+                                  program_calls=RESNET_STEPS):
+                raise AssertionError("ResNet-50 inference counters %s"
+                                     % fwd_counts)
         del mod, ex, db, prob
         free_card()
     fwd_ms = sorted(fwd)[len(fwd) // 2]
     res = dict(dtype=DTYPE_NAME[dtype], flags=flags, batch=RESNET_BATCH,
                infer_ms_median=fwd_ms,
+               infer_eager_ms_median=sorted(fwd_eager)[len(fwd_eager) // 2],
                infer_img_s=RESNET_BATCH / fwd_ms * 1e3,
                infer_peak_share=RESNET_FWD_FLOPS * RESNET_BATCH / fwd_ms
                * 1e3 / peak, **modes["captured"])
     res["eager"] = modes["eager"]
-    log("ResNet-50 %s inference median %.3f ms, %.1f img/s (%.2f%% of peak "
-        "at 8.2 GFLOP/img); captured step %.3f ms against eager %.3f"
-        % (DTYPE_NAME[dtype], fwd_ms, res["infer_img_s"],
-           100 * res["infer_peak_share"], res["step_ms_median"],
-           res["eager"]["step_ms_median"]))
+    log("ResNet-50 %s inference median %.3f ms captured (eager %.3f), "
+        "%.1f img/s (%.2f%% of peak at 8.2 GFLOP/img); captured step %.3f "
+        "ms against eager %.3f"
+        % (DTYPE_NAME[dtype], fwd_ms, res["infer_eager_ms_median"],
+           res["infer_img_s"], 100 * res["infer_peak_share"],
+           res["step_ms_median"], res["eager"]["step_ms_median"]))
     return res
 
 
@@ -5168,6 +5210,12 @@ def kv_inception(card, dtype):
         torch.backends.cudnn.deterministic = prev
     n_params = sum(1 for g in store_mod._exec_group.grad_arrays
                    if g is not None)
+    # the store's two-call step replays the executor's forward_backward:
+    # one replay a step, captured at the first
+    replays = [(c["graph_captures"], c["graph_replays"]) for c in store_counts]
+    if replays != [(1, 1)] + [(0, 1)] * (len(replays) - 1):
+        raise AssertionError("phase 30a %s: the store's steps (captures, "
+                             "replays) %s" % (DTYPE_NAME[dtype], replays))
     per_step = {(c["kvstore_push"], c["kvstore_pull"]) for c in store_counts}
     if per_step != {(n_params, n_params)} or not store_mod._update_on_kvstore \
             or store_mod._cached_step is not None:
@@ -5189,7 +5237,8 @@ def kv_inception(card, dtype):
                store_vs_no_store_max_abs=gap[1], rerun_bits_differ=spread[0],
                rerun_max_abs=spread[1], bitwise=gap[0] == 0,
                step_ms_median=ms, img_s=INCEPTION_BATCH / ms * 1e3,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               store_captures_replays=replays)
     log("phase 30a Inception-v3 %s (%s) on %s, batch %d, SGD lr %g through "
         "mt.kv.create('device') (update on the store, %d pushes and %d pulls "
         "a step): cuDNN deterministic, against the captured step without a "
@@ -5351,8 +5400,11 @@ def kv_two_devices(card):
             slices=card_run["slices"], on_store=card_run["on_store"],
             scale_launches=launches, first_loss=card_run["losses"][0],
             last_loss=card_run["losses"][-1])
+        # the card's executor replays its captured forward_backward: the
+        # steps' launches and its capture's warm-ups
         if loss > KV_MLP_LOSS_TOL or w > KV_MLP_W_TOL or \
-                launches != KV_MLP_STEPS or not card_run["on_store"]:
+                launches != KV_MLP_STEPS + mt.capture.WARMUP_RUNS \
+                or not card_run["on_store"]:
             bad.append("Module %s: loss %.3g, weights %.3g, %d launches, on "
                        "the store %s" % (kv, loss, w, launches,
                                          card_run["on_store"]))
@@ -6261,6 +6313,14 @@ CSR_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 CSR_TIMING_ITERS = 200
 CSR_ORDER_MODEL_NNZ = 5000      # cases checked against t_dot_tiles_reference
 CSR_PATH_N = 2                  # the linear model's classes
+# csr_dot held bit for bit against its plain version on the CPU (the same
+# roundings in the same order): rows of these lengths, shuffled, at these
+# widths (N up to 4 takes csr_dot_kernel, a lane an entry; above,
+# csr_dot_wide_kernel)
+CSR_RAGGED_LENGTHS = (0, 1, 15, 16, 17, 33, 100)
+CSR_RAGGED_WIDTHS = (1, 2, 8, 33)
+FM_NNZ = 12                     # ids a line of the FM's data
+CSR_CAPTURE_STEPS = 24          # phase 32b-c: captured against eager
 
 
 def sparse_linear_symbol(mt, dim, dtype=None,
@@ -6287,16 +6347,18 @@ def sparse_linear_symbol(mt, dim, dtype=None,
     return S.Group([loss, S.BlockGrad(S.softmax(pred), name="prob")])
 
 
-def fm_symbol(mt, dim, factor):
+def fm_symbol(mt, dim, factor, dtype=None):
     """``examples/factorization_machine.py``'s ``fm_model`` through
-    ``mt.sym``; its ``x * x`` reads the CSR's dense view."""
+    ``mt.sym``; its ``x * x`` reads the CSR's dense view; ``dtype`` types
+    the parameters."""
     S = mt.sym
+    typed = {} if dtype is None else {"dtype": dtype}
     x = S.Variable("data", stype="csr")
     w = S.Variable("w", shape=(dim, 1),
-                   init=mt.initializer.Normal(sigma=0.01))
+                   init=mt.initializer.Normal(sigma=0.01), **typed)
     v = S.Variable("v", shape=(dim, factor),
-                   init=mt.initializer.Normal(sigma=0.05))
-    w0 = S.Variable("w0", shape=(1,), init=mt.initializer.Zero())
+                   init=mt.initializer.Normal(sigma=0.05), **typed)
+    w0 = S.Variable("w0", shape=(1,), init=mt.initializer.Zero(), **typed)
     linear = S.dot(x, w)
     vx = S.dot(x, v)
     x2 = x * x
@@ -6492,26 +6554,103 @@ def other_dtype_refusals(dev):
     return out
 
 
+def csr_padded(csr, capacity):
+    """``csr``'s parts in buffers of ``capacity`` slots, as a captured step
+    holds a batch: values past nnz zero, column ids 0, the row pointers
+    exact."""
+    from mxnet_tpu_torch.ops.sparse_dot import CSR
+    pad = capacity - csr.capacity
+    return CSR(torch.cat([csr.values, csr.values.new_zeros(pad)]),
+               torch.cat([csr.indices, csr.indices.new_zeros(pad)]),
+               csr.indptr.clone(), csr.shape)
+
+
+def csr_dot_ragged_check(dev, gen):
+    """``csr_dot`` bit for bit against its plain version on the CPU (the
+    same inputs copied there), rows of ``CSR_RAGGED_LENGTHS`` entries at N
+    ``CSR_RAGGED_WIDTHS``, fp32 and fp64; (checks, failures)."""
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    rng = np.random.RandomState(35)
+    lengths = np.repeat(CSR_RAGGED_LENGTHS, 7)
+    rng.shuffle(lengths)
+    k = 5000
+    parts = _csr_case_parts(rng, len(lengths), k, lengths)
+    checks, bad = 0, []
+    for dt in (torch.float32, torch.float64):
+        csr = csr_on(parts, len(lengths), k, dt, dev, gen)
+        host = csr.to("cpu")
+        for n in CSR_RAGGED_WIDTHS:
+            b = torch.randn((k, n), generator=gen, dtype=torch.float64,
+                            device=dev).to(dt)
+            got = sd.csr_dot(csr, b).cpu()
+            checks += 1
+            if not torch.equal(got, sd.csr_dot_reference(host, b.cpu())):
+                bad.append("ragged csr_dot %s N %d: not the plain version's "
+                           "bits" % (dt, n))
+    return checks, bad
+
+
+def csr_padded_check(dev, gen, cases):
+    """Each kernel over capacity-padded parts against the same CSR unpadded,
+    bit for bit (the slots past nnz enter no sum, sort or tile); (checks,
+    failures)."""
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    checks, bad = 0, []
+    for name, csr in cases:
+        cap = max(1, 1 << max(csr.capacity - 1, 0).bit_length())
+        padded = csr_padded(csr, cap + 37)
+        m, k = csr.shape
+        mine, theirs = sd.transpose_parts(padded), sd.transpose_parts(csr)
+        checks += 1
+        if not all(torch.equal(x[:csr.nnz], y[:csr.nnz])
+                   for x, y in zip(mine, theirs)):
+            bad.append("%s: the padded transposition differs" % name)
+        for n in (1, 2, 8):
+            b = torch.randn((k, n), generator=gen, dtype=torch.float64,
+                            device=dev).to(csr.dtype)
+            g = torch.randn((m, n), generator=gen, dtype=torch.float64,
+                            device=dev).to(csr.dtype)
+            for kind, fn, x in (("csr_dot", sd.csr_dot, b),
+                                ("csr_t_dot", sd.csr_t_dot, g)):
+                checks += 1
+                if not torch.equal(fn(padded, x), fn(csr, x)):
+                    bad.append("%s %s N %d: padded differs" % (name, kind, n))
+    return checks, bad
+
+
+def launch_floor_ms():
+    """A launch of the smallest kernel (one element incremented), CUDA
+    events, mean of ``CSR_TIMING_ITERS``: the floor under any short
+    kernel's time on this card's clock."""
+    x = torch.zeros(1, device="cuda")
+    return cuda_ms(lambda: x.add_(1), CSR_TIMING_ITERS, 10)
+
+
 def csr_kernel_check(card):
     """32 (a): ``csr_dot``, ``csr_t_dot`` and the transposition against
     their plain versions in fp32 and fp64 on every case, a second call
-    equal bit for bit; then the path's shape timed beside the plain
-    versions and cuSPARSE (``torch.sparse.mm`` on a
-    ``torch.sparse_csr_tensor`` of the same parts)."""
+    equal bit for bit; ``csr_dot`` bit for bit against the plain version
+    on the CPU over ragged rows; every kernel over capacity-padded parts
+    bit for bit against unpadded ones; then the path's shape and the FM's
+    timed beside the plain versions and cuSPARSE (``torch.sparse.mm`` on
+    a ``torch.sparse_csr_tensor`` of the same parts)."""
     from mxnet_tpu_torch.ops import sparse_dot as sd
     from mxnet_tpu_torch.ops.sparse_dot import CSR
     dev = torch.device("cuda")
     rng = np.random.RandomState(32)
     gen = torch.Generator(dev).manual_seed(32)
-    rows, bad, worst = [], [], {}
+    rows, bad, worst, padded_cases = [], [], {}, []
     for name, m, k, parts, widths in csr_kernel_cases(rng):
         for dt in (torch.float32, torch.float64):
             csr = csr_on(parts, m, k, dt, dev, gen)
+            if dt == torch.float32:
+                padded_cases.append((name, csr))
             # csr_t_dot's order, bit for bit, where the model's loop is short
             order_model = csr.nnz <= CSR_ORDER_MODEL_NNZ
             mine = sd.transpose_parts(csr)
             plain_t = sd.transpose_parts_reference(csr)
-            if not all(torch.equal(a, b) for a, b in zip(mine, plain_t)):
+            if not all(torch.equal(a[:csr.nnz], b)
+                       for a, b in zip(mine, plain_t)):
                 bad.append("%s %s: the transposition differs" % (name, dt))
             absolute = CSR(csr.values.abs(), csr.indices, csr.indptr,
                            csr.shape)
@@ -6549,8 +6688,16 @@ def csr_kernel_check(card):
                                    "again %s" % (name, kind, dt, n, rel,
                                                  CSR_TOL[dt],
                                                  torch.equal(got, again)))
-    log("phase 32 (a) csr kernels on %s: %d checks, worst relative error %s"
-        % (card, len(rows), {"%s %s" % k: v for k, v in worst.items()}))
+    ragged_checks, ragged_bad = csr_dot_ragged_check(dev, gen)
+    padded_checks, padded_bad = csr_padded_check(dev, gen, padded_cases)
+    bad += ragged_bad + padded_bad
+    log("phase 32 (a) csr kernels on %s: %d checks, worst relative error %s; "
+        "csr_dot bit for bit against the CPU's plain version over rows of "
+        "%s entries at N %s: %d checks; padded parts against unpadded: %d "
+        "checks; %d failed" % (
+            card, len(rows), {"%s %s" % k: v for k, v in worst.items()},
+            CSR_RAGGED_LENGTHS, CSR_RAGGED_WIDTHS, ragged_checks,
+            padded_checks, len(ragged_bad) + len(padded_bad)))
     refused = other_dtype_refusals(dev)
     log("phase 32 (a) a CSR of another dtype on %s: %s" % (card, refused))
     if not all(refused.values()):
@@ -6564,10 +6711,20 @@ def csr_kernel_check(card):
     g = torch.randn((SPARSE_BATCH, CSR_PATH_N), generator=gen, device=dev)
     lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.values,
                                   size=csr.shape)
+
     def library_t():
         return torch.sparse.mm(lib.t(), g)
 
+    def library_ms(fn, kind):
+        try:
+            fn()
+            return cuda_ms(fn, CSR_TIMING_ITERS, 10)
+        except (RuntimeError, NotImplementedError) as e:
+            log("phase 32 (a) %s: no library call (%s)" % (kind, e))
+            return None
+
     timing = {}
+    floor = launch_floor_ms()
     for kind, mine, plain, library in (
             ("csr_dot", lambda: sd.csr_dot(csr, b),
              lambda: sd.csr_dot_reference(csr, b),
@@ -6577,27 +6734,43 @@ def csr_kernel_check(card):
             ("csr_transpose", lambda: sd.transpose_parts(csr),
              lambda: sd.transpose_parts_reference(csr),
              lambda: lib.to_sparse_csc())):
-        try:
-            library()
-            lib_ms = cuda_ms(library, CSR_TIMING_ITERS, 10)
-        except (RuntimeError, NotImplementedError) as e:
-            log("phase 32 (a) %s: no library call (%s)" % (kind, e))
-            lib_ms = None
+        lib_ms = library_ms(library, kind)
         bound, by = csr_bound_ms(kind, csr, CSR_PATH_N, 4)
         timing[kind] = dict(
             ms=cuda_ms(mine, CSR_TIMING_ITERS, 10),
             plain_ms=cuda_ms(plain, CSR_TIMING_ITERS, 10),
             library_ms=lib_ms, bound_ms=bound, bound_by=by,
+            launch_floor_ms=floor,
             shape=[SPARSE_BATCH, SPARSE_DIM, CSR_PATH_N], nnz=csr.nnz,
             max_abs_err=max((r["max_abs_err"] for r in rows
                              if r["case"] == "path" and r["n"] == CSR_PATH_N
                              and r["dtype"] == "float32"
                              and r["kind"] == kind), default=0.0))
         log("phase 32 (a) %s on %s, (%d x %d, nnz %d) . N %d fp32: %.5f ms "
-            "(bound %.5f by %s), plain %.5f, library %s"
+            "(bound %.5f by %s; a launch alone %.5f), plain %.5f, library %s"
             % (kind, card, SPARSE_BATCH, SPARSE_DIM, csr.nnz, CSR_PATH_N,
-               timing[kind]["ms"], bound, by, timing[kind]["plain_ms"],
-               lib_ms))
+               timing[kind]["ms"], bound, by, floor,
+               timing[kind]["plain_ms"], lib_ms))
+    # csr_dot at the FM's shapes: dot(x, w) at N 1, dot(x, v) at N 8
+    fm = csr_on(_csr_case_parts(rng, FM["batch"], FM["dim"],
+                                [FM_NNZ] * FM["batch"]), FM["batch"],
+                FM["dim"], torch.float32, dev, gen)
+    fm_lib = torch.sparse_csr_tensor(fm.indptr, fm.indices, fm.values,
+                                     size=fm.shape)
+    timing["csr_dot_fm"] = {}
+    for n in (1, FM["factor"]):
+        bf = torch.randn((FM["dim"], n), generator=gen, device=dev)
+        bound, by = csr_bound_ms("csr_dot", fm, n, 4)
+        timing["csr_dot_fm"][n] = dict(
+            ms=cuda_ms(lambda: sd.csr_dot(fm, bf), CSR_TIMING_ITERS, 10),
+            plain_ms=cuda_ms(lambda: sd.csr_dot_reference(fm, bf),
+                             CSR_TIMING_ITERS, 10),
+            library_ms=library_ms(lambda: torch.sparse.mm(fm_lib, bf),
+                                  "csr_dot_fm"),
+            bound_ms=bound, bound_by=by, launch_floor_ms=floor,
+            shape=[FM["batch"], FM["dim"], n], nnz=fm.nnz)
+    log("phase 32 (a) csr_dot at the FM's shapes on %s (%d x %d, nnz %d): %s"
+        % (card, FM["batch"], FM["dim"], fm.nnz, timing["csr_dot_fm"]))
     # where B's gradient (the transposition included, as in every call)
     # spends its device time, operation by operation
     calls = 20
@@ -6612,16 +6785,51 @@ def csr_kernel_check(card):
     log("phase 32 (a) B's gradient on %s under the profiler: %.5f device "
         "ms, %.5f wall ms a call; %s; the plain version %.5f device ms a "
         "call; %s" % (card, device, wall, ops, plain_device, plain_ops))
-    return dict(card=card, checks=rows, worst={"%s %s" % k: v
-                                               for k, v in worst.items()},
+    return dict(card=card, checks=rows, ragged_checks=ragged_checks,
+                padded_checks=padded_checks,
+                worst={"%s %s" % k: v for k, v in worst.items()},
                 timing=timing)
+
+
+def _state_of(mod, names):
+    """Copies of the bound parameters ``names`` (the first context's)."""
+    ex = mod._exec_group.execs[0]
+    return {n: ex.arg_dict[n]._data.detach().clone() for n in names}
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def sparse_linear_run(mt, path, kv_kind, mode, steps):
+    """``steps`` steps of the example's loop from the seeded init, in
+    ``mode`` (captured or eager): the losses and the parameters after."""
+    it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(SPARSE_DIM,),
+                          batch_size=SPARSE_BATCH)
+    kv = mt.kv.create(kv_kind) if kv_kind else None
+    mod = sparse_module(mt, sparse_linear_symbol(mt, SPARSE_DIM),
+                        mt.gpu(0), it.provide_data, it.provide_label, "sgd",
+                        SPARSE_OPT, kv=kv)
+    losses = []
+    with step_mode(mode):
+        while len(losses) < steps:
+            it.reset()
+            for batch, _ in zip(it, range(steps - len(losses))):
+                losses.append(sparse_linear_step(mod, batch, kv))
+    state = _state_of(mod, ("weight", "bias"))
+    del mod
+    free_card()
+    return losses, state
 
 
 def sparse_linear_train(mt, card, path, kv_kind):
     """32 (b): the linear model through ``Module`` at avazu-app's width,
-    ``SPARSE_EPOCHS`` epochs of the example's loop, with the kernels'
-    counts, ``sparse_densify`` and the peak memory read over the steps."""
-    from mxnet_tpu_torch import profiler
+    ``SPARSE_EPOCHS`` epochs of the example's loop, each step one replay
+    of the executor's captured ``forward_backward`` (no capture after the
+    first), with the kernels' counts, ``sparse_densify`` and the peak
+    memory read over the steps; the first ``CSR_CAPTURE_STEPS`` held bit
+    for bit against the same steps under ``capture.eager()``."""
+    from mxnet_tpu_torch import capture, profiler
     from mxnet_tpu_torch.ops import sparse_dot as sd
     free_card()
     base = torch.cuda.memory_allocated()
@@ -6634,19 +6842,27 @@ def sparse_linear_train(mt, card, path, kv_kind):
                         SPARSE_OPT, kv=kv)
     names = list(sd.COUNTERS.values()) + [sd.DENSIFY_COUNTER]
     profiler.reset_counters(*names)
-    epochs, step_ms = [], []
+    epochs, step_ms, per_step, losses = [], [], [], []
+    state = None
     for _ in range(SPARSE_EPOCHS):
         it.reset()
-        losses = []
+        epoch = []
         for batch in it:
+            before = counter_snapshot()
             t0 = time.perf_counter()
-            losses.append(sparse_linear_step(mod, batch, kv))
+            epoch.append(sparse_linear_step(mod, batch, kv))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-        epochs.append(sum(losses) / len(losses))
+            per_step.append(counter_delta(before))
+            if len(step_ms) == CSR_CAPTURE_STEPS:
+                state = _state_of(mod, ("weight", "bias"))
+        losses += epoch
+        epochs.append(sum(epoch) / len(epoch))
     counts = {n: profiler.counter(n) for n in names}
     peak = torch.cuda.max_memory_allocated() - base
     steps = len(step_ms)
+    captures = sum(c["graph_captures"] for c in per_step)
+    cap = mod._exec_group.execs[0].arg_dict["data"]._parts().capacity
     it.reset()
     batches = [b for b, _ in zip(it, range(3))]
 
@@ -6656,19 +6872,30 @@ def sparse_linear_train(mt, card, path, kv_kind):
     device, wall, top = device_profile(window, len(batches))
     acc = sparse_accuracy(mod, it, binary=False)
     ms = float(np.median(step_ms[1:]))
+    del mod
+    eager_losses, eager_state = sparse_linear_run(
+        mt, path, kv_kind, "eager", CSR_CAPTURE_STEPS)
+    bitwise = eager_losses == losses[:CSR_CAPTURE_STEPS] \
+        and _bits_equal(state, eager_state)
     res = dict(store=kv_kind, epoch_losses=epochs, accuracy=acc, steps=steps,
                ms_per_step=ms, step_ms=step_ms,
                samples_per_s=SPARSE_BATCH / ms * 1e3,
                busy=device / wall, device_ms=device, wall_ms=wall,
-               top_device_ops=top, peak_bytes=peak, counts=counts)
+               top_device_ops=top, peak_bytes=peak, counts=counts,
+               capacity=cap, captures=captures, first_step=per_step[0],
+               later_steps=sorted({tuple(sorted(c.items()))
+                                   for c in per_step[1:]}),
+               captured_equals_eager=bitwise)
     log("phase 32 (b) linear model at %d features on %s, batch %d, %s: "
         "epoch losses %s, accuracy %.4f, %.3f ms/step (median of %d), "
         "%.0f samples/s, busy %.1f%%, peak %.1f MB above the phase's start; "
-        "counts %s" % (SPARSE_DIM, card, SPARSE_BATCH,
-                       "store %s" % kv_kind if kv_kind else "no store",
-                       ["%.5f" % v for v in epochs], acc, ms, steps - 1,
-                       res["samples_per_s"], 100 * res["busy"], peak / 1e6,
-                       counts))
+        "counts %s; capacity %d; step counters: first %s, later %s; "
+        "captured equal to eager over %d steps: %s"
+        % (SPARSE_DIM, card, SPARSE_BATCH,
+           "store %s" % kv_kind if kv_kind else "no store",
+           ["%.5f" % v for v in epochs], acc, ms, steps - 1,
+           res["samples_per_s"], 100 * res["busy"], peak / 1e6, counts, cap,
+           per_step[0], res["later_steps"], CSR_CAPTURE_STEPS, bitwise))
     bad = []
     if not epochs[-1] < epochs[0] or not acc > 0.5:
         bad.append("loss %s, accuracy %.4f" % (epochs, acc))
@@ -6676,9 +6903,20 @@ def sparse_linear_train(mt, card, path, kv_kind):
         bad.append("%d dense views built" % counts[sd.DENSIFY_COUNTER])
     if peak >= SPARSE_PEAK_LIMIT:
         bad.append("peak %d bytes" % peak)
-    want = {sd.COUNTERS["csr_dot"]: steps, sd.COUNTERS["csr_t_dot"]: steps}
+    # one forward_backward replay a step, captured once (its warm-ups
+    # launch each kernel WARMUP_RUNS times more)
+    one = dict(graph_captures=0, graph_replays=1)
+    if any({k: c[k] for k in one} != one for c in per_step[1:]) \
+            or per_step[0]["graph_replays"] != 1 or captures != 1:
+        bad.append("step counters: first %s, later %s"
+                   % (per_step[0], res["later_steps"]))
+    launches = steps + capture.WARMUP_RUNS * captures
+    want = {sd.COUNTERS["csr_dot"]: launches,
+            sd.COUNTERS["csr_t_dot"]: launches}
     if any(counts[k] != v for k, v in want.items()):
         bad.append("launches %s, want %s" % (counts, want))
+    if not bitwise:
+        bad.append("the captured steps differ from capture.eager()'s")
     if bad:
         raise AssertionError("phase 32 (b): %s" % "; ".join(bad))
     return res
@@ -6713,44 +6951,81 @@ def sparse_linear_card_vs_cpu(mt, card, path):
     return res
 
 
-def fm_train(mt, card, path):
-    """32 (c): the FM through ``Module._fit_step`` at the example's
-    settings; each step eager (``sparse_eager_steps``)."""
-    from mxnet_tpu_torch import profiler
+def fm_steps(mt, path, mode, epochs, on_step=None):
+    """The FM through ``Module._fit_step`` at the example's settings for
+    ``epochs`` epochs in ``mode`` (captured or eager): the module, each
+    step's loss, and ``on_step(step)``'s value at each step."""
     it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(FM["dim"],),
                           batch_size=FM["batch"])
     mod = sparse_module(mt, fm_symbol(mt, FM["dim"], FM["factor"]),
                         mt.gpu(0), it.provide_data, it.provide_label,
                         "adam", (("learning_rate", FM["lr"]),))
-    profiler.reset_counters("sparse_eager_steps", "graph_replays")
+    losses, seen = [], []
+    with step_mode(mode):
+        for _ in range(epochs):
+            it.reset()
+            for batch in it:
+                before = counter_snapshot()
+                t0 = time.perf_counter()
+                mod._fit_step(batch)
+                losses.append(float(mod.get_outputs()[0].asnumpy()))
+                ms = 1e3 * (time.perf_counter() - t0)
+                if on_step is not None:
+                    seen.append(on_step(counter_delta(before), ms))
+    return mod, it, losses, seen
+
+
+def fm_train(mt, card, path):
+    """32 (c): the FM through ``Module._fit_step`` at the example's
+    settings, each step one replay of ``CachedTrainStep``'s program with
+    its CSR a static input (``sparse_eager_steps`` 0); its first
+    ``CSR_CAPTURE_STEPS`` steps held bit for bit against the same steps
+    under ``capture.eager()``."""
+    from mxnet_tpu_torch import profiler
+    profiler.reset_counters("sparse_eager_steps")
     t0 = time.perf_counter()
-    epochs, steps = [], 0
-    for _ in range(FM["epochs"]):
-        it.reset()
-        tot = nb = 0
-        for batch in it:
-            mod._fit_step(batch)
-            tot += float(mod.get_outputs()[0].asnumpy())
-            nb += 1
-        epochs.append(tot / nb)
-        steps += nb
+    mod, it, losses, seen = fm_steps(mt, path, "captured", FM["epochs"],
+                                     lambda c, ms: (c, ms))
     seconds = time.perf_counter() - t0
+    per_step = [c for c, _ in seen]
+    step_ms = float(np.median([ms for _, ms in seen[1:]]))
+    steps = len(losses)
+    nb = steps // FM["epochs"]
+    epochs = [sum(losses[i:i + nb]) / nb for i in range(0, steps, nb)]
     eager = profiler.counter("sparse_eager_steps")
-    replays = profiler.counter("graph_replays")
+    captures = sum(c["graph_captures"] for c in per_step)
+    replays = sum(c["graph_replays"] for c in per_step)
     acc = sparse_accuracy(mod, it, binary=True)
+    del mod
+    free_card()
+    ok = {}
+    for mode in STEP_MODES:
+        m, _, ok[mode], _ = fm_steps(mt, path, mode, 1)
+        ok[mode] = (ok[mode][:CSR_CAPTURE_STEPS],
+                    _state_of(m, ("w", "v", "w0")))
+        del m
+    bitwise = ok["captured"][0] == ok["eager"][0] \
+        and _bits_equal(ok["captured"][1], ok["eager"][1])
+    free_card()
     log("phase 32 (c) FM (%d features, factor %d) on %s, batch %d, Adam lr "
-        "%g: losses %.4f -> %.4f, accuracy %.4f, %d steps in %.2f s (%.3f "
-        "ms/step), eager %d, replays %d"
+        "%g: losses %.4f -> %.4f, accuracy %.4f, %d steps in %.2f s with the "
+        "set-up and the data (a step and its loss's read %.3f ms, median "
+        "after the first), eager %d, replays %d, captures %d; captured "
+        "equal to eager over %d steps: %s"
         % (FM["dim"], FM["factor"], card, FM["batch"], FM["lr"], epochs[0],
-           epochs[-1], acc, steps, seconds, 1e3 * seconds / steps, eager,
-           replays))
-    if not epochs[-1] < 0.5 * epochs[0] or not acc > 0.8 \
-            or eager != steps or replays:
+           epochs[-1], acc, steps, seconds, step_ms, eager, replays,
+           captures, CSR_CAPTURE_STEPS, bitwise))
+    if not epochs[-1] < 0.5 * epochs[0] or not acc > 0.8 or eager \
+            or replays != steps or captures != 1 or not bitwise:
         raise AssertionError("phase 32 (c) FM: losses %s, accuracy %.4f, "
-                             "eager steps %d of %d, replays %d"
-                             % (epochs, acc, eager, steps, replays))
+                             "eager steps %d, replays %d and captures %d in "
+                             "%d steps, captured equal to eager %s"
+                             % (epochs, acc, eager, replays, captures, steps,
+                                bitwise))
     return dict(epoch_losses=epochs, accuracy=acc, steps=steps,
-                seconds=seconds, eager_steps=eager)
+                seconds=seconds, ms_per_step=step_ms,
+                eager_steps=eager, replays=replays, captures=captures,
+                captured_equals_eager=bitwise)
 
 
 def sparse_files_check(mt, card):
@@ -6811,6 +7086,194 @@ def phase_sparse(card):
     return res
 
 
+# -- phase 33: the Executor's programs (ROADMAP A.1) --------------------------
+# The JAX package jits every path through a bound Executor
+# (mxnet_tpu/executor.py:139-181, :436-475); the port replays captured
+# programs: a forward; a training forward and its backward as the two
+# stages of one program; forward_backward as one, with ones or with given
+# output gradients.  Each entry point in turns (EXEC_CALLS), captured
+# against capture.eager(), from one init over the same batches: the MNIST
+# MLP of phase 7 (fp32, TF32 off) bit for bit with grad_req write and add,
+# ResNet-50 at batch 2 in fp64 from phase 9's init to RESNET_PARITY_TOL
+# (outputs to out1, gradients to params1, relative to max(1, |g|)).  Then
+# at batch 32 in fp32, ResNet-50 and Inception-v3: forward then backward,
+# forward_backward and the eval forward timed captured and eager (median
+# of EXEC_TIMED after EXEC_WARMUP), with the peak memory of each mode.
+EXEC_CALLS = ("two", "fb", "eval", "fb_og", "two", "fb", "fb_og", "eval")
+EXEC_WARMUP, EXEC_TIMED = 3, 10
+# replays and captures of each kind of call: forward then backward replays
+# the two stages of one program
+EXEC_REPLAYS = dict(two=2, fb=1, fb_og=1, eval=1)
+
+
+def exec_call(exe, call, feed, og):
+    if call == "two":
+        exe.forward(is_train=True, **feed)
+        exe.backward()
+    elif call == "fb":
+        exe.forward_backward(**feed)
+    elif call == "fb_og":
+        exe.forward_backward(out_grads=og, **feed)
+    else:
+        exe.forward(is_train=False, **feed)
+
+
+def exec_calls_run(exe, feeds, og, mode):
+    """``EXEC_CALLS`` on ``exe`` over ``feeds`` in ``mode``: after each
+    call its outputs and the gradients (host fp64 copies), and the step
+    counters of each call."""
+    outs, counts = [], []
+    with step_mode(mode):
+        for call, feed in zip(EXEC_CALLS, feeds):
+            before = counter_snapshot()
+            exec_call(exe, call, feed, og)
+            torch.cuda.synchronize()
+            counts.append(counter_delta(before))
+            outs.append([o._data.detach().to("cpu", torch.float64)
+                         for o in exe.outputs]
+                        + [exe.grad_dict[n]._data.detach().to(
+                            "cpu", torch.float64) for n in exe._grad_names])
+    return outs, counts
+
+
+def exec_counts_ok(counts):
+    """Each captured call one replay of each stage it runs, and a capture
+    only at the first call of its kind."""
+    seen = set()
+    for call, c in zip(EXEC_CALLS, counts):
+        first = call not in seen
+        seen.add(call)
+        want = dict(graph_replays=EXEC_REPLAYS[call],
+                    program_calls=EXEC_REPLAYS[call],
+                    graph_captures=EXEC_REPLAYS[call] if first else 0)
+        if c != want:
+            return False
+    return True
+
+
+def exec_mlp(card, grad_req):
+    """The MLP's executor: captured against eager over ``EXEC_CALLS``, bit
+    for bit; (bitwise, captured counters)."""
+    import mxnet_tpu_torch as mt
+    register_pl_scale()
+    gpu = mt.gpu(0)
+    x, y, _, _ = _mnist_on(gpu)
+    feeds = [dict(data=x[i * MLP_BATCH:(i + 1) * MLP_BATCH],
+                  softmax_label=y[i * MLP_BATCH:(i + 1) * MLP_BATCH])
+             for i in range(len(EXEC_CALLS))]
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    og = mt.nd.NDArray(torch.rand((MLP_BATCH, 10), generator=gen,
+                                  device="cuda"), gpu)
+    runs, init = {}, None
+    for mode in STEP_MODES:
+        exe = bind_mlp(gpu, grad_req=grad_req)
+        if init is None:
+            init_mlp(exe)
+            init = {n: exe.arg_dict[n].copy() for n in param_names(exe)}
+        else:
+            exe.copy_params_from(init)
+        runs[mode] = exec_calls_run(exe, feeds, og, mode)
+        del exe
+    bitwise = all(torch.equal(a, b) for u, v in zip(runs["captured"][0],
+                                                   runs["eager"][0])
+                  for a, b in zip(u, v))
+    return bitwise, runs["captured"][1]
+
+
+def exec_resnet_fp64(card, init):
+    """ResNet-50 at batch 2 in fp64 from ``init``: captured against eager
+    over ``EXEC_CALLS``; the largest distances of the outputs and of the
+    gradients (relative to max(1, |g|)), and the captured counters."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    db = resnet_batch(gpu, RESNET_PARITY_BATCH, torch.float64,
+                      label_dtype=torch.float64)
+    feed = dict(data=db.data[0], softmax_label=db.label[0])
+    og = mt.nd.NDArray(torch.full((RESNET_PARITY_BATCH, 1000), 0.5,
+                                  dtype=torch.float64, device="cuda"), gpu)
+    runs = {}
+    for mode in STEP_MODES:
+        mod = resnet_module(gpu, RESNET_PARITY_BATCH, torch.float64)
+        resnet_train_setup(mod, _cast_params(init, torch.float64))
+        runs[mode] = exec_calls_run(mod._exec_group.execs[0],
+                                    [feed] * len(EXEC_CALLS), og, mode)
+        del mod
+        free_card()
+    out_gap = grad_gap = 0.0
+    for u, v in zip(runs["captured"][0], runs["eager"][0]):
+        out_gap = max(out_gap, float((u[0] - v[0]).abs().max()))
+        for a, b in zip(u[1:], v[1:]):
+            grad_gap = max(grad_gap, float(((a - b).abs()
+                                            / b.abs().clamp_min(1.0)).max()))
+    return out_gap, grad_gap, runs["captured"][1]
+
+
+def exec_timing(card, model, batch, image):
+    """``model`` at ``batch`` in fp32 (TF32 off) through its executor:
+    forward then backward, forward_backward and the eval forward, median
+    ms of ``EXEC_TIMED`` after ``EXEC_WARMUP``, captured and eager, and
+    each mode's peak memory."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    db = resnet_batch(gpu, batch, torch.float32, image=image)
+    feed = dict(data=db.data[0], softmax_label=db.label[0])
+    res = {}
+    for mode in STEP_MODES:
+        mod = resnet_module(gpu, batch, torch.float32, image=image,
+                            model=model)
+        resnet_train_setup(mod)
+        exe = mod._exec_group.execs[0]
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res[mode] = {}
+        with step_mode(mode):
+            for call in ("two", "fb", "eval"):
+                times = _timed(lambda: exec_call(exe, call, feed, None),
+                               EXEC_WARMUP + EXEC_TIMED)
+                res[mode][call + "_ms"] = _median(times[EXEC_WARMUP:])
+        res[mode]["peak_gb"] = (torch.cuda.max_memory_allocated()
+                                - base) / 1e9
+        res[mode]["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+        del mod, exe
+        free_card()
+    return res
+
+
+def phase_executor_programs(card, resnet_init):
+    """Phase 33: the Executor's captured programs against eager on the MLP
+    (write and add) and fp64 ResNet-50, with their replays counted; then
+    their times and peak memory at batch 32."""
+    t0 = time.perf_counter()
+    tf32_flags()
+    res, bad = {"card": card}, []
+    for req in ("write", "add"):
+        bitwise, counts = exec_mlp(card, req)
+        res["mlp_" + req] = dict(bitwise=bitwise, counters=counts)
+        if not bitwise or not exec_counts_ok(counts):
+            bad.append("MLP grad_req %s: bit for bit %s, counters %s"
+                       % (req, bitwise, counts))
+    out_gap, grad_gap, counts = exec_resnet_fp64(card, resnet_init)
+    tol = RESNET_PARITY_TOL[torch.float64]
+    res["resnet50_fp64"] = dict(outputs_max_abs=out_gap,
+                                grads_max_rel=grad_gap, counters=counts,
+                                limits=dict(outputs=tol["out1"],
+                                            grads=tol["params1"]))
+    if not out_gap <= tol["out1"] or not grad_gap <= tol["params1"] \
+            or not exec_counts_ok(counts):
+        bad.append("ResNet-50 fp64: outputs %.3g, gradients %.3g, counters "
+                   "%s" % (out_gap, grad_gap, counts))
+    for model, batch, image in (("resnet50_v1", RESNET_BATCH, RESNET_IMAGE),
+                                ("inceptionv3", INCEPTION_BATCH,
+                                 INCEPTION_IMAGE)):
+        res[model] = exec_timing(card, model, batch, image)
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 33 the Executor's programs on %s: %s" % (card, res))
+    if bad:
+        raise AssertionError("phase 33: %s" % "; ".join(bad))
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -6856,6 +7319,7 @@ def main():
     kvstore = phase_kvstore(card)
     long_tail = phase_long_tail(card)
     sparse = phase_sparse(card)
+    executor = phase_executor_programs(card, resnet_init)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -7019,9 +7483,12 @@ def main():
     })
     from mxnet_tpu_torch.ops import sparse_dot as sd
     for kind, design in (
-            ("csr_dot", "simt, a group of lanes a row (one an output column, "
-             "up to 32), the row's entries summed in stored order, "
-             "products and sums rounded apart"),
+            ("csr_dot", "simt (redesigned, PR 21): at N up to 4 16 lanes a "
+             "row and a lane an entry, so a row's index, value and B loads "
+             "are all in flight, the products then added in stored order "
+             "by shuffles (a longer row in chunks of 16 with the carry); "
+             "wider N a lane an output column, 8 gathers in flight; "
+             "products and sums rounded apart; nnz read on the card"),
             ("csr_t_dot", "simt, a warp a tile of 32 column-sorted "
              "entries, each run of a column summed in row order; a second "
              "kernel adds a run's partial sums over the tiles it crosses "
@@ -7051,8 +7518,11 @@ def main():
             "library_ms": t["library_ms"],
             "shape": t["shape"],
             "nnz": t["nnz"],
+            "launch_floor_ms": t["launch_floor_ms"],
             **{k: t[k] for k in ("device_ms", "device_ops",
                                  "plain_device_ms") if k in t},
+            **({"fm_shapes": sparse["kernels"]["timing"]["csr_dot_fm"]}
+               if kind == "csr_dot" else {}),
         })
     log(card)
     print(json.dumps({"resnet50": {
@@ -7083,6 +7553,7 @@ def main():
                       "sparse_kernels": {k: v for k, v in
                                          sparse["kernels"].items()
                                          if k != "checks"}}))
+    print(json.dumps({"executor": executor}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

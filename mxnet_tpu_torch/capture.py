@@ -74,9 +74,9 @@ import torch
 from .base import MXNetError
 from . import profiler
 
-__all__ = ["eager", "stand_in", "graph_for", "holds_host_op", "Program",
-           "StepCache",
-           "MemoryPool", "WARMUP_RUNS", "MAX_PROGRAMS"]
+__all__ = ["eager", "stand_in", "graph_for", "holds_host_op", "fill",
+           "Program", "StepCache", "MemoryPool", "WARMUP_RUNS",
+           "MAX_PROGRAMS"]
 
 WARMUP_RUNS = 3
 MAX_PROGRAMS = 8
@@ -225,7 +225,7 @@ def _ident(t):
     return (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
 
 
-def _fill(static, x):
+def fill(static, x):
     """Copy ``x`` into the static input ``static``; a host tensor goes to
     the card through pinned memory, so the copy does not wait for the
     card (the pinned block is reused only once the copy has run)."""
@@ -264,7 +264,7 @@ class Program:
             self._static = [[torch.empty(x.shape, dtype=x.dtype,
                                          device=device) for x in inputs]]
             for s, x in zip(self._static[0], inputs):
-                _fill(s, x)
+                fill(s, x)
         self._static += [None] * (n - 1)
         self._outs, self._deltas = [None] * n, [None] * n
         self.replays = [0] * n
@@ -363,7 +363,7 @@ class Program:
         tensors themselves (the next replay overwrites them)."""
         with torch.no_grad():
             for s, x in zip(self._static[stage], inputs):
-                _fill(s, x)
+                fill(s, x)
             before = profiler.counters()
             self._graphs[stage].replay()
             profiler._restore(before, self._deltas[stage])

@@ -575,17 +575,19 @@ class LibSVMIter(DataIter):
         self._inner.reset()
 
     def _csr_rows(self, rows):
-        """The CSR of the file's ``rows``, on the host."""
+        """The CSR of the file's ``rows``, on the host; its parts in pinned
+        memory where there is a card, so their copy into a step's buffers
+        on the card does not wait."""
         values, ids, indptr = self._parts
         starts = indptr[rows]
         lengths = indptr[rows + 1] - starts
         bptr = np.zeros(rows.size + 1, np.int64)
         np.cumsum(lengths, out=bptr[1:])
         take = np.repeat(starts - bptr[:-1], lengths) + np.arange(bptr[-1])
-        return CSRNDArray(CSR(torch.from_numpy(values[take]),
-                              torch.from_numpy(ids[take]),
-                              torch.from_numpy(bptr),
-                              (rows.size, self._dim)), cpu())
+        parts = [torch.from_numpy(a) for a in (values[take], ids[take], bptr)]
+        if torch.cuda.is_available():
+            parts = [p.pin_memory() for p in parts]
+        return CSRNDArray(CSR(*parts, (rows.size, self._dim)), cpu())
 
     def next(self):
         batch = self._inner.next()

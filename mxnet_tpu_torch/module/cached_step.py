@@ -18,12 +18,15 @@ On the card the step is one captured program (``capture``): replayed
 once a step over the executor's arguments and moving statistics and the
 optimizer's states, in place, with the hyper-parameters in a device
 tensor (``optimizer.TracedHyper``) that the host fills before each
-replay, so a learning-rate schedule never recaptures.  On the CPU, and
-inside ``capture.eager()``, and where its Symbol holds a ``Custom`` op
-(``capture.graph_for``), it runs eagerly.  Its programs capture into
-the ``pool`` it is given (``capture.MemoryPool``, one for all the steps
-of a ``Module`` or a ``BucketingModule``), and :meth:`capture` captures
-the step without taking it.  ``MXNET_MODULE_FUSED_STEP=0`` turns the
+replay, so a learning-rate schedule never recaptures.  A CSR argument
+(a ``LibSVMIter`` batch) is read from its capacity buffers
+(``ndarray.sparse``): the program is keyed on the capacity, one such
+program held, and a batch that outgrows the buffers captures again.  On
+the CPU, and inside ``capture.eager()``, and where its Symbol holds a
+``Custom`` op (``capture.graph_for``), it runs eagerly.  Its programs
+capture into the ``pool`` it is given (``capture.MemoryPool``, one for
+all the steps of a ``Module`` or a ``BucketingModule``), and
+:meth:`capture` captures the step without taking it.  ``MXNET_MODULE_FUSED_STEP=0`` turns the
 fused step off.
 """
 from __future__ import annotations
@@ -33,9 +36,10 @@ import os
 import torch
 
 from ..ndarray import NDArray
+from ..ndarray import sparse as _sparse
 from .. import capture, profiler
 from .. import random as _random
-from ..executor import _run_graph
+from ..executor import _run_graph, load_into
 from ..optimizer import TracedHyper, _state_raw, _state_tensors
 from ..symbol.symbol import _topo
 
@@ -84,7 +88,7 @@ class CachedTrainStep:
         ex = self._exec
         for k, v in feed.items():
             if k in ex.arg_dict:
-                ex.arg_dict[k]._set_data(v._data)
+                load_into(ex.arg_dict[k], v)
         self._ensure_states()
         lrs, wds, counts = self._hyper()
         states = self._states()
@@ -136,7 +140,7 @@ class CachedTrainStep:
         statistics' write-back, on the executor's tensors in place;
         returns the outputs."""
         ex, opt = self._exec, self._opt
-        arg_vals = {n: a._data for n, a in ex.arg_dict.items()}
+        arg_vals = {n: _sparse.raw(a) for n, a in ex.arg_dict.items()}
         weights = [arg_vals[n] for n in self._pnames]
         leaves = [w.detach().requires_grad_(True) for w in weights]
         arg_vals.update(zip(self._pnames, leaves))
@@ -165,13 +169,16 @@ class CachedTrainStep:
         hyper-parameter values to replay it with."""
         ex = self._exec
         hyper = TracedHyper(self._opt, lrs, wds, counts)
-        buffers = [a._data for a in ex.arg_dict.values()] \
+        buffers = [t for a in ex.arg_dict.values()
+                   for t in _sparse.tensors(a)] \
             + [a._data for a in ex.aux_dict.values()] + _state_tensors(states)
         gens = [_random.generator(ex._ctx)] if self._draws else []
+        caps = _sparse.capacities(ex.arg_dict.values())
+        family = hyper.family if not caps else ("csr", hyper.family)
         prog = self._programs.program(
-            ("module_step", hyper.key), graph, ex._ctx.torch_device,
+            ("module_step", hyper.key, caps), graph, ex._ctx.torch_device,
             lambda: [lambda values: self._step(states, hyper.unpack(values))],
-            [hyper.values], buffers, gens, family=hyper.family)
+            [hyper.values], buffers, gens, family=family)
         return prog, hyper.values
 
     def _replay(self, graph, states, lrs, wds, counts):

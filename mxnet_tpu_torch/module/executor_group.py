@@ -16,16 +16,19 @@ labels beside its outputs.  ``get_params`` gives the mean of the
 contexts' copies, as the reference does (after an update the weights
 are one value; BatchNorm's moving statistics are each context's own).
 Bound with a ``shared_group``, each executor holds the donor's
-parameter, gradient and auxiliary NDArrays of its context.  A CSR batch
-(``io.LibSVMIter``) reaches the bound CSR argument as its parts: three
-copies, each context's rows sliced from the parts, no dense matrix.
+parameter, gradient and auxiliary NDArrays of its context.  A batch is
+copied into the bound arrays in place (``executor.load_into``), so the
+executors' captured programs replay over the same addresses; a CSR
+batch (``io.LibSVMIter``) reaches the bound CSR argument as its parts,
+copied into its capacity buffers, each context's rows sliced from the
+parts, no dense matrix.
 """
 from __future__ import annotations
 
 import torch
 
 from ..context import cpu
-from ..executor import Executor, arg_zeros
+from ..executor import Executor, arg_zeros, load_into
 from .. import ndarray as nd
 from ..ndarray import sparse as _sparse
 
@@ -182,14 +185,16 @@ class DataParallelExecutorGroup:
 
     # -- execution ---------------------------------------------------------
     def _load(self, arrays, sources):
+        """Copy each batch array into its bound arrays, in place
+        (``executor.load_into``): the whole, or each context's slice."""
         for dsts, src in zip(arrays, sources):
             raw = _sparse.raw(src) if isinstance(src, nd.NDArray) \
                 else nd.array(src, ctx=cpu())._data
             if len(dsts) == 1:
-                dsts[0]._set_data(raw)
+                load_into(dsts[0], raw)
                 continue
             for sl, dst in zip(self.slices, dsts):
-                dst._set_data(raw[sl])
+                load_into(dst, raw[sl])
 
     def _load_batch(self, batch):
         self._load(self.data_arrays, batch.data)

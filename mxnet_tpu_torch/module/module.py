@@ -13,8 +13,10 @@ on its context; ``update`` marks the host copies stale, and
 backward and the update of every parameter in one call through
 ``cached_step.CachedTrainStep``, unless ``MXNET_MODULE_FUSED_STEP=0``
 or the setup does not allow it; then it calls ``forward_backward`` and
-``update``.  The captured steps of every input shape the module binds
-(its reshape cache) share one graph-memory pool
+``update``.  ``forward``, ``backward`` and ``forward_backward`` run the
+executors' captured programs (``executor``).  The captured steps of
+every input shape the module binds (its reshape cache), and its
+executors' single-stage programs, share one graph-memory pool
 (``capture.MemoryPool``); a ``BucketingModule`` hands its buckets one.
 Bound with a ``shared_module``, the executor holds that module's
 parameter, gradient and auxiliary NDArrays themselves.
@@ -50,7 +52,7 @@ from collections import OrderedDict
 import numpy as np
 
 from ..base import MXNetError, dtype_name
-from .. import capture, profiler
+from .. import capture
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from ..ndarray.sparse import from_reference
@@ -298,12 +300,15 @@ class Module(BaseModule):
 
     def _make_exec_group(self, shared_group=None):
         self._cached_step = None
-        return DataParallelExecutorGroup(
+        group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, self.for_training,
             self.inputs_need_grad, fixed_param_names=self._fixed_param_names,
             grad_req=self._grad_req, shared_group=shared_group,
             workload=self._work_load_list)
+        for ex in group.execs:
+            ex.graph_pool = self._graph_pool
+        return group
 
     def _shape_key(self):
         return tuple((d.name, tuple(d.shape), str(d.dtype))
@@ -437,8 +442,6 @@ class Module(BaseModule):
         self._maybe_reshape(data_batch)
         step = self._get_cached_step()
         if step is None:
-            if self._holds_csr():
-                profiler.bump("sparse_eager_steps")
             super()._fit_step(data_batch)
             return
         feed = dict(zip(self._data_names, data_batch.data))
@@ -447,20 +450,16 @@ class Module(BaseModule):
         step.run(feed)
         self._params_dirty = True
 
-    def _holds_csr(self):
-        return any(a.stype == "csr"
-                   for a in self._exec_group.execs[0].arg_dict.values())
-
     def _get_cached_step(self):
         """The one-call step, or None where the two-call path runs: a
-        store, several contexts, inputs that take gradients, an optimizer
-        without a fused update, or a CSR argument (its nnz changes from
-        batch to batch, so no captured program holds it yet; each such
-        ``_fit_step`` counts in ``sparse_eager_steps``)."""
+        store, several contexts, inputs that take gradients or an
+        optimizer without a fused update (reference ``:474-480``).  A CSR
+        argument is a static input of the step's program, in buffers of a
+        fixed capacity (``ndarray.sparse``)."""
         if self._cached_step_unusable or not fused_step_enabled() \
                 or not self.optimizer_initialized or self.inputs_need_grad \
                 or self._updater is None or self._kvstore is not None \
-                or len(self._exec_group.execs) != 1 or self._holds_csr():
+                or len(self._exec_group.execs) != 1:
             return None
         ex = self._exec_group.execs[0]
         if any(r not in ("write", "null") for r in ex.grad_req.values()):

@@ -24,6 +24,16 @@ XLA wants static shapes (``:6-14``).  Here:
   a row, columns sorted); otherwise repeated columns sum (``np.add.at``,
   in their order) and zeros are dropped (``:96-213``).
 
+A batch copied into a bound CSR (``_set_data`` with a CSR: an
+executor's feed) goes into buffers of a fixed capacity, in place, so a
+captured step reads it at the same addresses every step: values past the
+batch's nnz zero, column ids past it 0, the row pointers exact.  The
+first batch sets the capacity to its nnz rounded up to a power of two; a
+batch that does not fit doubles it (until it fits) into new buffers, and
+a captured step that held the old ones captures again.  So the buffers
+hold less than twice the largest batch's parts, and batches whose nnz
+goes up and down within the capacity replay one program.
+
 ``copyto`` a context and ``as_in_context`` keep a CSR as its parts;
 ``copy``, ``astype``, slicing and the other ops give dense arrays, as
 the JAX package's do.
@@ -35,14 +45,14 @@ import torch
 
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, as_context
-from .. import profiler
+from .. import capture, profiler
 from ..ops.registry import get_op
 from ..ops.sparse_dot import CSR, DENSIFY_COUNTER, entry_rows
 from .ndarray import NDArray, invoke, zeros as _dense_zeros
 
 __all__ = ["BaseSparseNDArray", "RowSparseNDArray", "CSRNDArray",
            "row_sparse_array", "csr_matrix", "cast_storage", "zeros",
-           "raw", "from_reference"]
+           "raw", "tensors", "capacities", "from_reference"]
 
 
 def _np_dtype(dtype):
@@ -54,6 +64,32 @@ def raw(x):
     """What an executor or a copy takes from ``x``: the parts of a CSR,
     the tensor of any other NDArray."""
     return x._parts() if isinstance(x, CSRNDArray) else x._data
+
+
+def tensors(x):
+    """The tensors a captured step reads of ``x``: a CSR's three parts,
+    the tensor of any other NDArray."""
+    if isinstance(x, CSRNDArray):
+        c = x._parts()
+        return [c.values, c.indices, c.indptr]
+    return [x._data]
+
+
+def capacities(arrays):
+    """The capacity of each CSR among ``arrays`` (a captured step's key)."""
+    return tuple(a._parts().capacity for a in arrays
+                 if isinstance(a, CSRNDArray))
+
+
+def _capacity_for(need, cap):
+    """The capacity for a batch of ``need`` entries in buffers of ``cap``:
+    ``cap`` where it fits; else ``cap`` doubled until it does, or, for the
+    first batch (``cap`` 0), ``need`` rounded up to a power of two."""
+    if cap == 0:
+        return 1 << max(need - 1, 0).bit_length()
+    while cap < need:
+        cap *= 2
+    return cap
 
 
 class BaseSparseNDArray(NDArray):
@@ -173,14 +209,37 @@ class CSRNDArray(BaseSparseNDArray):
             if tuple(src.shape) != self._shape:
                 raise MXNetError("cannot copy a CSR of shape %s into one of "
                                  "shape %s" % (src.shape, self._shape))
-            self._csr = src.to(dev, dtype, non_blocking=dev.type == "cuda")
-            self._dense, self._dense_ver = None, -1
+            self._fill(src, dev, dtype)
             return self
         dense = torch.empty(self._shape, dtype=dtype, device=dev)
         with torch.no_grad():
             dense.copy_(src)
         self._dense, self._dense_ver, self._csr = dense, -1, None
         return self
+
+    def _fill(self, src, dev, dtype):
+        """Copy ``src``'s entries into this array's capacity buffers (see
+        the module's notes), in place where they fit; each host part goes
+        through pinned memory, so the copy does not wait for the card."""
+        src = src.trimmed()
+        need = src.capacity
+        c = self._csr
+        fits = c is not None and c.dtype == dtype and c.device == dev
+        cap = _capacity_for(need, c.capacity if fits else 0)
+        if not fits or cap != c.capacity:
+            c = CSR(torch.zeros(cap, dtype=dtype, device=dev),
+                    torch.zeros(cap, dtype=torch.int64, device=dev),
+                    torch.empty(self._shape[0] + 1, dtype=torch.int64,
+                                device=dev), self._shape)
+        with torch.no_grad():
+            for dst, part in ((c.values, src.values),
+                              (c.indices, src.indices)):
+                capture.fill(dst[:need], part)
+                dst[need:].zero_()
+            capture.fill(c.indptr, src.indptr)
+        # a new shell: a dense view of the old contents is not kept
+        self._csr = c.shell()
+        self._dense, self._dense_ver = None, -1
 
     def wait_to_read(self):
         dev = self._ctx.torch_device
@@ -194,17 +253,19 @@ class CSRNDArray(BaseSparseNDArray):
         if self._dense is not None or c._dense is not None:
             return super().asnumpy()
         profiler.bump(DENSIFY_COUNTER)
+        c = c.trimmed()
         values = c.values.detach().cpu()
         if values.dtype == torch.bfloat16:
             values = values.float()
         out = np.zeros(self._shape, dtype=values.numpy().dtype)
-        rows = entry_rows(c.indptr, c.nnz).cpu().numpy()
+        rows = entry_rows(c.indptr, c.capacity).cpu().numpy()
         np.add.at(out, (rows, c.indices.cpu().numpy()), values.numpy())
         return out
 
     def copyto(self, other):
         if isinstance(other, Context):
-            return CSRNDArray(self._parts().to(other.torch_device), other)
+            return CSRNDArray(self._parts().trimmed().to(other.torch_device),
+                              other)
         if isinstance(other, NDArray):
             if other is not self:
                 other._set_data(raw(self) if isinstance(other, CSRNDArray)
@@ -214,7 +275,7 @@ class CSRNDArray(BaseSparseNDArray):
 
     @property
     def indices(self):
-        return NDArray(self._parts().indices.clone(), self._ctx)
+        return NDArray(self._parts().trimmed().indices.clone(), self._ctx)
 
     @property
     def indptr(self):
@@ -222,11 +283,11 @@ class CSRNDArray(BaseSparseNDArray):
 
     @property
     def data(self):
-        return NDArray(self._parts().values.clone(), self._ctx)
+        return NDArray(self._parts().trimmed().values.clone(), self._ctx)
 
     def asscipy(self):
         import scipy.sparse as sp
-        c = self._parts()
+        c = self._parts().trimmed()
         m = sp.csr_matrix((c.values.cpu().numpy(), c.indices.cpu().numpy(),
                            c.indptr.cpu().numpy()), shape=self._shape)
         m.eliminate_zeros()

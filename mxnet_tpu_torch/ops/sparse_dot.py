@@ -10,9 +10,11 @@ rows: 32.8 GB dense) costs its nonzeros.  ``csrc/csr_dot.cu`` (CUDA C++
 for ``sm_90a``, built by ``_build.load_library`` at its first launch)
 holds the kernels:
 
-- ``csr_dot_kernel``: out (M, N) = A (M x K, CSR) . B (K, N), a group of
-  lanes a row (one lane an output column, up to 32), each row's entries
-  summed in their stored order, the row pointers read on the card;
+- ``csr_dot_kernel``: out (M, N) = A (M x K, CSR) . B (K, N) at N up to
+  4: 16 lanes a row and a lane an entry, so a row's gathers are all in
+  flight, the products then added in stored order by shuffles (a longer
+  row in chunks of 16 with the carry); ``csr_dot_wide_kernel`` at wider
+  N, a lane an output column, the entries' gathers 8 at a time;
 - the transposition: ``csr_transpose_kernel`` then a stable LSD radix
   sort by column
   (``radix_hist_kernel``, ``radix_prefix_kernel`` and
@@ -28,6 +30,15 @@ holds the kernels:
   entries is written once.  One call (``mx_csr_t_dot``) launches the
   transposition and these; ``mx_csr_transpose`` launches the
   transposition alone, for its check.
+
+A CSR may sit in buffers of a fixed ``capacity`` above its nnz (a
+captured step's static input: :meth:`CSR.capacity`, values past nnz
+zero, ``indptr`` exact).  The kernels read nnz as ``indptr[M]`` on the
+card and size every grid, workspace and scratch by the capacity, so no
+launch reads nnz on the host and a CUDA graph replays one launch for any
+batch that fits; the plain versions send the slots past nnz to a row past
+the output's last, which is dropped, so they give the same bits padded
+or not.
 
 No atomic touches a float, so two calls give the same bits.  Each
 product rounds as the plain version does (a product, then a sum, with no
@@ -76,19 +87,20 @@ _TILE = 32                 # csr_t_dot_kernel: sorted entries a warp
 _INT32_MAX = 2 ** 31 - 1
 
 
-def entry_rows(indptr, nnz):
-    """The row of each of the ``nnz`` entries (int64), from the row
-    pointers."""
-    m = indptr.numel() - 1
-    return torch.repeat_interleave(
-        torch.arange(m, device=indptr.device), indptr.diff(),
-        output_size=int(nnz))
+def entry_rows(indptr, capacity):
+    """The row of each of the ``capacity`` slots (int64), from the row
+    pointers on their device, with no read of nnz on the host: a slot past
+    nnz (``indptr[-1]``) gets row M, one past the last."""
+    slots = torch.arange(capacity, device=indptr.device)
+    return torch.searchsorted(indptr, slots, right=True) - 1
 
 
 class CSR:
     """A compressed-sparse-row matrix of ``shape`` (M, K) as its parts on
-    one device: ``values`` (nnz,), ``indices`` (nnz,) int64 column ids,
-    ``indptr`` (M + 1,) int64 row pointers.  The op layer passes it where
+    one device: ``values`` (capacity,), ``indices`` (capacity,) int64
+    column ids, ``indptr`` (M + 1,) int64 row pointers.  nnz is
+    ``indptr[-1]``; the slots past it (a captured step's buffers of a
+    fixed capacity) hold zeros and column 0.  The op layer passes it where
     an op takes a CSR operand (the registry's ``csr_inputs``); any other
     op reads :meth:`dense`, built once and counted."""
     __slots__ = ("values", "indices", "indptr", "shape", "_dense")
@@ -109,8 +121,30 @@ class CSR:
         return self.values.device
 
     @property
-    def nnz(self):
+    def capacity(self):
+        """The slots of ``values`` and ``indices``: nnz or more."""
         return self.values.numel()
+
+    @property
+    def nnz(self):
+        """The entries, ``indptr[-1]``, read on the host (a sync on the
+        card; no kernel takes it)."""
+        return int(self.indptr[-1]) if self.indptr.numel() else 0
+
+    def trimmed(self):
+        """The CSR without the slots past nnz (views; ``self`` where there
+        are none)."""
+        nnz = self.nnz
+        if nnz == self.capacity:
+            return self
+        return CSR(self.values[:nnz], self.indices[:nnz], self.indptr,
+                   self.shape)
+
+    def shell(self):
+        """The same parts with no cached dense view: a captured step reads
+        its static CSR through a new shell each run, so its dense view is
+        built inside the program on every replay."""
+        return CSR(self.values, self.indices, self.indptr, self.shape)
 
     def detach(self):
         return self
@@ -127,15 +161,17 @@ class CSR:
 
     def dense(self):
         """The (M, K) dense matrix, built at the first call and counted
-        in ``sparse_densify``."""
+        in ``sparse_densify``; no read of nnz on the host (the slots past
+        it go to a row past the last, which is dropped)."""
         if self._dense is None:
             profiler.bump(DENSIFY_COUNTER)
-            out = torch.zeros(self.shape, dtype=self.dtype,
+            m, k = self.shape
+            out = torch.zeros((m + 1, k), dtype=self.dtype,
                               device=self.device)
-            if self.nnz:
-                out.index_put_((entry_rows(self.indptr, self.nnz),
+            if self.capacity:
+                out.index_put_((entry_rows(self.indptr, self.capacity),
                                 self.indices), self.values, accumulate=True)
-            self._dense = out
+            self._dense = out[:m]
         return self._dense
 
     def row_slice(self, start, stop):
@@ -170,31 +206,36 @@ class CSR:
 # -- plain versions ----------------------------------------------------------
 def csr_dot_reference(csr, b):
     """A (M x K, CSR) . b (K, N) -> (M, N): a gather, a multiply and an
-    ``index_add_`` in stored order."""
-    out = torch.zeros((csr.shape[0], b.shape[1]), dtype=b.dtype,
-                      device=b.device)
-    if csr.nnz:
-        out.index_add_(0, entry_rows(csr.indptr, csr.nnz),
+    ``index_add_`` in stored order (the slots past nnz into a row past the
+    last, dropped)."""
+    m = csr.shape[0]
+    out = torch.zeros((m + 1, b.shape[1]), dtype=b.dtype, device=b.device)
+    if csr.capacity:
+        out.index_add_(0, entry_rows(csr.indptr, csr.capacity),
                        csr.values[:, None] * b.index_select(0, csr.indices))
-    return out
+    return out[:m]
 
 
 def csr_t_dot_reference(csr, g):
-    """A^T . g (M, N) -> (K, N), the same way."""
-    out = torch.zeros((csr.shape[1], g.shape[1]), dtype=g.dtype,
-                      device=g.device)
-    if csr.nnz:
-        rows = entry_rows(csr.indptr, csr.nnz)
-        out.index_add_(0, csr.indices,
+    """A^T . g (M, N) -> (K, N), the same way (the slots past nnz into a
+    row past the last, dropped; nnz compared on the device)."""
+    (m, k), cap = csr.shape, csr.capacity
+    out = torch.zeros((k + 1, g.shape[1]), dtype=g.dtype, device=g.device)
+    if m and cap:
+        slots = torch.arange(cap, device=csr.indptr.device)
+        cols = torch.where(slots < csr.indptr[-1], csr.indices, k)
+        rows = entry_rows(csr.indptr, cap).clamp_(max=m - 1)
+        out.index_add_(0, cols,
                        csr.values[:, None] * g.index_select(0, rows))
-    return out
+    return out[:k]
 
 
 def transpose_parts_reference(csr):
     """(keys, perm, rows), int32, as :func:`transpose_parts` builds them:
     a stable argsort of the column ids, the ids in that order, and each
-    entry's row."""
-    rows = entry_rows(csr.indptr, csr.nnz)
+    entry's row (nnz of each)."""
+    csr = csr.trimmed()
+    rows = entry_rows(csr.indptr, csr.capacity)
     perm = torch.argsort(csr.indices, stable=True)
     return csr.indices[perm].int(), perm.int(), rows.int()
 
@@ -204,17 +245,19 @@ def t_dot_tiles_reference(csr, g):
     run of equal columns in a tile of 32 sorted entries summed in row
     order from 0, then a run's partial sums over the tiles it crosses in
     tile order; products and sums rounded apart."""
+    csr = csr.trimmed()
     keys, perm, rows = transpose_parts_reference(csr)
     out = torch.zeros((csr.shape[1], g.shape[1]), dtype=g.dtype,
                       device=g.device)
-    if not csr.nnz:
+    nnz = csr.capacity
+    if not nnz:
         return out
     keys, perm = keys.long(), perm.long()
     prods = csr.values[perm][:, None] * g[rows.long()[perm]]
-    j = torch.arange(csr.nnz, device=keys.device)
+    j = torch.arange(nnz, device=keys.device)
     new_run = torch.ones_like(keys, dtype=torch.bool)
     new_run[1:] = (keys[1:] != keys[:-1]) | (j[1:] % _TILE == 0)
-    starts = new_run.nonzero().reshape(-1).tolist() + [csr.nnz]
+    starts = new_run.nonzero().reshape(-1).tolist() + [nnz]
     cols = keys.tolist()
     for a, b in zip(starts[:-1], starts[1:]):
         part = torch.zeros(g.shape[1], dtype=g.dtype, device=g.device)
@@ -242,8 +285,8 @@ def _lib():
 def _check(err, what, csr):
     if err != 0:
         raise MXNetError("%s: kernel launch failed with cudaError_t %d at "
-                         "%s, nnz %d, %s" % (what, err, csr.shape, csr.nnz,
-                                             csr.dtype))
+                         "%s, capacity %d, %s" % (what, err, csr.shape,
+                                                  csr.capacity, csr.dtype))
 
 
 def _dense_operand(csr, b, rows, what):
@@ -256,10 +299,11 @@ def _dense_operand(csr, b, rows, what):
         raise MXNetError("%s: a %s (%d, N) operand expected, got %s %s"
                          % (what, csr.dtype, rows, b.dtype,
                             tuple(b.shape)))
-    if max(csr.shape) > _INT32_MAX or csr.nnz > _INT32_MAX \
+    if max(csr.shape) > _INT32_MAX or csr.capacity > _INT32_MAX \
             or b.shape[1] > _INT32_MAX:
-        raise MXNetError("%s: %s with %d entries exceeds the kernels' "
-                         "32-bit sizes" % (what, csr.shape, csr.nnz))
+        raise MXNetError("%s: %s with room for %d entries exceeds the "
+                         "kernels' 32-bit sizes" % (what, csr.shape,
+                                                    csr.capacity))
     return b.contiguous()
 
 
@@ -275,45 +319,43 @@ def sort_digits(k):
     return passes, -(-bits // passes)
 
 
-def _transpose_ints(csr, digit_bits):
-    """The int32 words of the transposition's workspace: rows, two (keys,
-    perm) pairs, the radix passes' histograms and the digits' totals."""
-    blocks = -(-csr.nnz // _SORT_ITEMS)
-    return 5 * csr.nnz + ((blocks + 1) << digit_bits)
+def _transpose_ints(capacity, digit_bits):
+    """The int32 words of the transposition's workspace at ``capacity``:
+    rows, two (keys, perm) pairs, the radix passes' histograms and the
+    digits' totals."""
+    blocks = -(-capacity // _SORT_ITEMS)
+    return 5 * capacity + ((blocks + 1) << digit_bits)
 
 
 def transpose_parts(csr):
-    """(keys, perm, rows), each (nnz,) int32, of a CSR: its entries by
-    column, rows in order within a column: their column ids, their places
-    in the CSR, and the row of each CSR entry.  On the card this is the
-    transposition that :func:`csr_t_dot` runs first, launched alone (for
-    its check); on the CPU the plain version."""
+    """(keys, perm, rows), int32, of a CSR: its entries by column, rows in
+    order within a column: their column ids, their places in the CSR, and
+    the row of each CSR entry.  On the card this is the transposition that
+    :func:`csr_t_dot` runs first, launched alone (for its check), each
+    part (capacity,) with the entries in its first nnz slots (the rest
+    unspecified; no read of nnz on the host); on the CPU the plain
+    version, each (nnz,)."""
     if csr.device.type == "cpu":
         return transpose_parts_reference(csr)
-    (m, k), nnz = csr.shape, csr.nnz
+    (m, k), cap = csr.shape, csr.capacity
     passes, digit_bits = sort_digits(k)
-    ws = torch.empty(_transpose_ints(csr, digit_bits), dtype=torch.int32,
+    ws = torch.empty(_transpose_ints(cap, digit_bits), dtype=torch.int32,
                      device=csr.device)
-    if m and nnz:
+    if m and cap:
         with torch.cuda.device(csr.device):
             _check(_lib().mx_csr_transpose(
-                csr.indptr.data_ptr(), csr.indices.data_ptr(), m, nnz,
+                csr.indptr.data_ptr(), csr.indices.data_ptr(), m, cap,
                 ws.data_ptr(), passes, digit_bits, _stream(csr.values)),
                 "csr_transpose", csr)
         profiler.bump(COUNTERS["csr_transpose"], 1 + 3 * passes)
     pair = 1 + 2 * (passes % 2)
-    return (ws[pair * nnz:(pair + 1) * nnz],
-            ws[(pair + 1) * nnz:(pair + 2) * nnz], ws[:nnz])
-
-
-def _group_log2(n):
-    """log2 of the lanes a row takes: one an output column, up to 32."""
-    return min(5, max(0, (int(n) - 1).bit_length()))
+    return (ws[pair * cap:(pair + 1) * cap],
+            ws[(pair + 1) * cap:(pair + 2) * cap], ws[:cap])
 
 
 def csr_dot(csr, b):
     """A (M x K, CSR) . b (K, N) -> (M, N).  CPU: the plain version;
-    CUDA: ``csr_dot_kernel``."""
+    CUDA: ``csr_dot_kernel`` (N up to 4) or ``csr_dot_wide_kernel``."""
     if b.device.type == "cpu" and csr.device.type == "cpu":
         return csr_dot_reference(csr, b)
     b = _dense_operand(csr, b, csr.shape[1], "csr_dot")
@@ -325,8 +367,7 @@ def csr_dot(csr, b):
         _check(_lib().mx_csr_dot(
             csr.indptr.data_ptr(), csr.indices.data_ptr(),
             csr.values.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
-            _DTYPE_CODE[b.dtype] | (_group_log2(n) << 4), _stream(b)),
-            "csr_dot", csr)
+            _DTYPE_CODE[b.dtype], _stream(b)), "csr_dot", csr)
     profiler.bump(COUNTERS["csr_dot"])
     return out
 
@@ -334,26 +375,26 @@ def csr_dot(csr, b):
 def csr_t_dot(csr, g):
     """A^T . g (M, N) -> (K, N).  CPU: the plain version; CUDA: one call
     that zeroes out, runs the transposition and then ``csr_t_dot_kernel``
-    and ``csr_t_dot_combine_kernel``."""
+    and ``csr_t_dot_combine_kernel``, every size from the capacity."""
     if g.device.type == "cpu" and csr.device.type == "cpu":
         return csr_t_dot_reference(csr, g)
     g = _dense_operand(csr, g, csr.shape[0], "csr_t_dot")
-    (m, k), n, nnz = csr.shape, g.shape[1], csr.nnz
+    (m, k), n, cap = csr.shape, g.shape[1], csr.capacity
     out = torch.empty((k, n), dtype=g.dtype, device=g.device)
     if k == 0 or n == 0:
         return out
     passes, digit_bits = sort_digits(k)
-    ws = torch.empty(_transpose_ints(csr, digit_bits), dtype=torch.int32,
+    ws = torch.empty(_transpose_ints(cap, digit_bits), dtype=torch.int32,
                      device=g.device)
-    scratch = torch.empty(2 * -(-nnz // _TILE) * n, dtype=g.dtype,
+    scratch = torch.empty(2 * -(-cap // _TILE) * n, dtype=g.dtype,
                           device=g.device)
     with torch.cuda.device(g.device):
         _check(_lib().mx_csr_t_dot(
             csr.indptr.data_ptr(), csr.indices.data_ptr(),
             csr.values.data_ptr(), g.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), scratch.data_ptr(), m, k, n, nnz, passes,
+            ws.data_ptr(), scratch.data_ptr(), m, k, n, cap, passes,
             digit_bits, _DTYPE_CODE[g.dtype], _stream(g)), "csr_t_dot", csr)
-    if m and nnz:
+    if m and cap:
         profiler.bump(COUNTERS["csr_transpose"], 1 + 3 * passes)
     profiler.bump(COUNTERS["csr_t_dot"])
     return out

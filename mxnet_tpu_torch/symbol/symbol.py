@@ -370,14 +370,16 @@ class Symbol:
 
     # -- binding (implemented in executor.py) ------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None):
         from ..executor import Executor
         return Executor._bind(self, ctx, args, args_grad, grad_req,
-                              aux_states)
+                              aux_states, group2ctx)
 
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, **kwargs):
         from ..executor import Executor
-        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs)
+        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
+                                     group2ctx)
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,

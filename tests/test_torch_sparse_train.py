@@ -163,8 +163,9 @@ def test_linear_model_steps_match_jax(tmp_path, kv_kind):
 
 
 def test_fm_fit_steps_match_jax(tmp_path):
-    """The FM's ``_fit_step`` (the JAX package's one-call step, the port's
-    two-call path, each step eager and counted), 3 steps."""
+    """The FM's ``_fit_step`` (the JAX package's one-call step, and the
+    port's: its CSR is a static input of the step, so no step is left
+    eager for it), 3 steps."""
     ex = _example("factorization_machine")
     path = str(tmp_path / "fm.libsvm")
     ex.synthetic_fm_libsvm(path, n=256, dim=200)
@@ -186,12 +187,15 @@ def test_fm_fit_steps_match_jax(tmp_path):
         mod.init_optimizer(optimizer="adam",
                            optimizer_params=(("learning_rate", 0.05),))
         before = profiler.counter("sparse_eager_steps")
+        calls = profiler.counter("program_calls")
         losses = []
         for b, _ in zip(it, range(3)):
             mod._fit_step(b)
             losses.append(float(mod.get_outputs()[0].asnumpy()))
         if pkg is mt:
-            assert profiler.counter("sparse_eager_steps") - before == 3
+            assert profiler.counter("sparse_eager_steps") - before == 0
+            assert mod._cached_step is not None
+            assert profiler.counter("program_calls") - calls == 3
         out[pkg] = losses, {k: v.asnumpy()
                             for k, v in mod.get_params()[0].items()}
     np.testing.assert_allclose(out[mt][0], out[mx][0], rtol=1e-5, atol=1e-6)
