@@ -339,6 +339,34 @@ before it captures, and those runs launch the kernels too
    in fp64 to ``RESNET_PARITY_TOL``, one replay a forward and a backward;
    then ResNet-50 and Inception-v3 at batch 32 in fp32 timed through
    their executors, captured and eager, with each mode's peak memory.
+34. The API surface (ROADMAP A.4, ``Monitor``, ``FeedForward``), with the
+   hand kernels' counts set to 0 first: (a) ResNet-50 through
+   ``Module.fit`` at batch 32 in fp32 (TF32 off, cuDNN deterministic)
+   for 8 batches under a ``Monitor`` arming every 4th for the conv and
+   FC outputs: the armed batches run node by node (no replay), the
+   others replay the executor's ``forward_backward`` (one capture in
+   all), no ``CachedTrainStep``; each row equal to ``mean(|x|)`` of an
+   eager recompute (``API_ROW_RTOL``); the parameters held to the same
+   loop unmonitored, bit for bit, else to ``RESNET_PARITY_TOL``; ms of
+   the armed, unarmed and unmonitored batches; (b) ``FeedForward`` on the card's default
+   context over phase 7's MLP (the scale kernel): fit, predict, score
+   bit for bit ``Module.fit``'s, ``save``/``load`` the same predictions,
+   the kernel's launches counted, and ``Module.fit`` under a monitor
+   launching it once an armed batch; (c) a gradient penalty
+   (``autograd.grad(create_graph=True)``) through a hybridized Dense
+   stack against the block not hybridized and against the CPU
+   (``API_PENALTY_TOL``, one ``create_graph_recomputes``), with a
+   ``Dropout`` against the block run eagerly from the same generator
+   state (the recompute draws the replay's mask), the same through
+   ``dot`` of a CSR (the kernels run again; ``CSR_TOL`` of each
+   array's largest value), and
+   ``FlashAttention`` refusing ``create_graph``; (d) ``Orthogonal``,
+   ``MSRAPrelu``, ``Bilinear`` and ``Mixed`` on the card bit for bit the
+   CPU's; (e) ``get_symbol`` bound on the card bit for bit the recorded
+   outputs, ``Symbol.eval`` on the card by default, ``zero_grad`` with
+   ``grad_req="add"``, ``reset_ctx`` to the CPU and back (one capture
+   anew), ``cpu_pinned`` arrays page-locked, and a host write straight
+   after a copy to the card not reaching the copy.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
@@ -349,7 +377,8 @@ phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
 ``{"cv2_resize": {...}}`` line, phase 30's as one ``{"kvstore": {...}}``
 line, phase 31's as one ``{"long_tail": {...}}`` line, phase 32's as
 one ``{"sparse": {...}, "sparse_kernels": {...}}`` line, phase 33's as
-one ``{"executor": {...}}`` line, the
+one ``{"executor": {...}}`` line, phase 34's as one ``{"api_surface":
+{...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -7274,6 +7303,650 @@ def phase_executor_programs(card, resnet_init):
     return res
 
 
+# -- phase 34: the API surface (ROADMAP A.4, Monitor, FeedForward) ---------
+# (a) ResNet-50 through Module.fit at batch 32, fp32 with TF32 off, under a
+# Monitor that arms every API_INTERVAL-th batch for the conv and dense
+# outputs, against the same two-call loop without a monitor.  cuDNN is
+# set deterministic for the phase, so that an armed batch (run node by
+# node) and a captured one can agree bit for bit.
+API_BATCHES, API_INTERVAL = 8, 4
+API_PATTERN = r"^(convolution|fullyconnected)\d+_output$"
+# where the monitored run is not bit for bit the unmonitored one, it is
+# held to RESNET_PARITY_TOL: the first batch's outputs to its fp32 limit,
+# the parameters to its limit after an update
+# a row is the statistic's fp32 text: the eager recompute gives the same
+# number within this (relative)
+API_ROW_RTOL = 1e-5
+# (c) the gradient penalty: hybridized against not and card against CPU,
+# fp32, largest |difference| over max(1, |value|)
+API_PENALTY_TOL = 1e-5
+API_PENALTY_ROWS, API_PENALTY_IN, API_PENALTY_WIDTH = 256, 64, 128
+API_PENALTY_DROPOUT = 0.5
+# (e) a page-locked array this large is copied to the card and written
+# on the host straight after: the copy must hold the values before
+API_PINNED_BYTES = 256 << 20
+API_FLASH_SHAPE = (2, 4, 256, 64)
+# (b) the MLP's monitored fit arms every API_MLP_INTERVAL-th batch
+API_MLP_INTERVAL = 16
+
+
+def api_kernel_counts():
+    """The hand kernels' counts that phase 34 reads, by name."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    names = ["scale_launches", "flash_attn_fwd_launches",
+             "flash_attn_bwd_launches"] + sorted(sd.COUNTERS.values())
+    return {n: profiler.counter(n) for n in names}
+
+
+def checked_monitor(exe, **kw):
+    """A ``Monitor`` that also keeps, for each armed batch, ``exe``'s
+    arguments as the batch met them (copies on the card) and its rows,
+    so that each row can be recomputed eagerly afterwards."""
+    import mxnet_tpu_torch as mt
+
+    class Checked(mt.Monitor):
+        def tic(self):
+            if self.step % self.interval == 0:   # in argument order
+                self.snapshots.append({n: exe.arg_dict[n]._data.clone()
+                                       for n in exe.arg_names})
+            super().tic()
+
+        def toc(self):
+            rows = super().toc()
+            if rows:   # the batch's inputs, as the forward read them
+                for n in ("data", "softmax_label"):
+                    self.snapshots[-1][n] = exe.arg_dict[n]._data.clone()
+                self.rows.append(rows)
+            return rows
+    mon = Checked(**kw)
+    mon.snapshots, mon.rows = [], []
+    return mon
+
+
+def api_resnet_iter(batches=API_BATCHES):
+    """``batches`` seeded ResNet-50 batches of 32 in an ``NDArrayIter`` on
+    the host, the way ``fit`` is fed."""
+    import mxnet_tpu_torch as mt
+    rng = np.random.RandomState(34)
+    n = batches * RESNET_BATCH
+    x = rng.rand(n, 3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32)
+    y = rng.randint(0, 1000, (n,)).astype(np.float32)
+    return mt.io.NDArrayIter(x, y, batch_size=RESNET_BATCH)
+
+
+def api_resnet_run(it, monitored):
+    """ResNet-50 over ``it`` (one epoch) from Xavier after
+    ``random.seed(0)``, SGD lr 0.1, momentum 0.9, wd 1e-4: through
+    ``Module.fit`` under a :func:`checked_monitor`, or the loop that
+    ``fit`` runs under a monitor (forward_backward, update, the metric)
+    without one.  Returns (module, monitor or None, [(ms, step
+    counters)] a batch, the parameters and the first batch's outputs as
+    fp64 host tensors)."""
+    import mxnet_tpu_torch as mt
+    mod = resnet_module(mt.gpu(0), RESNET_BATCH, torch.float32,
+                        image=RESNET_IMAGE)
+    mon = checked_monitor(mod._exec_group.execs[0], interval=API_INTERVAL,
+                          pattern=API_PATTERN) if monitored else None
+    record, first, clock = [], [], {}
+
+    def mark():
+        torch.cuda.synchronize()
+        clock.update(t=time.perf_counter(), c=counter_snapshot())
+
+    def on_batch(_):
+        torch.cuda.synchronize()
+        if not first:
+            first.append(mod.get_outputs()[0]._data.to("cpu", torch.float64))
+        record.append((1e3 * (time.perf_counter() - clock["t"]),
+                       counter_delta(clock["c"])))
+        mark()
+    it.reset()
+    if monitored:
+        mt.random.seed(0)
+        mark()
+        mod.fit(it, num_epoch=1, monitor=mon, batch_end_callback=on_batch,
+                initializer=mt.initializer.Xavier(), optimizer="sgd",
+                optimizer_params=(("learning_rate", RESNET_LR),
+                                  ("momentum", RESNET_MOMENTUM),
+                                  ("wd", RESNET_WD)))
+    else:
+        resnet_train_setup(mod)
+        metric = mt.metric.create("acc")
+        mark()
+        for batch in it:
+            mod.forward_backward(batch)
+            mod.update()
+            mod.update_metric(metric, batch.label)
+            on_batch(None)
+    arg, _ = mod.get_params()
+    params = {n: a._data.to("cpu", torch.float64) for n, a in arg.items()}
+    return mod, mon, record, params, first[0]
+
+
+def api_recompute_rows(mon):
+    """Each armed batch's rows against mean(|x|) of the same outputs of
+    an eager training forward of a fresh Module over the kept arguments
+    (the same graph, its names counted on: matched in order):
+    (largest relative difference, rows checked)."""
+    import re
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import capture
+    pattern = re.compile(API_PATTERN)
+    worst, checked = 0.0, 0
+    for snap, rows in zip(mon.snapshots, mon.rows):
+        mod = resnet_module(mt.gpu(0), RESNET_BATCH, torch.float32,
+                            image=RESNET_IMAGE)
+        resnet_train_setup(mod)
+        exe = mod._exec_group.execs[0]
+        seen = []   # in the order of the forward, as the rows are
+        exe.set_monitor_callback(
+            lambda name, arr: seen.append(arr._data.abs().mean())
+            if pattern.match(name) else None)
+        with capture.eager():
+            exe.forward(is_train=True, **{n: mt.nd.NDArray(t, mt.gpu(0))
+                                          for n, t in zip(
+                                              exe.arg_names,
+                                              snap.values())})
+        if len(seen) != len(rows):
+            return float("inf"), checked
+        for (_, _, text), want in zip(rows, seen):
+            want = float(want)
+            worst = max(worst, abs(float(text) - want) / abs(want))
+            checked += 1
+        del mod, exe, seen
+        free_card()
+    return worst, checked
+
+
+def _gap(a, b, per="entry"):
+    """Largest |a - b| over sequences of tensors, each difference over
+    max(1, |b|) entry by entry (``per="entry"``) or over its array's
+    largest |b| (``per="array"``: the second order of a sparse product
+    sums terms far larger than the entries where they cancel)."""
+    def scale(v):
+        return v.abs().clamp_min(1.0) if per == "entry" else v.abs().max()
+    return max(float(((u - v).abs() / scale(v)).max()) for u, v in zip(a, b))
+
+
+def api_resnet_monitor(card):
+    """Phase 34a: ResNet-50's monitored ``fit`` against the unmonitored
+    two-call loop; (results, faults)."""
+    tf32 = tf32_flags()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    it = api_resnet_iter()
+    try:
+        mod, mon, rec_m, params_m, out_m = api_resnet_run(it, True)
+        cached = mod._cached_step
+        del mod
+        free_card()
+        mod, _, rec_u, params_u, out_u = api_resnet_run(it, False)
+        del mod
+        free_card()
+        worst_row, n_rows = api_recompute_rows(mon)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    names = sorted(params_u)
+    armed = [i for i in range(API_BATCHES) if i % API_INTERVAL == 0]
+    unarmed = [i for i in range(API_BATCHES) if i not in armed]
+    counts = [c for _, c in rec_m]
+    bitwise = torch.equal(out_m, out_u) and all(
+        torch.equal(params_m[n], params_u[n]) for n in params_m)
+    res = dict(
+        card=card, tf32=tf32, cudnn_deterministic=True, batch=RESNET_BATCH,
+        batches=API_BATCHES, interval=API_INTERVAL, pattern=API_PATTERN,
+        held="bit for bit" if bitwise else "RESNET_PARITY_TOL",
+        bitwise=bitwise, params_max_rel=_gap([params_m[n] for n in names],
+                                             [params_u[n] for n in names]),
+        first_outputs_max_abs=float((out_m - out_u).abs().max()),
+        cached_train_step_built=cached is not None,
+        replays=[c["graph_replays"] for c in counts],
+        captures=[c["graph_captures"] for c in counts],
+        rows_per_armed_batch=[len(r) for r in mon.rows],
+        rows_checked=n_rows, rows_max_rel=worst_row,
+        monitored_armed_ms=[rec_m[i][0] for i in armed],
+        monitored_unarmed_ms_median=_median(
+            [rec_m[i][0] for i in unarmed[1:]]),
+        unmonitored_ms_median=_median([t for t, _ in rec_u[1:]]))
+    bad = []
+    # one capture in all, at the first unarmed batch
+    if cached is not None or any(counts[i]["graph_replays"] for i in armed) \
+            or any(counts[i]["graph_replays"] != 1 for i in unarmed) \
+            or [bool(c) for c in res["captures"]] != [
+                i == unarmed[0] for i in range(API_BATCHES)]:
+        bad.append("step path: CachedTrainStep built %s, replays %s, "
+                   "captures %s" % (cached is not None, res["replays"],
+                                    res["captures"]))
+    if len(mon.rows) != len(armed) or not n_rows \
+            or not worst_row <= API_ROW_RTOL:
+        bad.append("monitor rows: %d armed batches with rows, %d rows, "
+                   "max rel %.3g against the eager recompute"
+                   % (len(mon.rows), n_rows, worst_row))
+    limit = RESNET_PARITY_TOL[torch.float64]["params1"]
+    if not bitwise and not (
+            res["first_outputs_max_abs"]
+            <= RESNET_PARITY_TOL[torch.float32]["out1"]
+            and res["params_max_rel"] <= limit):
+        bad.append("monitored against unmonitored: first outputs %.3g, "
+                   "parameters %.3g (limit %.3g)"
+                   % (res["first_outputs_max_abs"], res["params_max_rel"],
+                      limit))
+    return res, bad
+
+
+# (b) the MNIST MLP (phase 7's network, through the scale kernel)
+def api_mlp_feedforward(card):
+    """Phase 34b: ``FeedForward`` on the card's default context: fit,
+    predict and score against ``Module.fit`` with the same initializer
+    and data, bit for bit, ``save``/``load``, the scale kernel's launches
+    counted; then ``Module.fit`` under a monitor.  (results, faults)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import sym
+    from mxnet_tpu_torch.ops import scale as sc
+    import tempfile
+    register_pl_scale()
+    blob = mt.test_utils.get_mnist()
+    x = blob["train_data"].reshape(-1, 784)[:MLP_STEPS * MLP_BATCH]
+    y = blob["train_label"][:MLP_STEPS * MLP_BATCH]
+    xt = blob["test_data"].reshape(-1, 784)
+    yt = blob["test_label"]
+    warm = mt.capture.WARMUP_RUNS
+    opt = dict(learning_rate=MLP_LR, momentum=MLP_MOMENTUM)
+    bad, res = [], {"card": card}
+
+    def launches(fn):
+        before = sc.launch_count()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, sc.launch_count() - before
+    mt.random.seed(0)
+    with mt.name.NameManager():
+        model = mt.model.FeedForward(build_mlp(sym), num_epoch=1,
+                                     numpy_batch_size=MLP_BATCH,
+                                     initializer=mt.init.Xavier(), **opt)
+    if model.ctx != [mt.gpu(0)]:
+        bad.append("FeedForward's default context %s" % model.ctx)
+    _, fit_n = launches(lambda: model.fit(x, y))
+    eval_it = mt.io.NDArrayIter(xt, yt, batch_size=MLP_BATCH)
+    mt.random.seed(1)
+    pred, pred_n = launches(lambda: model.predict(xt))
+    acc, score_n = launches(lambda: model.score(eval_it))
+    # the same through Module.fit
+    mt.random.seed(0)
+    it = mt.io.NDArrayIter(x, y, batch_size=MLP_BATCH, shuffle=True)
+    with mt.name.NameManager():
+        mod = mt.mod.Module(build_mlp(sym), context=mt.gpu(0))
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=opt,
+            initializer=mt.init.Xavier())
+    arg, _ = mod.get_params()
+    same = all(torch.equal(model.arg_params[n]._data, arg[n]._data)
+               for n in arg)
+    mt.random.seed(1)
+    mod_pred = mod.predict(mt.io.NDArrayIter(xt, None, batch_size=MLP_BATCH,
+                                             shuffle=True)).asnumpy()
+    same_pred = np.array_equal(pred, mod_pred)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "mlp")
+        model.save(prefix)
+        loaded = mt.model.FeedForward.load(prefix, 1,
+                                           numpy_batch_size=MLP_BATCH)
+        mt.random.seed(1)
+        again, load_n = launches(lambda: loaded.predict(xt))
+    round_trip = np.array_equal(again, pred)
+    n_train, n_eval = MLP_STEPS, xt.shape[0] // MLP_BATCH
+    want = dict(fit=n_train + warm, predict=n_eval + warm, score=n_eval,
+                load_predict=n_eval + warm)
+    got = dict(fit=fit_n, predict=pred_n, score=score_n, load_predict=load_n)
+    res.update(feedforward_equals_module=same, predict_equal=same_pred,
+               save_load_equal=round_trip, accuracy=acc,
+               scale_launches=got, scale_launches_expected=want)
+    if not (same and same_pred and round_trip) or got != want \
+            or acc < JAX_CPU_ACCURACY - 0.02:
+        bad.append("FeedForward: equal to Module %s, predictions %s, "
+                   "save/load %s, accuracy %.4f, scale launches %s (want %s)"
+                   % (same, same_pred, round_trip, acc, got, want))
+    # Module.fit under a monitor: each armed batch launches the kernel once
+    # (node by node), the others replay the executor's program
+    mt.random.seed(0)
+    it.reset()
+    with mt.name.NameManager():
+        mod = mt.mod.Module(build_mlp(sym), context=mt.gpu(0))
+    per_batch = []
+    last = [sc.launch_count()]
+
+    def on_batch(_):
+        torch.cuda.synchronize()
+        per_batch.append(sc.launch_count() - last[0])
+        last[0] = sc.launch_count()
+    mon = mt.Monitor(interval=API_MLP_INTERVAL, pattern=r".*pl_scale.*")
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=opt,
+            initializer=mt.init.Xavier(), monitor=mon,
+            batch_end_callback=on_batch)
+    armed = list(range(0, MLP_STEPS, API_MLP_INTERVAL))
+    first_unarmed = 1
+    want_batches = [1 + (warm if i == first_unarmed else 0)
+                    for i in range(MLP_STEPS)]
+    res["monitored_fit_launches"] = sum(per_batch)
+    res["monitored_armed_launches"] = [per_batch[i] for i in armed]
+    if per_batch != want_batches or mod._cached_step is not None:
+        bad.append("MLP under a monitor: launches a batch %s, CachedTrainStep "
+                   "%s" % (per_batch, mod._cached_step is not None))
+    return res, bad
+
+
+# (c) second order on the card
+def api_penalty(mt, ctx, net, x):
+    """The gradient penalty sum((|d net(x)/dx| - 1)^2) on ``ctx`` and its
+    gradients: [penalty, d/dx, each parameter's] as fp64 host tensors."""
+    x = mt.nd.array(x, ctx=ctx)
+    x.attach_grad()
+    with mt.autograd.record():
+        y = net(x)
+        (gx,) = mt.autograd.grad(y, [x], create_graph=True)
+        pen = (((gx * gx).sum(axis=1).sqrt() - 1.0) ** 2).sum()
+    pen.backward()
+    return [t.detach().to("cpu", torch.float64) for t in
+            [pen._data, x.grad._data]
+            + [p.grad()._data for p in net.collect_params().values()]]
+
+
+def api_dense_net(mt, ctx, seed=34, dropout=None):
+    """Phase 34's Dense stack (a ``Dropout`` of rate ``dropout`` before
+    the last layer, if given)."""
+    mt.random.seed(seed)
+    net = mt.gluon.nn.HybridSequential(prefix="gp_")
+    with net.name_scope():
+        net.add(mt.gluon.nn.Dense(API_PENALTY_WIDTH, activation="tanh",
+                                  in_units=API_PENALTY_IN),
+                mt.gluon.nn.Dense(API_PENALTY_WIDTH, activation="tanh",
+                                  in_units=API_PENALTY_WIDTH))
+        if dropout is not None:
+            net.add(mt.gluon.nn.Dropout(dropout))
+        net.add(mt.gluon.nn.Dense(1, in_units=API_PENALTY_WIDTH))
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    return net
+
+
+def api_dropout_penalty(mt, gpu, x):
+    """Phase 34c with a ``Dropout`` in the stack: the hybridized block's
+    penalty (its call replayed, the recompute under ``create_graph``)
+    against the block run eagerly from the generator state the replay
+    began at, and the generator left where the eager run leaves it; a
+    third run from another state must differ, so that the mask is seen
+    to matter.  (results, faults)"""
+    from mxnet_tpu_torch import profiler
+    eager_net = api_dense_net(mt, gpu, dropout=API_PENALTY_DROPOUT)
+    net = api_dense_net(mt, gpu, dropout=API_PENALTY_DROPOUT)
+    net.hybridize()
+    gen = mt.random.generator(gpu)
+    with mt.autograd.record():  # captures the call's program
+        loss = net(mt.nd.array(x, ctx=gpu)).sum()
+    loss.backward()
+    net.collect_params().zero_grad()
+    start = gen.get_state()
+    before = profiler.counter("create_graph_recomputes")
+    hyb = api_penalty(mt, gpu, net, x)
+    recomputes = profiler.counter("create_graph_recomputes") - before
+    end = gen.get_state()
+    gen.set_state(start)
+    eager = api_penalty(mt, gpu, eager_net, x)
+    res = dict(rate=API_PENALTY_DROPOUT, recomputes=recomputes,
+               hybridized_vs_eager=_gap(hyb, eager),
+               generator_left_alike=bool(torch.equal(gen.get_state(), end)),
+               other_mask_gap=_gap(api_penalty(mt, gpu, eager_net, x), hyb))
+    bad = []
+    if recomputes != 1 or not res["generator_left_alike"] \
+            or res["hybridized_vs_eager"] > API_PENALTY_TOL \
+            or not res["other_mask_gap"] > API_PENALTY_TOL:
+        bad.append("gradient penalty through Dropout: %s" % res)
+    return res, bad
+
+
+def api_second_order(card):
+    """Phase 34c: a gradient penalty through a hybridized Dense stack
+    (the recompute), ``dot`` of a CSR through the kernels and
+    ``FlashAttention`` under ``create_graph``.  (results, faults)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import sparse_dot as sd
+    tf32_flags()
+    gpu = mt.gpu(0)
+    x = np.random.RandomState(34).randn(API_PENALTY_ROWS,
+                                        API_PENALTY_IN).astype(np.float32)
+    eager = api_penalty(mt, gpu, api_dense_net(mt, gpu), x)
+    net = api_dense_net(mt, gpu)
+    net.hybridize()
+    before = profiler.counter("create_graph_recomputes")
+    caps = profiler.counter("graph_captures")
+    hyb = api_penalty(mt, gpu, net, x)
+    recomputes = profiler.counter("create_graph_recomputes") - before
+    captured = profiler.counter("graph_captures") - caps
+    # a first-order backward of the same block replays its graph
+    before = counter_snapshot()
+    with mt.autograd.record():
+        loss = net(mt.nd.array(x, ctx=gpu)).sum()
+    loss.backward()
+    first_order = counter_delta(before)
+    first_recomputes = profiler.counter("create_graph_recomputes") \
+        - before.get("create_graph_recomputes", 0)
+    with mt.cpu():
+        cpu = api_penalty(mt, mt.cpu(), api_dense_net(mt, mt.cpu()), x)
+    res = dict(card=card, recomputes=recomputes, captures=captured,
+               first_order=first_order,
+               first_order_recomputes=first_recomputes,
+               hybridized_vs_eager=_gap(hyb, eager),
+               card_vs_cpu=_gap(hyb, cpu), tol=API_PENALTY_TOL)
+    bad = []
+    if recomputes != 1 or captured < 1 or first_recomputes \
+            or first_order["graph_replays"] != 2 \
+            or res["hybridized_vs_eager"] > API_PENALTY_TOL \
+            or res["card_vs_cpu"] > API_PENALTY_TOL \
+            or not all(float(t.abs().max()) > 0 for t in hyb[2:-1]):
+        bad.append("gradient penalty: %s" % res)
+    res["dropout"], faults = api_dropout_penalty(mt, gpu, x)
+    bad += faults
+    # dot of a CSR: the second-order backward runs the kernels again
+    rng = np.random.RandomState(35)
+    dense = (rng.randn(512, 1024) * (rng.rand(512, 1024) < 0.02)).astype(
+        np.float32)
+    w0 = rng.randn(1024, 16).astype(np.float32)
+    csr_res = []
+    for ctx in (gpu, mt.cpu()):
+        csr = mt.nd.array(dense, ctx=ctx).tostype("csr")
+        w = mt.nd.array(w0, ctx=ctx)
+        w.attach_grad()
+        counts = {k: profiler.counter(v) for k, v in sd.COUNTERS.items()}
+        with mt.autograd.record():
+            o = mt.nd.dot(csr, w)
+            (gw,) = mt.autograd.grad((o * o).sum(), [w], create_graph=True)
+            pen = (gw * gw).sum()
+        pen.backward()
+        csr_res.append((
+            [gw._data.detach().to("cpu", torch.float64),
+             w.grad._data.to("cpu", torch.float64)],
+            {k: profiler.counter(v) - counts[k]
+             for k, v in sd.COUNTERS.items()}))
+    (card_grads, res["csr_launches"]), (cpu_grads, _) = csr_res
+    res["csr_card_vs_cpu"] = _gap(card_grads, cpu_grads, per="array")
+    if res["csr_card_vs_cpu"] > CSR_TOL[torch.float32] \
+            or res["csr_launches"]["csr_dot"] < 2 \
+            or res["csr_launches"]["csr_t_dot"] < 2:
+        bad.append("dot(csr) second order: gap %.3g, launches %s"
+                   % (res["csr_card_vs_cpu"], res["csr_launches"]))
+    # flash attention: first order runs the backward kernel; under
+    # create_graph it refuses, as the JAX package's kernel cannot be
+    # differentiated twice
+    dev = gpu.torch_device
+    gen = torch.Generator(device=dev).manual_seed(34)
+    q, k, v = (torch.randn(API_FLASH_SHAPE, generator=gen, device=dev,
+                           requires_grad=True) for _ in range(3))
+    fwd0, bwd0 = att.launch_count(), att.backward_launch_count()
+    (gq,) = torch.autograd.grad((att.flash_attention(q, k, v) ** 2).sum(),
+                                [q])
+    refused = False
+    try:
+        torch.autograd.grad((att.flash_attention(q, k, v) ** 2).sum(), [q],
+                            create_graph=True)
+    except mt.MXNetError:
+        refused = True
+    torch.cuda.synchronize()
+    res["flash"] = dict(first_order_finite=bool(torch.isfinite(gq).all()),
+                        create_graph_refused=refused,
+                        fwd_launches=att.launch_count() - fwd0,
+                        bwd_launches=att.backward_launch_count() - bwd0)
+    if not (refused and res["flash"]["first_order_finite"]) \
+            or res["flash"]["bwd_launches"] != 1:
+        bad.append("flash attention under create_graph: %s" % res["flash"])
+    return res, bad
+
+
+# (d) initializers on the card
+def api_initializers(card):
+    """Phase 34d: ``Orthogonal``, ``MSRAPrelu``, ``Bilinear`` and ``Mixed
+    ([Bilinear, Xavier])`` on ``gpu(0)`` bit for bit the CPU's."""
+    import mxnet_tpu_torch as mt
+    cases = {
+        "orthogonal": (lambda: mt.init.Orthogonal(), [("w_weight",
+                                                       (256, 512))]),
+        "msra_prelu": (lambda: mt.init.MSRAPrelu(), [("c_weight",
+                                                      (64, 3, 7, 7))]),
+        "bilinear": (lambda: mt.init.Bilinear(), [("up_weight",
+                                                   (21, 21, 64, 64))]),
+        "mixed": (lambda: mt.initializer.Mixed(
+            ["(score2|score4|bigscore)_weight", ".*"],
+            [mt.initializer.Bilinear(), mt.initializer.Xavier()]),
+            [("score2_weight", (3, 3, 4, 4)), ("conv_1_weight", (16, 3, 3, 3)),
+             ("bigscore_weight", (3, 3, 16, 16))]),
+    }
+    res, bad = {}, []
+    for name, (make, arrays) in cases.items():
+        got = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            mt.random.seed(34)
+            init = make()
+            out = []
+            for pname, shape in arrays:
+                arr = mt.nd.zeros(shape, ctx=ctx)
+                init(mt.init.InitDesc(pname), arr)
+                out.append(arr._data.cpu())
+            got.append(out)
+        res[name] = all(torch.equal(a, b) for a, b in zip(*got))
+        if not res[name]:
+            bad.append("%s on the card differs from the CPU" % name)
+    return res, bad
+
+
+# (e) symbols and parameters on the card
+def api_symbols_params(card):
+    """Phase 34e: ``get_symbol`` of a recorded computation bound and run on
+    the card, ``Symbol.eval`` on the card by default, ``zero_grad`` with
+    ``grad_req="add"`` on a hybridized block, ``reset_ctx`` to the CPU and
+    back, ``cpu_pinned``.  (results, faults)."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    res, bad = {}, []
+    rng = np.random.RandomState(36)
+    x = mt.nd.array(rng.randn(8, 32).astype(np.float32), ctx=gpu)
+    w = mt.nd.array(rng.randn(16, 32).astype(np.float32), ctx=gpu)
+    x.attach_grad()
+    with mt.autograd.record():
+        h = mt.nd.FullyConnected(x, w, num_hidden=16, no_bias=True)
+        out = mt.nd.Activation(h * 0.5 + 1.0, act_type="tanh").sum(axis=1)
+    s = mt.autograd.get_symbol(out)
+    args = s.list_arguments()
+    got = s.bind(gpu, {args[0]: x.detach(), args[1]: w}).forward()[0]
+    res["get_symbol_bitwise"] = bool(torch.equal(got._data, out._data))
+    ev = (mt.sym.var("x") * 2.0).eval(x=x.detach())[0]
+    res["eval_context"] = str(ev.context)
+    if not res["get_symbol_bitwise"] or ev.context != gpu:
+        bad.append("get_symbol/eval on the card: %s" % res)
+
+    def grads(net):
+        return [p.grad()._data.clone() for p in net.collect_params().values()]
+
+    def backward(net, xb):
+        with mt.autograd.record():
+            loss = (net(xb) ** 2).sum()
+        loss.backward()
+    xb = mt.nd.array(rng.randn(64, API_PENALTY_IN).astype(np.float32),
+                     ctx=gpu)
+    net = api_dense_net(mt, gpu)
+    net.collect_params().setattr("grad_req", "add")
+    net.hybridize()
+    backward(net, xb)
+    backward(net, xb)
+    net.collect_params().zero_grad()
+    backward(net, xb)
+    once = api_dense_net(mt, gpu)
+    once.collect_params().setattr("grad_req", "add")
+    once.hybridize()
+    backward(once, xb)
+    res["zero_grad_bitwise"] = all(torch.equal(a, b) for a, b in
+                                   zip(grads(net), grads(once)))
+    if not res["zero_grad_bitwise"]:
+        bad.append("zero_grad on the card: two backwards, zero_grad, one "
+                   "backward differs from one backward")
+    before = net(xb)._data.clone()
+    caps = counter_snapshot()
+    net.collect_params().reset_ctx(mt.cpu())
+    on_cpu = net(mt.nd.array(xb.asnumpy(), ctx=mt.cpu()))._data
+    net.collect_params().reset_ctx(gpu)
+    after = net(xb)._data
+    moved = counter_delta(caps)
+    res["reset_ctx"] = dict(card_bitwise=bool(torch.equal(before, after)),
+                            cpu_max_abs=float((on_cpu - before.cpu())
+                                              .abs().max()),
+                            captures=moved["graph_captures"])
+    if not res["reset_ctx"]["card_bitwise"] or moved["graph_captures"] != 1 \
+            or res["reset_ctx"]["cpu_max_abs"] > API_PENALTY_TOL:
+        bad.append("reset_ctx to the CPU and back: %s" % res["reset_ctx"])
+    pinned = mt.nd.array(rng.randn(4, 4).astype(np.float32),
+                         ctx=mt.cpu_pinned())
+    to_card = pinned.copyto(gpu)
+    res["cpu_pinned"] = dict(is_pinned=bool(pinned._data.is_pinned()),
+                             copy_equal=bool(torch.equal(
+                                 to_card._data.cpu(), pinned._data)))
+    # a host write straight after the copy waits for it
+    big = mt.nd.full((API_PINNED_BYTES // 4,), 1.0, ctx=mt.cpu_pinned())
+    big_on_card = big.copyto(gpu)
+    big[:] = 2.0
+    res["cpu_pinned"]["write_after_copy_held"] = bool(
+        (big_on_card._data == 1.0).all())
+    if not all(res["cpu_pinned"].values()):
+        bad.append("cpu_pinned: %s" % res["cpu_pinned"])
+    return res, bad
+
+
+def phase_api_surface(card):
+    """Phase 34: the API surface on the card (ROADMAP A.4 with Monitor and
+    FeedForward): (a) ResNet-50's monitored ``Module.fit``, (b)
+    ``FeedForward`` on the MLP through the scale kernel, (c) second-order
+    gradients, (d) initializers, (e) symbols and parameters.  The hand
+    kernels' counts are set to 0 first and read at the end."""
+    from mxnet_tpu_torch import profiler
+    t0 = time.perf_counter()
+    profiler.reset_counters(*api_kernel_counts())
+    res, bad = {"card": card}, []
+    for key, fn in (("resnet50_monitor", api_resnet_monitor),
+                    ("mlp_feedforward", api_mlp_feedforward),
+                    ("second_order", api_second_order),
+                    ("initializers", api_initializers),
+                    ("symbols_params", api_symbols_params)):
+        t = time.perf_counter()
+        res[key], faults = fn(card)
+        res[key]["seconds"] = time.perf_counter() - t
+        bad += ["%s: %s" % (key, f) for f in faults]
+        free_card()
+    res["launches"] = api_kernel_counts()
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 34 the API surface on %s: %s" % (card, res))
+    if bad:
+        raise AssertionError("phase 34: %s" % "; ".join(bad))
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -7320,6 +7993,8 @@ def main():
     long_tail = phase_long_tail(card)
     sparse = phase_sparse(card)
     executor = phase_executor_programs(card, resnet_init)
+    api = phase_api_surface(card)
+    api_launches = api["launches"]
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -7333,8 +8008,12 @@ def main():
             "design": kern[dt]["design"],
             "source": att.KERNEL_SOURCES[kern[dt]["design"]],
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:41",
-            "launches": launches[dt] + train_launches[dt][0],
+            "launches": launches[dt] + train_launches[dt][0]
+            + (api_launches["flash_attn_fwd_launches"]
+               if dt == torch.float32 else 0),
             "inference_launches": launches[dt],
+            "api_surface_launches": api_launches["flash_attn_fwd_launches"]
+            if dt == torch.float32 else 0,
             "train_launches": train_launches[dt][0],
             "train_launches_per_step": n_layers,
             "train_parity_launches": parity_launches.get(dt, (0, 0))[0],
@@ -7359,7 +8038,11 @@ def main():
             "design": BWD_DESIGN_NOTE[kern_bwd[dt]["design"]],
             "source": att.BACKWARD_SOURCES[kern_bwd[dt]["design"]],
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:198",
-            "launches": train_launches[dt][1],
+            "launches": train_launches[dt][1]
+            + (api_launches["flash_attn_bwd_launches"]
+               if dt == torch.float32 else 0),
+            "api_surface_launches": api_launches["flash_attn_bwd_launches"]
+            if dt == torch.float32 else 0,
             "train_launches_per_step": n_layers,
             "train_parity_launches": parity_launches.get(dt, (0, 0))[1],
             "max_abs_err": kern_bwd[dt]["max_abs_err"],
@@ -7416,10 +8099,13 @@ def main():
             "design": "simt, one 16-byte vector a thread, blocks of 1024",
             "source": sc.KERNEL_SOURCE,
             "replaces": "tests/test_pallas_register.py:25",
-            "launches": scale_launches[dt],
+            "launches": scale_launches[dt]
+            + (api_launches["scale_launches"] if dt == torch.float32 else 0),
             "kvstore_mlp_launches": kvstore["two_devices"][
                 "module_device"]["scale_launches"]
             + kvstore["two_devices"]["module_local"]["scale_launches"]
+            if dt == torch.float32 else 0,
+            "api_surface_launches": api_launches["scale_launches"]
             if dt == torch.float32 else 0,
             "max_abs_err": scale_kern[dt]["max_abs_err"],
             "ms": scale_kern[dt]["ms"],
@@ -7502,6 +8188,7 @@ def main():
         t = sparse["kernels"]["timing"][kind]
         launches = sum(sparse[run]["counts"][sd.COUNTERS[kind]]
                        for run in ("linear", "linear_kv"))
+        api_csr = api_launches[sd.COUNTERS[kind]]
         entries.append({
             "name": "%s[fp32]" % kind,
             "route": "cuda",
@@ -7509,7 +8196,8 @@ def main():
             "source": sd.KERNEL_SOURCE,
             "replaces": "mxnet_tpu/ops/matrix.py:189 (jnp.tensordot on a "
                         "CSR's dense backing; no Pallas kernel)",
-            "launches": launches,
+            "launches": launches + api_csr,
+            "api_surface_launches": api_csr,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -7554,6 +8242,7 @@ def main():
                                          sparse["kernels"].items()
                                          if k != "checks"}}))
     print(json.dumps({"executor": executor}))
+    print(json.dumps({"api_surface": api}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,14 +35,25 @@ contexts.  The op long tail: the SSD trio (``nd.contrib``/
 ``sym.contrib``), with greedy NMS as a hand-written kernel (``ops.nms``),
 the R-CNN and spatial ops, CTC (and ``gluon.loss.CTCLoss``), ``nd.linalg``,
 fft, quantization and count sketch, ``Custom`` ops (``operator``) and the
-tensor bridge ``torch``.
+tensor bridge ``torch``.  The API surface around a training script:
+``AttrScope`` (``attribute``), ``cpu_pinned``, ``random.current_seed``,
+``autograd.grad``/``get_symbol``, the Symbol's introspection,
+``Monitor`` (``monitor``), ``model.FeedForward``, ``visualization``
+(``viz``), ``log`` and ``contrib``.
 """
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import Context, cpu, gpu, num_gpus, current_context
+from .context import (Context, cpu, gpu, cpu_pinned, num_gpus,
+                      current_context)
 from . import ops, parallel, models
 from . import autograd, random, ndarray, symbol, executor, rtc
+from .random import seed
+from . import attribute, name
+from .attribute import AttrScope
+from .name import NameManager
+from .symbol import Symbol
+from .executor import Executor
 from . import capture, profiler
 from . import initializer, optimizer, lr_scheduler, test_utils
 from . import io, metric, gluon, module
@@ -54,9 +65,16 @@ from . import module as mod
 from . import ndarray as nd
 from . import symbol as sym
 from . import initializer as init
+from . import optimizer as opt
+from .model import FeedForward
+from . import monitor, visualization, log, contrib
+from .monitor import Monitor
+from . import visualization as viz
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
-           "current_context",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned", "num_gpus",
+           "current_context", "seed", "attribute", "AttrScope", "name",
+           "NameManager", "Symbol", "Executor", "opt", "FeedForward",
+           "monitor", "Monitor", "visualization", "viz", "log", "contrib",
            "ops", "parallel", "models", "autograd", "random", "ndarray",
            "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
            "capture", "profiler",

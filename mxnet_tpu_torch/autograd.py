@@ -1,7 +1,8 @@
 """Define-by-run autograd: record/pause scopes and backward, on top of
 torch's own autograd.
 
-Counterpart of ``mxnet_tpu/autograd.py:59-264``.  The JAX package keeps a
+Counterpart of ``mxnet_tpu/autograd.py:59-264``, with ``grad``
+(``:333``) and ``get_symbol`` (``:349``).  The JAX package keeps a
 tape of ``jax.vjp`` closures; here an op invoked inside ``record()`` runs
 with torch's grad mode on, so the graph lives in the output tensors'
 ``grad_fn``.  ``attach_grad``/``mark_variables`` make an NDArray's tensor
@@ -9,6 +10,10 @@ a leaf that requires grad; :func:`backward` asks torch for the gradients
 of the marked variables that the recorded ops read, and writes each into
 the variable's gradient buffer in place, by its ``grad_req``:
 ``write`` copies, ``add`` accumulates, ``null`` leaves it as it is.
+:func:`grad` returns the gradients instead and writes no buffer; with
+``create_graph`` they are differentiable again (torch's double
+backward).  :func:`get_symbol` rebuilds a Symbol from what the recorded
+ops kept on their outputs (``ndarray.invoke``).
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "mark_variables", "backward", "set_recording",
-           "set_training"]
+           "is_training", "mark_variables", "backward", "grad", "get_symbol",
+           "set_recording", "set_training"]
 
 
 class _State(threading.local):
@@ -137,9 +142,9 @@ def _write_grads(variables, grads):
             torch._foreach_add_(*by_req["add"])
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Gradients of ``heads`` into the attached buffers of the marked
-    variables they depend on (reference ``autograd.backward``)."""
+def _heads_and_seeds(heads, head_grads):
+    """The heads' tensors and their seeds (ones where no head gradient
+    is given); raises for a head outside every recorded graph."""
     heads = heads if isinstance(heads, (list, tuple)) else [heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
@@ -153,6 +158,13 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                 "computational graph (did you run inside autograd.record()?)")
         outs.append(h._data)
         seeds.append(torch.ones_like(h._data) if hg is None else hg._data)
+    return heads, outs, seeds
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` into the attached buffers of the marked
+    variables they depend on (reference ``autograd.backward``)."""
+    heads, outs, seeds = _heads_and_seeds(heads, head_grads)
     variables = dict(_STATE.variables)
     for h in heads:
         if h._marked:
@@ -165,3 +177,58 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     _write_grads(variables, grads)
     if not retain_graph:
         _STATE.variables = {}
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables`` (marked
+    NDArrays), as new NDArrays; no gradient buffer is written.  With
+    ``create_graph`` the gradients are themselves differentiable: ops on
+    them inside ``record()`` reach the variables (and every other marked
+    array the heads depend on) in a later ``backward``.
+    ``retain_graph`` defaults to ``create_graph``."""
+    variables = variables if isinstance(variables, (list, tuple)) \
+        else [variables]
+    if retain_graph is None:
+        retain_graph = create_graph
+    _, outs, seeds = _heads_and_seeds(heads, head_grads)
+    if not all(v._data.requires_grad for v in variables):
+        raise MXNetError("one of the requested variables is not part of the "
+                         "recorded graph")
+    grads = torch.autograd.grad(outs, [v._data for v in variables], seeds,
+                                retain_graph=retain_graph,
+                                create_graph=create_graph, allow_unused=True)
+    if any(g is None for g in grads):
+        raise MXNetError("one of the requested variables is not part of the "
+                         "recorded graph")
+    from .ndarray import NDArray
+    return [NDArray(g if create_graph else g.detach(), v.context)
+            for g, v in zip(grads, variables)]
+
+
+def get_symbol(x):
+    """A Symbol of the recorded computation that made ``x``: its ops with
+    their attributes, each input that no recorded op made a variable
+    (its ``name``, else ``var<n>``)."""
+    from .symbol import Symbol, var
+    if getattr(x, "_node", None) is None:
+        raise MXNetError("array is not an output of a recorded computation")
+    memo = {}
+
+    def build(item):
+        # item: an output's node (a tuple), or an array no recorded op made
+        key = id(item)
+        if key in memo:
+            return memo[key]
+        if not isinstance(item, tuple):
+            s = var(item.name or "var%d" % len(memo))
+        else:
+            op, attrs, inputs, index, count = item
+            s = Symbol._from_op(op.name, [build(i) for i in inputs],
+                                dict(attrs))
+            if count > 1:
+                s = s[index]
+        memo[key] = s
+        return s
+
+    return build(x._node)

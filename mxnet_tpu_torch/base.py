@@ -10,12 +10,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "np_dtype", "dtype_name",
-           "DTYPE_TO_CODE", "CODE_TO_DTYPE"]
+__all__ = ["MXNetError", "Registry", "torch_dtype", "np_dtype",
+           "dtype_name", "DTYPE_TO_CODE", "CODE_TO_DTYPE"]
 
 
 class MXNetError(Exception):
     """Error raised by the framework (parity with ``mxnet.base.MXNetError``)."""
+
+
+class Registry:
+    """Objects by case-insensitive name, with aliases (counterpart of
+    ``mxnet_tpu/base.py:93-130``; the initializers register here)."""
+
+    def __init__(self, kind):
+        self.kind = kind
+        self._store = {}
+
+    def register(self, obj, name=None, aliases=()):
+        key = (name or getattr(obj, "__name__", None) or str(obj)).lower()
+        self._store[key] = obj
+        for a in aliases:
+            self._store[a.lower()] = obj
+        return obj
+
+    def get(self, name):
+        key = name.lower()
+        if key not in self._store:
+            raise MXNetError("Cannot find %s '%s'. Registered: %s"
+                             % (self.kind, name, sorted(self._store)))
+        return self._store[key]
+
+    def find(self, name):
+        return self._store.get(name.lower())
+
+    def names(self):
+        return sorted(self._store)
+
+    def create(self, spec, *args, **kwargs):
+        """An instance from a name, or ``spec`` itself."""
+        if isinstance(spec, str):
+            return self.get(spec)(*args, **kwargs)
+        return spec
 
 
 _TORCH_TO_NP = {

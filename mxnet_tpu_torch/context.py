@@ -1,9 +1,13 @@
 """Device contexts over ``torch.device``.
 
 Counterpart of ``mxnet_tpu/context.py`` (``Context``, ``cpu()``, ``gpu()``,
-``current_context()``, ``num_gpus()``).  A :class:`Context` names a device
-and resolves to a ``torch.device`` (``torch_device``); every ``cpu(i)``
-is the one host device.  ``with ctx:`` makes it the
+``cpu_pinned()`` :111, ``current_context()``, ``num_gpus()``).  A
+:class:`Context` names a device and resolves to a ``torch.device``
+(``torch_device``); every ``cpu(i)`` is the one host device, and so is
+``cpu_pinned(i)``: on a host with a card, the arrays made on it are
+page-locked (:meth:`Context.place`), so their copies to the card can be
+asynchronous; without one they are plain host memory, as the JAX
+package's ``cpu_pinned`` is its CPU device.  ``with ctx:`` makes it the
 default for the block, as MXNet tests scope their devices.  Outside such
 a block the default is the first CUDA card.  Where there is none,
 resolving the default raises :class:`MXNetError`: the package never
@@ -18,8 +22,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "num_gpus", "current_context",
-           "as_context", "as_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "num_gpus",
+           "current_context", "as_context", "as_device"]
 
 
 def _check_gpu(device_id):
@@ -31,8 +35,9 @@ def _check_gpu(device_id):
 
 
 class Context:
-    """A device context: ``Context("cpu")`` or ``Context("gpu", i)``.
-    Equality and hashing by (device_type, device_id), as in MXNet."""
+    """A device context: ``Context("cpu")``, ``Context("cpu_pinned")`` or
+    ``Context("gpu", i)``.  Equality and hashing by (device_type,
+    device_id), as in MXNet."""
 
     _default = threading.local()
 
@@ -40,7 +45,7 @@ class Context:
         if isinstance(device_type, Context):
             device_type, device_id = device_type.device_type, \
                 device_type.device_id
-        if device_type not in ("cpu", "gpu"):
+        if device_type not in ("cpu", "cpu_pinned", "gpu"):
             raise MXNetError("unknown device type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -50,10 +55,18 @@ class Context:
     def torch_device(self):
         """The ``torch.device``; a gpu context checks that its card is
         there."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         _check_gpu(self.device_id)
         return torch.device("cuda", self.device_id)
+
+    def place(self, tensor):
+        """``tensor`` as this context keeps it: page-locked for
+        ``cpu_pinned`` on a host with a card, else as it is."""
+        if self.device_type == "cpu_pinned" and torch.cuda.is_available() \
+                and not tensor.is_pinned():
+            return tensor.pin_memory()
+        return tensor
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -79,6 +92,12 @@ class Context:
 
 def cpu(device_id=0):
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """Host memory that copies to the card asynchronously (page-locked
+    where there is a card)."""
+    return Context("cpu_pinned", device_id)
 
 
 def gpu(device_id=0):

@@ -37,6 +37,7 @@ from .. import autograd
 from .. import name as _name
 from .. import random as _random
 from .. import capture
+from .. import profiler
 from ..base import MXNetError
 from ..executor import _run_graph
 from ..symbol.symbol import _topo
@@ -340,17 +341,32 @@ class _Replayed(torch.autograd.Function):
     Parameters' tensors and then the inputs; their gradients come back
     from the backward graph's static outputs (``autograd.backward`` copies
     them into the gradient buffers at once).  ``claim`` holds the
-    program's saved activations for this call until its backward."""
+    program's saved activations for this call until its backward.
+
+    A backward under ``create_graph`` (``autograd.grad(...,
+    create_graph=True)``: torch runs it with grad mode on) must return
+    gradients that are differentiable again, which a replayed graph's
+    outputs are not.  It runs ``recompute`` instead: the block's forward
+    again, eagerly, from the saved tensors, and its gradients with
+    ``create_graph``; each such backward counts one
+    ``create_graph_recomputes``.  A random op draws the replay's numbers
+    again (the generator is set back to where the replay began, and then
+    to where it left it), so the gradient is that of the forward that
+    ran.  Every first-order backward replays."""
 
     @staticmethod
-    def forward(ctx, prog, claim, n_in, *tensors):
+    def forward(ctx, prog, claim, recompute, n_in, *tensors):
         outs = prog.replay(0, tensors[len(tensors) - n_in:])
         ctx.prog, ctx.claim, ctx.n = prog, claim, len(tensors)
+        ctx.recompute = recompute
         ctx.generation = prog.replays[0]
+        ctx.save_for_backward(*tensors)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            return (None,) * 4 + _Replayed._recomputed_grads(ctx, grads)
         if ctx.prog.replays[0] != ctx.generation:
             # only a second backward of a retained graph gets here
             raise MXNetError(
@@ -362,7 +378,24 @@ class _Replayed(torch.autograd.Function):
         full = [None] * ctx.n
         for pos, g in zip(ctx.prog.live["present"], got):
             full[pos] = g
-        return (None, None, None) + tuple(full)
+        return (None,) * 4 + tuple(full)
+
+    @staticmethod
+    def _recomputed_grads(ctx, grads):
+        profiler.bump("create_graph_recomputes")
+        ctx.claim.release()
+        tensors = ctx.saved_tensors
+        pos = [i for i, t in enumerate(tensors) if t.requires_grad]
+        outs = ctx.recompute(tensors)
+        diff = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        got = torch.autograd.grad([o for o, _ in diff],
+                                  [tensors[i] for i in pos],
+                                  [g for _, g in diff], create_graph=True,
+                                  allow_unused=True)
+        full = [None] * ctx.n
+        for i, g in zip(pos, got):
+            full[i] = g
+        return tuple(full)
 
 
 class _CachedOp:
@@ -397,6 +430,13 @@ class _CachedOp:
         self._pending = set()  # (signature, slot) of calls held (_Claim)
         self._draws = {}  # id(Symbol) -> whether an op of it draws
         self._host_ops = {}  # id(Symbol) -> whether it holds a Custom op
+        for p in self._params.values():
+            p._users.add(self)
+
+    def _drop_programs(self):
+        """Forget the captured programs (a Parameter moved:
+        ``Parameter.reset_ctx``); the traced graphs stay."""
+        self._programs = []
 
     def _graph(self, flat_in, in_fmt, train):
         key = (repr(in_fmt), train, tuple(
@@ -531,9 +571,31 @@ class _CachedOp:
             return prog.replay(0, xs)
         if not hasattr(prog, "live"):  # captured just now, by these stages
             prog.live = live
+
+        # where the replay below begins drawing, for ``recompute``
+        drawn_from = gen.get_state() if draws else None
+
+        def recompute(tensors):
+            """The call's outputs again, eagerly, from ``tensors`` (the
+            Parameters' and the inputs'), drawing what the replay drew;
+            the moving statistics are left as the replay wrote them, and
+            the generator where the replay left it."""
+            arg_vals = {"data%d" % i: x
+                        for i, x in enumerate(tensors[len(params):])}
+            arg_vals.update(zip(names, tensors[:len(params)]))
+            if drawn_from is None:
+                return _run_graph(symbol, arg_vals,
+                                  dict(zip(aux_names, auxs)), train, gen)[0]
+            after = gen.get_state()
+            gen.set_state(drawn_from)
+            try:
+                return _run_graph(symbol, arg_vals,
+                                  dict(zip(aux_names, auxs)), train, gen)[0]
+            finally:
+                gen.set_state(after)
         return _Replayed.apply(prog, _Claim(self._pending,
                                             (sig, shapes, slot)),
-                               len(xs), *(params + xs))
+                               recompute, len(xs), *(params + xs))
 
 
 class SymbolBlock(HybridBlock):

@@ -19,13 +19,20 @@ statistic, written where it lives) refuses a context on another device.
 copy would keep the old one).  ``ParameterDict.save``/``load``
 (``:369-400``) write and read ``nd.save`` files; ``set_data`` copies a
 loaded value into the Parameter's own tensor, in place, so a captured
-program that reads it replays on the new value.
+program that reads it replays on the new value.  ``zero_grad``
+(``:235``) zeroes the gradient buffer in place for the same reason.
+``reset_ctx`` (``:239``) moves the value to the new contexts' device,
+makes the gradient buffer anew there, and drops the captured programs
+of the hybridized blocks and Trainers that read the old tensors (the
+objects in ``_users``), so none replays over them.
 """
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
@@ -65,6 +72,10 @@ class Parameter:
         self._grad = None
         self._ctx_list = None
         self._deferred_init = ()
+        # the holders of captured programs that read this Parameter's
+        # tensors (hybridized blocks' cached ops, Trainers): each has a
+        # ``_drop_programs()``
+        self._users = weakref.WeakSet()
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (
@@ -229,6 +240,36 @@ class Parameter:
             data = nd.array(data, ctx=self._data.context, dtype=self.dtype)
         self._data._set_data(data._data)
 
+    def zero_grad(self):
+        """Zero the gradient buffer, in place (a ``grad_req="add"``
+        gradient is cleared this way)."""
+        if self._grad is not None:
+            with torch.no_grad():
+                self._grad._data.zero_()
+
+    def reset_ctx(self, ctx):
+        """Move the Parameter to ``ctx`` (a Context or a list): the value
+        to the first context's device, a new gradient buffer (zeros)
+        there, and every captured program that read the old tensors
+        dropped."""
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        ctx = list(ctx)
+        if self._data is None:
+            if self._deferred_init:
+                init, _, default_init = self._deferred_init
+                self._deferred_init = (init, ctx, default_init)
+            self._ctx_list = ctx
+            return
+        for user in list(self._users):
+            user._drop_programs()
+        self._ctx_list = ctx
+        self._data._data = ctx[0].place(self._data._data.detach().to(
+            ctx[0].torch_device, copy=True))
+        self._data._ctx = ctx[0]
+        if self._grad_req != "null":
+            self._init_grad()
+
     def cast(self, dtype):
         """Cast the value (and its gradient buffer) to ``dtype``."""
         self.dtype = dtype
@@ -334,6 +375,22 @@ class ParameterDict:
             init = initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        """Zero every Parameter's gradient buffer, in place."""
+        for v in self.values():
+            v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """:meth:`Parameter.reset_ctx` of every Parameter."""
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set the attribute ``name`` of every Parameter (``grad_req``,
+        ``lr_mult``, ...)."""
+        for v in self.values():
+            setattr(v, name, value)
 
     def save(self, filename, strip_prefix=""):
         """Write every Parameter's value to ``filename`` (``nd.save``), named

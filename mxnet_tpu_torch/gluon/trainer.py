@@ -69,6 +69,13 @@ class Trainer:
         self._kvstore = None
         self._kv_initialized = False
         self._programs = capture.StepCache("Trainer.step")
+        for p in self._params:
+            p._users.add(self)
+
+    def _drop_programs(self):
+        """Forget the fused update's captured programs (a Parameter moved:
+        ``Parameter.reset_ctx``)."""
+        self._programs = capture.StepCache("Trainer.step")
 
     def _make_optimizer(self, optimizer, hyper):
         slots = dict(enumerate(self._params))

@@ -175,7 +175,7 @@ class ImageRecordIter(_io.DataIter):
         ctx = as_context(ctx)
         self.data_shape = tuple(int(d) for d in data_shape)
         self._allow_corrupt = bool(allow_corrupt)
-        loader = _HostLoader if ctx.device_type == "cpu" else _CardLoader
+        loader = _HostLoader if ctx.device_type != "gpu" else _CardLoader
         mean = None if mean_rgb is None else \
             np.asarray(mean_rgb, np.float32) / 255.0
         self._loader = loader(path_imgrec, batch_size, self.data_shape,

@@ -295,8 +295,10 @@ class PrefetchingIter(_BatchView):
 
 
 def _init_data(data, allow_empty, default_name):
-    """Array / list / dict input -> [(name, host numpy array), ...];
-    float64 becomes float32."""
+    """Array / list / dict input -> [(name, host numpy array), ...]; a
+    numpy float64 array becomes float32, an NDArray keeps its dtype (a
+    bfloat16 one is read as float32, which numpy lacks), as in the JAX
+    package (``mxnet_tpu/io.py:389-396``)."""
     if data is None:
         data = []
     if isinstance(data, (np.ndarray, NDArray)):
@@ -314,9 +316,12 @@ def _init_data(data, allow_empty, default_name):
                         "them or dict with them as values")
     pairs = []
     for name, arr in data.items():
-        raw = arr.asnumpy() if isinstance(arr, NDArray) else np.asarray(arr)
-        if raw.dtype == np.float64:
-            raw = raw.astype(np.float32)
+        if isinstance(arr, NDArray):
+            raw = arr.asnumpy()
+        else:
+            raw = np.asarray(arr)
+            if raw.dtype == np.float64:
+                raw = raw.astype(np.float32)
         pairs.append((name, raw))
     return pairs
 

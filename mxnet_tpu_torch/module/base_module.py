@@ -1,10 +1,14 @@
 """``BaseModule``: the training and scoring loops.
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (``BaseModule`` :74,
-``_fit_step`` :95, ``fit`` :102, ``score`` :180, ``iter_predict`` :205,
-``predict`` :217, ``save_params``/``load_params`` :258-280), written in
-terms of the primitives a subclass implements (``bind``, ``forward``,
-``backward``, ``update``, ...).  Monitors are not ported yet.
+``_fit_step`` :95, ``fit`` :102 with its monitor :109-172, ``score``
+:180, ``iter_predict`` :205, ``predict`` :217,
+``save_params``/``load_params`` :258-280), written in terms of the
+primitives a subclass implements (``bind``, ``forward``, ``backward``,
+``update``, ``install_monitor``, ...).  With a ``monitor``, ``fit``
+installs it and runs each batch as ``forward_backward`` then ``update``
+between the monitor's ``tic`` and ``toc_print``, as the JAX package
+does: never the one-call step.
 """
 from __future__ import annotations
 
@@ -14,16 +18,9 @@ import time
 from .. import metric as metric_mod
 from .. import ndarray as nd
 from ..initializer import Uniform
+from ..model import BatchEndParam
 
 __all__ = ["BaseModule", "BatchEndParam"]
-
-
-class BatchEndParam:
-    """What batch-end callbacks receive."""
-
-    def __init__(self, epoch, nbatch, eval_metric, locals=None):
-        self.epoch, self.nbatch = epoch, nbatch
-        self.eval_metric, self.locals = eval_metric, locals
 
 
 def _fire(callbacks, *payload):
@@ -86,15 +83,18 @@ class BaseModule:
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
-        """Train for ``num_epoch - begin_epoch`` epochs: bind,
-        init_params, init_optimizer, then per epoch the training pass,
-        the epoch callbacks and the validation score."""
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
+        """Train for ``num_epoch - begin_epoch`` epochs: bind, install
+        ``monitor``, init_params, init_optimizer, then per epoch the
+        training pass, the epoch callbacks and the validation score."""
         if num_epoch is None:
             raise ValueError("fit() requires num_epoch")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer or Uniform(0.01),
                          arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
@@ -108,8 +108,16 @@ class BaseModule:
             started = time.time()
             train_metric.reset()
             for nbatch, batch in enumerate(train_data):
-                self._fit_step(batch)
+                self.prepare(batch)
+                if monitor is None:
+                    self._fit_step(batch)
+                else:
+                    monitor.tic()
+                    self.forward_backward(batch)
+                    self.update()
                 self.update_metric(train_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 _fire(batch_end_callback,
                       BatchEndParam(epoch, nbatch, train_metric, locals()))
             for name, val in train_metric.get_name_value():
@@ -207,6 +215,14 @@ class BaseModule:
             else:
                 raise ValueError("unrecognised key %r in %s" % (key, fname))
         self.set_params(arg_params, aux_params)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError("%s must implement install_monitor"
+                                  % type(self).__name__)
+
+    def prepare(self, data_batch):
+        """Nothing to prepare before a batch (the reference's hook for
+        sparse row pulls)."""
 
     def _require_ready(self):
         if not (self.binded and self.params_initialized):

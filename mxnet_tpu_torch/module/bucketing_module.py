@@ -298,6 +298,13 @@ class BucketingModule(BaseModule):
         self._require_ready()
         self._active.update_metric(eval_metric, labels)
 
+    def install_monitor(self, mon):
+        """``mon`` on every bucket's Module (reference ``:298``); a
+        bucket made later does not get it, as in the reference."""
+        self._require_bound()
+        for mod in self._by_key.values():
+            mod.install_monitor(mon)
+
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """The leader's checkpoint: the default bucket's symbol and the
         shared parameters (and optimizer states)."""

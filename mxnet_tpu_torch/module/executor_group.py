@@ -239,6 +239,12 @@ class DataParallelExecutorGroup:
                  for n in self.data_names]
         return [_join(g) for g in grads] if merge_multi_context else grads
 
+    def install_monitor(self, mon):
+        """``mon``'s tap (its ``stat_helper``, or ``mon`` itself) on
+        every executor."""
+        for ex in self.execs:
+            ex.set_monitor_callback(getattr(mon, "stat_helper", mon))
+
     def update_metric(self, eval_metric, labels):
         if self.num_device == 1:
             eval_metric.update(list(labels), self.execs[0].outputs)

@@ -452,8 +452,9 @@ class Module(BaseModule):
 
     def _get_cached_step(self):
         """The one-call step, or None where the two-call path runs: a
-        store, several contexts, inputs that take gradients or an
-        optimizer without a fused update (reference ``:474-480``).  A CSR
+        store, several contexts, inputs that take gradients, an installed
+        monitor or an optimizer without a fused update (reference
+        ``:474-490``).  A CSR
         argument is a static input of the step's program, in buffers of a
         fixed capacity (``ndarray.sparse``)."""
         if self._cached_step_unusable or not fused_step_enabled() \
@@ -462,6 +463,8 @@ class Module(BaseModule):
                 or len(self._exec_group.execs) != 1:
             return None
         ex = self._exec_group.execs[0]
+        if ex._monitor is not None:   # reference ``:486``
+            return None
         if any(r not in ("write", "null") for r in ex.grad_req.values()):
             return None
         step = self._cached_step
@@ -490,9 +493,12 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
-    def prepare(self, data_batch):
-        """Nothing to prepare (the reference's hook for sparse row
-        pulls)."""
+    def install_monitor(self, mon):
+        """Tap every executor's outputs with ``mon`` (a :class:`Monitor`
+        or a callback); from here on the one-call step is not taken."""
+        if not self.binded:
+            raise AssertionError("module must be binded first")
+        self._exec_group.install_monitor(mon)
 
 
 def params_from_jax(arg_params, aux_params, symbol, ctx=None,

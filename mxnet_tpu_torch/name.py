@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager", "current"]
+__all__ = ["NameManager", "Prefix", "current"]
 
 
 class NameManager:
@@ -29,6 +29,17 @@ class NameManager:
 
     def __exit__(self, *exc):
         NameManager._current.value = self._old_manager
+
+
+class Prefix(NameManager):
+    """A NameManager that puts ``prefix`` before every automatic name."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return name if name else self._prefix + super().get(None, hint)
 
 
 def current():

@@ -63,7 +63,8 @@ def _owned(t, sources):
 class NDArray:
     """A mutable n-dimensional array on a device context."""
     __slots__ = ("_data", "_ctx", "_stype", "_grad", "_grad_req",
-                 "_marked", "_fresh_grad", "name", "__weakref__")
+                 "_marked", "_fresh_grad", "_node", "_reading", "name",
+                 "__weakref__")
     # numpy scalar priority, so  np_scalar * NDArray  dispatches to us
     __array_priority__ = 1000.0
 
@@ -75,6 +76,8 @@ class NDArray:
         self._grad_req = "null"
         self._marked = False
         self._fresh_grad = False  # gradient written by backward since a step
+        self._node = None  # what a recorded op keeps (``invoke``)
+        self._reading = None  # event of an asynchronous copy from it
         self.name = None
 
     # -- core properties ---------------------------------------------------
@@ -120,10 +123,22 @@ class NDArray:
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
 
-    wait_to_write = wait_to_read
+    def wait_to_write(self):
+        """Block until the work that reads or writes this array has run."""
+        self._await_readers()
+        self.wait_to_read()
+
+    def _await_readers(self):
+        """Block until the asynchronous copies from this page-locked array
+        to the card have read it, so that a host write cannot reach them
+        (MXNet orders a write after the reads before it)."""
+        if self._reading is not None:
+            self._reading.synchronize()
+            self._reading = None
 
     def _set_data(self, tensor):
         """Copy ``tensor`` into this array's own tensor, in place."""
+        self._await_readers()
         with torch.no_grad():
             self._data.copy_(tensor)
         return self
@@ -205,7 +220,15 @@ class NDArray:
     def copyto(self, other):
         """Copy into another NDArray (in place) or to a Context."""
         if isinstance(other, Context):
-            out = self._derive(lambda t: t.to(other.torch_device, copy=True))
+            # a page-locked source copies to the card asynchronously; its
+            # next write waits for the copy (``_await_readers``)
+            dev = other.torch_device
+            early = self._data.is_pinned() and dev.type == "cuda"
+            out = self._derive(lambda t: other.place(t.to(
+                dev, copy=True, non_blocking=early)))
+            if early:
+                self._reading = torch.cuda.Event()
+                self._reading.record(torch.cuda.current_stream(dev))
             out._ctx = other
             return out
         if isinstance(other, NDArray):
@@ -478,13 +501,14 @@ class NDArray:
             v = torch.from_numpy(np.array(value)).to(self._data.device)
         else:
             v = value
+        self._await_readers()
         with torch.no_grad():
             self._data[key] = v  # casts to this array's dtype
 
 
 def _nd_rebuild(tensor, device_type, device_id, stype="default"):
     ctx = Context(device_type, device_id)
-    return NDArray(tensor.to(ctx.torch_device), ctx, stype)
+    return NDArray(ctx.place(tensor.to(ctx.torch_device)), ctx, stype)
 
 
 def _nd_unpickle(npy, dev_type, dev_id, stype):
@@ -509,7 +533,12 @@ def _nd_unpickle(npy, dev_type, dev_id, stype):
 def invoke(op, inputs, attrs, out=None):
     """Run a registered op on NDArrays; record it for autograd inside
     ``record()``.  Returns the list of visible outputs (written into
-    ``out`` in place when given).
+    ``out`` in place when given).  A recorded op's outputs also keep
+    (op, attrs, inputs, output index, visible outputs) in ``_node``,
+    which ``autograd.get_symbol`` reads: an input that a recorded op made
+    is kept as its ``_node``, any other as the array, so that no
+    intermediate tensor outlives its use.  Nothing is kept outside
+    ``record()``.
 
     Counterpart of ``mxnet_tpu/ndarray/ndarray.py:472-557``.
     """
@@ -526,7 +555,8 @@ def invoke(op, inputs, attrs, out=None):
     train = ag.is_training()
     diff_idx = [i for i in range(len(inputs)) if i not in op.nondiff_inputs]
     n_visible = op.n_visible_outputs(attrs)
-    if ag.is_recording() and diff_idx:
+    recording = ag.is_recording() and bool(diff_idx)
+    if recording:
         with torch.enable_grad():
             tin = [t if i in diff_idx else t.detach()
                    for i, t in enumerate(tin)]
@@ -548,6 +578,12 @@ def invoke(op, inputs, attrs, out=None):
             inputs[aux_in]._set_data(out_vals[out_idx])
 
     visible = [NDArray(v, ctx) for v in out_vals[:n_visible]]
+    if recording and out is None:
+        # what autograd.get_symbol rebuilds the recorded graph from; an
+        # output keeps its index, not its siblings (no reference cycle)
+        ins = [x._node or x for x in inputs]
+        for i, o in enumerate(visible):
+            o._node = (op, attrs, ins, i, len(visible))
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(outs, visible):
@@ -564,29 +600,31 @@ def array(source_array, ctx=None, dtype=None):
     if isinstance(source_array, NDArray):
         src = source_array._data.detach()
         dt = torch_dtype(dtype) if dtype is not None else src.dtype
-        return NDArray(src.to(ctx.torch_device, dt, copy=True), ctx)
+        return NDArray(ctx.place(src.to(ctx.torch_device, dt, copy=True)),
+                       ctx)
     src = torch.from_numpy(np.array(source_array))  # owns its memory
-    return NDArray(src.to(ctx.torch_device, torch_dtype(dtype)), ctx)
+    return NDArray(ctx.place(src.to(ctx.torch_device, torch_dtype(dtype))),
+                   ctx)
 
 
 def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
     """Dense zeros; ``stype`` is accepted and not read, as in the JAX
     package (``nd.sparse.zeros`` makes a sparse array)."""
     ctx = as_context(ctx)
-    return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
-                               device=ctx.torch_device), ctx)
+    return NDArray(ctx.place(torch.zeros(shape, dtype=torch_dtype(dtype),
+                                       device=ctx.torch_device)), ctx)
 
 
 def ones(shape, ctx=None, dtype=None):
     ctx = as_context(ctx)
-    return NDArray(torch.ones(shape, dtype=torch_dtype(dtype),
-                              device=ctx.torch_device), ctx)
+    return NDArray(ctx.place(torch.ones(shape, dtype=torch_dtype(dtype),
+                                       device=ctx.torch_device)), ctx)
 
 
 def full(shape, val, ctx=None, dtype=None):
     ctx = as_context(ctx)
-    return NDArray(torch.full(shape, val, dtype=torch_dtype(dtype),
-                              device=ctx.torch_device), ctx)
+    return NDArray(ctx.place(torch.full(shape, val, dtype=torch_dtype(dtype),
+                                        device=ctx.torch_device)), ctx)
 
 
 def empty(shape, ctx=None, dtype=None):

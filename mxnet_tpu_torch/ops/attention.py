@@ -378,7 +378,11 @@ class FlashAttention(torch.autograd.Function):
     card and :func:`flash_attention_reference` on the CPU, and saves q, k
     and v only; the backward recomputes, through
     :func:`flash_attention_backward` on the card and
-    :func:`chunked_attention_grads` on the CPU."""
+    :func:`chunked_attention_grads` on the CPU.  There is no second
+    order: a backward under ``create_graph`` raises :class:`MXNetError`,
+    on either device, as differentiating the JAX package's kernel twice
+    raises there (``pallas_call`` has no JVP rule); the card's gradients
+    would otherwise lose the term silently."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
@@ -390,6 +394,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():   # under create_graph
+            raise MXNetError(
+                "flash_attention has no second-order gradient (the JAX "
+                "package's kernel cannot be differentiated twice either); "
+                "differentiate it without create_graph")
         q, k, v = ctx.saved_tensors
         if q.device.type == "cuda":
             grads = flash_attention_backward(q, k, v, do, ctx.causal,

@@ -402,7 +402,10 @@ def csr_t_dot(csr, g):
 
 class _CSRDot(torch.autograd.Function):
     """``dot(A, b)`` (or ``dot(A, b, transpose_a=True)``) for a CSR A
-    that takes no gradient; the backward gives b's."""
+    that takes no gradient; the backward gives b's.  That gradient is the
+    product with A the other way round, itself a ``_CSRDot``, so under
+    ``create_graph`` it is differentiable in ``g`` through the kernels
+    again (a kernel's output alone would drop the term)."""
 
     @staticmethod
     def forward(ctx, b, csr, transpose_a):
@@ -411,10 +414,8 @@ class _CSRDot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous()
-        gb = csr_dot(ctx.csr, g) if ctx.transpose_a \
-            else csr_t_dot(ctx.csr, g)
-        return gb, None, None
+        return (_CSRDot.apply(g.contiguous(), ctx.csr, not ctx.transpose_a),
+                None, None)
 
 
 def dot(csr, b, transpose_a=False, transpose_b=False):

@@ -16,6 +16,9 @@ port bumps:
   (``ops.scale``), ``resize_rgb_chw_launches`` (``ops.image_nvjpeg``;
   the card's image loader launches it once a round of decodes, which
   ``nvjpeg_rounds`` counts) and ``nms_launches`` (``ops.nms``);
+- ``create_graph_recomputes``: backwards of a captured hybridized
+  block's call under ``create_graph``, each a recompute of the block's
+  forward (``gluon.block._Replayed``);
 - ``host_op_programs``: calls of a hybridized block or a Module step
   that ran eagerly on the card because their graph holds a ``Custom``
   op (``capture.graph_for``);

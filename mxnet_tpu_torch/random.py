@@ -2,7 +2,7 @@
 the host generator ``host_rng``.
 
 Counterpart of ``mxnet_tpu/random.py`` (``seed``:26, ``host_rng``:35,
-``next_key``:49).
+``next_key``:49, ``current_seed``:80).
 JAX threads counter-based keys; here every device has its own
 ``torch.Generator``, and the ops that draw on the device (``needs_rng``)
 take it explicitly from :func:`generator`, never from torch's global
@@ -20,10 +20,11 @@ import torch
 
 from .context import as_context
 
-__all__ = ["seed", "generator", "host_rng"]
+__all__ = ["seed", "current_seed", "generator", "host_rng"]
 
 _lock = threading.Lock()
 _seed = 0
+_last_seed = 0  # the last seed given, whatever its context
 _gens = {}  # torch.device -> torch.Generator
 _host_rng = None  # np.random.Generator once seeded
 
@@ -31,8 +32,9 @@ _host_rng = None  # np.random.Generator once seeded
 def seed(seed_state, ctx="all"):
     """Seed every device's generator (``ctx="all"``, and the ones made
     later), or only ``ctx``'s (reference ``mx.random.seed``)."""
-    global _seed, _host_rng
+    global _seed, _host_rng, _last_seed
     with _lock:
+        _last_seed = int(seed_state)
         if ctx == "all":
             _seed = int(seed_state)
             _gens.clear()
@@ -40,6 +42,12 @@ def seed(seed_state, ctx="all"):
         else:
             dev = as_context(ctx).torch_device
             _gens[dev] = torch.Generator(dev).manual_seed(int(seed_state))
+
+
+def current_seed():
+    """The last seed given to :func:`seed` (0 before any), as the JAX
+    package's ``current_seed`` returns it."""
+    return _last_seed
 
 
 def generator(ctx=None):

@@ -7,7 +7,11 @@ shape-only device), so inference cannot diverge from execution; binding
 (``executor.py``) interprets the graph node by node.  ``tojson``/``save``
 write MXNet's symbol JSON as the JAX package writes it (``:408-432``),
 and ``load_json``/``load`` read it, upgrading the legacy dialects as the
-JAX package does (``:514-600``).
+JAX package does (``:514-600``).  The graph's introspection
+(``get_internals``, ``get_children``, ``attr``/``list_attr``,
+``debug_str``), its copies, the NDArray-style methods and ``eval``
+follow ``:150-270`` and ``:433-476``; ``var`` reads the
+:class:`~mxnet_tpu_torch.attribute.AttrScope` (``:485``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from ..base import MXNetError, torch_dtype, np_dtype, dtype_name
 from ..ops.registry import get_op, attr_to_string, parse_attr_string
 from .. import name as _name_mod
+from .. import attribute as _attr_mod
 from .op_meta import infer_param_shapes, op_input_names, HINTS
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
@@ -129,7 +134,33 @@ class Symbol:
                             for k, v in node.attrs.items()}
                 for node in _topo(self._outputs) if node.attrs}
 
+    def attr(self, key):
+        """The first output's node attribute ``key`` (its ``__key__`` form
+        first) as a string, or None."""
+        node = self._outputs[0][0]
+        v = node.attrs.get("__" + key + "__", node.attrs.get(key))
+        return attr_to_string(v) if v is not None else None
+
+    def list_attr(self):
+        """The first output's node attributes, keys without underscores."""
+        node = self._outputs[0][0]
+        return {k.strip("_"): attr_to_string(v)
+                for k, v in node.attrs.items()}
+
     # -- selection ---------------------------------------------------------
+    def get_internals(self):
+        """Every output of every node (variables too), in topological
+        order."""
+        outs = []
+        for node in _topo(self._outputs):
+            outs.extend((node, i) for i in range(node.num_outputs()))
+        return Symbol(outs)
+
+    def get_children(self):
+        """The inputs of the output nodes, or None for a variable."""
+        kids = [inp for n, _ in self._outputs for inp in n.inputs]
+        return Symbol(kids) if kids else None
+
     def __getitem__(self, index):
         if isinstance(index, str):
             matches = [i for i, (n, oi) in enumerate(self._outputs)
@@ -188,6 +219,12 @@ class Symbol:
     def __le__(self, o): return self._binary("_lesser_equal", "_lesser_equal_scalar", o)
     __hash__ = object.__hash__
 
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        return load_json(self.tojson())
+
     # -- convenience methods mirroring NDArray ----------------------------
     def reshape(self, *shape, **kw):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
@@ -203,8 +240,21 @@ class Symbol:
         return Symbol._from_op("mean", [self],
                                {"axis": axis, "keepdims": keepdims})
 
+    def astype(self, dtype):
+        return Symbol._from_op("Cast", [self], {"dtype": str(dtype)})
+
+    def transpose(self, axes=None):
+        return Symbol._from_op("transpose", [self], {"axes": axes})
+
     def flatten(self):
         return Symbol._from_op("Flatten", [self], {})
+
+    def slice_axis(self, axis, begin, end):
+        return Symbol._from_op("slice_axis", [self],
+                               {"axis": axis, "begin": begin, "end": end})
+
+    def softmax(self, axis=-1):
+        return Symbol._from_op("softmax", [self], {"axis": axis})
 
     def __repr__(self):
         outs = self.list_outputs()
@@ -368,6 +418,31 @@ class Symbol:
         with open_stream(fname, "w") as f:
             f.write(self.tojson())
 
+    def debug_str(self):
+        """The graph as text: the outputs, then each node in topological
+        order, an op with its sorted attributes and its inputs by slot
+        (``mxnet_tpu/symbol/symbol.py:433-455``)."""
+        nodes = _topo(self._outputs)
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        lines = ["Symbol Outputs:"]
+        for pos, (n, oi) in enumerate(self._outputs):
+            lines.append("\toutput[%d]=%s(%d)"
+                         % (pos, n.output_name(oi), nid[id(n)]))
+        for n in nodes:
+            if n.op is None:
+                lines.append("Variable:%s" % n.name)
+                continue
+            attrs = ", ".join("%s=%s" % (k, attr_to_string(v))
+                              for k, v in sorted(n.attrs.items()))
+            lines.append("--------------------")
+            lines.append("Op:%s, Name=%s%s"
+                         % (n.op.name, n.name,
+                            (" {%s}" % attrs) if attrs else ""))
+            for k, (src, oi) in enumerate(n.inputs):
+                lines.append("\targ[%d]=%s(%d)"
+                             % (k, src.output_name(oi), nid[id(src)]))
+        return "\n".join(lines) + "\n"
+
     # -- binding (implemented in executor.py) ------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None):
@@ -381,6 +456,12 @@ class Symbol:
         return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
                                      group2ctx)
 
+    def eval(self, ctx=None, **kwargs):
+        """The outputs (a list of NDArrays) of the graph bound on ``ctx``
+        (default: the current context) with the arrays ``kwargs``."""
+        from ..context import current_context
+        return self.bind(ctx or current_context(), kwargs).forward()
+
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
         init=None, stype=None, **kwargs):
@@ -388,10 +469,12 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
     ``lr_mult``, ``wd_mult``, ``init`` and ``stype`` become the attrs
     ``__lr_mult__``, ``__wd_mult__``, ``__init__`` and
     ``__storage_type__`` that the optimizer, the initializer and the
-    executor read."""
+    executor read.  The attributes of the enclosing
+    :class:`~mxnet_tpu_torch.attribute.AttrScope` come first, ``attr``
+    over them."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    attrs = dict(attr or {})
+    attrs = dict(_attr_mod.current().get(attr) or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:

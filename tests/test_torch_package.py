@@ -31,7 +31,10 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_resnet_breakdown.py"),
              os.path.join(REPO, "tools", "torch_zoo_chip.py"),
              os.path.join(REPO, "tools", "torch_data_chip.py"),
-             os.path.join(REPO, "tools", "torch_sparse_chip.py")]
+             os.path.join(REPO, "tools", "torch_sparse_chip.py"),
+             os.path.join(REPO, "tools", "torch_api_chip.py"),
+             os.path.join(REPO, "tools", "torch_monitor_cost.py"),
+             os.path.join(REPO, "tools", "torch_eager_step_memory.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
