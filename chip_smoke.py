@@ -367,6 +367,23 @@ before it captures, and those runs launch the kernels too
    ``grad_req="add"``, ``reset_ctx`` to the CPU and back (one capture
    anew), ``cpu_pinned`` arrays page-locked, and a host write straight
    after a copy to the card not reaching the copy.
+35. The Module family, the predict API and JPEG on the card (ROADMAP
+   A.6, A.5): (a) ResNet-50 as a ``SequentialModule`` (the zoo model's
+   ``features``, then its classifier with ``SoftmaxOutput``) at batch 32
+   fp32 for ``MF_STEPS`` steps against the single Module's one-call step
+   from the same parameters (bit for bit, else ``RESNET_PARITY_TOL``; 4
+   replays a step), then 3 fp64 steps card against ``cpu()``; (b) the
+   body and classifier ending in a ``PythonLossModule`` (the reference
+   test's softmax gradient), fp64 card against ``cpu()``; (c)
+   ``Predictor.load`` of a ResNet-50 checkpoint at batch 32 and 1, bit
+   for bit ``Module.forward(is_train=False)``, one capture a shape;
+   (d) nvJPEG's ``imdecode`` (flags 1, 0, -1, grey JPEGs), ``ImageIter``
+   over a ``.rec`` and a ``.lst`` (labels and order exact, pixels within
+   ``LIBJPEG_FULL_ERR`` x ``NVJPEG_MARGIN`` of the same augmenters on the
+   images), ``ImageDetIter`` at 300 x 300 into ``MultiBoxTarget`` and
+   ``MultiBoxDetection`` (the NMS kernel), an ``ImageRecordDataset`` in a
+   ``DataLoader``'s worker thread, refused bytes; (e) ``state_names`` in a
+   ``Module`` and a ``BucketingModule``.
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
@@ -378,7 +395,7 @@ phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
 line, phase 31's as one ``{"long_tail": {...}}`` line, phase 32's as
 one ``{"sparse": {...}, "sparse_kernels": {...}}`` line, phase 33's as
 one ``{"executor": {...}}`` line, phase 34's as one ``{"api_surface":
-{...}}`` line, the
+{...}}`` line, phase 35's as one ``{"module_family": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -4558,14 +4575,15 @@ def copy_times(batch, reps=20):
                 bytes=host.numel() * host.element_size())
 
 
-def _pixel_errors(errs, factor=1.0):
+def _pixel_errors(errs, factor=1.0, libjpeg=LIBJPEG_ERR):
     """Mean, rms and max of ``errs`` (|card - images| x 255), held to
-    LIBJPEG_ERR x NVJPEG_MARGIN x ``factor``."""
+    ``libjpeg`` (libjpeg's own error on the same measure) x NVJPEG_MARGIN
+    x ``factor``."""
     err = torch.stack(errs)
     res = {"mean": err.mean().item(), "rms": err.pow(2).mean().sqrt().item(),
-           "max": err.max().item(), "libjpeg": LIBJPEG_ERR,
+           "max": err.max().item(), "libjpeg": libjpeg,
            "margin": NVJPEG_MARGIN, "factor": factor}
-    bad = [k for k in LIBJPEG_ERR if not res[k] <= LIBJPEG_ERR[k]
+    bad = [k for k in libjpeg if not res[k] <= libjpeg[k]
            * NVJPEG_MARGIN * factor]
     if bad:
         raise AssertionError("nvJPEG's pixels lie further from the images "
@@ -7947,6 +7965,697 @@ def phase_api_surface(card):
     return res
 
 
+# -- phase 35: the Module family, the predict API, JPEG on the card ---------
+# (ROADMAP A.6, A.5).  (a) ResNet-50 as a SequentialModule: the body (the
+# zoo model's ``features``, up to its global pool, where MXNet's symbol
+# script has ``flatten0``) as a Module with ``label_names=()`` and
+# ``auto_wiring``, then the head (the classifier Dense, MXNet's ``fc1``,
+# with SoftmaxOutput) with ``take_labels``: MF_STEPS batches of 32 in fp32
+# (TF32 off, cuDNN deterministic), SGD with momentum, from the single
+# Module's initial parameters, against the single Module's one-call step.
+# Bit for bit is the aim; else RESNET_PARITY_TOL (params after an update).
+MF_STEPS, MF_WARMUP = 8, 3
+# fp64 card against cpu(), batch 2 (RESNET_PARITY_TOL), for (a) and (b)
+MF_PARITY_STEPS = 3
+# (c) Predictor.load of a checkpoint Module.save_checkpoint wrote, at these
+# batches; ms/batch the median of MF_PREDICT_TIMED after MF_PREDICT_WARMUP
+MF_PREDICT_BATCHES = (32, 1)
+MF_PREDICT_WARMUP, MF_PREDICT_TIMED = 3, 10
+# (d) phase 26's images (shorter side DATA_SHORT, quality DATA_QUALITY):
+# MF_JPEGS of them in a .rec, in a .lst of files and, with 1-4 boxes each,
+# in a .rec of detection records; MF_GREY_JPEGS encoded as grey.
+MF_JPEGS, MF_GREY_JPEGS = 64, 4
+MF_ITER_SEED = 35
+MF_ITER_AUG = dict(resize=DATA_SHORT, rand_crop=True, rand_mirror=True,
+                   mean=True)
+MF_DET_SHAPE = (3, 300, 300)
+# ImageIter's crops are at the decode's full resolution (a resize of a
+# shorter side already DATA_SHORT changes nothing), where libjpeg's own
+# error against the images before encoding is larger than LIBJPEG_ERR's,
+# which was read after a resize to 224 x 224: on phase 26's first 32
+# images, PIL-encoded, mean 5.4423 and rms 7.0601 (x 255 scale, printed by
+# tests/test_torch_image_route.py::test_libjpeg_error_at_full_resolution).
+LIBJPEG_FULL_ERR = {"mean": 5.4423, "rms": 7.0601}
+
+
+def mf_kernel_counts():
+    """Every hand kernel's count, by name (phase 35 reads them)."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    from mxnet_tpu_torch.ops import nms as nm
+    names = list(api_kernel_counts()) + [nm.COUNTER, nj.COUNTER]
+    return {n: profiler.counter(n) for n in names}
+
+
+def mf_resnet_symbols(dtype, model="resnet50_v1", classes=1000, **model_kw):
+    """ResNet cut in two, from one zoo model (so one set of parameter
+    names): (whole, body, head, logits).  ``whole`` is ``resnet_symbol``'s
+    graph, ``body`` the model's ``features``, ``head`` its classifier
+    Dense then ``Cast`` and ``SoftmaxOutput`` on a ``data`` variable,
+    ``logits`` the whole model without the softmax (35b)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import sym
+    with mt.name.NameManager():
+        net = mt.gluon.model_zoo.vision.get_model(model, classes=classes,
+                                                  **model_kw)
+    if dtype != torch.float32:
+        net.cast(str(dtype).replace("torch.", ""))
+    out_dtype = "float64" if dtype == torch.float64 else "float32"
+
+    def classify(x):
+        return sym.Cast(net.output(x), dtype=out_dtype)
+
+    def softmax(x):
+        return sym.SoftmaxOutput(x, sym.Variable("softmax_label"),
+                                 name="softmax")
+    whole = softmax(classify(net.features(sym.Variable("data"))))
+    body = net.features(sym.Variable("data"))
+    head = softmax(classify(sym.Variable("data")))
+    logits = classify(net.features(sym.Variable("data")))
+    return whole, body, head, logits
+
+
+def mf_descs(batch, dtype, image):
+    from mxnet_tpu_torch.io import DataDesc
+    label_dt = torch.float64 if dtype == torch.float64 else torch.float32
+    return ([DataDesc("data", (batch, 3, image, image), dtype=dtype)],
+            [DataDesc("softmax_label", (batch,), dtype=label_dt)])
+
+
+def mf_opt_params():
+    return (("learning_rate", RESNET_LR), ("momentum", RESNET_MOMENTUM),
+            ("wd", RESNET_WD))
+
+
+def mf_single(ctx, sym_, batch, dtype, image, init=None):
+    """``sym_`` in one Module on ``ctx``: Xavier after ``random.seed(0)``
+    (or ``init``), SGD with momentum."""
+    import mxnet_tpu_torch as mt
+    mod = mt.mod.Module(sym_, context=ctx)
+    mod.bind(*mf_descs(batch, dtype, image))
+    resnet_train_setup(mod, init)
+    return mod
+
+
+def mf_softmax_grad(scores, labels):
+    """The reference test's softmax gradient
+    (``tests/test_module.py:207-212``), kept in the scores' dtype."""
+    import mxnet_tpu_torch as mt
+    s = scores.asnumpy()
+    e = np.exp(s - s.max(axis=1, keepdims=True))
+    p = e / e.sum(axis=1, keepdims=True)
+    p[np.arange(p.shape[0]), labels.asnumpy().astype(np.int64)] -= 1.0
+    return mt.nd.array(p / p.shape[0], ctx=scores.context, dtype=s.dtype)
+
+
+def mf_chain(ctx, first, second, batch, dtype, image, init):
+    """A SequentialModule on ``ctx``: ``first`` (a Symbol, no labels,
+    auto-wired), then ``second`` (a Symbol, or a module) taking the
+    labels; bound, its parameters ``init`` (a ``get_params()`` pair),
+    SGD with momentum."""
+    import mxnet_tpu_torch as mt
+    seq = mt.mod.SequentialModule()
+    seq.add(mt.mod.Module(first, label_names=(), context=ctx),
+            auto_wiring=True)
+    if not isinstance(second, mt.mod.BaseModule):
+        second = mt.mod.Module(second, context=ctx)
+    seq.add(second, take_labels=True)
+    seq.bind(*mf_descs(batch, dtype, image))
+    seq.init_params(arg_params=init[0], aux_params=init[1])
+    seq.init_optimizer(optimizer="sgd", optimizer_params=mf_opt_params())
+    return seq
+
+
+def _host_params(mod):
+    arg, aux = mod.get_params()
+    return {n: a._data.to("cpu", torch.float64, copy=True)
+            for n, a in list(arg.items()) + list(aux.items())}
+
+
+def mf_steps(mod, batches, on_card=True):
+    """``_fit_step`` over ``batches``: [(ms, step counters)], the last
+    outputs and the parameters (with the moving statistics) as fp64 host
+    tensors, and the first outputs."""
+    record, first = [], None
+    for b in batches:
+        if on_card:
+            torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), counter_snapshot()
+        mod._fit_step(b)
+        if on_card:
+            torch.cuda.synchronize()
+        record.append((1e3 * (time.perf_counter() - t0), counter_delta(c0)))
+        if first is None:
+            first = mod.get_outputs()[0]._data.to("cpu", torch.float64,
+                                                  copy=True)
+    last = mod.get_outputs()[0]._data.to("cpu", torch.float64, copy=True)
+    return record, first, last, _host_params(mod)
+
+
+def mf_resnet_chain(card, model="resnet50_v1", batch=RESNET_BATCH,
+                    image=RESNET_IMAGE, steps=MF_STEPS, warmup=MF_WARMUP,
+                    **model_kw):
+    """35a: the chain against the single Module at ``batch`` fp32;
+    (results, faults)."""
+    import mxnet_tpu_torch as mt
+    gpu = mt.gpu(0)
+    tf32 = tf32_flags()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole, body, head, _ = mf_resnet_symbols(torch.float32, model,
+                                                 **model_kw)
+        batches = [resnet_batch(gpu, batch, torch.float32, image=image,
+                                classes=model_kw.get("classes", 1000),
+                                seed=i) for i in range(steps)]
+        single = mf_single(gpu, whole, batch, torch.float32, image)
+        arg, aux = single.get_params()
+        init = ({n: a.copy() for n, a in arg.items()},
+                {n: a.copy() for n, a in aux.items()})
+        rec_s, first_s, last_s, params_s = mf_steps(single, batches)
+        one_call = single._cached_step is not None
+        del single
+        free_card()
+        seq = mf_chain(gpu, body, head, batch, torch.float32, image, init)
+        rec_c, first_c, last_c, params_c = mf_steps(seq, batches)
+        chain_one_call = [m._cached_step for m in seq._modules]
+        del seq
+        free_card()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    names = sorted(params_s)
+    differ = sum(int((params_s[n] != params_c[n]).sum()) for n in names)
+    total = sum(params_s[n].numel() for n in names)
+    bitwise = differ == 0 and torch.equal(first_s, first_c) \
+        and torch.equal(last_s, last_c)
+    res = dict(
+        card=card, tf32=tf32, cudnn_deterministic=True, batch=batch,
+        image=image, steps=steps, model=model,
+        cut="features | output Dense + SoftmaxOutput",
+        bitwise=bitwise, param_elements=total, param_elements_differing=differ,
+        params_max_rel=_gap([params_c[n] for n in names],
+                            [params_s[n] for n in names]),
+        first_outputs_max_abs=float((first_c - first_s).abs().max()),
+        last_outputs_max_abs=float((last_c - last_s).abs().max()),
+        chain_ms_median=_median([t for t, _ in rec_c[warmup:]]),
+        single_ms_median=_median([t for t, _ in rec_s[warmup:]]),
+        chain_ms=[t for t, _ in rec_c], single_ms=[t for t, _ in rec_s],
+        chain_replays=[c["graph_replays"] for _, c in rec_c],
+        chain_captures=[c["graph_captures"] for _, c in rec_c],
+        single_replays=[c["graph_replays"] for _, c in rec_s],
+        single_captures=[c["graph_captures"] for _, c in rec_s],
+        single_one_call_step=one_call)
+    res["held"] = "bit for bit" if bitwise else "RESNET_PARITY_TOL"
+    bad = []
+    # the chain: each stage's training forward and backward are the two
+    # stages of one program: 4 replays a step, 4 captures at the first
+    if not one_call or any(s is not None for s in chain_one_call):
+        bad.append("step path: the single Module's one-call step %s, the "
+                   "chain's members' %s" % (one_call, chain_one_call))
+    if res["chain_replays"][1:] != [4] * (steps - 1) \
+            or res["chain_captures"] != [4] + [0] * (steps - 1) \
+            or res["single_replays"][1:] != [1] * (steps - 1) \
+            or res["single_captures"] != [1] + [0] * (steps - 1):
+        bad.append("replays/captures a step: chain %s/%s, single %s/%s"
+                   % (res["chain_replays"], res["chain_captures"],
+                      res["single_replays"], res["single_captures"]))
+    if not bitwise and not (
+            res["first_outputs_max_abs"]
+            <= RESNET_PARITY_TOL[torch.float32]["out1"]
+            and res["params_max_rel"]
+            <= RESNET_PARITY_TOL[torch.float64]["params1"]):
+        bad.append("chain against the single Module: first outputs %.3g, "
+                   "parameters %.3g" % (res["first_outputs_max_abs"],
+                                        res["params_max_rel"]))
+    return res, bad
+
+
+def mf_parity(card, chain_of, model="resnet50_v1", image=RESNET_IMAGE,
+              steps=MF_PARITY_STEPS, **model_kw):
+    """``chain_of(ctx, symbols, init)`` run ``steps`` fp64 steps at batch
+    RESNET_PARITY_BATCH on the card and on ``cpu()`` from one init;
+    (results, faults) against RESNET_PARITY_TOL."""
+    import mxnet_tpu_torch as mt
+    dt = torch.float64
+    symbols = mf_resnet_symbols(dt, model, **model_kw)
+    init_mod = mf_single(mt.cpu(), symbols[0], RESNET_PARITY_BATCH, dt,
+                         image)
+    arg, aux = init_mod.get_params()
+    init = ({n: a.copy() for n, a in arg.items()},
+            {n: a.copy() for n, a in aux.items()})
+    del init_mod
+    runs = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        batches = [resnet_batch(ctx, RESNET_PARITY_BATCH, dt, image=image,
+                                classes=model_kw.get("classes", 1000),
+                                label_dtype=dt, seed=i)
+                   for i in range(steps)]
+        seq = chain_of(ctx, symbols, init)
+        outs = []
+        for b in batches:
+            seq._fit_step(b)
+            outs.append(seq.get_outputs()[0]._data.to("cpu", dt, copy=True))
+        runs.append((outs, _host_params(seq)))
+        del seq
+    free_card()
+    (og, pg), (oc, pc) = runs
+    names = sorted(pc)
+    tol = RESNET_PARITY_TOL[dt]
+    res = dict(card=card, dtype="fp64", batch=RESNET_PARITY_BATCH,
+               steps=steps, out1=_gap(og[:1], oc[:1]),
+               out_later=_gap(og[1:], oc[1:]),
+               params=_gap([pg[n] for n in names], [pc[n] for n in names]),
+               tol=dict(out1=tol["out1"], out_later=tol["out2"],
+                        params=tol["params2"]))
+    bad = [] if res["out1"] <= tol["out1"] and res["out_later"] \
+        <= tol["out2"] and res["params"] <= tol["params2"] \
+        else ["fp64 card against cpu(): %s" % res]
+    return res, bad
+
+
+def mf_resnet_parity(card, **kw):
+    """35a's fp64 parity: the body and head chain."""
+    return mf_parity(card, lambda ctx, s, init: mf_chain(
+        ctx, s[1], s[2], RESNET_PARITY_BATCH, torch.float64,
+        kw.get("image", RESNET_IMAGE), init), **kw)
+
+
+def mf_python_loss(card, **kw):
+    """35b: ResNet-50's body + classifier, then a PythonLossModule with
+    the reference test's softmax gradient, fp64 card against cpu()."""
+    import mxnet_tpu_torch as mt
+
+    def chain(ctx, s, init):
+        loss = mt.mod.PythonLossModule(grad_func=mf_softmax_grad,
+                                       context=ctx)
+        return mf_chain(ctx, s[3], loss, RESNET_PARITY_BATCH, torch.float64,
+                        kw.get("image", RESNET_IMAGE), init)
+    return mf_parity(card, chain, **kw)
+
+
+def mf_predictor(card, tmp, model="resnet50_v1", image=RESNET_IMAGE,
+                 batches=MF_PREDICT_BATCHES, warmup=MF_PREDICT_WARMUP,
+                 timed=MF_PREDICT_TIMED, **model_kw):
+    """35c: ``Predictor.load`` of a checkpoint ``Module.save_checkpoint``
+    wrote, on the card's default context, against
+    ``Module.forward(is_train=False)`` on the same parameters."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataBatch
+    gpu = mt.gpu(0)
+    whole = mf_resnet_symbols(torch.float32, model, **model_kw)[0]
+    prefix = os.path.join(tmp, "predict")
+    src = mf_single(gpu, whole, batches[0], torch.float32, image)
+    src.save_checkpoint(prefix, 0)
+    params = src.get_params()
+    del src
+    res, bad = {"card": card, "model": model}, []
+    for b in batches:
+        mod = mt.mod.Module(whole, context=gpu)
+        mod.bind(*mf_descs(b, torch.float32, image), for_training=False)
+        mod.set_params(*params)
+        x = resnet_batch(gpu, b, torch.float32, image=image,
+                         classes=model_kw.get("classes", 1000), seed=b)
+        mod.forward(DataBatch(x.data, x.label), is_train=False)
+        want = mod.get_outputs()[0]._data.clone()
+        del mod
+        pred = mt.Predictor.load(prefix, 0, {"data": x.data[0].shape})
+        counts, times = [], []
+        for _ in range(warmup + timed):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), counter_snapshot()
+            out = pred.forward(data=x.data[0])[0]
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            counts.append(counter_delta(c0))
+        row = dict(batch=b, bitwise=bool(torch.equal(out._data, want)),
+                   max_abs=float((out._data - want).abs().max()),
+                   device=str(out._data.device),
+                   captures=[c["graph_captures"] for c in counts],
+                   replays=[c["graph_replays"] for c in counts],
+                   ms_median=_median(times[warmup:]), ms_first=times[0])
+        res["batch_%d" % b] = row
+        if not row["bitwise"] or not row["device"].startswith("cuda") \
+                or row["captures"] != [1] + [0] * (warmup + timed - 1) \
+                or row["replays"] != [1] * (warmup + timed):
+            bad.append("Predictor at batch %d: %s" % (b, row))
+        del pred
+        free_card()
+    return res, bad
+
+
+def mf_write_jpegs(tmp, encode, n=MF_JPEGS):
+    """Phase 26's first ``n`` images as JPEG: a .rec/.idx, a .lst of files
+    and a .rec of detection records (1-4 seeded boxes an image); returns
+    {"rec", "lst", "root", "det", "boxes", "labels"}."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import recordio
+    prefix = os.path.join(tmp, "mf")
+    mt.test_utils.write_image_rec(prefix, n, seed=0, short=DATA_SHORT,
+                                  quality=DATA_QUALITY, encode=encode,
+                                  threads=os.cpu_count())
+    root = os.path.join(tmp, "mf_files")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(35)
+    det = recordio.MXIndexedRecordIO(prefix + "_det.idx",
+                                     prefix + "_det.rec", "w")
+    labels, boxes = [], []
+    with open(prefix + ".lst", "w") as lst:
+        for i in range(n):
+            label, img = mt.test_utils.synthetic_image(0, i, DATA_SHORT)
+            buf = encode(img, DATA_QUALITY)
+            with open(os.path.join(root, "%d.jpg" % i), "wb") as f:
+                f.write(buf)
+            lst.write("%d\t%f\t%d.jpg\n" % (i, label, i))
+            k = rng.randint(1, 5)
+            xy = rng.uniform(0.0, 0.6, (k, 2))
+            b = np.concatenate([rng.randint(0, 20, (k, 1)), xy,
+                                xy + rng.uniform(0.1, 0.4, (k, 2))], axis=1)
+            b = b.astype(np.float32)
+            det.write_idx(i, recordio.pack(recordio.IRHeader(
+                0, b.ravel(), i, 0), buf))
+            labels.append(label)
+            boxes.append(b)
+    det.close()
+    return dict(rec=prefix + ".rec", lst=prefix + ".lst", root=root,
+                det=prefix + "_det.rec", labels=labels, boxes=boxes)
+
+
+def mf_imdecode_check(files, encode, n=DATA_BATCH):
+    """``imdecode`` on the card over the first ``n`` JPEGs, flag 1, 0 and
+    -1, each resized by the plain formula against the image before
+    encoding (flag 0 against its BT.601 luma), within LIBJPEG_ERR x
+    NVJPEG_MARGIN; flag -1 bit for bit flag 1; grey JPEGs: -1 one
+    channel, 1 that channel three times, both bit for bit flag 0."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    luma = np.array([0.299, 0.587, 0.114])
+    errs = {1: [], 0: []}
+    same_as_flag1 = True
+    for i in range(n):
+        _, img = mt.test_utils.synthetic_image(0, i, DATA_SHORT)
+        with open(os.path.join(files["root"], "%d.jpg" % i), "rb") as f:
+            buf = f.read()
+        dec = {flag: mt.image.imdecode(buf, flag).asnumpy()
+               for flag in (1, 0, -1)}
+        same_as_flag1 &= np.array_equal(dec[-1], dec[1])
+        grey = np.rint(img.astype(np.float64) @ luma).astype(np.uint8)
+        for flag, got, want in ((1, dec[1], img),
+                                (0, np.repeat(dec[0], 3, 2),
+                                 np.repeat(grey[:, :, None], 3, 2))):
+            a = nj.resize_rgb_chw_reference(torch.from_numpy(got),
+                                            *DATA_SHAPE[1:])
+            b = nj.resize_rgb_chw_reference(torch.from_numpy(want),
+                                            *DATA_SHAPE[1:])
+            errs[flag].append((a - b).abs() * 255)
+    grey_ok = True
+    for i in range(MF_GREY_JPEGS):
+        _, img = mt.test_utils.synthetic_image(0, i, DATA_SHORT)
+        buf = encode(np.ascontiguousarray(img[:, :, 0]), DATA_QUALITY)
+        g = {flag: mt.image.imdecode(buf, flag).asnumpy()
+             for flag in (1, 0, -1)}
+        grey_ok &= g[0].shape[2] == 1 and np.array_equal(g[-1], g[0]) \
+            and np.array_equal(g[1], np.repeat(g[0], 3, 2))
+    res = {"flag1": _pixel_errors(errs[1]), "flag0_luma":
+           _pixel_errors(errs[0]), "flag_minus1_equals_flag1":
+           bool(same_as_flag1), "grey_jpegs_ok": bool(grey_ok),
+           "images": n, "grey_images": MF_GREY_JPEGS,
+           "decoded": profiler_counter(nj.DECODE_COUNTER)}
+    bad = [] if same_as_flag1 and grey_ok else [
+        "imdecode flags: -1 equals 1 %s, grey JPEGs %s" % (same_as_flag1,
+                                                           grey_ok)]
+    return res, bad
+
+
+def profiler_counter(name):
+    from mxnet_tpu_torch import profiler
+    return profiler.counter(name)
+
+
+def mf_iter_reference(records):
+    """The augmenter chain of MF_ITER_AUG on the images before encoding,
+    in ``records``' order, drawing from ``random.seed(MF_ITER_SEED)``:
+    (n, 3, 224, 224) float32."""
+    import random
+    import mxnet_tpu_torch as mt
+    random.seed(MF_ITER_SEED)
+    augs = mt.image.CreateAugmenter(DATA_SHAPE, **MF_ITER_AUG)
+    out = []
+    for i in records:
+        img = mt.nd.array(mt.test_utils.synthetic_image(0, i, DATA_SHORT)[1],
+                          ctx=mt.cpu(), dtype=np.uint8)
+        for aug in augs:
+            img = aug(img)[0]
+        out.append(img.asnumpy().transpose(2, 0, 1))
+    return np.stack(out)
+
+
+def mf_image_iter_check(files):
+    """``ImageIter`` on the card's default context over the .rec and over
+    the .lst of files, batch DATA_BATCH at 224 x 224 with MF_ITER_AUG:
+    labels and order the written records', pixels within
+    LIBJPEG_FULL_ERR x NVJPEG_MARGIN of :func:`mf_iter_reference`."""
+    import random
+    import mxnet_tpu_torch as mt
+    res, bad = {}, []
+    want = mf_iter_reference(range(len(files["labels"])))
+    labels = np.float32(files["labels"])
+    for kind, kw in (("rec", dict(path_imgrec=files["rec"])),
+                     ("lst", dict(path_imglist=files["lst"],
+                                  path_root=files["root"]))):
+        random.seed(MF_ITER_SEED)
+        it = mt.image.ImageIter(DATA_BATCH, DATA_SHAPE, **kw, **MF_ITER_AUG)
+        t0 = time.perf_counter()
+        batches = list(it)
+        seconds = time.perf_counter() - t0
+        got = np.concatenate([b.data[0].asnumpy() for b in batches])
+        got_labels = np.concatenate([b.label[0].asnumpy() for b in batches])
+        errs = [torch.from_numpy(np.abs(g - w)) for g, w in zip(got, want)]
+        row = dict(batches=len(batches), images=len(got),
+                   labels_equal=bool(np.array_equal(got_labels, labels)),
+                   contexts=sorted({str(b.data[0].context) for b in batches}),
+                   img_per_s=len(got) / seconds)
+        try:
+            row["pixels"] = _pixel_errors(errs, libjpeg=LIBJPEG_FULL_ERR)
+        except AssertionError as e:
+            bad.append("ImageIter over the %s: %s" % (kind, e))
+        if not row["labels_equal"] or len(got) != len(labels):
+            bad.append("ImageIter over the %s: labels or order %s" % (kind,
+                                                                      row))
+        res[kind] = row
+    return res, bad
+
+
+def mf_det_check(card, files):
+    """``ImageDetIter`` over the .rec of detection records at SSD-300's
+    300 x 300, batch DATA_BATCH (labels the written boxes, padded with
+    -1 rows), into MultiBoxTarget and MultiBoxDetection on the card
+    against cpu() (phase 31b's bars): the NMS kernel runs there."""
+    import mxnet_tpu_torch as mt
+    res, bad, rows = {}, [], []
+    it = mt.image.ImageDetIter(DATA_BATCH, MF_DET_SHAPE,
+                               path_imgrec=files["det"])
+    inp = ssd300_inputs(seed=35)
+    ctxs = (mt.gpu(0), mt.cpu())
+    anchors = [ssd300_anchors(mt, c) for c in ctxs]
+    for k, batch in enumerate(it):
+        label = batch.label[0].asnumpy()
+        boxes = files["boxes"][k * DATA_BATCH:(k + 1) * DATA_BATCH]
+        width = max(len(b) for b in boxes)
+        want = np.full((len(boxes), width, 5), -1.0, np.float32)
+        for i, b in enumerate(boxes):
+            want[i, :len(b)] = b
+        data = batch.data[0].asnumpy()
+        row = dict(labels_equal=bool(np.array_equal(label, want)),
+                   data_shape=list(data.shape),
+                   finite=bool(np.isfinite(data).all()))
+        out = []
+        for c, anc in zip(ctxs, anchors):
+            lbl = mt.nd.array(label, ctx=c)
+            cls_pred = mt.nd.array(inp["cls_pred"], ctx=c)
+            tgt = mt.nd.contrib.MultiBoxTarget(anc, lbl, cls_pred,
+                                               **SSD300_TARGET)
+            det = mt.nd.contrib.MultiBoxDetection(
+                mt.nd.array(inp["cls_prob"], ctx=c),
+                mt.nd.array(inp["loc_pred"], ctx=c), anc, nms_topk=400,
+                **SSD300_DETECT)
+            out.append([t._data.cpu() for t in tgt] + [det._data.cpu()])
+        g, h = out
+        row.update(
+            loc_target_max_abs_err=float((g[0] - h[0]).abs().max()),
+            masks_classes_equal=bool(torch.equal(g[1], h[1])
+                                     and torch.equal(g[2], h[2])),
+            positives=int((h[2] > 0).sum()),
+            detection_order_equal=bool(torch.equal(g[3][..., 0],
+                                                   h[3][..., 0])),
+            detection_max_abs_err=float((g[3][..., 1:] - h[3][..., 1:])
+                                        .abs().max()))
+        rows.append(row)
+        if not (row["labels_equal"] and row["finite"]
+                and row["data_shape"] == [DATA_BATCH] + list(MF_DET_SHAPE)
+                and row["masks_classes_equal"]
+                and row["detection_order_equal"]
+                and row["loc_target_max_abs_err"] <= SSD_OP_TOL
+                and row["detection_max_abs_err"] <= SSD_OP_TOL
+                and row["positives"] > 0):
+            bad.append("ImageDetIter batch %d: %s" % (k, row))
+    res["batches"] = rows
+    return res, bad
+
+
+def mf_loader_check(files):
+    """``ImageRecordDataset`` built on the card's default context, read
+    through ``DataLoader(num_workers=2)``: its worker thread decodes on
+    the card with a decoder of its own, bit for bit the main thread's
+    ``imdecode`` of the same records."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.ops import image_nvjpeg as nj
+    ds = mt.gluon.data.vision.ImageRecordDataset(files["rec"])
+    before = profiler_counter(nj.DECODERS_COUNTER)
+    loader = mt.gluon.data.DataLoader(ds, batch_size=8, num_workers=2,
+                                      batchify_fn=list)
+    items = [s for b in loader for s in b]
+    made = profiler_counter(nj.DECODERS_COUNTER) - before
+    rec = recordio.MXIndexedRecordIO(files["rec"][:-4] + ".idx",
+                                     files["rec"], "r")
+    same = True
+    for i, (img, label) in enumerate(items):
+        _, raw = recordio.unpack(rec.read_idx(i))
+        same &= np.array_equal(img.asnumpy(),
+                               mt.image.imdecode(raw).asnumpy()) \
+            and label == files["labels"][i]
+    rec.close()
+    res = dict(items=len(items), decoders_made_in_workers=made,
+               bitwise_main_thread=bool(same))
+    bad = [] if same and made >= 1 and len(items) == len(files["labels"]) \
+        else ["ImageRecordDataset through DataLoader: %s" % res]
+    return res, bad
+
+
+def mf_refusals():
+    """Bytes that are not a JPEG, and bytes nvJPEG refuses, raise
+    MXNetError("Decoding image failed: ...") on the card."""
+    import mxnet_tpu_torch as mt
+    res = {}
+    for name, buf in (("jpeg_head_garbage", b"\xff\xd8\xff garbage"),
+                      ("not_an_image", b"not an image at all")):
+        try:
+            mt.image.imdecode(buf)
+            res[name] = "decoded"
+        except mt.MXNetError as e:
+            res[name] = str(e)
+    bad = [k for k, v in res.items()
+           if not v.startswith("Decoding image failed")]
+    return res, ["refusals: %s" % {k: res[k] for k in bad}] if bad else []
+
+
+def mf_decode(card, tmp):
+    """35d: JPEG decoding on the card."""
+    import mxnet_tpu_torch as mt
+    probe = jpeg_probe()
+    encode = mt._native.jpeg_encode if probe["libjpeg_build"] == "built" \
+        else mt.test_utils.pil_jpeg
+    files = mf_write_jpegs(tmp, encode)
+    res = {"card": card, "encoder": "libjpeg" if encode is
+           mt._native.jpeg_encode else "PIL", "images": MF_JPEGS}
+    bad = []
+    for key, fn in (("imdecode", lambda: mf_imdecode_check(files, encode)),
+                    ("image_iter", lambda: mf_image_iter_check(files)),
+                    ("image_det_iter", lambda: mf_det_check(card, files)),
+                    ("record_dataset_loader", lambda: mf_loader_check(files)),
+                    ("refusals", mf_refusals)):
+        t = time.perf_counter()
+        res[key], faults = fn()
+        res[key + "_seconds"] = time.perf_counter() - t
+        bad += ["%s: %s" % (key, f) for f in faults]
+    return res, bad
+
+
+def mf_state_names(card):
+    """35e: a Module and a BucketingModule with a ``state_names`` entry
+    bind, train one step on the card and return the JAX package's
+    ``get_states()`` (``[]``: the names are kept among the parameters,
+    ``mxnet_tpu/module/module.py:66-79``, ``base_module.py:280-285``)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.io import DataBatch
+
+    def sym_gen(key):
+        x = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=4,
+                                  name="sn_fc")
+        out = x + mt.sym.Variable("sn_state", shape=(8, 4))
+        return (mt.sym.SoftmaxOutput(out, name="softmax"), ("data",),
+                ("softmax_label",))
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(35)
+    batch = DataBatch([mt.nd.array(rng.rand(8, 6), ctx=gpu)],
+                      [mt.nd.array(rng.randint(0, 4, 8), ctx=gpu)],
+                      bucket_key=6)
+    res, bad = {}, []
+    for kind in ("module", "bucketing"):
+        if kind == "module":
+            mod = mt.mod.Module(sym_gen(6)[0], context=gpu,
+                                state_names=["sn_state"])
+        else:
+            mod = mt.mod.BucketingModule(sym_gen, default_bucket_key=6,
+                                         context=gpu,
+                                         state_names=["sn_state"])
+        mod.bind([("data", (8, 6))], [("softmax_label", (8,))])
+        mod.init_params(initializer=mt.init.Xavier(), allow_missing=True,
+                        arg_params={"sn_state": mt.nd.zeros((8, 4),
+                                                            ctx=gpu)})
+        mod.init_optimizer(optimizer_params=(("learning_rate", 0.1),))
+        mod.forward_backward(batch)
+        mod.update()
+        states = mod.get_states()
+        mod.set_states(value=0)
+        arg, _ = mod.get_params()
+        out = mod.get_outputs()[0]
+        res[kind] = dict(states=states, state_among_params="sn_state" in arg,
+                         finite=bool(torch.isfinite(out._data).all()),
+                         device=str(out._data.device))
+        if states != [] or "sn_state" not in arg or not res[kind]["finite"]:
+            bad.append("%s: %s" % (kind, res[kind]))
+    return res, bad
+
+
+def phase_module_family(card):
+    """Phase 35: the Module family and the predict API (ROADMAP A.6) and
+    JPEG decoding on the card (A.5): (a) ResNet-50 as a SequentialModule,
+    (b) a PythonLossModule ending a chain, (c) Predictor, (d) nvJPEG's
+    imdecode, ImageIter, ImageDetIter (the NMS kernel through
+    MultiBoxDetection) and a record dataset in DataLoader workers, (e)
+    state_names.  The hand kernels' counts are set to 0 first and read at
+    the end."""
+    import tempfile
+    from mxnet_tpu_torch import profiler
+    t0 = time.perf_counter()
+    profiler.reset_counters(*mf_kernel_counts())
+    res, bad = {"card": card}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn in (("resnet50_sequential", mf_resnet_chain),
+                        ("resnet50_sequential_fp64", mf_resnet_parity),
+                        ("python_loss_fp64", mf_python_loss),
+                        ("predictor", lambda c: mf_predictor(c, tmp)),
+                        ("decode", lambda c: mf_decode(c, tmp)),
+                        ("state_names", mf_state_names)):
+            t = time.perf_counter()
+            res[key], faults = fn(card)
+            res[key]["seconds"] = time.perf_counter() - t
+            log("phase 35 %s: %s" % (key, res[key]))
+            bad += ["%s: %s" % (key, f) for f in faults]
+            free_card()
+    res["launches"] = mf_kernel_counts()
+    res["seconds"] = time.perf_counter() - t0
+    from mxnet_tpu_torch.ops import nms as nm
+    if res["launches"][nm.COUNTER] < 2:
+        bad.append("the NMS kernel was not launched: %s" % res["launches"])
+    log("phase 35 the Module family, Predictor and JPEG on %s: %s"
+        % (card, res))
+    if bad:
+        raise AssertionError("phase 35: %s" % "; ".join(bad))
+    return res
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -7995,6 +8704,7 @@ def main():
     executor = phase_executor_programs(card, resnet_init)
     api = phase_api_surface(card)
     api_launches = api["launches"]
+    module_family = phase_module_family(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -8153,7 +8863,10 @@ def main():
         "source": nm.KERNEL_SOURCE,
         "replaces": "mxnet_tpu/ops/ssd.py:237, mxnet_tpu/ops/rcnn.py:91 "
                     "(lax.fori_loop; no Pallas kernel)",
-        "launches": long_tail["nms_launches"],
+        "launches": long_tail["nms_launches"]
+        + module_family["launches"][nm.COUNTER],
+        "long_tail_launches": long_tail["nms_launches"],
+        "module_family_launches": module_family["launches"][nm.COUNTER],
         "max_abs_err": float(nk["masks_differ"]),
         "ms": nk["ms"],
         "plain_ms": nk["plain_ms"],
@@ -8243,6 +8956,7 @@ def main():
                                          if k != "checks"}}))
     print(json.dumps({"executor": executor}))
     print(json.dumps({"api_surface": api}))
+    print(json.dumps({"module_family": module_family}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,11 @@ tensor bridge ``torch``.  The API surface around a training script:
 ``AttrScope`` (``attribute``), ``cpu_pinned``, ``random.current_seed``,
 ``autograd.grad``/``get_symbol``, the Symbol's introspection,
 ``Monitor`` (``monitor``), ``model.FeedForward``, ``visualization``
-(``viz``), ``log`` and ``contrib``.
+(``viz``), ``log`` and ``contrib``.  The Module family: ``mod.
+SequentialModule``, ``mod.PythonModule``/``PythonLossModule``, the
+modules' ``state_names``, and ``Predictor`` (``predict``), the
+predict-only entry; JPEG decoding on the card (nvJPEG) for ``imdecode``,
+``ImageIter``, ``ImageDetIter`` and the record datasets.
 """
 from __future__ import annotations
 
@@ -69,12 +73,15 @@ from . import optimizer as opt
 from .model import FeedForward
 from . import monitor, visualization, log, contrib
 from .monitor import Monitor
+from . import predict
+from .predict import Predictor
 from . import visualization as viz
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "cpu_pinned", "num_gpus",
            "current_context", "seed", "attribute", "AttrScope", "name",
            "NameManager", "Symbol", "Executor", "opt", "FeedForward",
            "monitor", "Monitor", "visualization", "viz", "log", "contrib",
+           "predict", "Predictor",
            "ops", "parallel", "models", "autograd", "random", "ndarray",
            "nd", "symbol", "sym", "executor", "rtc", "initializer", "init", "optimizer",
            "capture", "profiler",

@@ -6,7 +6,10 @@ Counterpart of ``mxnet_tpu/gluon/data/vision.py`` (``_synthetic``:26,
 ``root`` in their published formats (MNIST's gzipped idx files, CIFAR's
 binary batches) where present, else the JAX package's seeded synthetic
 fixture, equal to it bit for bit.  Images are HWC host NDArrays; a
-record or folder image decodes through ``image.imdecode``.
+record or folder image decodes through ``image.imdecode`` on the context
+current where the dataset was built (nvJPEG on a card, libjpeg on
+``cpu()``), also in a ``DataLoader``'s worker threads, which a ``with
+ctx:`` block of the caller does not reach.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import numpy as np
 
 from .dataset import _DownloadedDataset, RecordFileDataset
 from ... import ndarray as nd
-from ...context import cpu
+from ...context import cpu, current_context
 from ... import image as _image_mod
 from ... import recordio
 
@@ -162,11 +165,12 @@ class ImageRecordDataset(RecordFileDataset):
         super(ImageRecordDataset, self).__init__(filename)
         self._flag = flag
         self._transform = transform
+        self._ctx = current_context()
 
     def __getitem__(self, idx):
         record = super(ImageRecordDataset, self).__getitem__(idx)
         header, img = recordio.unpack(record)
-        img = _image_mod.imdecode(img, self._flag)
+        img = _image_mod.imdecode(img, self._flag, ctx=self._ctx)
         label = header.label
         if self._transform is not None:
             return self._transform(img, label)
@@ -179,6 +183,7 @@ class ImageFolderDataset(_DownloadedDataset):
 
     def __init__(self, root, flag=1, transform=None):
         self._flag = flag
+        self._ctx = current_context()
         self._exts = [".jpg", ".jpeg", ".png"]
         # note: bypasses _DownloadedDataset synthesis - folder must exist
         self._root = os.path.expanduser(root)
@@ -203,7 +208,7 @@ class ImageFolderDataset(_DownloadedDataset):
 
     def __getitem__(self, idx):
         with open(self.items[idx][0], "rb") as f:
-            img = _image_mod.imdecode(f.read(), self._flag)
+            img = _image_mod.imdecode(f.read(), self._flag, ctx=self._ctx)
         label = self.items[idx][1]
         if self._transform is not None:
             return self._transform(img, label)

@@ -3,8 +3,9 @@
 VGG, AlexNet, DenseNet, SqueezeNet, Inception V3 and MobileNet, and
 ``get_model`` by the names of the JAX package's table (``"resnet50_v1"``,
 ``"vgg16_bn"``, ``"inceptionv3"``, ``"squeezenet1.1"``,
-``"mobilenet0.25"``).  ``pretrained=True`` raises in every constructor;
-an unknown name raises ``MXNetError``."""
+``"mobilenet0.25"``).  ``pretrained=True`` loads the model's file from
+disk in every constructor (``model_store``), raising where there is
+none; an unknown name raises ``MXNetError``."""
 from ....base import MXNetError
 from .alexnet import *  # noqa: F401,F403
 from .densenet import *  # noqa: F401,F403

@@ -4,13 +4,14 @@ Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/alexnet.py``: five
 convolution stages from the same table, then two 4096-wide Dense layers,
 each followed by ``Dropout(0.5)``, and the classifier.  Built in the same
 order, so the same construction gives the same parameter names.
-``pretrained=True`` raises.
+``pretrained=True`` loads the
+model's file (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._store import no_pretrained
+from ._store import build
 
 __all__ = ["AlexNet", "alexnet"]
 
@@ -52,6 +53,4 @@ class AlexNet(HybridBlock):
 
 def alexnet(pretrained=False, ctx=None, **kwargs):
     """AlexNet; its parameters are initialized later."""
-    if pretrained:
-        no_pretrained("alexnet")
-    return AlexNet(**kwargs)
+    return build(lambda: AlexNet(**kwargs), "alexnet", pretrained, ctx)

@@ -3,13 +3,14 @@
 Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/densenet.py``: the
 BN-relu-conv motif shared by the dense layers and the transitions, each
 dense layer's output concatenated onto the running feature map, and the
-constructors made from the depth table.  ``pretrained=True`` raises.
+constructors made from the depth table.  ``pretrained=True`` loads the
+model's file (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._store import no_pretrained
+from ._store import build
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201"]
@@ -98,9 +99,8 @@ densenet_spec = {121: (64, 32, [6, 12, 24, 16]),
 
 def get_densenet(num_layers, pretrained=False, ctx=None, **kwargs):
     stem, growth, stages = densenet_spec[num_layers]
-    if pretrained:
-        no_pretrained("densenet%d" % num_layers)
-    return DenseNet(stem, growth, stages, **kwargs)
+    return build(lambda: DenseNet(stem, growth, stages, **kwargs),
+                 "densenet%d" % num_layers, pretrained, ctx)
 
 
 def _make_constructor(depth):

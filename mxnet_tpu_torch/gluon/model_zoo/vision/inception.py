@@ -6,13 +6,14 @@ average pool, ``Dropout(0.5)`` and the classifier.  Each module is a
 ``_Parallel`` of branches whose outputs are concatenated on the
 channels; the E modules' 1x3/3x1 pairs are ``_Fork13``.  Built in the
 same order, so the same construction gives the same parameter names.
-``pretrained=True`` raises.
+``pretrained=True`` loads the
+model's file (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._store import no_pretrained
+from ._store import build
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -172,6 +173,4 @@ class Inception3(HybridBlock):
 
 def inception_v3(pretrained=False, ctx=None, **kwargs):
     """Inception V3; its parameters are initialized later."""
-    if pretrained:
-        no_pretrained("inceptionv3")
-    return Inception3(**kwargs)
+    return build(lambda: Inception3(**kwargs), "inceptionv3", pretrained, ctx)

@@ -4,13 +4,14 @@ Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/mobilenet.py``: the
 depthwise-separable stack from one (output channels, stride) plan; a
 depthwise convolution is a ``Convolution`` with ``num_group`` equal to
 its channels (cuDNN's grouped convolution on the card).
-``pretrained=True`` raises.
+``pretrained=True`` loads the
+model's file (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._store import no_pretrained
+from ._store import build
 
 __all__ = ["MobileNet", "mobilenet1_0", "mobilenet0_75", "mobilenet0_5",
            "mobilenet0_25", "get_mobilenet"]
@@ -57,9 +58,8 @@ class MobileNet(HybridBlock):
 
 def get_mobilenet(multiplier, pretrained=False, ctx=None, **kwargs):
     """A MobileNet at width ``multiplier``."""
-    if pretrained:
-        no_pretrained("mobilenet%s" % multiplier)
-    return MobileNet(multiplier, **kwargs)
+    return build(lambda: MobileNet(multiplier, **kwargs),
+                 "mobilenet%s" % multiplier, pretrained, ctx)
 
 
 def _make_constructor(multiplier, suffix):

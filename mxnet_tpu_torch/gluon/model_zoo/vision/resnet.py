@@ -6,14 +6,14 @@ residual blocks V1 and V2 (``:38-131``), the stem (``:151``),
 (``:208``), ``get_resnet`` (``:221``) and the constructors
 ``resnet{18,34,50,101,152}_v{1,2}`` (``:240``).  The blocks are built in
 the same order, so the same construction gives the same parameter
-names.  Pretrained weights are not in the repository:
-``pretrained=True`` raises.
+names.  ``pretrained=True`` loads the
+model's file from disk (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
+from ._store import build
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -228,11 +228,8 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, **kwargs):
     kind, layers, channels = resnet_spec[num_layers]
     trunk = resnet_net_versions[version - 1]
     block = resnet_block_versions[version - 1][kind]
-    if pretrained:
-        raise MXNetError("pretrained resnet%d_v%d: no pretrained weights are "
-                         "available (the model store is not ported)"
-                         % (num_layers, version))
-    return trunk(block, layers, channels, **kwargs)
+    return build(lambda: trunk(block, layers, channels, **kwargs),
+                 "resnet%d_v%d" % (num_layers, version), pretrained, ctx)
 
 
 def _make_constructor(version, depth):

@@ -3,13 +3,14 @@
 Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/squeezenet.py``: the
 feature stack follows a plan per version, where "P" is a ceil-mode max
 pool and a tuple a fire module; ``Dropout(0.5)`` and a convolutional
-classifier close it.  ``pretrained=True`` raises.
+classifier close it.  ``pretrained=True`` loads the
+model's file (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ._store import no_pretrained
+from ._store import build
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
@@ -79,9 +80,8 @@ class SqueezeNet(HybridBlock):
 
 
 def get_squeezenet(version, pretrained=False, ctx=None, **kwargs):
-    if pretrained:
-        no_pretrained("squeezenet%s" % version)
-    return SqueezeNet(version, **kwargs)
+    return build(lambda: SqueezeNet(version, **kwargs),
+                 "squeezenet%s" % version, pretrained, ctx)
 
 
 def squeezenet1_0(**kwargs):

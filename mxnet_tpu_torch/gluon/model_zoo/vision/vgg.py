@@ -4,14 +4,15 @@ Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/vgg.py``: 3x3
 convolution stages each closed by a stride-2 max pool, two 4096-wide
 Dense layers with ``Dropout(0.5)``, and the classifier; the convolutions
 take Xavier (gaussian, fan out, magnitude 2), the Dense layers normal.
-``pretrained=True`` raises.
+``pretrained=True`` loads the
+model's file (``model_store``), raising where there is none.
 """
 from __future__ import annotations
 
 from ....initializer import Xavier
 from ...block import HybridBlock
 from ... import nn
-from ._store import no_pretrained
+from ._store import build
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
            "vgg13_bn", "vgg16_bn", "vgg19_bn", "get_vgg"]
@@ -63,10 +64,9 @@ vgg_spec = {11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
 def get_vgg(num_layers, pretrained=False, ctx=None, **kwargs):
     """A VGG by depth."""
     layers, filters = vgg_spec[num_layers]
-    if pretrained:
-        no_pretrained("vgg%d%s" % (num_layers, "_bn" if kwargs.get(
-            "batch_norm") else ""))
-    return VGG(layers, filters, **kwargs)
+    return build(lambda: VGG(layers, filters, **kwargs),
+                 "vgg%d%s" % (num_layers, "_bn" if kwargs.get("batch_norm")
+                              else ""), pretrained, ctx)
 
 
 def _make_constructor(depth, batch_norm):

@@ -6,7 +6,9 @@ at :29-206, ``CreateDetAugmenter``:208, ``ImageDetIter``:246).  Labels are
 [0, 1]; class < 0 marks a padding row.  Every augmenter maps (image,
 label) to (image, label) on the host, drawing from Python's ``random`` in
 the JAX package's order; ``ImageDetIter`` gives host batches whose label
-pads to the batch's largest object count with -1 rows.
+pads to the batch's largest object count with -1 rows, decoding JPEG on
+the context current where it was built (nvJPEG on a card, libjpeg on
+``cpu()``).
 """
 from __future__ import annotations
 
@@ -271,7 +273,7 @@ class ImageDetIter(ImageIter):
         try:
             while filled < self.batch_size:
                 raw_label, blob = self.next_sample()
-                img = imdecode(blob)
+                img = imdecode(blob, ctx=self._ctx)
                 label = self._normalise_label(raw_label)
                 for aug in self.auglist:
                     img, label = aug(img, label)

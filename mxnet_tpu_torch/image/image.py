@@ -7,8 +7,12 @@ sources at :410-478, ``ImageIter``:479).  Every augmenter takes and
 returns HWC images (``cpu()`` NDArrays or numpy); random choices draw from
 Python's ``random`` module (``LightingAug`` from numpy's) in the JAX
 package's order, so one ``random.seed`` draws the same crops and jitters
-in both.  ``imdecode`` decodes JPEG with the package's libjpeg binding
-and other formats with PIL where it is installed.  Resizing follows
+in both.  ``imdecode`` decodes JPEG on the context's decoder (nvJPEG on
+a card, libjpeg on ``cpu()``: ``recordio.decode_image``) and other
+formats with PIL where it is installed; it returns a ``cpu()`` array,
+as the JAX package's does.  ``ImageIter`` fixes the current context
+where it is built, so its decodes run there whichever thread calls
+``next``.  Resizing follows
 cv2's interpolation codes (0 nearest, 1 bilinear, 2 bicubic, 3 area,
 cv2's half-pixel geometry), computed in float on the host as separable
 weight matrices (:func:`resize_weights`) and, for uint8 images, rounded
@@ -26,7 +30,7 @@ from .. import io as _io
 from .. import ndarray as nd
 from .. import recordio
 from ..base import MXNetError
-from ..context import cpu
+from ..context import cpu, current_context
 
 __all__ = ["imdecode", "scale_down", "resize_short", "fixed_crop",
            "random_crop", "center_crop", "color_normalize",
@@ -53,10 +57,12 @@ def _wrap(arr, dtype=None):
     return nd.array(a, ctx=cpu(), dtype=dtype or a.dtype)
 
 
-def imdecode(buf, flag=1, to_rgb=True, out=None):
+def imdecode(buf, flag=1, to_rgb=True, out=None, ctx=None):
     """Decode image bytes into an HWC uint8 NDArray on ``cpu()``: RGB order
-    (BGR with ``to_rgb=False``, cv2's own), one channel with ``flag=0``."""
-    raw = recordio.decode_image(buf, flag)
+    (BGR with ``to_rgb=False``, cv2's own), one channel with ``flag=0``.
+    JPEG decodes on ``ctx`` (default: the current context): nvJPEG on a
+    card, libjpeg on ``cpu()``."""
+    raw = recordio.decode_image(buf, flag, ctx)
     if not to_rgb and raw.shape[2] == 3:
         raw = raw[:, :, ::-1]
     return _wrap(raw, dtype=np.uint8)
@@ -524,7 +530,8 @@ def _parse_inline_list(entries):
 class ImageIter(_io.DataIter):
     """Decode-and-augment iterator over a .rec file (with its .idx for
     shuffling), a .lst file or a list of (label, file) pairs, giving NCHW
-    float32 host batches."""
+    float32 host batches; JPEG decodes on the context current where the
+    iterator is built."""
 
     def __init__(self, batch_size, data_shape, label_width=1,
                  path_imgrec=None, path_imglist=None, path_root=None,
@@ -534,6 +541,7 @@ class ImageIter(_io.DataIter):
         super().__init__()
         if not (path_imgrec or path_imglist or isinstance(imglist, list)):
             raise ValueError("need path_imgrec, path_imglist, or imglist")
+        self._ctx = current_context()   # the decoder's, fixed here
 
         self._record = _RecordSource(path_imgrec, path_imgidx) \
             if path_imgrec else None
@@ -603,7 +611,7 @@ class ImageIter(_io.DataIter):
         try:
             while filled < self.batch_size:
                 label, blob = self.next_sample()
-                img = imdecode(blob)
+                img = imdecode(blob, ctx=self._ctx)
                 for aug in self.auglist:
                     img = aug(img)[0]
                 data_buf[filled] = _to_np(img).reshape(h, w, c)

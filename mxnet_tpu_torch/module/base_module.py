@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/module/base_module.py`` (``BaseModule`` :74,
 ``_fit_step`` :95, ``fit`` :102 with its monitor :109-172, ``score``
 :180, ``iter_predict`` :205, ``predict`` :217,
-``save_params``/``load_params`` :258-280), written in terms of the
+``save_params``/``load_params`` :258-280, ``get_states``/``set_states``
+:280-285), written in terms of the
 primitives a subclass implements (``bind``, ``forward``, ``backward``,
 ``update``, ``install_monitor``, ...).  With a ``monitor``, ``fit``
 installs it and runs each batch as ``forward_backward`` then ``update``
@@ -215,6 +216,15 @@ class BaseModule:
             else:
                 raise ValueError("unrecognised key %r in %s" % (key, fname))
         self.set_params(arg_params, aux_params)
+
+    def get_states(self, merge_multi_context=True):
+        """The states of ``state_names``: none are kept apart from the
+        parameters, so ``[]``, as in the JAX package."""
+        self._require_ready()
+        return []
+
+    def set_states(self, states=None, value=None):
+        self._require_ready()
 
     def install_monitor(self, mon):
         raise NotImplementedError("%s must implement install_monitor"

@@ -24,7 +24,6 @@ import logging
 import warnings
 
 from .. import capture
-from ..base import MXNetError
 from .base_module import BaseModule
 from .module import Module
 
@@ -40,14 +39,12 @@ class BucketingModule(BaseModule):
         super().__init__(logger=logger)
         if default_bucket_key is None:
             raise ValueError("default_bucket_key is required")
-        if state_names:
-            raise MXNetError("BucketingModule: state_names are not ported "
-                             "(ROADMAP A.6)")
         self._sym_gen = sym_gen
         self._default_bucket_key = default_bucket_key
         self._module_kwargs = dict(logger=logger, context=context,
                                    work_load_list=work_load_list,
-                                   fixed_param_names=fixed_param_names)
+                                   fixed_param_names=fixed_param_names,
+                                   state_names=state_names)
         self._by_key = {}
         self._active_key = None
         self._params_dirty = False
@@ -147,6 +144,14 @@ class BucketingModule(BaseModule):
                                 force_init=force_init,
                                 allow_extra=allow_extra)
         self._params_dirty, self.params_initialized = True, True
+
+    def get_states(self, merge_multi_context=True):
+        self._require_ready()
+        return self._active.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        self._require_ready()
+        self._active.set_states(states, value)
 
     # -- binding and switching ------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,

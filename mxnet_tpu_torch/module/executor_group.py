@@ -64,7 +64,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  fixed_param_names=None, grad_req="write", shared_group=None,
-                 workload=None):
+                 workload=None, state_names=None):
         self.symbol = symbol
         self.contexts = list(contexts)
         self.num_device = len(self.contexts)
@@ -73,6 +73,7 @@ class DataParallelExecutorGroup:
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = list(fixed_param_names or [])
+        self.state_names = list(state_names or [])
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()

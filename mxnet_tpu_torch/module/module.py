@@ -5,7 +5,9 @@ its ``shared_module`` :285-299, ``init_params`` :203,
 ``get_params``/``set_params`` :183/:240, ``output_shapes`` :132,
 ``init_optimizer`` :356, ``forward``/``backward``/``update``
 :424-:538, ``_fit_step`` :453, ``_get_cached_step`` :474,
-``get_input_grads`` :538, ``update_metric`` :549, ``prepare`` :557).
+``get_input_grads`` :538, ``update_metric`` :549, ``prepare`` :557;
+``state_names`` :66-79, kept among the parameters as there, with
+``BaseModule.get_states``/``set_states``).
 The module keeps host copies of the
 parameters (NDArrays on ``cpu()``, as MXNet does) and the bound copies
 on its context; ``update`` marks the host copies stale, and
@@ -40,7 +42,7 @@ updater on every context's copy.  ``_fit_step``'s one-call
 with ``"local"`` or ``"device"`` keeps it.
 
 :func:`params_from_jax` carries the JAX package's ``get_params()`` over
-as numpy arrays.  Monitors are not ported yet.
+as numpy arrays.
 """
 from __future__ import annotations
 
@@ -83,7 +85,8 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, work_load_list=None, fixed_param_names=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None):
         super().__init__(logger=logger)
         ctxs = context if context is not None \
             else ctx_mod.current_context()
@@ -102,6 +105,8 @@ class Module(BaseModule):
         inputs = set(self._data_names) | set(label_names or [])
         self._param_names = [a for a in args if a not in inputs]
         self._fixed_param_names = list(fixed_param_names or [])
+        # filed among the parameters, as the JAX package does (:66-79)
+        self._state_names = list(state_names or [])
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
         _check_input_names(symbol, self._data_names, "data")
@@ -181,12 +186,16 @@ class Module(BaseModule):
 
     @property
     def output_shapes(self):
-        """(name, shape) of each output at the bound input shapes."""
+        """(name, shape) of each output at the bound input shapes and
+        dtypes (a graph whose parameters are fp64 infers in fp64)."""
         self._require_bound()
-        shapes = {d.name: d.shape for d in self._data_shapes
-                  + (self._label_shapes or [])}
-        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
-        return list(zip(self._output_names, out_shapes))
+        descs = self._data_shapes + (self._label_shapes or [])
+        _, outs, _ = self._symbol._infer(
+            shape_kwargs={d.name: d.shape for d in descs},
+            dtype_kwargs={d.name: d.dtype for d in descs
+                          if d.dtype is not None})
+        return [(n, tuple(o.shape)) for n, o in zip(self._output_names,
+                                                     outs)]
 
     def _require_bound(self):
         if not self.binded:
@@ -305,7 +314,7 @@ class Module(BaseModule):
             self._label_shapes, self._param_names, self.for_training,
             self.inputs_need_grad, fixed_param_names=self._fixed_param_names,
             grad_req=self._grad_req, shared_group=shared_group,
-            workload=self._work_load_list)
+            workload=self._work_load_list, state_names=self._state_names)
         for ex in group.execs:
             ex.graph_pool = self._graph_pool
         return group

@@ -52,6 +52,19 @@
 //   mx_div255_mismatches(lo, hi, count, stream) -> cudaError_t: adds to
 //     *count the floats with bits in [lo, hi] where div255 is not
 //     __fdiv_rn(x, 255)
+//
+// One image (image.imdecode, recordio.decode_image on a card): nvJPEG's
+// library handle is made once a device and shared with the loaders (it is
+// thread-safe); each calling thread holds a decoder of its own, with its
+// nvJPEG state, stream and output buffer on the card.
+//   mx_nvjpeg_decoder_create(device, err, err_len) -> decoder or null
+//   mx_nvjpeg_image_info(dec, jpg, len, flag, &w, &h, &c) -> 0, or 1 when
+//     nvJPEG refuses the bytes (flag 1: 3 channels RGB, 0: 1 channel
+//     grey, -1: as stored, 1 or 3)
+//   mx_nvjpeg_decode_image(dec, jpg, len, flag, out) -> 0 with out (h x w
+//     x c uint8, host) written by one copy from the card, 1 refused, -1 a
+//     CUDA or nvJPEG fault (mx_nvjpeg_decoder_error)
+//   mx_nvjpeg_decoder_error(dec), mx_nvjpeg_decoder_destroy(dec)
 #include <cuda_runtime.h>
 #include <fcntl.h>
 #include <nvjpeg.h>
@@ -210,6 +223,28 @@ struct DeviceGuard {
   }
 };
 
+// nvJPEG's library handle of `device`, made at the first call and kept
+// for the process; null with *err set when it cannot be made.
+nvjpegHandle_t shared_handle(int device, std::string* err) {
+  static std::mutex mu;
+  static std::vector<nvjpegHandle_t> handles;
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < 0) {
+    *err = "no such device " + std::to_string(device);
+    return nullptr;
+  }
+  if (handles.size() <= static_cast<size_t>(device))
+    handles.resize(device + 1, nullptr);
+  if (!handles[device]) {
+    nvjpegStatus_t st = nvjpegCreateSimple(&handles[device]);
+    if (st != NVJPEG_STATUS_SUCCESS) {
+      handles[device] = nullptr;
+      *err = "nvjpegCreateSimple failed with status " + std::to_string(st);
+    }
+  }
+  return handles[device];
+}
+
 struct Rec {
   int64_t off;
   uint32_t len;
@@ -245,7 +280,7 @@ struct Loader {
   std::vector<float> mean;         // c values, or empty
   float scale = 1.0f;
   int has_scale = 0;
-  nvjpegHandle_t handle = nullptr;
+  nvjpegHandle_t handle = nullptr;   // the device's shared handle
   std::vector<Worker> workers;
   std::vector<Slot> slots;         // one a slot of a round
   cudaStream_t stream = nullptr;   // the rounds' launches
@@ -294,7 +329,6 @@ struct Loader {
     if (staging) cudaFreeHost(staging);
     if (table) cudaFree(table);
     if (mean_dev) cudaFree(mean_dev);
-    if (handle) nvjpegDestroy(handle);
     if (fd >= 0) close(fd);
   }
 
@@ -333,14 +367,15 @@ struct Loader {
       return false;
     }
     if (!cuda_ok(cudaSetDevice(device), "cudaSetDevice")) return false;
-    nvjpegStatus_t st = nvjpegCreateSimple(&handle);
-    if (st != NVJPEG_STATUS_SUCCESS) {
-      fault("nvjpegCreateSimple failed with status " + std::to_string(st));
+    std::string why;
+    handle = shared_handle(device, &why);
+    if (!handle) {
+      fault(why);
       return false;
     }
     workers.resize(std::max(1, threads));
     for (auto& wk : workers) {
-      st = nvjpegJpegStateCreate(handle, &wk.state);
+      nvjpegStatus_t st = nvjpegJpegStateCreate(handle, &wk.state);
       if (st != NVJPEG_STATUS_SUCCESS) {
         fault("nvjpegJpegStateCreate failed with status " +
               std::to_string(st));
@@ -564,6 +599,98 @@ struct Loader {
   }
 };
 
+// One thread's decoder of single images.
+struct Decoder {
+  int device = 0;
+  nvjpegHandle_t handle = nullptr;   // the device's shared handle
+  nvjpegJpegState_t state = nullptr;
+  cudaStream_t stream = nullptr;
+  unsigned char* buf = nullptr;      // the decoded image on the card
+  size_t cap = 0;
+  std::string error;
+
+  ~Decoder() {
+    cudaSetDevice(device);
+    if (stream) cudaStreamSynchronize(stream);
+    if (buf) cudaFree(buf);
+    if (state) nvjpegJpegStateDestroy(state);
+    if (stream) cudaStreamDestroy(stream);
+  }
+
+  bool cuda_ok(cudaError_t e, const char* what) {
+    if (e == cudaSuccess) return true;
+    if (error.empty()) error = std::string(what) + ": " +
+        cudaGetErrorString(e);
+    return false;
+  }
+
+  // The output's size and channels, as libjpeg's mx_jpeg_decode gives
+  // them: one channel for flag 0, or -1 and a one-component image; else
+  // three.  False where nvJPEG cannot read the header or the image has
+  // other than 1 or 3 components (libjpeg converts neither to RGB).
+  bool info(const unsigned char* jpg, size_t len, int flag, int* w, int* h,
+            int* c, int* ncomp) {
+    nvjpegChromaSubsampling_t sub;
+    int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+    if (nvjpegGetImageInfo(handle, jpg, len, ncomp, &sub, widths,
+                           heights) != NVJPEG_STATUS_SUCCESS)
+      return false;
+    if (*ncomp != 1 && *ncomp != 3) return false;
+    *w = widths[0];
+    *h = heights[0];
+    *c = flag == 0 || (flag < 0 && *ncomp == 1) ? 1 : 3;
+    return *w > 0 && *h > 0;
+  }
+
+  // 0, 1 (refused) or -1 (fault).  A one-component image decodes as Y
+  // and, where three channels are asked, is repeated into them on the
+  // host after its one copy, as libjpeg repeats grey into RGB.
+  int decode(const unsigned char* jpg, size_t len, int flag,
+             unsigned char* out) {
+    int w, h, c, ncomp;
+    if (!info(jpg, len, flag, &w, &h, &c, &ncomp)) return 1;
+    const bool luma = c == 1 || ncomp == 1;
+    const size_t pixels = static_cast<size_t>(w) * h;
+    const size_t need = pixels * (luma ? 1 : 3);
+    if (need > cap) {
+      if (!cuda_ok(cudaStreamSynchronize(stream), "cudaStreamSynchronize"))
+        return -1;
+      if (buf && !cuda_ok(cudaFree(buf), "cudaFree")) return -1;
+      buf = nullptr;
+      cap = 0;
+      size_t grown = (need + need / 4 + kSlotSlack - 1) / kSlotSlack *
+          kSlotSlack;
+      if (!cuda_ok(cudaMalloc(&buf, grown), "cudaMalloc")) return -1;
+      cap = grown;
+    }
+    nvjpegImage_t img;
+    std::memset(&img, 0, sizeof(img));
+    img.channel[0] = buf;
+    img.pitch[0] = static_cast<size_t>(w) * (luma ? 1 : 3);
+    nvjpegStatus_t st = nvjpegDecode(
+        handle, state, jpg, len, luma ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_RGBI,
+        &img, stream);
+    if (st == NVJPEG_STATUS_BAD_JPEG || st == NVJPEG_STATUS_JPEG_NOT_SUPPORTED
+        || st == NVJPEG_STATUS_INVALID_PARAMETER) {
+      cudaStreamSynchronize(stream);
+      return 1;
+    }
+    if (st != NVJPEG_STATUS_SUCCESS) {
+      if (error.empty())
+        error = "nvjpegDecode failed with status " + std::to_string(st);
+      return -1;
+    }
+    if (!cuda_ok(cudaMemcpyAsync(out, buf, need, cudaMemcpyDeviceToHost,
+                                 stream), "cudaMemcpyAsync") ||
+        !cuda_ok(cudaStreamSynchronize(stream), "nvjpegDecode"))
+      return -1;
+    if (luma && c == 3)
+      for (size_t i = pixels; i-- > 0;)
+        out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = out[i];
+    return 0;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -695,6 +822,63 @@ int mx_div255_mismatches(uint32_t lo, uint32_t hi,
   div255_check<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       lo, hi, mismatches);
   return static_cast<int>(cudaGetLastError());
+}
+
+void* mx_nvjpeg_decoder_create(int device, char* err, int err_len) {
+  auto say = [&](const std::string& what) {
+    if (err && err_len > 0) {
+      std::strncpy(err, what.c_str(), err_len - 1);
+      err[err_len - 1] = 0;
+    }
+  };
+  DeviceGuard guard(device);
+  std::string why;
+  nvjpegHandle_t handle = shared_handle(device, &why);
+  if (!handle) {
+    say(why);
+    return nullptr;
+  }
+  auto* D = new Decoder();
+  D->device = device;
+  D->handle = handle;
+  nvjpegStatus_t st = nvjpegJpegStateCreate(handle, &D->state);
+  if (st != NVJPEG_STATUS_SUCCESS) {
+    say("nvjpegJpegStateCreate failed with status " + std::to_string(st));
+    delete D;
+    return nullptr;
+  }
+  if (!D->cuda_ok(cudaStreamCreateWithFlags(&D->stream,
+                                            cudaStreamNonBlocking),
+                  "cudaStreamCreate")) {
+    say(D->error);
+    delete D;
+    return nullptr;
+  }
+  return D;
+}
+
+int mx_nvjpeg_image_info(void* dec, const unsigned char* jpg, uint64_t len,
+                         int flag, int* w, int* h, int* c) {
+  auto* D = static_cast<Decoder*>(dec);
+  int ncomp;
+  return D->info(jpg, len, flag, w, h, c, &ncomp) ? 0 : 1;
+}
+
+int mx_nvjpeg_decode_image(void* dec, const unsigned char* jpg, uint64_t len,
+                           int flag, unsigned char* out) {
+  auto* D = static_cast<Decoder*>(dec);
+  DeviceGuard guard(D->device);
+  return D->decode(jpg, len, flag, out);
+}
+
+const char* mx_nvjpeg_decoder_error(void* dec) {
+  return static_cast<Decoder*>(dec)->error.c_str();
+}
+
+void mx_nvjpeg_decoder_destroy(void* dec) {
+  auto* D = static_cast<Decoder*>(dec);
+  DeviceGuard guard(D->device);
+  delete D;
 }
 
 }  // extern "C"

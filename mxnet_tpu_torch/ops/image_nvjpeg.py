@@ -1,4 +1,5 @@
-"""The card's image decode: the nvJPEG record loader and its resize kernel.
+"""The card's image decode: the nvJPEG record loader and its resize
+kernel, and the decode of one JPEG (:func:`decode_jpeg`).
 
 ``csrc/image_nvjpeg.cu`` (CUDA C++ for ``sm_90a``, linked with the CUDA
 toolkit's nvJPEG, built by ``_build.load_library`` at first use) holds
@@ -18,6 +19,17 @@ are the plain versions; CPU tensors go through them, CUDA tensors launch
 the kernel or raise.  Launches count under ``COUNTER`` (the loader's
 under it too, with its rounds under ``ROUNDS_COUNTER``: the iterator adds
 :func:`loader_lib`'s tallies after each batch).
+
+:func:`decode_jpeg` decodes one buffer on a card with nvJPEG, as
+``image.imdecode``, ``ImageIter``, ``ImageDetIter`` and the record
+datasets do on a ``gpu`` context: HWC uint8 in RGB order (``flag`` 1),
+grey (0) or as stored (-1), copied once to the host.  It uses the
+library handle the loader uses (one a device) and a decoder of the
+calling thread's own (its nvJPEG state, stream and buffer), so the
+threads of a ``DataLoader`` decode at once.  This is a library decode,
+not a kernel: no hand-written kernel runs; ``DECODE_COUNTER`` counts the
+images decoded and ``DECODERS_COUNTER`` the decoders made (one a thread
+and device).
 """
 from __future__ import annotations
 
@@ -34,12 +46,15 @@ from . import _build
 __all__ = ["resize_rgb_chw", "resize_rgb_chw_reference",
            "resize_rgb_chw_batch", "resize_rgb_chw_batch_reference",
            "round_slots", "round_table", "channel_mean", "launch_round",
-           "div255_mismatches", "loader_lib", "DESC", "KERNEL_SOURCE", "COUNTER",
-           "ROUNDS_COUNTER"]
+           "div255_mismatches", "loader_lib", "decode_jpeg", "DESC",
+           "KERNEL_SOURCE", "COUNTER", "ROUNDS_COUNTER", "DECODE_COUNTER",
+           "DECODERS_COUNTER"]
 
 KERNEL_SOURCE = "mxnet_tpu_torch/ops/csrc/image_nvjpeg.cu"
 COUNTER = "resize_rgb_chw_launches"
 ROUNDS_COUNTER = "nvjpeg_rounds"
+DECODE_COUNTER = "nvjpeg_images_decoded"
+DECODERS_COUNTER = "nvjpeg_decoders"
 
 # One image of a round, as csrc/image_nvjpeg.cu's ``Desc``: the source's
 # address (0: a blank image), sw / dw and sh / dh in fp32, the source's
@@ -73,6 +88,16 @@ _SIGNATURES = {
                           + [_p, ctypes.c_float, ctypes.c_int, _p]),
     "mx_div255_mismatches": (ctypes.c_int, [ctypes.c_uint32, ctypes.c_uint32,
                                             _p, _p]),
+    "mx_nvjpeg_decoder_create": (_p, [ctypes.c_int, ctypes.c_char_p,
+                                      ctypes.c_int]),
+    "mx_nvjpeg_image_info": (ctypes.c_int, [
+        _p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]),
+    "mx_nvjpeg_decode_image": (ctypes.c_int, [
+        _p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int, _p]),
+    "mx_nvjpeg_decoder_error": (ctypes.c_char_p, [_p]),
+    "mx_nvjpeg_decoder_destroy": (None, [_p]),
 }
 
 
@@ -87,6 +112,76 @@ def loader_lib():
                 fn.restype, fn.argtypes = res, args
             _bound.append(lib)
         return _bound[0]
+
+
+def _loader_lib_or_raise():
+    try:
+        return loader_lib()
+    except MXNetError as e:
+        raise MXNetError("JPEG decoding on the card needs nvJPEG "
+                         "(ops/csrc/image_nvjpeg.cu), which could not be "
+                         "built or loaded: %s" % e) from e
+
+
+class _Decoder:
+    """One thread's nvJPEG decoder of one device, freed with it."""
+
+    def __init__(self, lib, device):
+        err = ctypes.create_string_buffer(512)
+        self._lib = lib
+        self.handle = lib.mx_nvjpeg_decoder_create(device, err, len(err))
+        if not self.handle:
+            raise MXNetError("nvJPEG decoder on cuda:%d: %s"
+                             % (device, err.value.decode(errors="replace")))
+        profiler.bump(DECODERS_COUNTER)
+
+    def __del__(self):
+        handle, self.handle = getattr(self, "handle", None), None
+        if handle:
+            self._lib.mx_nvjpeg_decoder_destroy(handle)
+
+
+_local = threading.local()
+
+
+def _decoder(device):
+    """The calling thread's decoder of CUDA device ``device`` (an index)."""
+    lib = _loader_lib_or_raise()
+    decoders = getattr(_local, "decoders", None)
+    if decoders is None:
+        decoders = _local.decoders = {}
+    if device not in decoders:
+        decoders[device] = _Decoder(lib, device)
+    return lib, decoders[device]
+
+
+def decode_jpeg(buf, flag=1, device=0):
+    """JPEG bytes decoded with nvJPEG on CUDA device ``device`` into an
+    HWC uint8 numpy array: RGB for ``flag`` 1, one grey channel for 0,
+    as stored (1 or 3 channels) for -1, the channels libjpeg's decode
+    gives.  Bytes nvJPEG refuses raise ``MXNetError("Decoding image
+    failed: ...")``; a decoder that cannot be built raises naming
+    nvJPEG.  There is no other decoder to fall back to."""
+    lib, dec = _decoder(int(device))
+    buf = bytes(buf)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.mx_nvjpeg_image_info(dec.handle, buf, len(buf), int(flag),
+                                ctypes.byref(w), ctypes.byref(h),
+                                ctypes.byref(c)) != 0:
+        raise MXNetError("Decoding image failed: nvJPEG refused %d bytes"
+                         % len(buf))
+    out = np.empty((h.value, w.value, c.value), np.uint8)
+    rc = lib.mx_nvjpeg_decode_image(dec.handle, buf, len(buf), int(flag),
+                                    out.ctypes.data)
+    if rc == 1:
+        raise MXNetError("Decoding image failed: nvJPEG refused %d bytes"
+                         % len(buf))
+    if rc != 0:
+        raise MXNetError("nvJPEG decode on cuda:%d failed: %s" % (
+            device, lib.mx_nvjpeg_decoder_error(dec.handle).decode(
+                errors="replace")))
+    profiler.bump(DECODE_COUNTER)
+    return out
 
 
 def channel_mean(mean, channels):

@@ -11,10 +11,16 @@ A local path (bare or ``file://``) goes through the native codec
 (``_native/csrc/recordio.cc``, built at first use); a URI with another
 scheme (``mem://``, or one registered with ``stream.register_scheme``)
 through :class:`_PyCodec`, the same wire format in Python, as the JAX
-package routes them.  ``pack_img`` and ``unpack_img`` encode and decode
-JPEG with the package's libjpeg binding (``_native.jpeg_encode``/
-``jpeg_decode``) and, as MXNet's cv2 path does, take and give images in
-BGR order; other formats go through PIL where it is installed.
+package routes them.  ``pack_img`` encodes JPEG with the package's
+libjpeg binding (``_native.jpeg_encode``).  ``unpack_img`` and
+``decode_image`` pick the JPEG decoder from the context, as
+``ImageRecordIter`` does (``image/native_iter.py``): on a ``gpu`` context
+nvJPEG on that card (``ops.image_nvjpeg.decode_jpeg``), on ``cpu()``
+libjpeg (``_native.jpeg_decode``), bit for bit the JAX package's decode;
+a decoder that cannot be built raises naming itself, with no switch to
+the other.  Other formats go through PIL where it is installed, else
+raise naming the format.  Images are given and taken in BGR order, as
+MXNet's cv2 path does.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import numpy as np
 
 from .base import MXNetError
 from . import _native
+from .context import as_context
+from .ops import image_nvjpeg as _nvjpeg
 from .stream import open_stream, split_scheme
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader",
@@ -291,12 +299,17 @@ def _pil():
     return Image
 
 
-def decode_image(buf, flag=1):
+def decode_image(buf, flag=1, ctx=None):
     """HWC uint8 RGB (or one-channel) numpy of encoded image bytes:
-    ``flag`` 1 color, 0 grayscale, -1 as stored.  JPEG through libjpeg,
-    another format through PIL where it is installed."""
+    ``flag`` 1 color, 0 grayscale, -1 as stored.  JPEG through nvJPEG on
+    a ``gpu`` ``ctx`` (default: the current context, so the card) or
+    libjpeg on ``cpu()``; another format through PIL where it is
+    installed."""
     fmt = image_format(buf)
     if fmt == "JPEG":
+        ctx = as_context(ctx)
+        if ctx.device_type == "gpu":
+            return _nvjpeg.decode_jpeg(buf, flag, ctx.device_id)
         return _native.jpeg_decode(buf, flag)
     image = _pil()
     if image is None:
@@ -337,11 +350,12 @@ def _flip_channels(arr):
     return arr[:, :, ::-1] if arr.ndim == 3 and arr.shape[2] == 3 else arr
 
 
-def unpack_img(s, iscolor=-1):
+def unpack_img(s, iscolor=-1, ctx=None):
     """(IRHeader, HWC uint8 image in BGR order) of a packed image record,
-    as MXNet's ``cv2.imdecode`` gives it."""
+    as MXNet's ``cv2.imdecode`` gives it, decoded as ``decode_image``
+    decodes on ``ctx``."""
     header, s = unpack(s)
-    img = decode_image(s, iscolor)
+    img = decode_image(s, iscolor, ctx)
     img = np.ascontiguousarray(_flip_channels(img))
     return header, img[:, :, 0] if img.shape[2] == 1 else img
 

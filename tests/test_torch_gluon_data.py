@@ -22,6 +22,14 @@ from mxnet_tpu_torch.gluon.data import sampler as smp
 from mxnet_tpu_torch.gluon.data import vision
 
 
+@pytest.fixture(autouse=True)
+def _decode_on_the_cpu():
+    """JPEG decodes on the current context, the card by default: these
+    cases hold the ``cpu()`` route (libjpeg) to the JAX package."""
+    with mt.cpu():
+        yield
+
+
 def _np(x):
     return x.asnumpy() if hasattr(x, "asnumpy") else np.asarray(x)
 

@@ -25,6 +25,15 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import MXNetError, recordio
 
+
+@pytest.fixture(autouse=True)
+def _decode_on_the_cpu():
+    """JPEG decodes on the current context, the card by default: these
+    cases hold the ``cpu()`` route (libjpeg) to the JAX package."""
+    with mt.cpu():
+        yield
+
+
 IMG = np.random.RandomState(0).randint(0, 256, (40, 60, 3)).astype(np.uint8)
 
 

@@ -17,6 +17,15 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import recordio
 from mxnet_tpu_torch.image import detection as det
 
+
+@pytest.fixture(autouse=True)
+def _decode_on_the_cpu():
+    """JPEG decodes on the current context, the card by default: these
+    cases hold the ``cpu()`` route (libjpeg) to the JAX package."""
+    with mt.cpu():
+        yield
+
+
 IMG = (np.random.RandomState(0).rand(40, 60, 3) * 255).astype(np.uint8)
 
 

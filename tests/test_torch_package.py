@@ -34,7 +34,8 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_sparse_chip.py"),
              os.path.join(REPO, "tools", "torch_api_chip.py"),
              os.path.join(REPO, "tools", "torch_monitor_cost.py"),
-             os.path.join(REPO, "tools", "torch_eager_step_memory.py")]
+             os.path.join(REPO, "tools", "torch_eager_step_memory.py"),
+             os.path.join(REPO, "tools", "torch_module_family_chip.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -17,6 +17,15 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import MXNetError, recordio
 
+
+@pytest.fixture(autouse=True)
+def _decode_on_the_cpu():
+    """JPEG decodes on the current context, the card by default: these
+    cases hold the ``cpu()`` route (libjpeg) to the JAX package."""
+    with mt.cpu():
+        yield
+
+
 PAYLOADS = [b"", b"a", b"abc", b"abcd", os.urandom(1000), b"rec%d" % 7]
 
 
