@@ -384,6 +384,20 @@ before it captures, and those runs launch the kernels too
    ``MultiBoxDetection`` (the NMS kernel), an ``ImageRecordDataset`` in a
    ``DataLoader``'s worker thread, refused bytes; (e) ``state_names`` in a
    ``Module`` and a ``BucketingModule``.
+36. The parallel tier (ROADMAP A.8, first part): ``PAR_WORLD`` ranks, each
+   a process on the card, in a gloo group (``test_utils.RankPool``; NCCL
+   refuses two ranks on one device), GPT-2 small at 8 x 1024 tokens in
+   fp32 (TF32 off) from one seeded init: (a) ``data 2 x model 2``, 3
+   ``make_train_step`` steps against the one-card captured step, each
+   rank's flash kernels on its 6 heads counted; (b) ``seq 2 x model 2``
+   (ring attention), the forward's logits and one step, its P2P
+   exchanges; (c) ``data 4``, 3 ``make_train_step_zero1`` steps against
+   the one-card step, the momentum bytes a rank against
+   ``zero.state_bytes``, the update bit for bit on one reduced gradient;
+   (d) ``moe_ffn`` (8 experts over ``model 4``) and ``pipeline_apply``
+   (four GPT-2-width MLP blocks over ``pipe 4``, 8 microbatches) against
+   one card.  ms/step is of ranks that share one card, every collective
+   through the host (``collective_host_staged``).
 
 It prints the ResNet-50 numbers (Module and Gluon, captured and eager,
 and phases 17's and 18's checks) as one ``{"resnet50": {...}}``
@@ -395,7 +409,8 @@ phases 26-28's as one ``{"data": {...}}`` line, phase 29's as one
 line, phase 31's as one ``{"long_tail": {...}}`` line, phase 32's as
 one ``{"sparse": {...}, "sparse_kernels": {...}}`` line, phase 33's as
 one ``{"executor": {...}}`` line, phase 34's as one ``{"api_surface":
-{...}}`` line, phase 35's as one ``{"module_family": {...}}`` line, the
+{...}}`` line, phase 35's as one ``{"module_family": {...}}`` line,
+phase 36's as one ``{"parallel": {...}}`` line, the
 LM training numbers as one ``{"lm_train": {...}}`` line, the D-32 LM's as
 one ``{"lm_d32": {...}}`` line and one ``{"kernels": [...]}`` line, then
 as its last line
@@ -8656,6 +8671,524 @@ def phase_module_family(card):
     return res
 
 
+
+# -- phase 36: the parallel tier (ROADMAP A.8, first part) --------------------
+#
+# Every rank is a process on the one card, in a gloo group of
+# ``test_utils.RankPool`` (NCCL refuses two ranks on one device): each
+# rank's compute runs on the card, each collective through the host.  The
+# ms/step read here is that of PAR_WORLD processes sharing one card, and
+# says nothing of speed across cards.
+PAR_WORLD = 4
+PAR_STEPS = 3
+PAR_SEED = 36
+PAR_LR = 0.1
+PAR_MOMENTUM = 0.9
+# fp32 (TF32 off) sharded against the one-card step: the JAX package's own
+# sharded-against-unsharded bars (tests/test_models.py:31-32, :76-80):
+# logits and parameters 2e-4, the loss 1e-5.  The sums differ in order
+# only: the tensor-parallel halves of each product are added by an
+# all-reduce, the data blocks' gradients by another.
+PAR_TOL = dict(logits=2e-4, params=2e-4, loss=1e-5)
+# MoE (36d): GPT-2 small's widths, 8 experts over model 4, on 8 x 1024
+# tokens, the JAX package's capacity factor; tests/test_moe.py's bars.
+PAR_MOE = dict(d_model=768, d_ff=3072, experts=8, batch=8, seq=1024,
+               capacity_factor=1.25)
+PAR_MOE_TOL = dict(rtol=1e-4, atol=1e-5)
+# The pipeline (36d): four GPT-2-width MLP blocks (x + gelu(x w1 + b1) w2,
+# d 768, d_ff 3072) over pipe 4, 8 microbatches of 1024 of the LM batch's
+# 8 x 1024 token rows, against the stages in sequence on the whole batch.
+# Both are fp32 sums of the same terms in other orders (a weight's
+# gradient sums 8192 rows, by microbatch in the pipeline, in one product
+# in sequence), so each is held to an fp64 run of the stages in sequence:
+# the pipeline's largest error may be PAR_PIPE_FACTOR times the
+# sequential fp32 run's.  (tests/test_pipeline.py's absolute bars, rtol
+# 1e-5 / atol 1e-6 and 1e-4 / 1e-5, are for 6 features and 8 rows: at
+# this width the two fp32 runs part by 9.5e-6 in the output and up to
+# 1.1e-3 in a gradient of magnitude in the hundreds, as measured on one
+# H100.)  The factor: the two orders' error bounds are of one size; 4
+# leaves room for the larger constant of either.
+PAR_PIPE = dict(stages=4, micro=8, rows=8 * 1024, d_model=768, d_ff=3072)
+PAR_PIPE_FACTOR = 4
+PAR_CALL_TIMEOUT_S = 600
+PAR_COUNTERS = ("flash_attn_fwd_launches", "flash_attn_bwd_launches",
+                "collective_p2p", "collective_host_staged",
+                "collective_host_staged_bytes", "program_calls")
+
+
+def par_batch(vocab, batch, seq, seed=PAR_SEED):
+    """The phase's token batch and labels (numpy, from ``seed``)."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, vocab, (batch, seq + 1)).astype(np.int64)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def par_init(cfg, device, mesh=None, seed=PAR_SEED):
+    """The LM's params from ``seed`` (every rank draws the same global
+    params on its device and keeps its shard)."""
+    from mxnet_tpu_torch.models import transformer as tr
+    dev = mesh.device if mesh is not None else torch.device(device)
+    return tr.init_transformer_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg,
+        device=None if mesh is not None else dev, mesh=mesh)
+
+
+def par_reference(cfg, batch, seq, device, ref_dir, steps=PAR_STEPS):
+    """The one-card steps the ranks are held to: ``make_train_step`` and
+    ``make_train_step_zero1`` (captured on the card), ``steps`` each from
+    the phase's init; their params (and momenta) are saved under
+    ``ref_dir`` after step 1 and the last.  Returns each builder's losses
+    and ms of the steps after the first (the capture)."""
+    from mxnet_tpu_torch.models import transformer as tr
+    tokens, labels = tr.place_batch(*par_batch(cfg.vocab, batch, seq),
+                                    device=device)
+    out = {}
+    for builder in ("plain", "zero1"):
+        params = par_init(cfg, device)
+        if builder == "plain":
+            step = tr.make_train_step(cfg, lr=PAR_LR, device=device)
+        else:
+            step, momenta = tr.make_train_step_zero1(
+                cfg, params, lr=PAR_LR, momentum=PAR_MOMENTUM)
+        losses, times = [], []
+        for i in range(steps):
+            t = time.perf_counter()
+            if builder == "plain":
+                params, loss = step(params, tokens, labels)
+            else:
+                params, momenta, loss = step(params, momenta, tokens, labels)
+            losses.append(loss.item())
+            times.append(1e3 * (time.perf_counter() - t))
+            if i in (0, steps - 1):
+                saved = {n: t.cpu() for n, t in params.items()}
+                if builder == "zero1":
+                    saved.update({"momentum:" + n: t.cpu()
+                                  for n, t in momenta.items()})
+                torch.save(saved, os.path.join(
+                    ref_dir, "%s_%d.pt" % (builder, i + 1)))
+        out[builder] = dict(losses=losses, ms=times[1:])
+        del params, step
+        if builder == "zero1":
+            del momenta
+        free_card_if_any()
+    return out
+
+
+def _par_rank(device):
+    """A phase-36 rank's set-up: fp32 products without TF32."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _par_reset():
+    """Set this rank's phase-36 counts to 0 (just before a run)."""
+    from mxnet_tpu_torch import profiler
+    profiler.reset_counters(*PAR_COUNTERS)
+
+
+def _par_counts():
+    """This rank's phase-36 counts (just after a run)."""
+    from mxnet_tpu_torch import profiler
+    return {n: profiler.counter(n) for n in PAR_COUNTERS}
+
+
+def _par_sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_gap(block, ref, mesh, spec):
+    """Largest |block - this rank's block of the global ``ref``|."""
+    from mxnet_tpu_torch.parallel import mesh as mm
+    want = mm.shard_put(ref, mesh, spec).to(block.dtype)
+    return (block.detach() - want).abs().max().item()
+
+
+def _par_steps(step, state, tokens, labels, device, steps):
+    """``steps`` calls of ``step`` (state: (params,) or (params, momenta)):
+    the losses, each step's ms (host clock, synchronized), the counters
+    the steps moved, and the final state."""
+    losses, times = [], []
+    _par_reset()
+    for _ in range(steps):
+        _par_sync(device)
+        t = time.perf_counter()
+        *state, loss = step(*state, tokens, labels)
+        losses.append(loss.item())
+        times.append(1e3 * (time.perf_counter() - t))
+    return losses, times, _par_counts(), state
+
+
+def par_tensor_data(config, batch, seq, device, ref_dir, steps=PAR_STEPS):
+    """36a (a rank): ``make_train_step`` on ``data 2 x model 2`` from the
+    phase's init, ``steps`` steps; the parameters' largest gap to the
+    one-card step's after the last."""
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.parallel import mesh as mm
+    _par_rank(device)
+    cfg = tr.TransformerLMConfig(**config)
+    mesh = mm.make_mesh({"data": 2, "model": 2}, device=device)
+    params = par_init(cfg, device, mesh)
+    tokens, labels = tr.place_batch(*par_batch(cfg.vocab, batch, seq),
+                                    mesh=mesh)
+    step = tr.make_train_step(cfg, lr=PAR_LR, mesh=mesh)
+    losses, times, counts, (params,) = _par_steps(
+        step, (params,), tokens, labels, device, steps)
+    ref = torch.load(os.path.join(ref_dir, "plain_%d.pt" % steps),
+                     mmap=True)
+    gap = max(_par_gap(params[n], ref[n], mesh, tr.param_spec(n, cfg, mesh))
+              for n in params)
+    return dict(coordinate=mesh.coordinate, losses=losses, ms=times,
+                counts=counts, params_gap=gap,
+                heads=params["layer0_wq"].shape[1])
+
+
+def par_sequence(config, batch, seq, device, ref_dir):
+    """36b (a rank): ``seq 2 x model 2``, the ring on every layer: the
+    forward's logits against the one-card forward's (this rank's block),
+    then one ``make_train_step`` step, its parameters against the one-card
+    step's and its P2P exchanges."""
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.parallel import mesh as mm
+    _par_rank(device)
+    cfg = tr.TransformerLMConfig(**config)
+    mesh = mm.make_mesh({"seq": 2, "model": 2}, device=device)
+    tokens, labels = par_batch(cfg.vocab, batch, seq)
+    full = par_init(cfg, device)
+    spec = mm.filter_spec(("data", "seq", None), mesh)
+    with torch.no_grad():
+        ref = tr.transformer_forward(
+            full, torch.as_tensor(tokens, device=mesh.device), cfg)
+        ref = ref[mm.block_slices(ref.shape, mesh, spec)].clone()
+    params = {n: mm.shard_put(t, mesh, tr.param_spec(n, cfg, mesh))
+              for n, t in full.items()}
+    del full
+    tok, lab = tr.place_batch(tokens, labels, mesh=mesh)
+    _par_reset()
+    with torch.no_grad():
+        logits = tr.transformer_forward(params, tok, cfg, mesh=mesh)
+    fwd_counts = _par_counts()
+    logits_gap = (logits - ref).abs().max().item()
+    del logits, ref
+    step = tr.make_train_step(cfg, lr=PAR_LR, mesh=mesh)
+    losses, times, counts, (params,) = _par_steps(
+        step, (params,), tok, lab, device, 1)
+    ref = torch.load(os.path.join(ref_dir, "plain_1.pt"), mmap=True)
+    gap = max(_par_gap(params[n], ref[n], mesh, tr.param_spec(n, cfg, mesh))
+              for n in params)
+    return dict(coordinate=mesh.coordinate, logits_gap=logits_gap,
+                forward_counts=fwd_counts, losses=losses, ms=times,
+                counts=counts, params_gap=gap)
+
+
+def par_momentum_sgd(ps, gs, ms, hyper):
+    """The ZeRO-1 LM step's update (``make_train_step_zero1``), in place."""
+    torch._foreach_mul_(ms, PAR_MOMENTUM)
+    torch._foreach_add_(ms, gs)
+    torch._foreach_sub_(ps, torch._foreach_mul(ms, PAR_LR))
+    return ps, ms
+
+
+def par_zero1(config, batch, seq, device, ref_dir, steps=PAR_STEPS):
+    """36c (a rank): ``make_train_step_zero1`` on ``data 4``, ``steps``
+    steps against the one-card step's parameters and momenta; each rank's
+    momentum bytes against ``zero.state_bytes``' per-device figure; then
+    the update alone on one reduced gradient (rank 0 holds it, the others
+    zeros, so every sum is exact) against the replicated update, bit for
+    bit."""
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.parallel import mesh as mm
+    from mxnet_tpu_torch.parallel import multihost, zero
+    _par_rank(device)
+    cfg = tr.TransformerLMConfig(**config)
+    mesh = mm.make_mesh({"data": PAR_WORLD}, device=device)
+    n = mesh.shape["data"]
+    params = par_init(cfg, device, mesh)
+    tokens, labels = tr.place_batch(*par_batch(cfg.vocab, batch, seq),
+                                    mesh=mesh)
+    step, momenta = tr.make_train_step_zero1(
+        cfg, params, lr=PAR_LR, momentum=PAR_MOMENTUM, mesh=mesh)
+    losses, times, counts, (params, momenta) = _par_steps(
+        step, (params, momenta), tokens, labels, device, steps)
+    sharded = {k: tuple(m.shape) != tuple(params[k].shape)
+               for k, m in momenta.items()}
+    ref = torch.load(os.path.join(ref_dir, "zero1_%d.pt" % steps), mmap=True)
+    gap = max(_par_gap(params[k], ref[k], mesh, ()) for k in params)
+    mgap = max(_par_gap(m, ref["momentum:" + k], mesh,
+                        ("data",) if sharded[k] else ())
+               for k, m in momenta.items())
+    per_rank, whole = zero.state_bytes(
+        [(tuple(p.shape), "float32", sharded[k]) for k, p in params.items()],
+        n)
+    held = sum(m.numel() * m.element_size() for m in momenta.values())
+    # the update alone, on one reduced gradient
+    gen = torch.Generator(device=mesh.device).manual_seed(PAR_SEED + 1)
+    names = list(params)
+    grads = [torch.randn(params[k].shape, generator=gen,
+                         device=mesh.device) for k in names]
+    mine = [g if multihost.rank() == 0 else torch.zeros_like(g)
+            for g in grads]
+    ms_full = [ref["momentum:" + k].to(mesh.device) for k in names]
+    group = mesh.group("data")
+    new_p, new_m = zero.sharded_update(
+        par_momentum_sgd, [params[k].clone() for k in names], mine,
+        [zero.sharded_state(m.clone(), group) if sharded[k] else m.clone()
+         for k, m in zip(names, ms_full)], {}, group)
+    ref_p, ref_m = par_momentum_sgd([params[k].clone() for k in names],
+                                    grads, [m.clone() for m in ms_full], {})
+    differ = sum(int((a != b).sum()) for a, b in zip(new_p, ref_p))
+    differ += sum(int((a != zero.sharded_state(b, group if sharded[k]
+                                               else None)).sum())
+                  for k, a, b in zip(names, new_m, ref_m))
+    return dict(coordinate=mesh.coordinate, losses=losses, ms=times,
+                counts=counts, params_gap=gap, momenta_gap=mgap,
+                momentum_bytes=held, state_bytes_per_rank=per_rank,
+                state_bytes_whole=whole,
+                sharded=sum(sharded.values()), weights=len(sharded),
+                update_elements_differing=differ)
+
+
+def par_moe(moe, device, seed=PAR_SEED):
+    """36d (a rank): ``moe_ffn`` with ``moe["experts"]`` experts over
+    ``model 4`` against the same params on one card: the largest gap,
+    and the dropped tokens (all-zero output rows) of both."""
+    from mxnet_tpu_torch.models import moe as tm
+    from mxnet_tpu_torch.parallel import mesh as mm
+    _par_rank(device)
+    mesh = mm.make_mesh({"model": PAR_WORLD}, device=device)
+    args = (moe["d_model"], moe["d_ff"], moe["experts"])
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    full = tm.init_moe_params(gen, *args, device=mesh.device)
+    params = {n: mm.shard_put(t, mesh, mm.filter_spec(spec, mesh))
+              for n, (_, spec) in tm.moe_param_specs(*args).items()
+              for t in [full[n]]}
+    x = torch.randn((moe["batch"], moe["seq"], moe["d_model"]),
+                    generator=gen, device=mesh.device)
+    _par_reset()
+    _par_sync(device)
+    t = time.perf_counter()
+    with torch.no_grad():
+        out = tm.moe_ffn(x, params, moe["capacity_factor"], mesh=mesh)
+    _par_sync(device)
+    ms = 1e3 * (time.perf_counter() - t)
+    counts = _par_counts()
+    with torch.no_grad():
+        ref = tm.moe_ffn(x, full, moe["capacity_factor"])
+    dropped = out.abs().amax(-1) == 0
+    ref_dropped = ref.abs().amax(-1) == 0
+    return dict(coordinate=mesh.coordinate, ms=ms, counts=counts,
+                max_abs=(out - ref).abs().max().item(),
+                max_ref=ref.abs().max().item(),
+                within=bool(torch.allclose(out, ref, **PAR_MOE_TOL)),
+                dropped=int(dropped.sum()),
+                dropped_same=bool(torch.equal(dropped, ref_dropped)),
+                experts_here=params["expert_w1"].shape[0])
+
+
+def par_mlp_stage(p, x):
+    """A GPT-2-width MLP block: x + gelu(x w1 + b1) w2."""
+    import torch.nn.functional as F
+    return x + F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"]
+
+
+def _par_mlp_sequence(stacked, x, dy, dtype):
+    """The MLP stages applied in sequence to ``x`` in ``dtype``: the
+    output, the gradients of ``sum(out * dy)`` by stage, and ``x``'s."""
+    full = {n: t.to(dtype, copy=True).requires_grad_()
+            for n, t in stacked.items()}
+    xr = x.to(dtype, copy=True).requires_grad_()
+    h = xr
+    for i in range(next(iter(stacked.values())).shape[0]):
+        h = par_mlp_stage({n: t[i] for n, t in full.items()}, h)
+    (h * dy.to(dtype)).sum().backward()
+    return h.detach(), {n: t.grad for n, t in full.items()}, xr.grad
+
+
+def par_pipeline(pipe, device, seed=PAR_SEED):
+    """36d (a rank): ``pipeline_apply`` of ``pipe["stages"]`` MLP blocks
+    over ``pipe``, ``pipe["micro"]`` microbatches, against the stages
+    applied in sequence on the whole batch: the output, this rank's
+    stage's gradients and the input's, each held to an fp64 run beside
+    the fp32 sequence's own error (``PAR_PIPE_FACTOR``).  Two calls: the
+    first is timed apart (a process's first ``autograd.grad`` inside a
+    backward imports torch's symbolic-shape module, and each stage waits
+    for the next)."""
+    from mxnet_tpu_torch.parallel import mesh as mm, pipeline
+    _par_rank(device)
+    s, d, f = pipe["stages"], pipe["d_model"], pipe["d_ff"]
+    mesh = mm.make_mesh({"pipe": s}, device=device)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    stacked = {"w1": torch.randn((s, d, f), generator=gen, device=dev)
+               / math.sqrt(d),
+               "b1": torch.randn((s, f), generator=gen, device=dev) * 0.1,
+               "w2": torch.randn((s, f, d), generator=gen, device=dev)
+               / math.sqrt(f)}
+    x = torch.randn((pipe["rows"], d), generator=gen, device=dev)
+    dy = torch.randn((pipe["rows"], d), generator=gen, device=dev)
+    times = []
+    for _ in range(2):
+        block = {n: mm.shard_put(t, mesh, ("pipe",)).requires_grad_()
+                 for n, t in stacked.items()}
+        xb = x.clone().requires_grad_()
+        _par_reset()
+        _par_sync(device)
+        t = time.perf_counter()
+        out = pipeline.pipeline_apply(par_mlp_stage, block, xb, mesh,
+                                      pipe["micro"])
+        (out * dy).sum().backward()
+        _par_sync(device)
+        times.append(1e3 * (time.perf_counter() - t))
+        counts = _par_counts()
+    i = mesh.coordinate["pipe"]
+    got = (out.detach(), {n: b.grad[0] for n, b in block.items()}, xb.grad)
+    runs = {dt: _par_mlp_sequence(stacked, x, dy, dt)
+            for dt in (torch.float32, torch.float64)}
+
+    def errors(run):
+        o, g, dx = run
+        return {"out": (o.double() - runs[torch.float64][0]).abs().max()
+                .item(),
+                "grads": max((g[n].double() - runs[torch.float64][1][n][i])
+                             .abs().max().item() for n in g),
+                "dx": (dx.double() - runs[torch.float64][2]).abs().max()
+                .item()}
+    seq32 = runs[torch.float32]
+    pipe_err = errors(got)
+    seq_err = errors((seq32[0], {n: g[i] for n, g in seq32[1].items()},
+                      seq32[2]))
+    return dict(coordinate=mesh.coordinate, ms_first=times[0],
+                ms=times[1], counts=counts, errors=pipe_err,
+                sequential_fp32_errors=seq_err,
+                within=all(pipe_err[k] <= PAR_PIPE_FACTOR * seq_err[k]
+                           for k in pipe_err))
+
+
+def par_checks(res, ref, cfg, device, steps=PAR_STEPS):
+    """What phase 36 holds its runs to; the faults, as strings."""
+    bad = []
+    on_card = torch.device(device).type == "cuda"
+    want = cfg.n_layers * steps
+    for r, a in enumerate(res["tensor_data"]):
+        gap = max(abs(x - y) for x, y in zip(a["losses"],
+                                             ref["plain"]["losses"]))
+        if gap > PAR_TOL["loss"] or a["params_gap"] > PAR_TOL["params"]:
+            bad.append("36a rank %d: loss gap %.3g, params gap %.3g"
+                       % (r, gap, a["params_gap"]))
+        launches = (a["counts"]["flash_attn_fwd_launches"],
+                    a["counts"]["flash_attn_bwd_launches"])
+        if on_card and launches != (want, want):
+            bad.append("36a rank %d launched %s flash kernels (forward, "
+                       "backward), want %d each" % (r, launches, want))
+    for r, b in enumerate(res["sequence"]):
+        if b["logits_gap"] > PAR_TOL["logits"] \
+                or b["params_gap"] > PAR_TOL["params"] \
+                or abs(b["losses"][0] - ref["plain"]["losses"][0]) \
+                > PAR_TOL["loss"]:
+            bad.append("36b rank %d: logits gap %.3g, params gap %.3g, "
+                       "loss %r" % (r, b["logits_gap"], b["params_gap"],
+                                    b["losses"]))
+        # the ring: 1 exchange a layer forward, 2 backward
+        if b["counts"]["collective_p2p"] != 3 * cfg.n_layers:
+            bad.append("36b rank %d: %d P2P exchanges a step, want %d"
+                       % (r, b["counts"]["collective_p2p"],
+                          3 * cfg.n_layers))
+    for r, c in enumerate(res["zero1"]):
+        gap = max(abs(x - y) for x, y in zip(c["losses"],
+                                             ref["zero1"]["losses"]))
+        if gap > PAR_TOL["loss"] or c["params_gap"] > PAR_TOL["params"] \
+                or c["momenta_gap"] > PAR_TOL["params"]:
+            bad.append("36c rank %d: loss gap %.3g, params gap %.3g, "
+                       "momenta gap %.3g" % (r, gap, c["params_gap"],
+                                             c["momenta_gap"]))
+        if c["momentum_bytes"] != c["state_bytes_per_rank"] \
+                or c["update_elements_differing"] or not c["sharded"]:
+            bad.append("36c rank %d: %s" % (r, c))
+        if on_card and c["counts"]["flash_attn_fwd_launches"] != want:
+            bad.append("36c rank %d: %s flash launches" % (r, c["counts"]))
+    for r, m in enumerate(res["moe"]):
+        if not (m["within"] and m["dropped_same"]):
+            bad.append("36d MoE rank %d: %s" % (r, m))
+    for r, p in enumerate(res["pipeline"]):
+        if not p["within"]:
+            bad.append("36d pipeline rank %d: %s" % (r, p))
+    return bad
+
+
+def phase_parallel(card, config=GPT2_SMALL, batch=LM_BATCH, seq=LM_SEQ,
+                   moe=PAR_MOE, pipe=PAR_PIPE, device="cuda"):
+    """Phase 36: the parallel tier (ROADMAP A.8's first part) on
+    ``PAR_WORLD`` ranks sharing the card over gloo (``RankPool``), the LM
+    at ``config``'s widths (GPT-2 small), fp32 with TF32 off: (a) tensor
+    and data parallel (``data 2 x model 2``, the flash kernels on each
+    rank's 6 heads), 3 SGD steps against the one-card captured
+    ``make_train_step``; (b) sequence parallel (``seq 2 x model 2``, the
+    ring), the forward's logits and one step; (c) ZeRO-1 (``data 4``), 3
+    steps of ``make_train_step_zero1`` against the one-card step, the
+    momentum bytes and the update bit for bit on one reduced gradient;
+    (d) MoE over ``model 4`` and the GPipe pipeline over ``pipe 4``.
+    Each rank sets its counters' baseline just before its run and reports
+    what they moved.  Returns the results and the flash kernels' launches
+    summed over the ranks."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch.models import transformer as tr
+    from mxnet_tpu_torch.test_utils import RankPool
+    t0 = time.perf_counter()
+    cfg = tr.TransformerLMConfig(**config)
+    ref_dir = tempfile.mkdtemp(prefix="phase36-")
+    res = {"card": card, "world": PAR_WORLD, "backend": "gloo",
+           "ranks_share_one_card": torch.device(device).type == "cuda"}
+    try:
+        t = time.perf_counter()
+        ref = par_reference(cfg, batch, seq, device, ref_dir)
+        res["reference"] = dict(ref, seconds=time.perf_counter() - t)
+        with RankPool(PAR_WORLD, backend="gloo", device=device,
+                      timeout=PAR_CALL_TIMEOUT_S) as pool:
+            for key, fn, args in (
+                    ("tensor_data", par_tensor_data,
+                     (config, batch, seq, device, ref_dir)),
+                    ("sequence", par_sequence,
+                     (config, batch, seq, device, ref_dir)),
+                    ("zero1", par_zero1,
+                     (config, batch, seq, device, ref_dir)),
+                    ("moe", par_moe, (moe, device)),
+                    ("pipeline", par_pipeline, (pipe, device))):
+                t = time.perf_counter()
+                res[key] = pool.run(fn, *args)
+                res[key + "_seconds"] = time.perf_counter() - t
+                log("phase 36 %s: %s" % (key, res[key]))
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    res["ms_per_step"] = {
+        "tensor_data": _median([_median(a["ms"][1:] or a["ms"])
+                                for a in res["tensor_data"]]),
+        "zero1": _median([_median(c["ms"][1:] or c["ms"])
+                          for c in res["zero1"]]),
+        "one_card_plain": _median(ref["plain"]["ms"]),
+        "one_card_zero1": _median(ref["zero1"]["ms"])}
+    launches = tuple(sum(r["counts"][k] for part in ("tensor_data", "zero1")
+                         for r in res[part])
+                     for k in ("flash_attn_fwd_launches",
+                               "flash_attn_bwd_launches"))
+    res["flash_launches"] = launches
+    res["host_staged"] = {k: [r["counts"]["collective_host_staged"]
+                              for r in res[k]]
+                          for k in ("tensor_data", "sequence", "zero1",
+                                    "moe", "pipeline")}
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 36 the parallel tier on %s, %d ranks sharing %s over gloo: "
+        "ms/step %s (ranks sharing one card, collectives through the "
+        "host); flash launches (forward, backward) %s; host-staged calls "
+        "%s; %.1f s" % (card, PAR_WORLD, device, res["ms_per_step"],
+                        launches, res["host_staged"], res["seconds"]))
+    bad = par_checks(res, ref, cfg, device)
+    if bad:
+        raise AssertionError("phase 36: %s" % "; ".join(bad))
+    return res, launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -8705,6 +9238,7 @@ def main():
     api = phase_api_surface(card)
     api_launches = api["launches"]
     module_family = phase_module_family(card)
+    parallel, par_launches = phase_parallel(card)
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import image_nvjpeg as nj
     from mxnet_tpu_torch.ops import scale as sc
@@ -8719,9 +9253,11 @@ def main():
             "source": att.KERNEL_SOURCES[kern[dt]["design"]],
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:41",
             "launches": launches[dt] + train_launches[dt][0]
-            + (api_launches["flash_attn_fwd_launches"]
+            + (api_launches["flash_attn_fwd_launches"] + par_launches[0]
                if dt == torch.float32 else 0),
             "inference_launches": launches[dt],
+            "parallel_launches": par_launches[0]
+            if dt == torch.float32 else 0,
             "api_surface_launches": api_launches["flash_attn_fwd_launches"]
             if dt == torch.float32 else 0,
             "train_launches": train_launches[dt][0],
@@ -8749,8 +9285,10 @@ def main():
             "source": att.BACKWARD_SOURCES[kern_bwd[dt]["design"]],
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:198",
             "launches": train_launches[dt][1]
-            + (api_launches["flash_attn_bwd_launches"]
+            + (api_launches["flash_attn_bwd_launches"] + par_launches[1]
                if dt == torch.float32 else 0),
+            "parallel_launches": par_launches[1]
+            if dt == torch.float32 else 0,
             "api_surface_launches": api_launches["flash_attn_bwd_launches"]
             if dt == torch.float32 else 0,
             "train_launches_per_step": n_layers,
@@ -8957,6 +9495,7 @@ def main():
     print(json.dumps({"executor": executor}))
     print(json.dumps({"api_surface": api}))
     print(json.dumps({"module_family": module_family}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,12 @@ tensor bridge ``torch``.  The API surface around a training script:
 SequentialModule``, ``mod.PythonModule``/``PythonLossModule``, the
 modules' ``state_names``, and ``Predictor`` (``predict``), the
 predict-only entry; JPEG decoding on the card (nvJPEG) for ``imdecode``,
-``ImageIter``, ``ImageDetIter`` and the record datasets.
+``ImageIter``, ``ImageDetIter`` and the record datasets.  The parallel
+tier (``parallel``), one process a rank over ``torch.distributed``: the
+rank mesh, the named collectives, ring attention, the ZeRO-1 update over
+a data group, the GPipe pipeline, and the LM (``models.transformer``)
+and MoE (``models.moe``) sharded over data, sequence and tensor
+parallel axes.
 """
 from __future__ import annotations
 

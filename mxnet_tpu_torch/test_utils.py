@@ -8,6 +8,16 @@ the greedy-NMS kernels' decomposition in plain PyTorch, and
 draws from ``random.host_rng()``), and the sparse examples' LibSVM
 writers, ``synthetic_libsvm`` and ``synthetic_fm_libsvm``.
 
+``run_ranks`` and ``RankPool`` run a function on several ranks of one
+``torch.distributed`` group: spawned processes (``torch.multiprocessing``,
+the ``spawn`` method), one torch thread each, joined through a
+``FileStore`` under a temporary directory (no TCP port, so several test
+workers can run pools at once).  A pool starts once and runs many
+functions; each call returns every rank's result, or raises with the
+traceback of the rank that failed, and past its ``timeout`` (or when a
+rank dies) terminates every rank.  The function travels by its import
+path, so it lives in a module the ranks can import.
+
 ``get_mnist`` is this package's own copy of ``mxnet_tpu/test_utils.py:
 411-449`` (numpy only, so the arrays are equal bit for bit): MNIST's
 four idx files under ``path`` where they all are, else the synthetic
@@ -25,11 +35,18 @@ and ``tests/test_torch_attention_grad.py`` on the CPU.
 """
 from __future__ import annotations
 
+import os
+import queue
+import shutil
+import tempfile
 import threading
+import time
+import traceback
 
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .ops.nn import rnn_param_size
 
 __all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
@@ -39,7 +56,8 @@ __all__ = ["get_mnist", "get_mnist_iterator", "MNIST_FILES",
            "LIBM_TOL", "SUM_TOL", "LINALG_TOL", "canonical_signs",
            "set_dropout", "nms_tiled", "nms_class_buckets",
            "CORRUPT_PAYLOAD", "loader_batches", "rand_ndarray",
-           "rand_sparse_ndarray", "synthetic_libsvm", "synthetic_fm_libsvm"]
+           "rand_sparse_ndarray", "synthetic_libsvm", "synthetic_fm_libsvm",
+           "RankPool", "run_ranks"]
 
 
 def _synthetic_digits(n, rng, protos):
@@ -1189,3 +1207,153 @@ def synthetic_fm_libsvm(path, n=2048, dim=200, nnz=12, seed=3):
             row = " ".join("%d:%.4f" % (i, v)
                            for i, v in zip(sorted(ids), x[sorted(ids)]))
             fh.write("%d %s\n" % (y, row))
+
+
+def _rank_main(rank, world, init_method, backend, device, threads,
+               timeout, jobs, results):
+    """A rank of a :class:`RankPool`: join the group, then run each job
+    ``(fn, args)`` from ``jobs`` until ``None``, putting ``(rank, status,
+    payload)`` on ``results``."""
+    from .parallel import multihost
+    try:
+        torch.set_num_threads(threads)
+        os.environ.update(MXNET_NUM_PROCESSES=str(world),
+                          MXNET_PROCESS_ID=str(rank))
+        multihost.init_from_env(force=True, device=device, backend=backend,
+                                init_method=init_method, timeout=timeout)
+        results.put((rank, "ready", None))
+    except BaseException:  # reported to the parent, which stops the pool
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            break
+        fn, args = job
+        try:
+            results.put((rank, "ok", fn(*args)))
+        except BaseException:  # reported to the parent, which stops the pool
+            results.put((rank, "error", traceback.format_exc()))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+class RankPool:
+    """``world`` ranks of one process group (``backend`` on ``device``),
+    started once (within ``START_TIMEOUT_S``): :meth:`run` calls a
+    function on every rank.  A failed call (a rank's exception, a rank
+    that died, or ``timeout`` seconds passed) terminates every rank, and
+    the next call starts them again.
+    The rendezvous file lies in a new directory under ``workdir``
+    (default: the system's temporary directory), removed at
+    :meth:`close`."""
+
+    def __init__(self, world, backend="gloo", device="cpu", timeout=120,
+                 threads=1, workdir=None):
+        self.world, self.backend, self.device = world, backend, device
+        self.timeout, self.threads, self.workdir = timeout, threads, workdir
+        self._procs = []
+        self._starts = 0
+
+    # spawning a rank imports torch and the package: seconds on a loaded
+    # host, which a call's own timeout need not cover
+    START_TIMEOUT_S = 180
+
+    def _start(self):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self._dir = tempfile.mkdtemp(prefix="ranks-", dir=self.workdir)
+        self._starts += 1
+        init = "file://" + os.path.join(self._dir, "store")
+        self._jobs = [ctx.Queue() for _ in range(self.world)]
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(
+            target=_rank_main, daemon=True,
+            args=(r, self.world, init, self.backend, self.device,
+                  self.threads, self.timeout, self._jobs[r], self._results))
+            for r in range(self.world)]
+        for p in self._procs:
+            p.start()
+        self._collect("start", self.START_TIMEOUT_S)
+
+    def _collect(self, what, timeout):
+        out = [None] * self.world
+        pending = set(range(self.world))
+        deadline = time.monotonic() + timeout
+        while pending:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                self.close(grace=0)
+                raise MXNetError("%s: ranks %s gave no result within %g s; "
+                                 "every rank stopped"
+                                 % (what, sorted(pending), timeout))
+            try:
+                rank, status, payload = self._results.get(
+                    timeout=min(left, 0.5))
+            except queue.Empty:
+                dead = [r for r in pending
+                        if self._procs[r].exitcode is not None]
+                if dead:
+                    codes = [self._procs[r].exitcode for r in dead]
+                    self.close(grace=0)
+                    raise MXNetError("%s: ranks %s died (exit codes %s); "
+                                     "every rank stopped"
+                                     % (what, dead, codes))
+                continue
+            if status == "error":
+                self.close(grace=0)
+                raise MXNetError("%s failed on rank %d:\n%s"
+                                 % (what, rank, payload))
+            out[rank] = payload
+            pending.discard(rank)
+        return out
+
+    def run(self, fn, *args, timeout=None):
+        """``[fn(*args) on rank r for r in range(world)]``."""
+        if not self._procs:
+            self._start()
+        for q in self._jobs:
+            q.put((fn, args))
+        return self._collect(getattr(fn, "__name__", str(fn)),
+                             timeout or self.timeout)
+
+    def close(self, grace=5.0):
+        """Stop every rank (those not done within ``grace`` seconds are
+        terminated) and remove the rendezvous directory."""
+        if not self._procs:
+            return
+        for q in self._jobs:
+            try:
+                q.put(None)
+            except (OSError, ValueError):
+                pass
+        deadline = time.monotonic() + grace
+        procs = [p for p in self._procs if p.pid is not None]
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for q in self._jobs + [self._results]:
+            q.cancel_join_thread()
+            q.close()
+        self._procs = []
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def run_ranks(fn, world, backend="gloo", device="cpu", timeout=120,
+              args=()):
+    """``fn(*args)`` on each of ``world`` new ranks of one process group;
+    returns the results in rank order (see :class:`RankPool`)."""
+    with RankPool(world, backend, device, timeout) as pool:
+        return pool.run(fn, *args)

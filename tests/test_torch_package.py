@@ -35,7 +35,10 @@ def _port_files():
              os.path.join(REPO, "tools", "torch_api_chip.py"),
              os.path.join(REPO, "tools", "torch_monitor_cost.py"),
              os.path.join(REPO, "tools", "torch_eager_step_memory.py"),
-             os.path.join(REPO, "tools", "torch_module_family_chip.py")]
+             os.path.join(REPO, "tools", "torch_module_family_chip.py"),
+             os.path.join(REPO, "tools", "torch_parallel_chip.py"),
+             os.path.join(REPO, "tools", "torch_gloo_cuda_probe.py"),
+             os.path.join(REPO, "tests", "torch_parallel_cases.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -57,7 +60,13 @@ def test_import_leaves_no_jax_in_a_clean_process():
             "mxnet_tpu_torch.image, mxnet_tpu_torch.image.detection, "
             "mxnet_tpu_torch.image.native_iter, mxnet_tpu_torch._native, "
             "mxnet_tpu_torch.ops.image_nvjpeg, mxnet_tpu_torch.gluon.data, "
-            "mxnet_tpu_torch.gluon.data.vision; "
+            "mxnet_tpu_torch.gluon.data.vision, "
+            "mxnet_tpu_torch.parallel.multihost, "
+            "mxnet_tpu_torch.parallel.mesh, "
+            "mxnet_tpu_torch.parallel.collective, "
+            "mxnet_tpu_torch.parallel.ring_attention, "
+            "mxnet_tpu_torch.parallel.pipeline, "
+            "mxnet_tpu_torch.models.moe; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (sorted(FORBIDDEN),))
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -180,3 +189,12 @@ def test_missing_op_names_are_the_long_tail():
     theirs, ours = set(ref.list_ops()), set(port.list_ops())
     assert A9_OPS <= ours
     assert ours == theirs
+
+
+def test_rank_worker_imports_no_jax():
+    """The rank processes ``test_utils.run_ranks`` spawns (the parallel
+    tier's tests and ``chip_smoke.py`` phase 36 run on them) load neither
+    JAX nor the JAX package, though this process has both."""
+    import torch_parallel_cases as cases
+    from mxnet_tpu_torch.test_utils import run_ranks
+    assert run_ranks(cases.forbidden_modules, 2, timeout=60) == [[], []]
